@@ -1,4 +1,5 @@
-"""Writes the serving fixtures of the PyTorch/CUDA port.
+"""Writes the fixtures of the PyTorch/CUDA port: two serving models and
+the training run of the bench configuration.
 
 The JAX package trains two GBT models and saves them with its own
 `model.save`; the port reads them with its own loader
@@ -20,7 +21,24 @@ Data: the 28 numerical columns of bench.make_data plus 4 seeded
 categorical columns with vocabularies of 5, 12, 40 and 200, drawn so
 that they carry some signal about the label.
 
+Training fixture `train_bench/`: the JAX package trains the bench's
+GBT (`bench.py:run_bench`: 500,000 rows x 28 features of
+`bench.make_data`, 20 trees, depth 6, no validation split) on the CPU,
+with its default implementations, which config.json records. It holds:
+
+  config.json    the configuration (rows, features, learner arguments,
+                 data and request seeds), the JAX implementations used,
+                 the classes, and the SHA-256 of the JAX bin matrix
+                 (u8 [500000, 28], too large to commit);
+  binner.json    the JAX Binner.to_json() (boundaries, imputation);
+  forest.npz     the JAX forest arrays;
+  expected.npz   initial prediction, per-iteration train loss, and raw
+                 scores and predictions on 1024 fresh rows drawn with
+                 numpy RandomState(1).
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
+(~2 minutes on a CPU; `--only train_bench` or `--only serving` for one
+part).
 """
 
 import os
@@ -72,10 +90,81 @@ def make_frame(seed: int = 7):
     return train, req
 
 
+TRAIN_BENCH = dict(
+    rows=500_000, features=28, data_seed=0, request_rows=1024,
+    request_seed=1,
+    learner=dict(label="label", num_trees=20, max_depth=6,
+                 validation_ratio=0.0, early_stopping="NONE"),
+)
+
+
+def write_train_bench():
+    import hashlib
+    import json
+
+    import jax
+
+    import bench
+    import ydf_tpu as ydf
+    from ydf_tpu.dataset.dataset import Dataset
+    from ydf_tpu.ops.histogram import resolve_hist_impl, resolve_hist_quant
+    from ydf_tpu.ops.routing_native import (
+        resolve_route_impl,
+        update_uses_fma,
+    )
+
+    cfg = TRAIN_BENCH
+    d = os.path.join(OUT, "train_bench")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    assert cfg["data_seed"] == 0  # bench.make_data's RandomState(0)
+    data, _, _ = bench.make_data(cfg["rows"], cfg["features"])
+    m = ydf.GradientBoostedTreesLearner(**cfg["learner"]).train(data)
+    bins = m.binner.transform(Dataset.from_data(data, dataspec=m.dataspec))
+    x, _ = bench.synth_higgs_chunk(
+        np.random.RandomState(cfg["request_seed"]), cfg["request_rows"],
+        cfg["features"])
+    req = {f"f{i}": x[:, i] for i in range(cfg["features"])}
+    out = dict(cfg)
+    out["jax_impls"] = {
+        "hist_impl": resolve_hist_impl("auto"),
+        "hist_quant": resolve_hist_quant(None),
+        "route_impl": resolve_route_impl(None),
+        "update_uses_fma": bool(update_uses_fma()),
+    }
+    out["jax_version"] = jax.__version__
+    out["classes"] = m.classes
+    out["bins_sha256"] = hashlib.sha256(
+        np.ascontiguousarray(bins).tobytes()).hexdigest()
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    with open(os.path.join(d, "binner.json"), "w") as f:
+        json.dump(m.binner.to_json(), f)
+    np.savez_compressed(os.path.join(d, "forest.npz"),
+                        **m.forest.to_numpy())
+    np.savez_compressed(
+        os.path.join(d, "expected.npz"),
+        initial_predictions=np.asarray(m.initial_predictions, np.float32),
+        train_loss=np.asarray(m.training_logs["train_loss"], np.float32),
+        raw=m._raw_scores(req, combine="sum")[:, 0],
+        predictions=m.predict(req),
+    )
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"train_bench: {m.num_trees()} trees, {size} bytes, "
+          f"{out['jax_impls']}")
+
+
 def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    only = sys.argv[sys.argv.index("--only") + 1] if (
+        "--only" in sys.argv) else None
+    if only in (None, "train_bench"):
+        write_train_bench()
+    if only not in (None, "serving"):
+        return
     import ydf_tpu as ydf
 
     train, req = make_frame()

@@ -6,9 +6,14 @@ The same seeded numpy inputs go through the JAX function and its port:
     interpret mode (depth 4 numerical-only, depth 6 mixed categorical);
   * the bank plain version against the JAX PallasBank engine in interpret
     mode (depth 6, and depth 8 with more than 64 leaves);
-  * the routed plain engine against ops/routing.py:forest_predict_values.
+  * the routed plain engine against ops/routing.py:forest_predict_values;
+  * the histogram, routed-histogram and binning plain versions against
+    histogram_pallas, histogram_routed_pallas and binning_pallas in
+    interpret mode (and bin_columns_jit).
 All raw-score comparisons are bitwise: every engine adds one f32 per tree
-in tree order, so no tolerance applies.
+in tree order, so no tolerance applies. The histogram comparisons are
+bitwise too: their stats are integer-valued (the JAX package's
+test_histogram_pallas idiom), so every f32 sum is exact in any order.
 
 Tests marked `gpu` run the CUDA kernels and skip without a card. On a
 machine with a card but without JAX (tests/conftest.py imports it):
@@ -27,6 +32,12 @@ try:  # The machine with the card has no JAX: only the gpu tests run there.
     import ydf_tpu as ydf
     from ydf_tpu.config import Task
     from ydf_tpu.dataset.dataset import Dataset as JaxDataset
+    from ydf_tpu.ops import histogram as jax_histogram
+    from ydf_tpu.ops.binning_pallas import bin_columns_jit, binning_pallas
+    from ydf_tpu.ops.histogram_pallas import (
+        histogram_pallas,
+        histogram_routed_pallas,
+    )
     from ydf_tpu.ops.routing import forest_predict_values as jax_routed
     from ydf_tpu.serving import quickscorer as jax_qs
     from ydf_tpu.serving.pallas_scorer import build_pallas_scorer
@@ -34,6 +45,10 @@ except ImportError:
     ydf = None
 
 import ydf_tpu_torch
+from ydf_tpu_torch.ops import binning as port_binning
+from ydf_tpu_torch.ops import histogram as port_histogram
+from ydf_tpu_torch.ops import histogram_kernels
+from ydf_tpu_torch.ops.histogram_kernels import RouteTables
 from ydf_tpu_torch.ops.routing import forest_predict_values
 from ydf_tpu_torch.serving import bank_scorer, quickscorer
 from ydf_tpu_torch.utils import cuda_build
@@ -328,3 +343,305 @@ def test_wrappers_on_card_raise_on_what_they_do_not_take():
         n0 = mod.KERNEL_LAUNCHES
         empty = mod.score(tables, torch.zeros(F, 0, device="cuda"))
         assert empty.numel() == 0 and mod.KERNEL_LAUNCHES == n0
+
+
+# --------------------------------------------------------------------- #
+# Training kernels: histogram, fused route + histogram, binning
+# --------------------------------------------------------------------- #
+
+QUANTS = ("f32", "bf16x2", "int8")
+
+
+def require_jax():
+    if ydf is None:
+        pytest.skip("needs the JAX package, the reference")
+
+
+def hist_case(n, F, L, B, S, seed):
+    """bins u8 [n, F], slot i32 [n] over the live slots and the trash
+    slot L, INTEGER-valued f32 stats [n, S]: every f32 sum is exact."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, B, (n, F)).astype(np.uint8)
+    slot = rng.integers(0, L + 1, n).astype(np.int32)
+    stats = rng.integers(-8, 9, (n, S)).astype(np.float32)
+    return bins, slot, stats
+
+
+def routed_case(n, F, B, L, Lh, S, seed, identity_hmap=False):
+    """One fused layer: the previous layer's padded [L+1] tables (three
+    splits, one of them a categorical-set split whose direction comes
+    from set_go_left), rows on live and trash slots, integer stats.
+    The tables are numpy, in the JAX kernel's argument order."""
+    rng = np.random.default_rng(seed)
+    do_split = np.zeros(L + 1, bool)
+    do_split[[0, 2, 5]] = True
+    split_rank = np.zeros(L + 1, np.int32)
+    split_rank[[0, 2, 5]] = [0, 1, 2]
+    if identity_hmap:
+        hmap = np.arange(L + 1, dtype=np.int32)
+    else:
+        hmap = rng.integers(0, Lh, L + 1).astype(np.int32)
+        hmap[L] = Lh
+    is_set = np.zeros(L + 1, bool)
+    is_set[2] = True
+    tables = (
+        do_split, rng.integers(0, F, L + 1).astype(np.int32),
+        rng.integers(0, 2, (L + 1, B)).astype(bool),
+        rng.integers(0, 30, L + 1).astype(np.int32),
+        rng.integers(0, 30, L + 1).astype(np.int32), split_rank, hmap,
+        is_set, rng.integers(0, 2, n).astype(np.uint8),
+    )
+    slot = rng.integers(0, L + 1, n).astype(np.int32)
+    leaf = rng.integers(0, 30, n).astype(np.int32)
+    bins = rng.integers(0, B, (n, F)).astype(np.uint8)
+    stats = rng.integers(-8, 9, (n, S)).astype(np.float32)
+    return bins, slot, leaf, tables, stats
+
+
+def port_tables(tables, device="cpu"):
+    return RouteTables(*(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                         for t in tables))
+
+
+def jax_array(t):
+    """A torch tensor as a jax array (bf16 through its bit pattern)."""
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.view(torch.int16).numpy()).view(jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+def port_operand(stats, quant):
+    """The port's operand and int8 scale for f32 stats (torch)."""
+    return port_histogram.operand(torch.from_numpy(stats), quant, None)
+
+
+def binning_case(n, F, max_b, seed):
+    """values f32 [F, n] with NaNs, values sitting on boundaries and
+    +-inf; ascending boundaries +inf padded past a per-feature count;
+    one feature imputes NaN (its NaNs bin to nb)."""
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(0, max_b + 1, F).astype(np.int32)
+    bounds = np.full((F, max_b), np.inf, np.float32)
+    for f in range(F):
+        bounds[f, : nb[f]] = np.sort(rng.choice(
+            np.linspace(-3, 3, 4 * max_b), nb[f], replace=False))
+    values = rng.normal(size=(F, n)).astype(np.float32)
+    on_edge = rng.uniform(size=(F, n)) < 0.1
+    pick = rng.integers(0, max_b, (F, n))
+    edge_vals = np.take_along_axis(bounds, pick, axis=1)
+    values = np.where(on_edge & np.isfinite(edge_vals), edge_vals, values)
+    values[rng.uniform(size=(F, n)) < 0.05] = np.nan
+    values[:, 0] = np.inf
+    values[:, -1] = -np.inf
+    impute = rng.normal(size=F).astype(np.float32)
+    impute[0] = np.nan
+    return values, bounds, nb, impute
+
+
+@pytest.mark.parametrize("L", [1, 24, 96])  # 1, 24: the packed TPU body
+@pytest.mark.parametrize("quant", QUANTS)
+def test_histogram_plain_matches_pallas_interpret(quant, L):
+    require_jax()
+    n, F, B, S = 1531, 5, 64, 3
+    bins, slot, stats = hist_case(n, F, L, B, S, seed=L)
+    want = np.asarray(jax_histogram.histogram(
+        jnp.asarray(bins), jnp.asarray(slot), jnp.asarray(stats),
+        num_slots=L, num_bins=B, impl="pallas_interpret", quant=quant,
+    ))
+    got = port_histogram.histogram(
+        torch.from_numpy(bins.T.copy()), torch.from_numpy(slot),
+        torch.from_numpy(stats), num_slots=L, num_bins=B, quant=quant,
+    ).numpy()
+    assert got.shape == (L, F, B, S)
+    assert np.array_equal(got, want)
+    assert np.abs(want).sum() > 0
+
+
+def test_histogram_int8_accumulator_matches_pallas():
+    """The kernel layer itself: int8 stats accumulate into int32, bitwise
+    against histogram_pallas's int32 output."""
+    require_jax()
+    bins, slot, stats = hist_case(2049, 4, 16, 32, 3, seed=7)
+    q = np.clip(stats * 15, -127, 127).astype(np.int8)
+    want = np.asarray(histogram_pallas(
+        jnp.asarray(bins), jnp.asarray(slot), jnp.asarray(q), num_slots=16,
+        num_bins=32, interpret=True))
+    got = histogram_kernels.histogram(
+        torch.from_numpy(bins.T.copy()), torch.from_numpy(slot),
+        torch.from_numpy(q), 16, 32)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("identity_hmap", [False, True])
+@pytest.mark.parametrize("quant", QUANTS)
+def test_routed_plain_matches_pallas_interpret(quant, identity_hmap):
+    require_jax()
+    n, F, B, L, S = 1300, 5, 32, 8, 3
+    Lh = L if identity_hmap else 4
+    bins, slot, leaf, tables, stats = routed_case(
+        n, F, B, L, Lh, S, seed=3 + identity_hmap,
+        identity_hmap=identity_hmap)
+    op, scale = port_operand(stats, quant)
+    want_h, want_s, want_l = histogram_routed_pallas(
+        jnp.asarray(bins), jnp.asarray(slot), jnp.asarray(leaf),
+        *(jnp.asarray(t) for t in tables), jax_array(op),
+        num_slots=Lh, num_bins=B, chunk=256, interpret=True,
+        quant_scale=None if scale is None else jax_array(scale),
+    )
+    from ydf_tpu_torch.ops.routing import route_histogram_fused
+
+    got_h, got_s, got_l = route_histogram_fused(
+        torch.from_numpy(bins.T.copy()), torch.from_numpy(slot),
+        torch.from_numpy(leaf), port_tables(tables), op, num_slots=Lh,
+        num_bins=B, quant_scale=scale,
+    )
+    assert np.array_equal(got_s.numpy(), np.asarray(want_s))
+    assert np.array_equal(got_l.numpy(), np.asarray(want_l))
+    assert np.array_equal(got_h.numpy(), np.asarray(want_h))
+    assert np.abs(np.asarray(want_h)).sum() > 0
+
+
+def test_binning_plain_matches_pallas_interpret():
+    require_jax()
+    values, bounds, nb, impute = binning_case(3001, 6, 31, seed=5)
+    args = (jnp.asarray(values), jnp.asarray(bounds), jnp.asarray(nb),
+            jnp.asarray(impute))
+    want = np.asarray(binning_pallas(*args, interpret=True))
+    assert np.array_equal(np.asarray(bin_columns_jit(*args)), want)
+    got = port_binning.bin_columns(
+        torch.from_numpy(values), torch.from_numpy(bounds),
+        torch.from_numpy(nb), torch.from_numpy(impute)).numpy()
+    assert got.dtype == np.uint8 and got.shape == (3001, 6)
+    assert np.array_equal(got, want)
+    assert (got[:, 0] == nb[0]).sum() > 0  # NaN impute -> nb
+
+
+def test_training_wrappers_check_their_input():
+    bins_t = torch.zeros((3, 10), dtype=torch.uint8)
+    slot = torch.zeros(10, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        histogram_kernels.histogram(bins_t, slot.long(), torch.zeros(10, 3),
+                                    1, 8)
+    with pytest.raises(ValueError, match="stat columns"):
+        histogram_kernels.histogram(bins_t, slot, torch.zeros(10, 9), 1, 8)
+    with pytest.raises(ValueError, match="float32"):
+        port_binning.bin_columns(torch.zeros(3, 10, dtype=torch.float64),
+                                 torch.zeros(3, 4), torch.zeros(
+                                     3, dtype=torch.int32), torch.zeros(3))
+    with pytest.raises(ValueError, match="quant"):
+        port_histogram.histogram(bins_t, slot, torch.zeros(10, 3), 1, 8,
+                                 quant="fp8")
+
+
+# ---- on the card -------------------------------------------------------
+
+
+def _card_stats(stats_np, kind, device):
+    t = torch.from_numpy(stats_np).to(device)
+    if kind == "int8":
+        return t.to(torch.int8)
+    if kind == "bf16":
+        return t.to(torch.bfloat16)
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("L", [1, 16, 32, 100])
+@pytest.mark.parametrize("n", [1, 4097, 70001])
+def test_histogram_kernel_matches_plain_on_card(n, L, kind):
+    """Full width (28 features, 256 bins, 3 stats), ragged row counts;
+    L = 100 takes several slot blocks. Integer-valued stats: every
+    partial sum is exact, so the kernel equals the plain version
+    bitwise in every type."""
+    _need_card()
+    bins, slot, stats = hist_case(n, 28, L, 256, 3, seed=n + L)
+    bins_t = torch.from_numpy(bins.T.copy()).cuda()
+    slot_t = torch.from_numpy(slot).cuda()
+    st = _card_stats(stats, kind, "cuda")
+    before = histogram_kernels.LAUNCHES["histogram"]
+    got = histogram_kernels.histogram(bins_t, slot_t, st, L, 256)
+    torch.cuda.synchronize()
+    assert histogram_kernels.LAUNCHES["histogram"] == before + 1
+    want = histogram_kernels.histogram_plain(bins_t, slot_t, st, L, 256)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_histogram_kernel_f32_tolerance_on_card():
+    """Real-valued f32 stats at the bench's root-layer shape: shared
+    atomics sum a block's rows in a varying order, so each cell may
+    differ from the plain version by f32 rounding of a sum of n terms:
+    |got - want| <= 1e-5 * (sum of |terms| in the cell) + 1e-6."""
+    _need_card()
+    n, F, B = 500_000, 28, 256
+    rng = np.random.default_rng(1)
+    bins_t = torch.from_numpy(rng.integers(0, B, (F, n)).astype(
+        np.uint8)).cuda()
+    slot = torch.zeros(n, dtype=torch.int32, device="cuda")
+    stats = torch.from_numpy(rng.normal(size=(n, 3)).astype(
+        np.float32)).cuda()
+    got = histogram_kernels.histogram(bins_t, slot, stats, 1, B)
+    want = histogram_kernels.histogram_plain(bins_t, slot, stats, 1, B)
+    mass = histogram_kernels.histogram_plain(bins_t, slot, stats.abs(), 1,
+                                             B)
+    assert torch.all((got - want).abs() <= 1e-5 * mass + 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("identity_hmap", [False, True])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("n", [1, 4097, 70001])
+def test_routed_kernel_matches_plain_on_card(n, kind, identity_hmap):
+    """The bench's deepest fused layer (L = 32, Lh = 16) at full width:
+    new_slot, new_leaf and the histogram bitwise equal to the plain
+    version (integer-valued stats)."""
+    _need_card()
+    L = 32
+    Lh = L if identity_hmap else 16
+    bins, slot, leaf, tables, stats = routed_case(
+        n, 28, 256, L, Lh, 3, seed=n, identity_hmap=identity_hmap)
+    args = (torch.from_numpy(bins.T.copy()).cuda(),
+            torch.from_numpy(slot).cuda(), torch.from_numpy(leaf).cuda(),
+            port_tables(tables, "cuda"), _card_stats(stats, kind, "cuda"))
+    before = histogram_kernels.LAUNCHES["histogram_routed"]
+    got = histogram_kernels.histogram_routed(*args, Lh, 256)
+    torch.cuda.synchronize()
+    assert histogram_kernels.LAUNCHES["histogram_routed"] == before + 1
+    want = histogram_kernels.histogram_routed_plain(*args, Lh, 256)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
+def test_binning_kernel_matches_plain_on_card(n):
+    _need_card()
+    values, bounds, nb, impute = binning_case(n, 28, 255, seed=n)
+    args = [torch.from_numpy(a).cuda() for a in (values, bounds, nb, impute)]
+    before = port_binning.KERNEL_LAUNCHES
+    got = port_binning.bin_columns(*args)
+    torch.cuda.synchronize()
+    assert port_binning.KERNEL_LAUNCHES == before + 1
+    assert torch.equal(got, port_binning.bin_columns_plain(*args))
+
+
+@pytest.mark.gpu
+def test_training_wrappers_on_card_raise_on_what_they_do_not_take():
+    _need_card()
+    bins_t = torch.zeros((3, 64), dtype=torch.uint8, device="cuda")
+    slot = torch.zeros(64, dtype=torch.int32, device="cuda")
+    stats = torch.zeros(64, 3, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        histogram_kernels.histogram(
+            torch.zeros((64, 3), dtype=torch.uint8, device="cuda").t(),
+            slot, stats, 1, 8)
+    with pytest.raises(ValueError, match="cpu"):
+        histogram_kernels.histogram(bins_t, slot.cpu(), stats, 1, 8)
+    n0 = histogram_kernels.LAUNCHES["histogram"]
+    out = histogram_kernels.histogram(bins_t[:, :0], slot[:0], stats[:0],
+                                      1, 8)
+    assert out.abs().sum() == 0
+    assert histogram_kernels.LAUNCHES["histogram"] == n0

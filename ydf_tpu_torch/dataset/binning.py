@@ -1,6 +1,20 @@
-"""Binner: the per-feature rules that encoding reads (counterpart of
-ydf_tpu/dataset/binning.py:Binner). Fitting and `transform` wait for the
-training slice; serving reads the saved fields only.
+"""Binner: per-feature binning rules, fit on the training rows (counterpart
+of ydf_tpu/dataset/binning.py: boundaries_from_sketch, Binner.fit,
+_fit_common, transform).
+
+Numerical and boolean columns: missing values impute to the column mean;
+bin(v) = #{b : boundary_b <= v}, so "bin <= t" is "v < boundary_t". A
+column with at most num_bins - 1 distinct values gets the midpoints
+between them as boundaries (exact split search); otherwise deduplicated
+quantiles of a fixed-seed 200k-row sample. Fitting other column types
+raises NotImplementedError (categorical, set and vector-sequence
+features wait for ROADMAP Queue 1 item 14); serving reads any saved
+Binner.
+
+Fitting runs on the host in numpy with the JAX package's expressions, so
+boundaries are bitwise equal to its own. `transform` bins on the device:
+through csrc/binning.cu on a card, through its plain version on the
+CPU.
 
 Feature order is [numericals..., categoricals..., sets...].
 """
@@ -8,9 +22,52 @@ Feature order is [numericals..., categoricals..., sets...].
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from ydf_tpu_torch.dataset.dataspec import ColumnType, DataSpecification
+from ydf_tpu_torch.ops.binning import bin_columns
+
+_NUMERICAL_LIKE = (ColumnType.NUMERICAL, ColumnType.BOOLEAN)
+# Rows above which boundaries come from a fixed-seed sample of this size.
+SAMPLE_ROWS = 200_000
+SAMPLE_SEED = 0xB1A5
+# np.repeat-expansion ceiling of boundaries_from_sketch.
+_QUANTILE_EXPAND_CAP = 1 << 21
+
+
+def boundaries_from_sketch(values: np.ndarray, weights: np.ndarray,
+                           num_bins: int,
+                           distinct_is_exact: bool) -> np.ndarray:
+    """Bin boundaries f32 from a weighted item set (ascending unique
+    `values`, positive integer `weights`): the midpoints between the
+    values when they are the exact distinct set and fit num_bins - 1
+    boundaries; otherwise the deduplicated weighted quantiles of the
+    multiset, numpy's "linear" method."""
+    max_boundaries = num_bins - 1
+    values = np.asarray(values)
+    weights = np.asarray(weights, np.int64)
+    if values.size == 0:
+        return np.zeros((0,), np.float32)
+    if distinct_is_exact and len(values) <= max_boundaries:
+        return ((values[:-1] + values[1:]) / 2).astype(np.float32)
+    total = int(weights.sum())
+    qs_pos = np.linspace(0, 1, num_bins + 1)[1:-1]
+    v64 = values.astype(np.float64)
+    if total <= _QUANTILE_EXPAND_CAP:
+        qs = np.quantile(np.repeat(v64, weights), qs_pos, method="linear")
+    else:
+        cw = np.cumsum(weights)
+        h = qs_pos * (total - 1)
+        lo = np.floor(h).astype(np.int64)
+        g = h - lo
+        hi = np.minimum(lo + 1, total - 1)
+        a = v64[np.searchsorted(cw, lo, side="right")]
+        b = v64[np.searchsorted(cw, hi, side="right")]
+        qs = np.where(g < 0.5, a + (b - a) * g, b - (b - a) * (1 - g))
+    return np.unique(qs).astype(np.float32)
 
 
 @dataclasses.dataclass
@@ -44,7 +101,116 @@ class Binner:
         return self.num_features - self.num_numerical - self.num_set
 
     @staticmethod
+    def fit(dataset, features: Sequence[str],
+            num_bins: int = 256) -> "Binner":
+        """Fits the rules on `dataset` (a ydf_tpu_torch Dataset)."""
+        max_boundaries = num_bins - 1
+        # One fixed-seed row sample shared by every dense column.
+        state: Dict[str, Optional[np.ndarray]] = {"sample_idx": None}
+
+        def column_boundaries(name: str) -> np.ndarray:
+            vals = dataset.encoded_numerical(name)
+            if len(vals) > SAMPLE_ROWS:
+                if state["sample_idx"] is None:
+                    state["sample_idx"] = np.random.default_rng(
+                        SAMPLE_SEED
+                    ).choice(len(vals), SAMPLE_ROWS, replace=False)
+                sample = vals[state["sample_idx"]]
+            else:
+                sample = vals
+            # A small pre-sample screens cardinality; the full-column
+            # unique sort runs only for a possibly low-cardinality column.
+            presample = sample[: 4 * max_boundaries + 4]
+            uniq = (np.unique(vals)
+                    if len(np.unique(presample)) <= max_boundaries else None)
+            if uniq is not None and len(uniq) <= max_boundaries:
+                return boundaries_from_sketch(
+                    uniq, np.ones(len(uniq), np.int64), num_bins,
+                    distinct_is_exact=True,
+                )
+            su, sc = np.unique(sample, return_counts=True)
+            return boundaries_from_sketch(su, sc, num_bins,
+                                          distinct_is_exact=False)
+
+        return Binner._fit_common(dataset.dataspec, features, num_bins,
+                                  column_boundaries)
+
+    @staticmethod
+    def _fit_common(spec: DataSpecification, features: Sequence[str],
+                    num_bins: int,
+                    column_boundaries: Callable[[str], np.ndarray]
+                    ) -> "Binner":
+        if not 2 <= num_bins <= 256:
+            raise ValueError(
+                f"num_bins must be in [2, 256] (uint8 bin matrix), got "
+                f"{num_bins}"
+            )
+        if num_bins % 32 != 0:
+            raise ValueError(
+                f"num_bins must be a multiple of 32 (packed category "
+                f"masks), got {num_bins}"
+            )
+        unported = [f for f in features
+                    if spec.column_by_name(f).type not in _NUMERICAL_LIKE]
+        if unported:
+            raise NotImplementedError(
+                f"feature columns {unported}: categorical, set and "
+                "vector-sequence input features are not ported yet "
+                "(ROADMAP Queue 1 item 14)"
+            )
+        F = len(features)
+        boundaries = np.full((F, num_bins - 1), np.inf, dtype=np.float32)
+        impute = np.zeros((F,), dtype=np.float32)
+        fnb = np.ones((F,), dtype=np.int32)
+        for i, name in enumerate(features):
+            b = column_boundaries(name)
+            boundaries[i, : len(b)] = b
+            impute[i] = np.float32(spec.column_by_name(name).mean)
+            fnb[i] = len(b) + 1
+        return Binner(
+            feature_names=list(features), num_numerical=F,
+            num_bins=num_bins, boundaries=boundaries, impute_values=impute,
+            feature_num_bins=fnb,
+        )
+
+    def transform(self, dataset, device) -> torch.Tensor:
+        """The bin matrix u8 [n, F] on `device`: the values f32 [F, n]
+        are copied to the device once and binned by the binning
+        kernel."""
+        if self.num_numerical != self.num_features:
+            raise NotImplementedError(
+                "binning categorical, set and vector-sequence features is "
+                "not ported yet (ROADMAP Queue 1 item 14)"
+            )
+        F = self.num_features
+        values = np.empty((F, dataset.num_rows), np.float32)
+        for i, name in enumerate(self.feature_names):
+            values[i] = dataset.encoded_numerical(name, impute=False)
+        return bin_columns(
+            torch.from_numpy(values).to(device),
+            torch.from_numpy(self.boundaries).to(device),
+            torch.from_numpy(self.feature_num_bins - 1).to(device),
+            torch.from_numpy(self.impute_values).to(device),
+        )
+
+    def to_json(self) -> Dict:
+        return {
+            "feature_names": self.feature_names,
+            "num_numerical": self.num_numerical,
+            "num_bins": self.num_bins,
+            "boundaries": self.boundaries.tolist(),
+            "impute_values": self.impute_values.tolist(),
+            "feature_num_bins": self.feature_num_bins.tolist(),
+            "num_set": self.num_set,
+            "vs_names": self.vs_names,
+            "vs_dims": self.vs_dims,
+            "vs_max_len": self.vs_max_len,
+        }
+
+    @staticmethod
     def from_json(d: Dict) -> "Binner":
+        """A Binner from its JSON form, the JAX package's
+        `Binner.to_json()` included."""
         return Binner(
             feature_names=list(d["feature_names"]),
             num_numerical=int(d["num_numerical"]),

@@ -1,18 +1,22 @@
 """Columnar in-memory dataset: name → 1-D numpy array + dataspec
-(counterpart of ydf_tpu/dataset/dataset.py). Serving ingests a dict of
-arrays or a pandas DataFrame against the model's dataspec and encodes it
-with the same rules, so encodings equal the JAX package's bit for bit.
+(counterpart of ydf_tpu/dataset/dataset.py). A dict of arrays or a pandas
+DataFrame is keyed under a model's dataspec (serving) or under the one
+inferred from it (training), and encoded with the JAX package's rules, so
+encodings equal its own bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
+from ydf_tpu_torch.config import Task
 from ydf_tpu_torch.dataset.dataspec import (
+    ColumnType,
     DataSpecification,
     column_array,
+    infer_dataspec,
     is_missing_item,
 )
 
@@ -32,20 +36,69 @@ class Dataset:
         self.num_rows = sizes.pop() if sizes else 0
 
     @staticmethod
-    def from_data(data: InputData,
-                  dataspec: DataSpecification) -> "Dataset":
+    def from_data(
+        data: InputData,
+        dataspec: Optional[DataSpecification] = None,
+        label: Optional[str] = None,
+        max_vocab_count: int = 2000,
+        min_vocab_frequency: int = 5,
+        column_types: Optional[Dict[str, ColumnType]] = None,
+    ) -> "Dataset":
         """A dict of arrays/lists, a pandas DataFrame or a Dataset, keyed
-        under `dataspec` (dataspec inference waits for the training
-        slice)."""
+        under `dataspec`, or under the dataspec inferred from the data
+        when none is given (counterpart of the JAX package's
+        Dataset.from_data for numerical, boolean and categorical
+        columns)."""
         if isinstance(data, Dataset):
-            return Dataset(data.data, dataspec)
-        if isinstance(data, dict):
+            if dataspec is not None:
+                return Dataset(data.data, dataspec)
+            mismatched = [
+                name for name, t in (column_types or {}).items()
+                if data.dataspec.has_column(name)
+                and data.dataspec.column_by_name(name).type != t
+            ]
+            if not mismatched:
+                return data
+            cols = dict(data.data)
+        elif isinstance(data, dict):
             cols = {k: column_array(v) for k, v in data.items()}
         elif hasattr(data, "to_dict") and hasattr(data, "columns"):
             cols = {c: data[c].to_numpy() for c in data.columns}
         else:
             raise TypeError(f"Unsupported dataset type: {type(data)}")
+        if dataspec is None:
+            dataspec = infer_dataspec(
+                cols, label=label, max_vocab_count=max_vocab_count,
+                min_vocab_frequency=min_vocab_frequency,
+                column_types=column_types,
+            )
         return Dataset(cols, dataspec)
+
+    def encoded_label(self, name: str, task: Task) -> np.ndarray:
+        """Classification: int32 class index in [0, C), the dictionary
+        order minus the OOV slot (class 0 is the most frequent).
+        Regression: float32 values."""
+        col = self.dataspec.column_by_name(name)
+        if task == Task.CLASSIFICATION:
+            if col.type != ColumnType.CATEGORICAL:
+                raise ValueError(
+                    f"Classification label {name!r} must be CATEGORICAL in "
+                    f"the dataspec (got {col.type.value})"
+                )
+            idx = self.encoded_categorical(name)
+            if (idx == 0).any():
+                raise ValueError(
+                    f"Label column {name!r} has values outside the training "
+                    "dictionary (missing or unseen classes)"
+                )
+            return (idx - 1).astype(np.int32)
+        return self.data[name].astype(np.float32)
+
+    def label_classes(self, name: str) -> List[str]:
+        col = self.dataspec.column_by_name(name)
+        if col.type == ColumnType.CATEGORICAL:
+            return col.vocabulary[1:]
+        return [str(v) for v in np.unique(self.data[name]).tolist()]
 
     def encoded_numerical(self, name: str, impute: bool = True) -> np.ndarray:
         """float32 values; missing → column-mean imputation, or kept as

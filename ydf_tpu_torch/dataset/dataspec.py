@@ -1,6 +1,5 @@
-"""Column schema ("dataspec"): what loading a model and encoding its
-inputs need (counterpart of ydf_tpu/dataset/dataspec.py; inference waits
-for the training slice).
+"""Column schema ("dataspec") and its inference for numerical, boolean
+and categorical columns (counterpart of ydf_tpu/dataset/dataspec.py).
 
 Categorical dictionaries reserve index 0 for out-of-vocabulary items;
 missing numericals are imputed with the column mean.
@@ -48,11 +47,20 @@ class Column:
     min_num_vectors: int = 0
     max_num_vectors: int = 0
 
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocabulary) if self.vocabulary is not None else 0
+
     @staticmethod
     def from_json(d: Dict[str, Any]) -> "Column":
         d = dict(d)
         d["type"] = ColumnType(d["type"])
         return Column(**d)
+
+    def to_json(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["type"] = self.type.value
+        return d
 
 
 @dataclasses.dataclass
@@ -80,6 +88,8 @@ class DataSpecification:
 
 
 MISSING_STRINGS = {"", "NA", "N/A", "nan", "NaN", "null", "None"}
+# Out-of-vocabulary item, vocabulary index 0.
+OOV_ITEM = "<OOD>"
 
 
 def is_missing_item(v: Any) -> bool:
@@ -87,6 +97,123 @@ def is_missing_item(v: Any) -> bool:
     if v is None or (isinstance(v, float) and math.isnan(v)):
         return True
     return isinstance(v, str) and v in MISSING_STRINGS
+
+
+def _is_numeric_dtype(arr: np.ndarray) -> bool:
+    return np.issubdtype(arr.dtype, np.number) or arr.dtype == np.bool_
+
+
+def infer_column(
+    name: str,
+    values: np.ndarray,
+    max_vocab_count: int = 2000,
+    min_vocab_frequency: int = 5,
+    force_type: Optional[ColumnType] = None,
+) -> Column:
+    """One column's type and statistics (counterpart of
+    ydf_tpu/dataset/dataspec.py:infer_column) for the types the training
+    slice takes: NUMERICAL and BOOLEAN columns (mean, min, max, counts)
+    and CATEGORICAL ones (frequency-sorted dictionary, OOV at index 0).
+    Other types raise NotImplementedError."""
+    values = np.asarray(values)
+    if values.ndim != 1:
+        raise ValueError(
+            f"Column {name!r} must be 1-D, got shape {values.shape}"
+        )
+    ctype = force_type
+    if ctype is None:
+        if values.dtype == np.bool_:
+            ctype = ColumnType.BOOLEAN
+        elif _is_numeric_dtype(values):
+            ctype = ColumnType.NUMERICAL
+        elif values.dtype == object and len(values) and any(
+            isinstance(v, (list, tuple, np.ndarray, set, frozenset))
+            for v in values[: min(len(values), 100)].tolist()
+        ):
+            ctype = ColumnType.CATEGORICAL_SET
+        else:
+            ctype = ColumnType.CATEGORICAL
+
+    if ctype in (ColumnType.NUMERICAL, ColumnType.BOOLEAN):
+        if values.dtype.kind in "iub":
+            n_missing, ok = 0, values
+        else:
+            fvals = (values if values.dtype.kind == "f"
+                     else values.astype(np.float64))
+            missing = np.isnan(fvals)
+            n_missing = int(missing.sum())
+            ok = fvals if n_missing == 0 else fvals[~missing]
+        if ok.size == 0:
+            return Column(name=name, type=ctype, num_missing=n_missing)
+        return Column(
+            name=name, type=ctype,
+            mean=float(ok.mean(dtype=np.float64)),
+            min_value=float(ok.min()), max_value=float(ok.max()),
+            num_values=int(ok.size), num_missing=n_missing,
+        )
+
+    if ctype == ColumnType.CATEGORICAL:
+        if _is_numeric_dtype(values):
+            fv = values.astype(np.float64)
+            missing = np.isnan(fv)
+            uniqf, counts = np.unique(fv[~missing], return_counts=True)
+            uniq = np.array(
+                [str(int(v)) if v.is_integer() else str(v)
+                 for v in uniqf.tolist()],
+                dtype=object,
+            )
+        else:
+            missing = np.array([is_missing_item(v) for v in values.tolist()],
+                               dtype=bool)
+            uniq, counts = np.unique(values[~missing].astype(str),
+                                     return_counts=True)
+        # Decreasing frequency, lexicographic ties (the reference order).
+        order = np.lexsort((uniq, -counts))
+        uniq, counts = uniq[order], counts[order]
+        keep = counts >= max(min_vocab_frequency, 1)
+        kept, kept_counts = uniq[keep], counts[keep]
+        if max_vocab_count > 0 and len(kept) > max_vocab_count:
+            kept = kept[:max_vocab_count]
+            kept_counts = kept_counts[:max_vocab_count]
+        return Column(
+            name=name, type=ctype,
+            vocabulary=[OOV_ITEM] + [str(x) for x in kept],
+            vocab_counts=[int(counts.sum() - kept_counts.sum())]
+            + [int(c) for c in kept_counts],
+            num_values=int(counts.sum()), num_missing=int(missing.sum()),
+        )
+    raise NotImplementedError(
+        f"column {name!r}: type {ctype.value} is not ported yet "
+        "(ROADMAP Queue 1 item 14)"
+    )
+
+
+def infer_dataspec(
+    data: Dict[str, np.ndarray],
+    label: Optional[str] = None,
+    max_vocab_count: int = 2000,
+    min_vocab_frequency: int = 5,
+    column_types: Optional[Dict[str, ColumnType]] = None,
+) -> DataSpecification:
+    """The dataspec of a columnar mapping name -> 1-D array (counterpart
+    of ydf_tpu/dataset/dataspec.py:infer_dataspec). The label keeps every
+    class: no vocabulary cap and a minimum frequency of 1."""
+    column_types = column_types or {}
+    cols, n = [], 0
+    for name, values in data.items():
+        values = column_array(values)
+        n = len(values)
+        force = column_types.get(name)
+        if name == label:
+            cols.append(infer_column(name, values, max_vocab_count=-1,
+                                     min_vocab_frequency=1,
+                                     force_type=force))
+        else:
+            cols.append(infer_column(
+                name, values, max_vocab_count=max_vocab_count,
+                min_vocab_frequency=min_vocab_frequency, force_type=force,
+            ))
+    return DataSpecification(columns=cols, created_num_rows=n)
 
 
 def column_array(v: Any) -> np.ndarray:

@@ -87,3 +87,38 @@ class Forest(NamedTuple):
             return torch.from_numpy(np.array(a, copy=True, order="C"))
 
         return Forest(**{f: tensor(d[f]) for f in Forest._fields})
+
+
+def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
+                              boundaries: np.ndarray) -> Forest:
+    """Stacked tree arrays (ops/grower.py:TreeArrays with a leading tree
+    axis) + leaf values [T, N, V] -> Forest, on the trees' device
+    (counterpart of ydf_tpu/models/forest.py:forest_from_stacked_trees
+    for numerical trees). Value thresholds are
+    boundaries[feature, threshold_bin]: "bin <= t" is
+    "v < boundaries[t]"; cover is the weighted example count."""
+    feature = stacked.feature
+    tbin = stacked.threshold_bin
+    dev = feature.device
+    T, N = feature.shape
+    bnd = torch.from_numpy(np.ascontiguousarray(boundaries, np.float32)).to(
+        dev)
+    if bnd.shape[0] == 0:
+        threshold = torch.zeros((T, N), dtype=torch.float32, device=dev)
+    else:
+        f_safe = feature.long().clamp(0, bnd.shape[0] - 1)
+        t_safe = tbin.long().clamp(0, bnd.shape[1] - 1)
+        threshold = bnd[f_safe, t_safe]
+    empty = torch.zeros((T, 0, 0), dtype=torch.float32, device=dev)
+    return Forest(
+        feature=feature, threshold=threshold, threshold_bin=tbin,
+        is_cat=stacked.is_cat, is_set=stacked.is_set,
+        cat_mask=stacked.cat_mask, left=stacked.left, right=stacked.right,
+        is_leaf=stacked.is_leaf,
+        na_left=torch.zeros((T, N), dtype=torch.bool, device=dev),
+        leaf_value=leaf_value, cover=stacked.leaf_stats[..., -1],
+        oblique_weights=empty, oblique_na_repl=empty, vs_anchor=empty,
+        vs_feat=torch.zeros((T, 0), dtype=torch.int32, device=dev),
+        vs_is_closer=torch.zeros((T, 0), dtype=torch.bool, device=dev),
+        num_nodes=stacked.num_nodes,
+    )

@@ -42,6 +42,12 @@ def forest_from_jax(arrays: Dict[str, np.ndarray]) -> Forest:
     return Forest.from_numpy(arrays)
 
 
+def binner_from_jax(d: Dict) -> Binner:
+    """The JAX package's `Binner.to_json()` dict -> the port's Binner:
+    the carry-over of the fitted binning rules."""
+    return Binner.from_json(d)
+
+
 def load_model(path: str, device=None) -> GradientBoostedTreesModel:
     """Loads a model saved by the JAX package's `model.save(path)` onto
     `device` (default: the CUDA card)."""

@@ -1,5 +1,10 @@
-"""Value-mode tree routing in plain PyTorch (counterpart of
-ydf_tpu/ops/routing.py:route_tree_values / forest_predict_values).
+"""Tree routing (counterpart of ydf_tpu/ops/routing.py).
+
+Training: `route_histogram_fused`, the fused routing + histogram step of
+every layer below the root, through csrc/histogram_routed.cu.
+
+Serving: value-mode routing in plain PyTorch (route_tree_values /
+forest_predict_values).
 
 This is the generic serving engine (rank 0 in serving/registry.py) and
 the oracle the kernels are tested against. It walks `max_depth` steps per
@@ -13,9 +18,14 @@ vector-sequence nodes raise NotImplementedError (ROADMAP Queue 1 item 9).
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from ydf_tpu_torch.models.forest import Forest
+from ydf_tpu_torch.ops import histogram_kernels
+from ydf_tpu_torch.ops.histogram import finish
+from ydf_tpu_torch.ops.histogram_kernels import RouteTables
 
 
 def _check_supported(forest: Forest) -> None:
@@ -94,6 +104,32 @@ def route_tree_values(
         nxt = torch.where(go_left, left[node], right[node])
         node = torch.where(is_leaf[node], node, nxt)
     return node
+
+
+def route_histogram_fused(
+    bins_t: torch.Tensor,  # u8 [F, n]
+    slot: torch.Tensor,    # i32 [n] previous-layer slot; L = trash
+    leaf_id: torch.Tensor,  # i32 [n]
+    tables: RouteTables,
+    stats: torch.Tensor,   # f32 [n, S] / bf16 [n, 2S] / int8 [n, S]
+    *,
+    num_slots: int,
+    num_bins: int,
+    quant_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused previous-layer routing + this-layer histogram (counterpart
+    of ydf_tpu/ops/routing.py:route_histogram_fused): one pass over rows
+    applies the previous layer's padded [L+1] decision tables and
+    accumulates this layer's histogram from each row's hist slot
+    hmap[new_slot]. Returns (hist f32 [num_slots, F, B, S], new_slot,
+    new_leaf). stats.dtype selects the precision as in
+    ops/histogram.py; int8 stats need `quant_scale`."""
+    if stats.dtype == torch.int8 and quant_scale is None:
+        raise ValueError("int8 fused histogram requires quant_scale")
+    acc, new_slot, new_leaf = histogram_kernels.histogram_routed(
+        bins_t, slot, leaf_id, tables, stats, num_slots, num_bins
+    )
+    return finish(acc, stats, quant_scale), new_slot, new_leaf
 
 
 def forest_predict_values(

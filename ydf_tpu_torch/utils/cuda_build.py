@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -134,6 +134,33 @@ def entry_point(name: str, symbol: str, num_pointers: int,
         fn.restype = ctypes.c_int
         _ENTRY_POINTS[key] = fn
     return fn
+
+
+#: When a list, the training kernels' wrappers append (name, start event,
+#: end event) around each launch (CUDA events; they add no sync). None,
+#: the default, records nothing. chip_smoke.py sums them per kernel.
+LAUNCH_EVENTS: Optional[list] = None
+
+
+def launch_timer(name: str):
+    """Start of one timed launch, or None when LAUNCH_EVENTS is off."""
+    if LAUNCH_EVENTS is None:
+        return None
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    return name, start
+
+
+def launch_done(timer) -> None:
+    if timer is None or LAUNCH_EVENTS is None:
+        return
+    import torch
+
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    LAUNCH_EVENTS.append((timer[0], timer[1], end))
 
 
 def check_status(status: int, what: str) -> None:
