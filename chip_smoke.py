@@ -1,15 +1,15 @@
 """Chip smoke of ydf_tpu_torch, the PyTorch/CUDA port: builds its CUDA
 kernels, checks each against its plain PyTorch version at full width,
 serves the committed fixture models through `load_model(...).predict`
-on the card, trains the bench GBT on the card through
-`GradientBoostedTreesLearner(...).train`, times each kernel, and prints
-one JSON summary.
+on the card, trains the bench GBT and a GBT on vector sequences on the
+card through `GradientBoostedTreesLearner(...).train`, times each
+kernel, and prints one JSON summary.
 
     python3 chip_smoke.py        # needs one CUDA card and nvcc
 
 Phases (one line each; any failure is an uncaught exception):
   1 device    card name, count, nvidia-smi name and power limit
-  2 build     nvcc for sm_90a (all five sources in parallel), seconds,
+  2 build     nvcc for sm_90a (all six sources in parallel), seconds,
               ptxas registers / shared memory
   3 kernels   each serving kernel == its plain version (torch.equal) on
               4096 rows of the 300-tree default GBT (QuickScorer,
@@ -26,13 +26,24 @@ Phases (one line each; any failure is an uncaught exception):
               training under torch.profiler (device time, idle share of
               the boosting loop), then each training kernel timed with
               CUDA events
+  7 vs        the vector-sequence paths (ydf_tpu_torch/testdata/train_vs,
+              the JAX package's run of its GBT on make_vs_data: 200,000
+              rows, sequences of up to 16 vectors of 16, 20 trees, depth
+              6): the scoring kernel against its plain version at the
+              training shape and at ragged shapes; serve_vs, the JAX
+              model loaded and served on 1024 fresh rows against the JAX
+              package's scores, and the kernel against its plain version
+              on the serve path's own inputs; train_vs, the same GBT
+              trained on the card
+              against the JAX run (anchors bitwise, tree 0, losses, raw
+              scores); then each kernel timed at the path's shapes
 
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (QuickScorer), gbt_d6 with BankScorer forced, and gbt_d8 (BankScorer);
-phase 6 is the training path. The launch counters are set to 0 just
-before each path and read just after it; phase 3, the comparisons and
-the timing launches do not count. The `kernels` line has one entry per
-(kernel, path).
+phase 6 is the training path, phase 7 the serve_vs and train_vs paths.
+The launch counters are set to 0 just before each path and read just
+after it; phase 3, the comparisons and the timing launches do not count.
+The `kernels` line has one entry per (kernel, path).
 Exits non-zero without a result when CUDA is absent.
 """
 
@@ -64,6 +75,26 @@ TRAIN_HP = dict(label="label", num_trees=20, max_depth=6,
                 validation_ratio=0.0, early_stopping="NONE")
 TRAIN_REQUEST_ROWS = 1024
 REQUEST_SEED = 1
+# The vector-sequence path (train_vs): the JAX package's GBT at its
+# default anchor counts on make_vs_data. VS_RADIUS puts about half of the
+# labels at 1.
+TRAIN_VS = os.path.join(TESTDATA, "train_vs")
+VS_ROWS = 200_000
+VS_MAX_LEN = 16
+VS_DIM = 16
+VS_NOISE = 4
+VS_RADIUS = 11.75
+# Score tolerance of the vector-sequence kernel and of the comparisons
+# with the JAX package's scores: |difference| <= VS_RTOL * M + VS_ATOL,
+# M = max over the row's vectors of |v|^2 + |a|^2 + 2|v||a|.
+VS_RTOL = 1e-5
+VS_ATOL = 1e-6
+# serve_vs: a raw score may differ from the JAX package's beyond 1e-5
+# only on a row whose VS score sits within VS_RTOL * M of a threshold on
+# its path, and on at most this share of the rows.
+VS_SERVE_ATOL = 1e-5
+VS_MAX_EXPLAINED = 0.005
+VS_THRESHOLD_ULPS = 4
 # Tolerances against the JAX package's run. The port's f32 histograms sum
 # rows in another order (shared-memory atomics) than the JAX package's
 # f64 block partials, so near-tie splits may flip in late trees; the
@@ -118,6 +149,38 @@ def make_data(rows, features):
                              features)
     data = {f"f{i}": x[:, i] for i in range(features)}
     data["label"] = y
+    return data
+
+
+def make_vs_data(rows, max_len=VS_MAX_LEN, dim=VS_DIM, noise=VS_NOISE,
+                 radius=VS_RADIUS, seed=DATA_SEED):
+    """The train_vs task, modelled on the JAX package's
+    tests/test_vector_sequence.py:_closer_task: column "seq" of
+    vector sequences (2% missing cells, 8% empty sequences, the rest of
+    uniform length 1..max_len with N(0, 1) vectors of `dim`), `noise`
+    N(0, 1) columns x0.., and "label" = 1 where the sequence holds a
+    vector within squared distance `radius` of
+    c = linspace(-0.8, 0.8, dim). numpy RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    u = rng.uniform(size=rows)
+    missing = u < 0.02
+    empty = (u >= 0.02) & (u < 0.10)
+    lens = rng.randint(1, max_len + 1, size=rows)
+    lens[missing | empty] = 0
+    flat = rng.normal(size=(int(lens.sum()), dim)).astype(np.float32)
+    x = rng.normal(size=(rows, noise)).astype(np.float32)
+    c = np.linspace(-0.8, 0.8, dim).astype(np.float32)
+    d2 = ((flat - c) ** 2).sum(axis=1)
+    ends = np.cumsum(lens)
+    nonempty = lens > 0
+    near = np.zeros(rows, bool)
+    near[nonempty] = np.minimum.reduceat(d2, (ends - lens)[nonempty]) < radius
+    seq = np.empty(rows, dtype=object)
+    for i in range(rows):
+        seq[i] = None if missing[i] else flat[ends[i] - lens[i]:ends[i]]
+    data = {"seq": seq}
+    data.update({f"x{j}": x[:, j] for j in range(noise)})
+    data["label"] = near.astype(np.int64)
     return data
 
 
@@ -176,7 +239,7 @@ def main():
 
     # -- 2 build ------------------------------------------------------- #
     sources = ["quickscorer", "bank_scorer", "histogram", "histogram_routed",
-               "binning"]
+               "binning", "vector_sequence"]
     secs = cuda_build.build_all(sources, force=True)
     ptxas = []
     for name, text in cuda_build.BUILD_LOGS.items():
@@ -271,6 +334,8 @@ def main():
         })
     torch.cuda.synchronize()
     kernels.extend(train_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(vs_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -654,12 +719,14 @@ def hist_check(got, want, mass, what):
     return float(diff.max())
 
 
-def train_inputs(data, binner):
+def train_inputs(data, binner, extra_bins=None):
     """The training kernels' inputs at the path's shapes, on the card:
     binning of every training value; the root histogram (one slot, the
     first tree's binomial stats); the deepest fused layer (the previous
     layer's 16 splits into 32 slots, each split's smaller child on one
-    of Lh = 16 hist slots), with seeded tables over the real bins."""
+    of Lh = 16 hist slots), with seeded tables over the real bins.
+    `extra_bins` (u8 [P, n], on the card) are candidate columns a tree
+    grows on after the binned features (train_vs: the anchors' bins)."""
     import torch
 
     from ydf_tpu_torch.learners.losses import BinomialLogLikelihood
@@ -667,7 +734,6 @@ def train_inputs(data, binner):
     from ydf_tpu_torch.ops.histogram_kernels import RouteTables
 
     dev = torch.device(DEVICE)
-    F, n = TRAIN_FEATURES, TRAIN_ROWS
     Fn = binner.num_numerical
     values = np.stack([data[name] for name in binner.feature_names[:Fn]])
     bin_args = (
@@ -677,6 +743,9 @@ def train_inputs(data, binner):
         torch.from_numpy(binner.impute_values[:Fn]).to(dev),
     )
     bins_t = bin_columns(*bin_args).t().contiguous()
+    if extra_bins is not None:
+        bins_t = torch.cat([bins_t, extra_bins]).contiguous()
+    F, n = bins_t.shape
     B = binner.num_bins
     # The first tree's stats, [g w, h w, w] at the initial prediction.
     loss = BinomialLogLikelihood()
@@ -800,6 +869,419 @@ def fused_index(bins_t, slot, stats, B):
     src = stats[None].expand(F, n, stats.shape[1]).reshape(-1,
                                                             stats.shape[1])
     return idx, src.contiguous()
+
+
+# --------------------------------------------------------------------- #
+# 7 vs: the vector-sequence paths, served and trained on the card
+# --------------------------------------------------------------------- #
+
+
+def vs_ragged_cases():
+    """(n, L, D, A, all rows empty): n not a multiple of a block's rows,
+    L = 1, A = 1, a D that pads nothing evenly, all-empty rows."""
+    return [(1, 1, 1, 1, False), (1001, 16, 16, 32, False),
+            (777, 1, 16, 32, False), (513, 9, 5, 1, False),
+            (300, 7, 3, 33, False), (257, 4, 16, 16, True),
+            (129, 6, 40, 70, False)]
+
+
+def vs_random_case(n, L, D, A, all_empty, seed):
+    import torch
+
+    rng = np.random.RandomState(seed)
+    lengths = np.zeros(n, np.int32) if all_empty else rng.randint(
+        0, L + 1, n).astype(np.int32)
+    values = np.zeros((n, L, D), np.float32)
+    for e in range(n):
+        values[e, :lengths[e]] = rng.normal(size=(lengths[e], D))
+    anchors = rng.normal(size=(A, D)).astype(np.float32)
+    closer = rng.uniform(size=A) < 0.5
+    dev = torch.device(DEVICE)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (values, lengths, anchors, closer))
+
+
+def vs_check(args, what):
+    """Kernel against plain on `args`: every score within VS_RTOL x M +
+    VS_ATOL, empty rows' -FLT_MAX bitwise. Returns the max abs error."""
+    import torch
+
+    from ydf_tpu_torch.ops import vector_sequence as vso
+
+    got = vso.vs_scores(*args)
+    torch.cuda.synchronize()
+    want = vso.vs_scores_plain(*args)
+    M = vso.score_tolerance(*args[:3])
+    diff = (got.double() - want.double()).abs()
+    assert torch.all(diff <= VS_RTOL * M + VS_ATOL), (
+        f"{what}: kernel != plain beyond tolerance ({float(diff.max())})")
+    empty = args[1] == 0
+    assert torch.equal(got[empty].view(torch.int32),
+                       want[empty].view(torch.int32)), (
+        f"{what}: empty rows != -FLT_MAX")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def vs_near_threshold(model, data):
+    """bool [n]: rows whose VS score at some VS node on their path (any
+    tree) lies within VS_RTOL x M + VS_ATOL of the node's threshold; the
+    rows where another summation order may route differently."""
+    import torch
+
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.ops import vector_sequence as vso
+    from ydf_tpu_torch.ops.routing import (
+        route_tree_values,
+        vs_tree_projections,
+    )
+
+    ds = Dataset.from_data(data, model.dataspec)
+    x_num, x_cat = model._encode_inputs(ds)
+    vals, lens, _ = model.binner.transform_vs(ds)
+    dev = model.device
+    xn, xc = (torch.from_numpy(a).to(dev) for a in (x_num, x_cat))
+    vals = [torch.from_numpy(np.ascontiguousarray(vals[:, j])).to(dev)
+            for j in range(vals.shape[1])]
+    lens = [torch.from_numpy(np.ascontiguousarray(lens[:, j])).to(dev)
+            for j in range(lens.shape[1])]
+    fo = model.forest
+    F_total = x_num.shape[1] + x_cat.shape[1]
+    near = torch.zeros(x_num.shape[0], dtype=torch.bool, device=dev)
+    for t in range(fo.num_trees):
+        proj = vs_tree_projections(fo, t, vals, lens)
+        fsel = fo.vs_feat[t].long()
+        M = torch.stack([vso.score_tolerance(v, ln, fo.vs_anchor[t])
+                         for v, ln in zip(vals, lens)], dim=1)
+        M = torch.gather(M, 1, fsel[None, None, :].expand(M.shape[0], 1, -1)
+                         )[:, 0, :]
+        for depth in range(model.max_depth):
+            node = route_tree_values(fo, t, xn, xc, model.binner.num_numerical,
+                                     depth, vs_proj=proj)
+            f = fo.feature[t].long()[node]
+            q = (f - F_total).clamp(0, proj.shape[1] - 1)[:, None]
+            at_vs = (f >= F_total) & ~fo.is_leaf[t][node]
+            gap = (proj.gather(1, q)[:, 0] - fo.threshold[t][node]).abs()
+            near |= at_vs & (gap <= VS_RTOL * M.gather(1, q)[:, 0] + VS_ATOL)
+    return near.cpu().numpy()
+
+
+def ulps_apart(a, b):
+    """Distance in units in the last place between float32 arrays."""
+    def key(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(key(a) - key(b))
+
+
+def vs_path(smi, serving):
+    """Phase 7: returns the `kernels` entries of the vector-sequence
+    kernel on serve_vs and train_vs and of the three training kernels on
+    train_vs."""
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.ops import vector_sequence as vso
+    from ydf_tpu_torch.utils import cuda_build
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(TRAIN_VS, "config.json")) as f:
+        cfg = json.load(f)
+    assert (cfg["rows"], cfg["learner"], cfg["data_seed"],
+            cfg["request_rows"], cfg["request_seed"], cfg["generator"]) == (
+        VS_ROWS, TRAIN_HP, DATA_SEED, TRAIN_REQUEST_ROWS, REQUEST_SEED,
+        dict(max_len=VS_MAX_LEN, dim=VS_DIM, noise=VS_NOISE,
+             radius=VS_RADIUS)), cfg
+    exp = np.load(os.path.join(TRAIN_VS, "expected.npz"))
+    jax_forest = dict(np.load(os.path.join(TRAIN_VS, "forest.npz")))
+    t0 = time.perf_counter()
+    data = make_vs_data(VS_ROWS)
+    req = make_vs_data(TRAIN_REQUEST_ROWS, seed=REQUEST_SEED)
+    del req["label"]
+    log("7 vs", f"data {VS_ROWS} rows (numpy RandomState({DATA_SEED})) in "
+        f"{time.perf_counter() - t0:.2f} s; JAX fixture: jax "
+        f"{cfg['jax_version']}, threefry partitionable "
+        f"{cfg['jax_threefry_partitionable']}, impls {cfg['jax_impls']}")
+
+    # -- 7a the kernel against plain: training shape, ragged shapes ---- #
+    learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                        **TRAIN_HP)
+    prep = learner._prepare(data)
+    vs = port_gbt.vs_inputs(prep["vs"], *learner._vs_anchor_counts(),
+                            DEVICE)
+    dev = vs.values[0].device
+    full = (vs.values[0], vs.lengths[0],
+            torch.from_numpy(jax_forest["vs_anchor"][0]).to(dev),
+            torch.from_numpy(jax_forest["vs_is_closer"][0]).to(dev))
+    err = {"vs/train_vs": vs_check(full, "training shape")}
+    ragged = max(vs_check(vs_random_case(*case, seed=i), f"ragged {case}")
+                 for i, case in enumerate(vs_ragged_cases()))
+    n, L, D = full[0].shape
+    log("7 kernels", f"vector_sequence at the training shape (n={n}, L={L}, "
+        f"D={D}, A={full[2].shape[0]}; max abs {err['vs/train_vs']:.3g}) "
+        f"and {len(vs_ragged_cases())} ragged shapes {vs_ragged_cases()} "
+        f"(max abs {ragged:.3g}): within {VS_RTOL} x M + {VS_ATOL} of "
+        f"plain, -FLT_MAX rows bitwise")
+
+    out = []
+    # -- 7b serve_vs: the JAX model served on the card ---------------- #
+    vso.KERNEL_LAUNCHES = 0
+    for c in serving:
+        c.KERNEL_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = ydf_tpu_torch.load_model(TRAIN_VS, device=DEVICE)
+    pred = model.predict(req)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    served = vso.KERNEL_LAUNCHES
+    T = TRAIN_HP["num_trees"]
+    assert served == T, served  # one launch per tree and VS feature
+    assert not any(c.KERNEL_LAUNCHES for c in serving)
+    # The kernel's inputs on this path, as vs_tree_projections passes them
+    # for tree 0: the padded request sequences against the tree's anchors.
+    sv, sl, _ = model.binner.transform_vs(Dataset.from_data(req,
+                                                            model.dataspec))
+    serve_args = (torch.from_numpy(np.ascontiguousarray(sv[:, 0])).to(dev),
+                  torch.from_numpy(np.ascontiguousarray(sl[:, 0])).to(dev),
+                  model.forest.vs_anchor[0].contiguous(),
+                  model.forest.vs_is_closer[0].contiguous())
+    err["vs/serve_vs"] = vs_check(serve_args, "serve_vs shape")
+    raw = model._raw_scores(req, combine="sum")[:, 0]
+    assert model.list_compatible_engines() == ["Routed"]
+    off = np.abs(raw - exp["raw"]) > VS_SERVE_ATOL
+    near = vs_near_threshold(model, req)
+    explained = int(off.sum())
+    assert not (off & ~near).any(), (
+        f"serve_vs: {int((off & ~near).sum())} rows differ from JAX with no "
+        "VS score near a threshold")
+    assert explained <= VS_MAX_EXPLAINED * len(raw), explained
+    assert np.isfinite(pred).all() and pred.shape == (len(raw),)
+    emptied = dict(req)
+    emptied["seq"] = req["seq"].copy()
+    missing = [i for i, v in enumerate(req["seq"]) if v is None]
+    for i in missing:
+        emptied["seq"][i] = np.zeros((0, VS_DIM), np.float32)
+    assert np.array_equal(model.predict(emptied), pred), (
+        "missing != empty")
+    t0 = time.perf_counter()
+    model.predict(req)
+    torch.cuda.synchronize()
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    log("7 serve", f"serve_vs: load_model + predict of "
+        f"{len(raw)} rows in {serve_wall * 1e3:.1f} ms, {served} launches "
+        f"of vector_sequence (engines {model.list_compatible_engines()}); "
+        f"raw vs JAX max abs {np.abs(raw - exp['raw']).max():.3g}, rows "
+        f"beyond {VS_SERVE_ATOL}: {explained} (all explained by a VS score "
+        f"within {VS_RTOL} x M of a threshold on the path; "
+        f"{int(near.sum())} rows have one); predictions vs JAX max abs "
+        f"{np.abs(pred - exp['predictions']).max():.3g}; {len(missing)} "
+        f"missing cells predict like empty ones; one more predict "
+        f"{predict_ms:.1f} ms (host clock)")
+
+    # -- 7c train_vs: the GBT trained on the card --------------------- #
+    for k in histogram_kernels.LAUNCHES:
+        histogram_kernels.LAUNCHES[k] = 0
+    binning.KERNEL_LAUNCHES = 0
+    vso.KERNEL_LAUNCHES = 0
+    for c in serving:
+        c.KERNEL_LAUNCHES = 0
+    cuda_build.LAUNCH_EVENTS = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                        **TRAIN_HP)
+    model = learner.train(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
+    counted = dict(histogram_kernels.LAUNCHES)
+    counted["binning"] = binning.KERNEL_LAUNCHES
+    counted["vector_sequence"] = vso.KERNEL_LAUNCHES
+    depth = TRAIN_HP["max_depth"]
+    assert counted["vector_sequence"] == T, counted
+    assert counted["histogram"] == T, counted
+    assert counted["histogram_routed"] == T * (depth - 1), counted
+    assert counted["binning"] >= 1, counted
+    assert not any(c.KERNEL_LAUNCHES for c in serving)
+    kernel_ms = {k: 0.0 for k in counted}
+    for name, start, end in events:
+        kernel_ms[name] += start.elapsed_time(end)
+    boost_ms = learner.last_timings["boost_s"] * 1e3
+    log("7 launches", f"train_vs: {counted}")
+    log("7 train", f"train_vs GradientBoostedTreesLearner(**{TRAIN_HP})"
+        f".train: wall {wall * 1e3:.1f} ms (host clock, ends in "
+        "synchronize); stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in learner.last_timings.items())
+        + "; kernel time (CUDA events) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f", sum {sum(kernel_ms.values()):.3f} ms = "
+        f"{100 * sum(kernel_ms.values()) / (wall * 1e3):.2f}% of the wall, "
+        f"boosting loop {boost_ms:.1f} ms; {smi}")
+
+    # -- 7d against the JAX package's run ----------------------------- #
+    pf = model.forest.to_numpy()
+    assert np.array_equal(pf["vs_anchor"].view(np.int32),
+                          jax_forest["vs_anchor"].view(np.int32)), (
+        "anchors != the JAX package's")
+    for field in ("vs_feat", "vs_is_closer"):
+        assert np.array_equal(pf[field], jax_forest[field]), field
+    split = ~jax_forest["is_leaf"] | ~pf["is_leaf"]
+    differ = split & ((pf["feature"] != jax_forest["feature"])
+                      | (pf["threshold_bin"] != jax_forest["threshold_bin"])
+                      | (pf["is_leaf"] != jax_forest["is_leaf"]))
+    Fn = model.binner.num_numerical
+    tree0 = []
+    for k in np.nonzero(differ[0])[0]:
+        jf = int(jax_forest["feature"][0, k])
+        assert jf >= Fn, f"tree 0 node {k}: numerical split differs"
+        a = torch.from_numpy(jax_forest["vs_anchor"][0, jf - Fn:jf - Fn + 1]
+                             ).to(dev)
+        ic = torch.from_numpy(
+            jax_forest["vs_is_closer"][0, jf - Fn:jf - Fn + 1]).to(dev)
+        sc = vso.vs_scores(vs.values[0], vs.lengths[0], a, ic)[:, 0]
+        M = vso.score_tolerance(vs.values[0], vs.lengths[0], a)[:, 0]
+        rows = int(((sc - float(jax_forest["threshold"][0, k])).abs()
+                    <= VS_RTOL * M + VS_ATOL).sum())
+        assert rows > 0, f"tree 0 node {k} differs, unexplained"
+        tree0.append(f"node {k}: {rows} rows within {VS_RTOL} x M")
+    same = ~differ & split & (pf["feature"] >= Fn) & ~pf["is_leaf"]
+    ulps = ulps_apart(pf["threshold"][same], jax_forest["threshold"][same])
+    assert (ulps <= VS_THRESHOLD_ULPS).all(), int(ulps.max())
+    per_tree = differ.sum(axis=1)
+    loss = np.asarray(model.training_logs["train_loss"], np.float32)
+    loss_rel = np.abs(loss / exp["train_loss"] - 1)
+    assert loss.shape == exp["train_loss"].shape
+    assert loss_rel[-1] <= TRAIN_LOSS_RTOL, (loss[-1], exp["train_loss"][-1])
+    traw = model._raw_scores(req, combine="sum")[:, 0] \
+        + model.initial_predictions[0]
+    raw_err = np.abs(traw - (exp["raw"] + exp["initial_predictions"][0]))
+    assert np.isfinite(traw).all()
+    assert raw_err.max() <= RAW_SCORE_ATOL, raw_err.max()
+    assert raw_err.mean() <= RAW_SCORE_MEAN_ATOL, raw_err.mean()
+    log("7 vs JAX", f"train_vs: anchors of all {T} trees bitwise == JAX; "
+        f"tree 0 differing split nodes: {len(tree0)} {tree0}; split nodes "
+        f"differing over {T} trees: {int(per_tree.sum())} (per tree "
+        f"{per_tree.tolist()}); VS thresholds of equal nodes within "
+        f"{int(ulps.max()) if ulps.size else 0} ulps ({int(same.sum())} "
+        f"nodes); final train loss {loss[-1]:.7f} vs "
+        f"{exp['train_loss'][-1]:.7f} (rel {loss_rel[-1]:.2e}); raw scores "
+        f"on {TRAIN_REQUEST_ROWS} fresh rows: max abs {raw_err.max():.3g}, "
+        f"mean {raw_err.mean():.3g}")
+
+    # -- 7e the kernels timed at the path's shapes -------------------- #
+    draws = port_gbt.vs_draws(learner.random_seed, 1, len(vs.values),
+                              vs.num_closer + 2 * vs.num_projected, dev)
+    B = model.binner.num_bins
+    qs = port_gbt.prng.linspace_f32(1.0 / B, 1.0 - 1.0 / B, B - 1,
+                                    device=dev)
+    _, _, cols = port_gbt.make_vs_projections(
+        vs, {k: v[0] for k, v in draws.items()}, qs)
+    inp = train_inputs(data, model.binner, extra_bins=cols)
+    got = histogram_kernels.histogram(*inp["root"])
+    err["histogram"] = hist_check(
+        got, histogram_kernels.histogram_plain(*inp["root"]),
+        histogram_kernels.histogram_plain(*abs_stats(inp["root"], 2)),
+        "train_vs root histogram")
+    got = histogram_kernels.histogram_routed(*inp["routed"])
+    want = histogram_kernels.histogram_routed_plain(*inp["routed"])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    err["histogram_routed"] = hist_check(
+        got[0], want[0], histogram_kernels.histogram_routed_plain(
+            *abs_stats(inp["routed"], 4))[0], "train_vs routed histogram")
+    got = binning.bin_columns(*inp["binning"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, binning.bin_columns_plain(*inp["binning"]))
+    err["binning"] = 0.0
+    for path, args, launches in (
+        ("serve_vs", serve_args, served),
+        ("train_vs", full, counted["vector_sequence"]),
+    ):
+        t = measure_vs(args)
+        log("7 timing", f"vector_sequence on {path} ({t['shape']}): kernel "
+            f"{t['ms']:.4f} ms a call back to back ({t['launch_ms']:.4f} ms "
+            f"between events around the launch alone), plain "
+            f"{t['plain_ms']:.3f} ms, library null "
+            f"(no single PyTorch call scores a masked max/min over a "
+            f"sequence), bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+            f"{t['detail']}), {smi}")
+        out.append({
+            "name": f"vector_sequence/{path}", "route": "cuda",
+            "source": "ydf_tpu_torch/csrc/vector_sequence.cu",
+            "replaces": "ydf_tpu/ops/vector_sequence.py:59",
+            "launches": launches, "max_abs_err": err[f"vs/{path}"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+        })
+    for name, src, replaces in (
+        ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+        ("histogram", "histogram.cu", "ydf_tpu/ops/histogram_pallas.py:81"),
+        ("histogram_routed", "histogram_routed.cu",
+         "ydf_tpu/ops/histogram_pallas.py:172"),
+    ):
+        t = measure_train(name, inp)
+        log("7 timing", f"{name} on train_vs ({t['shape']}): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {smi}")
+        out.append({
+            "name": f"{name}/train_vs", "route": "cuda",
+            "source": f"ydf_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": counted[name], "max_abs_err": err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    log("7 vs", f"phase 7 wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def measure_vs(args, reps=20):
+    """The scoring kernel's time (CUDA events, after warm-up: per call of
+    the wrapper back to back, and per launch alone) and the
+    plain version's (once, after one call) at the path's shape, and the
+    bound: the larger of the bytes the function must move (each real
+    vector and length read once, the anchors, the scores written once)
+    over HBM bandwidth, and its multiply-adds on this run's data (per
+    real vector, one per (anchor, d) for the dots and one per d for
+    |v|^2; two FLOPs each) over the card's float32 rate."""
+    import torch
+
+    from ydf_tpu_torch.ops import vector_sequence as vso
+    from ydf_tpu_torch.utils import cuda_build
+
+    values, lengths, anchors, closer = args
+    n, L, D = values.shape
+    A = anchors.shape[0]
+    for _ in range(3):
+        vso.vs_scores(*args)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: vso.vs_scores(*args), reps=reps)
+    # Events around each launch alone: the device time without the
+    # wrapper's host work, which sets `ms` at a small shape.
+    cuda_build.LAUNCH_EVENTS = []
+    for _ in range(reps):
+        vso.vs_scores(*args)
+    torch.cuda.synchronize()
+    events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
+    launch_ms = sum(s.elapsed_time(e) for _, s, e in events) / len(events)
+    vso.vs_scores_plain(*args)
+    plain_ms = time_ms(lambda: vso.vs_scores_plain(*args), reps=1)
+    vectors = int(lengths.clamp(0, L).long().sum())
+    nbytes = vectors * D * 4 + n * 4 + A * D * 4 + A + n * A * 4
+    flops = 2 * vectors * D * (A + 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / SCALAR_OPS_PER_S * 1e3
+    return {
+        "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "detail": f"{nbytes} bytes -> {bytes_ms:.4f} ms, {flops} FLOPs -> "
+                  f"{ops_ms:.4f} ms", "shape": f"n={n}, L={L}, D={D}, A={A}, "
+                  f"{vectors} real vectors",
+    }
 
 
 if __name__ == "__main__":

@@ -36,9 +36,27 @@ with its default implementations, which config.json records. It holds:
                  scores and predictions on 1024 fresh rows drawn with
                  numpy RandomState(1).
 
+Training fixture `train_vs/`: the JAX package trains its GBT at the
+default vector-sequence anchor counts (16 closer-than, 16
+projected-more-than per tree) on chip_smoke.make_vs_data (200,000 rows:
+a sequence column "seq" of up to 16 vectors of 16, four noise columns,
+numpy RandomState(0)), 20 trees, depth 6, no validation split, on the
+CPU. It holds:
+
+  config.json    the configuration (rows, the generator's constants,
+                 learner arguments, seeds), the JAX version, its
+                 jax_threefry_partitionable flag and the implementations
+                 used, the classes;
+  model.json, forest.npz  the JAX package's saved model (the serving
+                 fixture; forest.npz carries each tree's anchors);
+  expected.npz   initial prediction, per-iteration train loss, and raw
+                 scores and predictions on 1024 fresh rows
+                 (make_vs_data with seed 1: missing and empty sequences
+                 included).
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
-(~2 minutes on a CPU; `--only train_bench` or `--only serving` for one
-part).
+(~4 minutes on a CPU; `--only train_bench`, `--only train_vs` or
+`--only serving` for one part).
 """
 
 import os
@@ -155,6 +173,65 @@ def write_train_bench():
           f"{out['jax_impls']}")
 
 
+TRAIN_VS = dict(
+    rows=200_000, data_seed=0, request_rows=1024, request_seed=1,
+    learner=dict(label="label", num_trees=20, max_depth=6,
+                 validation_ratio=0.0, early_stopping="NONE"),
+)
+
+
+def write_train_vs():
+    import json
+
+    import jax
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.ops.histogram import resolve_hist_impl, resolve_hist_quant
+    from ydf_tpu.ops.routing_native import (
+        resolve_route_impl,
+        update_uses_fma,
+    )
+
+    cfg = dict(TRAIN_VS)
+    cfg["generator"] = dict(max_len=chip_smoke.VS_MAX_LEN,
+                            dim=chip_smoke.VS_DIM, noise=chip_smoke.VS_NOISE,
+                            radius=chip_smoke.VS_RADIUS)
+    d = os.path.join(OUT, "train_vs")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    data = chip_smoke.make_vs_data(cfg["rows"], seed=cfg["data_seed"])
+    m = ydf.GradientBoostedTreesLearner(**cfg["learner"]).train(data)
+    m.save(d)
+    req = chip_smoke.make_vs_data(cfg["request_rows"],
+                                  seed=cfg["request_seed"])
+    del req["label"]
+    out = dict(cfg)
+    out["jax_impls"] = {
+        "hist_impl": resolve_hist_impl("auto"),
+        "hist_quant": resolve_hist_quant(None),
+        "route_impl": resolve_route_impl(None),
+        "update_uses_fma": bool(update_uses_fma()),
+        "vs_scores": "xla",
+    }
+    out["jax_version"] = jax.__version__
+    out["jax_threefry_partitionable"] = bool(
+        jax.config.jax_threefry_partitionable)
+    out["classes"] = m.classes
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    np.savez_compressed(
+        os.path.join(d, "expected.npz"),
+        initial_predictions=np.asarray(m.initial_predictions, np.float32),
+        train_loss=np.asarray(m.training_logs["train_loss"], np.float32),
+        raw=m._raw_scores(req, combine="sum")[:, 0],
+        predictions=m.predict(req),
+    )
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"train_vs: {m.num_trees()} trees, {size} bytes, "
+          f"{out['jax_impls']}")
+
+
 def main():
     import jax
 
@@ -163,6 +240,8 @@ def main():
         "--only" in sys.argv) else None
     if only in (None, "train_bench"):
         write_train_bench()
+    if only in (None, "train_vs"):
+        write_train_vs()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

@@ -283,6 +283,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "from ydf_tpu_torch.serving import registry\n"
         "from ydf_tpu_torch.learners import gbt\n"
         "from ydf_tpu_torch.ops import grower, histogram_kernels, binning\n"
+        "from ydf_tpu_torch.ops import vector_sequence\n"
+        "from ydf_tpu_torch.utils import prng\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ydf_tpu')]\n"
         "print(bad)\n"

@@ -6,8 +6,10 @@ Numerical and boolean columns: missing values impute to the column mean;
 bin(v) = #{b : boundary_b <= v}, so "bin <= t" is "v < boundary_t". A
 column with at most num_bins - 1 distinct values gets the midpoints
 between them as boundaries (exact split search); otherwise deduplicated
-quantiles of a fixed-seed 200k-row sample. Fitting other column types
-raises NotImplementedError (categorical, set and vector-sequence
+quantiles of a fixed-seed 200k-row sample. NUMERICAL_VECTOR_SEQUENCE
+columns are not binned: the binner records their names, vector lengths
+and longest sequence, and `transform_vs` pads them densely. Fitting
+other column types raises NotImplementedError (categorical and set
 features wait for ROADMAP Queue 1 item 14); serving reads any saved
 Binner.
 
@@ -16,7 +18,8 @@ boundaries are bitwise equal to its own. `transform` bins on the device:
 through csrc/binning.cu on a card, through its plain version on the
 CPU.
 
-Feature order is [numericals..., categoricals..., sets...].
+Feature order is [numericals..., categoricals..., sets...]; vector
+sequences are kept apart (vs_names).
 """
 
 from __future__ import annotations
@@ -88,6 +91,11 @@ class Binner:
         return len(self.vs_names)
 
     @property
+    def vs_dim(self) -> int:
+        """Common (max) vector length of the padded encoding."""
+        return max(self.vs_dims, default=0)
+
+    @property
     def num_features(self) -> int:
         return len(self.feature_names)
 
@@ -150,27 +158,35 @@ class Binner:
                 f"num_bins must be a multiple of 32 (packed category "
                 f"masks), got {num_bins}"
             )
+        vs_type = ColumnType.NUMERICAL_VECTOR_SEQUENCE
+        numericals = [f for f in features
+                      if spec.column_by_name(f).type in _NUMERICAL_LIKE]
+        vs = [f for f in features if spec.column_by_name(f).type == vs_type]
         unported = [f for f in features
-                    if spec.column_by_name(f).type not in _NUMERICAL_LIKE]
+                    if f not in numericals and f not in vs]
         if unported:
             raise NotImplementedError(
-                f"feature columns {unported}: categorical, set and "
-                "vector-sequence input features are not ported yet "
-                "(ROADMAP Queue 1 item 14)"
+                f"feature columns {unported}: categorical and set input "
+                "features are not ported yet (ROADMAP Queue 1 item 14)"
             )
-        F = len(features)
+        F = len(numericals)
         boundaries = np.full((F, num_bins - 1), np.inf, dtype=np.float32)
         impute = np.zeros((F,), dtype=np.float32)
         fnb = np.ones((F,), dtype=np.int32)
-        for i, name in enumerate(features):
+        for i, name in enumerate(numericals):
             b = column_boundaries(name)
             boundaries[i, : len(b)] = b
             impute[i] = np.float32(spec.column_by_name(name).mean)
             fnb[i] = len(b) + 1
         return Binner(
-            feature_names=list(features), num_numerical=F,
+            feature_names=numericals, num_numerical=F,
             num_bins=num_bins, boundaries=boundaries, impute_values=impute,
-            feature_num_bins=fnb,
+            feature_num_bins=fnb, vs_names=vs,
+            vs_dims=[spec.column_by_name(f).vector_length for f in vs],
+            vs_max_len=max(
+                (max(spec.column_by_name(f).max_num_vectors, 1) for f in vs),
+                default=0,
+            ),
         )
 
     def transform(self, dataset, device) -> torch.Tensor:
@@ -192,6 +208,36 @@ class Binner:
             torch.from_numpy(self.feature_num_bins - 1).to(device),
             torch.from_numpy(self.impute_values).to(device),
         )
+
+    def transform_vs(self, dataset):
+        """Dense padded vector sequences, or None without VS features
+        (counterpart of the JAX package's Binner.transform_vs): (values
+        f32 [n, Fv, L, D], lengths i32 [n, Fv], missing bool [n, Fv])
+        numpy, L the larger of the training-time longest sequence and
+        this batch's, D the largest vector length. Missing cells encode
+        as empty sequences; a column absent from `dataset` is missing."""
+        if self.num_vs == 0:
+            return None
+        n = dataset.num_rows
+        cells = {}
+        batch_max = 0
+        for name in self.vs_names:
+            if dataset.dataspec.has_column(name) and name in dataset.data:
+                cells[name] = dataset.vector_sequence_cells(name)
+                batch_max = max([batch_max] + [
+                    c.shape[0] for c in cells[name] if c is not None])
+        L, D = max(self.vs_max_len, batch_max), self.vs_dim
+        values = np.zeros((n, self.num_vs, L, D), np.float32)
+        lengths = np.zeros((n, self.num_vs), np.int32)
+        missing = np.zeros((n, self.num_vs), bool)
+        for j, name in enumerate(self.vs_names):
+            if name in cells:
+                v, ln, m = dataset.encoded_vector_sequence(
+                    name, max_len=L, dim=D, cells=cells[name])
+                values[:, j], lengths[:, j], missing[:, j] = v, ln, m
+            else:
+                missing[:, j] = True
+        return values, lengths, missing
 
     def to_json(self) -> Dict:
         return {

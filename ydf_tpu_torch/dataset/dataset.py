@@ -18,6 +18,7 @@ from ydf_tpu_torch.dataset.dataspec import (
     column_array,
     infer_dataspec,
     is_missing_item,
+    vector_sequence_cell,
 )
 
 InputData = Union["Dataset", Dict[str, Any], "pandas.DataFrame"]  # noqa: F821
@@ -151,3 +152,35 @@ class Dataset:
             codes = np.array([code(v) for v in uniq.tolist()], np.int32)
             return codes[inv.reshape(raw.shape)]
         return np.array([code(v) for v in raw.tolist()], dtype=np.int32)
+
+    def vector_sequence_cells(self, name: str) -> List[Optional[np.ndarray]]:
+        """The column's cells as float32 [L, D] arrays, None if missing."""
+        return [vector_sequence_cell(v) for v in self.data[name].tolist()]
+
+    def encoded_vector_sequence(
+        self, name: str, max_len: int = 0, dim: int = 0,
+        cells: Optional[List[Optional[np.ndarray]]] = None,
+    ) -> tuple:
+        """NUMERICAL_VECTOR_SEQUENCE cells -> (values f32 [n, Lmax, D]
+        zero-padded, lengths i32 [n], missing bool [n]) (counterpart of
+        the JAX package's Dataset.encoded_vector_sequence). Missing cells
+        encode as empty with the missing flag set; sequences longer than
+        `max_len`, when given, are truncated. `cells` reuses a
+        vector_sequence_cells() result."""
+        col = self.dataspec.column_by_name(name)
+        D = dim or col.vector_length
+        if cells is None:
+            cells = self.vector_sequence_cells(name)
+        n = len(cells)
+        lengths = np.array(
+            [0 if c is None else c.shape[0] for c in cells], np.int32
+        )
+        Lmax = max_len or max(int(lengths.max(initial=0)), 1)
+        lengths = np.minimum(lengths, Lmax)
+        values = np.zeros((n, Lmax, D), np.float32)
+        for e, c in enumerate(cells):
+            if c is not None and c.size:
+                L = min(c.shape[0], Lmax)
+                values[e, :L, : c.shape[1]] = c[:L, :D]
+        missing = np.array([c is None for c in cells], bool)
+        return values, lengths, missing

@@ -1,8 +1,12 @@
-"""Column schema ("dataspec") and its inference for numerical, boolean
-and categorical columns (counterpart of ydf_tpu/dataset/dataspec.py).
+"""Column schema ("dataspec") and its inference for numerical, boolean,
+categorical and numerical-vector-sequence columns (counterpart of
+ydf_tpu/dataset/dataspec.py).
 
 Categorical dictionaries reserve index 0 for out-of-vocabulary items;
-missing numericals are imputed with the column mean.
+missing numericals are imputed with the column mean. A
+NUMERICAL_VECTOR_SEQUENCE cell is a [num_vectors, dim] array (a list of
+numeric vectors, or one vector); None or NaN is missing, and an empty
+sequence is a value, distinct from missing.
 """
 
 from __future__ import annotations
@@ -111,10 +115,14 @@ def infer_column(
     force_type: Optional[ColumnType] = None,
 ) -> Column:
     """One column's type and statistics (counterpart of
-    ydf_tpu/dataset/dataspec.py:infer_column) for the types the training
-    slice takes: NUMERICAL and BOOLEAN columns (mean, min, max, counts)
-    and CATEGORICAL ones (frequency-sorted dictionary, OOV at index 0).
-    Other types raise NotImplementedError."""
+    ydf_tpu/dataset/dataspec.py:infer_column) for the types the port
+    takes: NUMERICAL and BOOLEAN columns (mean, min, max, counts),
+    CATEGORICAL ones (frequency-sorted dictionary, OOV at index 0) and
+    NUMERICAL_VECTOR_SEQUENCE ones (vector length, min and max sequence
+    length, value and missing counts). An object column of nested cells
+    is a NUMERICAL_VECTOR_SEQUENCE when one of its first 100 cells is a
+    sequence of numeric vectors, else a CATEGORICAL_SET. Other types
+    raise NotImplementedError."""
     values = np.asarray(values)
     if values.ndim != 1:
         raise ValueError(
@@ -130,7 +138,13 @@ def infer_column(
             isinstance(v, (list, tuple, np.ndarray, set, frozenset))
             for v in values[: min(len(values), 100)].tolist()
         ):
+            # Nested sequences of numeric vectors: NUMERICAL_VECTOR_SEQUENCE;
+            # flat item collections: CATEGORICAL_SET.
             ctype = ColumnType.CATEGORICAL_SET
+            for v in values[: min(len(values), 100)].tolist():
+                if _is_vector_sequence_cell(v):
+                    ctype = ColumnType.NUMERICAL_VECTOR_SEQUENCE
+                    break
         else:
             ctype = ColumnType.CATEGORICAL
 
@@ -182,10 +196,70 @@ def infer_column(
             + [int(c) for c in kept_counts],
             num_values=int(counts.sum()), num_missing=int(missing.sum()),
         )
+    if ctype == ColumnType.NUMERICAL_VECTOR_SEQUENCE:
+        vector_length = num_missing = count_values = max_nv = 0
+        min_nv = None
+        for v in values.tolist():
+            seq = vector_sequence_cell(v)
+            if seq is None:
+                num_missing += 1
+                continue
+            if seq.size:
+                if vector_length == 0:
+                    vector_length = seq.shape[1]
+                elif seq.shape[1] != vector_length:
+                    raise ValueError(
+                        f"Column {name!r}: inconsistent vector lengths "
+                        f"{vector_length} vs {seq.shape[1]}"
+                    )
+            count_values += int(seq.size)
+            min_nv = (seq.shape[0] if min_nv is None
+                      else min(min_nv, seq.shape[0]))
+            max_nv = max(max_nv, seq.shape[0])
+        return Column(
+            name=name, type=ctype, vector_length=vector_length,
+            min_num_vectors=int(min_nv or 0), max_num_vectors=int(max_nv),
+            num_values=count_values, num_missing=num_missing,
+        )
     raise NotImplementedError(
         f"column {name!r}: type {ctype.value} is not ported yet "
         "(ROADMAP Queue 1 item 14)"
     )
+
+
+def _is_vector_sequence_cell(v: Any) -> bool:
+    """Is this raw cell a sequence of numeric vectors (not a flat item
+    set)?"""
+    if isinstance(v, np.ndarray):
+        return v.ndim == 2
+    if isinstance(v, (list, tuple)) and len(v):
+        first = v[0]
+        if isinstance(first, np.ndarray):
+            return first.ndim == 1 and first.dtype.kind in "fiu"
+        return isinstance(first, (list, tuple)) and len(first) > 0 and all(
+            isinstance(x, (int, float, np.floating, np.integer))
+            for x in first
+        )
+    return False
+
+
+def vector_sequence_cell(v: Any) -> Optional[np.ndarray]:
+    """One raw NUMERICAL_VECTOR_SEQUENCE cell -> float32 [L, D], None if
+    missing. An empty sequence ([] or shape (0, D)) is a value; a single
+    vector is a sequence of length 1."""
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return None
+    arr = np.asarray(v, dtype=np.float32)
+    if arr.size == 0:
+        return arr.reshape(0, arr.shape[1] if arr.ndim == 2 else 0)
+    if arr.ndim == 1:
+        arr = arr[None, :]
+    if arr.ndim != 2:
+        raise ValueError(
+            f"Vector-sequence cell must be [num_vectors, dim], got shape "
+            f"{arr.shape}"
+        )
+    return arr
 
 
 def infer_dataspec(

@@ -15,6 +15,23 @@ prediction update. The whole loop stays on the device: the trees, leaf
 values and losses are collected as device tensors and read back once
 after the last tree.
 
+NUMERICAL_VECTOR_SEQUENCE features (the JAX package's per-tree anchor
+candidates, gbt.py:1312-1383): every tree draws, for each VS feature,
+num_anchors closer-than anchors (vectors drawn from the data) and as many
+projected-more-than anchors (differences of two drawn vectors), scores
+every example against them (ops/vector_sequence.py, csrc/
+vector_sequence.cu on a card), and bins the scores at their quantiles
+into candidate columns inserted after the numerical features. The draws
+follow the JAX package's key chain bit for bit (utils/prng.py):
+PRNGKey(seed); per iteration key, k_sub = split(fold_in(key, it)) and
+key, k_vs = split(key); per feature split(fold_in(k_vs, fv), A); per
+anchor k1, k2 = split(k), a row choice(k1, n, p) uniform over non-empty
+sequences and a vector randint(k2, 0, max(len, 1)). The random words
+depend on the seed alone, so they are drawn for every tree at once
+before the loop (one copy to the device); the data-dependent steps (the
+row and vector from those words, the scores, quantiles and bins) run on
+the device inside it.
+
 Prediction update: preds + raw * shrinkage as ONE rounding (a fused
 multiply-add), what the JAX package computes on an x86 host whose XLA
 contracts the multiply into the add (ydf_tpu/ops/routing_native.py:
@@ -32,7 +49,7 @@ take.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +63,8 @@ from ydf_tpu_torch.models.forest import forest_from_stacked_trees
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
 from ydf_tpu_torch.ops import grower
 from ydf_tpu_torch.ops.split_rules import HessianGainRule
+from ydf_tpu_torch.ops.vector_sequence import vs_scores
+from ydf_tpu_torch.utils import prng
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -62,9 +81,10 @@ def fma_update(preds: torch.Tensor, raw: torch.Tensor,
 
 
 class GradientBoostedTreesLearner(GenericLearner):
-    """The JAX package's learner surface for the training slice: binary
+    """The JAX package's learner surface for the training slices: binary
     classification (binomial loss) and regression (squared error) on
-    numerical and boolean features, no validation split."""
+    numerical, boolean and numerical-vector-sequence features, no
+    validation split."""
 
     def __init__(
         self,
@@ -86,6 +106,9 @@ class GradientBoostedTreesLearner(GenericLearner):
         apply_link_function: bool = True,
         dart_dropout: float = 0.0,
         split_axis: str = "AXIS_ALIGNED",
+        numerical_vector_sequence_num_anchors: int = 16,
+        numerical_vector_sequence_enable_closer_than: bool = True,
+        numerical_vector_sequence_enable_projected_more_than: bool = True,
         monotonic_constraints: Optional[dict] = None,
         features: Optional[Sequence[str]] = None,
         weights: Optional[str] = None,
@@ -131,6 +154,22 @@ class GradientBoostedTreesLearner(GenericLearner):
         self.loss = loss
         self.max_frontier = max_frontier
         self.apply_link_function = apply_link_function
+        # Anchors per kind per (tree, VS feature) (reference
+        # decision_tree.proto numerical_vector_sequence, :433-442).
+        self.numerical_vector_sequence_num_anchors = (
+            numerical_vector_sequence_num_anchors)
+        self.numerical_vector_sequence_enable_closer_than = (
+            numerical_vector_sequence_enable_closer_than)
+        self.numerical_vector_sequence_enable_projected_more_than = (
+            numerical_vector_sequence_enable_projected_more_than)
+
+    def _vs_anchor_counts(self):
+        """(closer-than, projected-more-than) anchors per VS feature."""
+        k = self.numerical_vector_sequence_num_anchors
+        return (k if self.numerical_vector_sequence_enable_closer_than
+                else 0,
+                k if self.numerical_vector_sequence_enable_projected_more_than
+                else 0)
 
     def train(self, data: InputData) -> GradientBoostedTreesModel:
         t0 = time.perf_counter()
@@ -152,15 +191,22 @@ class GradientBoostedTreesLearner(GenericLearner):
         bins_t = prep["bins"].t().contiguous()
         labels = torch.from_numpy(prep["labels"].astype(np.float32)).to(dev)
         weights = torch.from_numpy(prep["sample_weights"]).to(dev)
+        Ac, Ap = self._vs_anchor_counts()
+        vs = None
+        if prep["vs"] is not None and Ac + Ap > 0:
+            vs = vs_inputs(prep["vs"], Ac, Ap, dev)
 
         t1 = time.perf_counter()
-        trees, leaf_values, losses, init_pred = boost(
+        trees, leaf_values, losses, init_pred, vs_out = boost(
             bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
             tree_cfg=tree_cfg, num_trees=self.num_trees,
-            shrinkage=self.shrinkage,
+            shrinkage=self.shrinkage, seed=self.random_seed, vs=vs,
         )
+        kwargs = {}
+        if vs is not None:
+            kwargs = forest_vs_kwargs(vs, *vs_out)
         forest = forest_from_stacked_trees(trees, leaf_values,
-                                           binner.boundaries)
+                                           binner.boundaries, **kwargs)
         train_losses = losses.cpu().numpy()
         t2 = time.perf_counter()
         self.last_timings["boost_s"] = t2 - t1
@@ -183,16 +229,132 @@ class GradientBoostedTreesLearner(GenericLearner):
         return model
 
 
+class VSInputs(NamedTuple):
+    """The vector-sequence features on the training device."""
+
+    values: List[torch.Tensor]   # per VS feature f32 [n, L, D]
+    lengths: List[torch.Tensor]  # per VS feature i32 [n]
+    p_cuml: List[torch.Tensor]   # per VS feature f32 [n]: cumsum of the
+                                 # row-choice probabilities
+    num_closer: int              # Ac anchors per feature
+    num_projected: int           # Ap anchors per feature
+
+    @property
+    def anchors_per_feature(self) -> int:
+        return self.num_closer + self.num_projected
+
+    @property
+    def is_closer(self) -> torch.Tensor:
+        """bool [Ac + Ap]: one feature's anchor kinds."""
+        A = self.anchors_per_feature
+        return torch.arange(A, device=self.values[0].device) < self.num_closer
+
+
+def vs_inputs(vs, num_closer: int, num_projected: int, device) -> VSInputs:
+    """Binner.transform_vs's (values [n, Fv, L, D], lengths [n, Fv], _)
+    on `device`, one contiguous tensor per feature, and each feature's
+    cumulative row-choice probabilities: uniform over the non-empty
+    sequences (the reference's rejection loop, vector_sequence.cc:
+    255-276), or over all rows when every sequence is empty."""
+    values, lengths, _ = vs
+    n = values.shape[0]
+    vals, lens, cums = [], [], []
+    for fv in range(values.shape[1]):
+        v = torch.from_numpy(np.ascontiguousarray(values[:, fv])).to(device)
+        ln = torch.from_numpy(np.ascontiguousarray(lengths[:, fv])).to(device)
+        ne = (ln > 0).float()
+        tot = ne.sum()
+        p = torch.where(tot > 0, ne / torch.clamp_min(tot, 1.0), 1.0 / n)
+        vals.append(v)
+        lens.append(ln)
+        cums.append(prng.cumsum_f32(p))
+    return VSInputs(vals, lens, cums, num_closer, num_projected)
+
+
+def vs_draws(seed: int, num_trees: int, num_vs: int, num_draws: int,
+             device) -> Dict[str, torch.Tensor]:
+    """The random words of every tree's anchor draws, [T, Fv, A3] each
+    with A3 = num_draws = Ac + 2 Ap vector draws per feature: the key
+    chain of the module docstring, run on the CPU (a few hundred tiny
+    operations per tree) and copied to `device` once. "u" is choice's
+    uniform (f32), "hi" and "lo" randint's two words."""
+    key = prng.prng_key(seed)
+    k_vs = []
+    for it in range(num_trees):
+        key = prng.split(prng.fold_in(key, it))[0]  # (key, k_sub)
+        key, k = prng.split(key)                    # (key, k_vs)
+        k_vs.append(k)
+    kf = prng.fold_in(torch.stack(k_vs)[:, None, :],
+                      torch.arange(num_vs)[None, :])      # [T, Fv, 2]
+    pair = prng.split(prng.split(kf, num_draws))        # [T, Fv, A3, 2, 2]
+    hi, lo = prng.randint_bits(pair[..., 1, :])
+    return {"u": prng.uniform(pair[..., 0, :]).to(device),
+            "hi": hi.to(device), "lo": lo.to(device)}
+
+
+def make_vs_projections(vs: VSInputs, draws: Dict[str, torch.Tensor],
+                        qs: torch.Tensor):
+    """One tree's anchor candidates (counterpart of the JAX package's
+    make_vs_projections): anchors f32 [Pv, D], bin boundaries f32
+    [Pv, B-1] and candidate bins u8 [Pv, n] feature-major, Pv = Fv * A.
+    `draws` holds this tree's words [Fv, A3]; qs the B-1 quantiles."""
+    Ac, Ap = vs.num_closer, vs.num_projected
+    closer = vs.is_closer
+    anchors, bounds, cols = [], [], []
+    for fv, (vals, lens) in enumerate(zip(vs.values, vs.lengths)):
+        idx = prng.choice_from_uniform(vs.p_cuml[fv], draws["u"][fv]).long()
+        li = prng.randint_from_bits(draws["hi"][fv], draws["lo"][fv], 0,
+                                    torch.clamp_min(lens[idx], 1)).long()
+        drawn = vals[idx, li]  # [A3, D]
+        parts = [drawn[:Ac]]
+        if Ap:
+            parts.append(drawn[Ac:Ac + Ap] - drawn[Ac + Ap:])
+        anchors_f = torch.cat(parts).contiguous()
+        scores = vs_scores(vals, lens, anchors_f, closer)  # [n, A]
+        bnd = torch.clamp_min(
+            prng.quantile_linear(scores, qs, dim=0).t(), -1e29)
+        # Empty sequences (-FLT_MAX) stay strictly below every threshold.
+        cols.append(prng.searchsorted_scan(
+            bnd.contiguous(), scores.t().contiguous(), right=True
+        ).to(torch.uint8))
+        anchors.append(anchors_f)
+        bounds.append(bnd)
+    return torch.cat(anchors), torch.cat(bounds), torch.cat(cols)
+
+
+def forest_vs_kwargs(vs: VSInputs, anchors: torch.Tensor,
+                     bounds: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """forest_from_stacked_trees' VS block from the per-tree anchors
+    [T, Pv, D] and boundaries [T, Pv, B-1]: each anchor's feature and
+    kind, the layout of make_vs_projections."""
+    T, Pv = anchors.shape[:2]
+    A = vs.anchors_per_feature
+    dev = anchors.device
+    feat = torch.arange(Pv // A, dtype=torch.int32, device=dev)
+    return {
+        "vs_anchors": anchors, "vs_boundaries": bounds,
+        "vs_feat": feat.repeat_interleave(A)[None].expand(T, Pv),
+        "vs_is_closer": vs.is_closer.repeat(Pv // A)[None].expand(T, Pv),
+    }
+
+
 def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
           *, loss_obj, rule, tree_cfg: TreeConfig, num_trees: int,
-          shrinkage: float, hist_quant: str = "f32"):
+          shrinkage: float, seed: int = 123456,
+          vs: Optional[VSInputs] = None, hist_quant: str = "f32"):
     """The boosting loop on the device of `bins_t` (u8 [F, n]): returns
     (stacked TreeArrays [T, ...], leaf values f32 [T, N, 1], train loss
-    f32 [T], initial prediction f32 [1]), all on that device. On a card
-    the loop runs under torch's sync debug mode "error": no host sync
-    happens inside it."""
+    f32 [T], initial prediction f32 [1], VS block), all on that device;
+    the VS block is (anchors [T, Pv, D], boundaries [T, Pv, B-1]), or
+    None without `vs`. On a card the loop runs under torch's sync debug
+    mode "error": no host sync happens inside it."""
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
+    draws = None
+    if vs is not None:
+        draws = vs_draws(seed, num_trees, len(vs.values),
+                         vs.num_closer + 2 * vs.num_projected,
+                         bins_t.device)
     on_card = bins_t.device.type == "cuda"
     if on_card:
         # The loop must never wait on the card: any synchronizing call
@@ -202,24 +364,38 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
     try:
         return _boost(bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
                       tree_cfg=tree_cfg, num_trees=num_trees,
-                      shrinkage=shrinkage, hist_quant=hist_quant)
+                      shrinkage=shrinkage, hist_quant=hist_quant, vs=vs,
+                      draws=draws)
     finally:
         if on_card:
             torch.cuda.set_sync_debug_mode(prev_mode)
 
 
 def _boost(bins_t, labels, weights, *, loss_obj, rule, tree_cfg, num_trees,
-           shrinkage, hist_quant):
+           shrinkage, hist_quant, vs, draws):
     n = bins_t.shape[1]
+    B = tree_cfg.num_bins
     init_pred = loss_obj.initial_predictions(labels, weights)
     preds = init_pred.expand(n).contiguous()
-    trees, leaf_values, losses = [], [], []
-    for _ in range(num_trees):
+    trees, leaf_values, losses, vs_anchors, vs_bounds = [], [], [], [], []
+    if vs is not None:
+        qs = prng.linspace_f32(1.0 / B, 1.0 - 1.0 / B, B - 1,
+                               device=bins_t.device)
+    for it in range(num_trees):
         g, h = loss_obj.grad_hess(labels, preds)
         # w_eff = w * 1: sampling at subsample 1.0 keeps every row.
         stats = torch.stack([g * weights, h * weights, weights], dim=1)
+        grow_bins = bins_t
+        if vs is not None:
+            # The anchor columns go after the numerical features: [num,
+            # vs] (no categorical features in this slice).
+            anchors, bounds, cols = make_vs_projections(
+                vs, {k: v[it] for k, v in draws.items()}, qs)
+            grow_bins = torch.cat([bins_t, cols])
+            vs_anchors.append(anchors)
+            vs_bounds.append(bounds)
         res = grower.grow_tree(
-            bins_t, stats, rule=rule, max_depth=tree_cfg.max_depth,
+            grow_bins, stats, rule=rule, max_depth=tree_cfg.max_depth,
             frontier=tree_cfg.frontier, max_nodes=tree_cfg.max_nodes,
             num_bins=tree_cfg.num_bins, min_examples=tree_cfg.min_examples,
             hist_quant=hist_quant,
@@ -231,4 +407,8 @@ def _boost(bins_t, labels, weights, *, loss_obj, rule, tree_cfg, num_trees,
         losses.append(loss_obj.loss(labels, preds, weights))
     stacked = grower.TreeArrays(*(torch.stack(field)
                                   for field in zip(*trees)))
-    return stacked, torch.stack(leaf_values), torch.stack(losses), init_pred
+    vs_out = None
+    if vs is not None:
+        vs_out = (torch.stack(vs_anchors), torch.stack(vs_bounds))
+    return (stacked, torch.stack(leaf_values), torch.stack(losses),
+            init_pred, vs_out)

@@ -2,9 +2,10 @@
 _infer_dataset, _select_feature_names, _prepare): dataset ingestion and
 dataspec inference, feature selection, binning and label encoding.
 
-Scope of the training slice: in-memory data (a dict of arrays, a pandas
+Scope of the training slices: in-memory data (a dict of arrays, a pandas
 DataFrame or a ydf_tpu_torch Dataset), no dataset cache, no validation
-data.
+data. The one learner, gradient boosted trees, also takes
+NUMERICAL_VECTOR_SEQUENCE features.
 """
 
 from __future__ import annotations
@@ -81,7 +82,8 @@ class GenericLearner:
 
     def _prepare(self, data: InputData) -> Dict:
         """Dataset, fitted binner, bins u8 [n, F] on the learner's device,
-        encoded labels and weights (numpy)."""
+        the padded vector sequences (Binner.transform_vs, numpy; None
+        without such features), encoded labels and weights (numpy)."""
         t0 = time.perf_counter()
         ds = self._infer_dataset(data)
         features = self._select_feature_names(ds)
@@ -94,7 +96,9 @@ class GenericLearner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t3 = time.perf_counter()
-        out = {"dataset": ds, "binner": binner, "bins": bins}
+        vs = binner.transform_vs(ds)
+        t4 = time.perf_counter()
+        out = {"dataset": ds, "binner": binner, "bins": bins, "vs": vs}
         if self.label is not None:
             out["labels"] = ds.encoded_label(self.label, self.task)
             if self.task == Task.CLASSIFICATION:
@@ -105,8 +109,9 @@ class GenericLearner:
             else np.ones((ds.num_rows,), np.float32)
         )
         self.last_timings = {
-            "ingest_s": t1 - t0 + time.perf_counter() - t3,
+            "ingest_s": t1 - t0 + time.perf_counter() - t4,
             "bin_fit_s": t2 - t1,
             "bin_transform_s": t3 - t2,
+            "vs_encode_s": t4 - t3,
         }
         return out

@@ -89,14 +89,34 @@ class Forest(NamedTuple):
         return Forest(**{f: tensor(d[f]) for f in Forest._fields})
 
 
+def _per_tree_block_thresholds(feature: torch.Tensor, tbin: torch.Tensor,
+                               block_bnd: torch.Tensor,
+                               lo: int) -> torch.Tensor:
+    """Thresholds of nodes whose feature lies in a per-tree projection
+    block starting at index `lo`: block_bnd [T, P, B-1] holds each
+    tree's cutpoints per projection."""
+    p_safe = (feature.long() - lo).clamp(0, max(block_bnd.shape[1] - 1, 0))
+    t_safe = tbin.long().clamp(0, block_bnd.shape[2] - 1)
+    rows = torch.gather(
+        block_bnd, 1,
+        p_safe[:, :, None].expand(-1, -1, block_bnd.shape[2]))
+    return torch.gather(rows, 2, t_safe[:, :, None])[:, :, 0]
+
+
 def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
-                              boundaries: np.ndarray) -> Forest:
+                              boundaries: np.ndarray, vs_anchors=None,
+                              vs_boundaries=None, vs_feat=None,
+                              vs_is_closer=None) -> Forest:
     """Stacked tree arrays (ops/grower.py:TreeArrays with a leading tree
     axis) + leaf values [T, N, V] -> Forest, on the trees' device
     (counterpart of ydf_tpu/models/forest.py:forest_from_stacked_trees
-    for numerical trees). Value thresholds are
+    without oblique projections). Value thresholds are
     boundaries[feature, threshold_bin]: "bin <= t" is
-    "v < boundaries[t]"; cover is the weighted example count."""
+    "v < boundaries[t]"; cover is the weighted example count.
+    Vector-sequence anchors occupy the feature block [F, F + Pv) after
+    the F binned features: `vs_anchors` [T, Pv, D], `vs_boundaries`
+    [T, Pv, B-1] (those nodes' thresholds), `vs_feat` [T, Pv] and
+    `vs_is_closer` [T, Pv]."""
     feature = stacked.feature
     tbin = stacked.threshold_bin
     dev = feature.device
@@ -110,6 +130,18 @@ def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
         t_safe = tbin.long().clamp(0, bnd.shape[1] - 1)
         threshold = bnd[f_safe, t_safe]
     empty = torch.zeros((T, 0, 0), dtype=torch.float32, device=dev)
+    if vs_anchors is None:
+        vs_anchors = empty
+        vs_feat = torch.zeros((T, 0), dtype=torch.int32, device=dev)
+        vs_is_closer = torch.zeros((T, 0), dtype=torch.bool, device=dev)
+    else:
+        F = bnd.shape[0]
+        threshold = torch.where(
+            feature >= F,
+            _per_tree_block_thresholds(feature, tbin, vs_boundaries, F),
+            threshold)
+        vs_feat = vs_feat.to(torch.int32)
+        vs_is_closer = vs_is_closer.to(torch.bool)
     return Forest(
         feature=feature, threshold=threshold, threshold_bin=tbin,
         is_cat=stacked.is_cat, is_set=stacked.is_set,
@@ -117,8 +149,7 @@ def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
         is_leaf=stacked.is_leaf,
         na_left=torch.zeros((T, N), dtype=torch.bool, device=dev),
         leaf_value=leaf_value, cover=stacked.leaf_stats[..., -1],
-        oblique_weights=empty, oblique_na_repl=empty, vs_anchor=empty,
-        vs_feat=torch.zeros((T, 0), dtype=torch.int32, device=dev),
-        vs_is_closer=torch.zeros((T, 0), dtype=torch.bool, device=dev),
-        num_nodes=stacked.num_nodes,
+        oblique_weights=empty, oblique_na_repl=empty,
+        vs_anchor=vs_anchors.contiguous(), vs_feat=vs_feat.contiguous(),
+        vs_is_closer=vs_is_closer.contiguous(), num_nodes=stacked.num_nodes,
     )

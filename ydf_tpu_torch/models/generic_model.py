@@ -4,7 +4,10 @@ _raw_scores, _fast_engine, list_compatible_engines, force_engine).
 
 Raw columns are encoded on the host in numpy, exactly as the JAX package
 encodes them, then moved to the model's device; the engines take and
-return tensors there. Telemetry spans are not ported (ROADMAP Queue 1
+return tensors there. A model with NUMERICAL_VECTOR_SEQUENCE features is
+served by the routed engine (ops/routing.py), which scores each tree's
+anchors through csrc/vector_sequence.cu; the QuickScorer and bank
+engines refuse it, as the JAX package's do. Telemetry spans are not ported (ROADMAP Queue 1
 item 17).
 """
 
@@ -63,16 +66,12 @@ class GenericModel:
 
     def _encode_inputs(self, ds: Dataset):
         """Raw features → (x_num f32 [n, Fn] imputed, x_cat i32 [n, Fc])
-        numpy arrays."""
+        numpy arrays. Vector sequences are encoded apart
+        (Binner.transform_vs)."""
         b = self.binner
         if b.num_set > 0:
             raise NotImplementedError(
                 "categorical-set features are not ported yet "
-                "(ROADMAP Queue 1 item 9)"
-            )
-        if b.num_vs > 0:
-            raise NotImplementedError(
-                "vector-sequence features are not ported yet "
                 "(ROADMAP Queue 1 item 9)"
             )
         n = ds.num_rows
@@ -139,16 +138,25 @@ class GenericModel:
         """Raw (margin) scores f32 [n, V] as numpy."""
         ds = Dataset.from_data(data, dataspec=self.dataspec)
         x_num, x_cat = self._encode_inputs(ds)
+        vs = self.binner.transform_vs(ds)
         dev = self.device
         xn = torch.from_numpy(x_num).to(dev)
         xc = torch.from_numpy(x_cat).to(dev)
-        if combine == "sum" and not self.native_missing:
+        if combine == "sum" and not self.native_missing and vs is None:
             eng = self._fast_engine()
             if eng is not None:
                 return eng(xn, xc).cpu().numpy()[:, None]
+        vs_kwargs = {}
+        if vs is not None:
+            vs_kwargs = dict(
+                x_vs_vals=torch.from_numpy(vs[0]).to(dev),
+                x_vs_len=torch.from_numpy(vs[1]).to(dev),
+                vs_missing=(torch.from_numpy(vs[2]).to(dev)
+                            if self.native_missing else None),
+            )
         out = forest_predict_values(
             self.forest, xn, xc,
             num_numerical=self.binner.num_numerical,
-            max_depth=self.max_depth, combine=combine,
+            max_depth=self.max_depth, combine=combine, **vs_kwargs,
         )
         return out.cpu().numpy()

@@ -2,7 +2,9 @@
 
 Reads the JAX package's model directory — `model.json` (task, label,
 dataspec, binner, model-specific fields) and `forest.npz` (node arrays) —
-into the port's model on a torch device. The reference-format reader
+into the port's model on a torch device: the node arrays, each tree's
+vector-sequence anchors (vs_anchor, vs_feat, vs_is_closer) and the
+binner's vector-sequence fields included. The reference-format reader
 (ydf_format.py) and save_model are not ported (ROADMAP Queue 1 item 10).
 """
 

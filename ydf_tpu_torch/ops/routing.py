@@ -12,13 +12,15 @@ tree; each step reads the current node's condition and steps to a child;
 leaves self-loop. Trees are accumulated in order, one f32 add each, the
 order of the JAX package's `lax.scan`, so the sums are bit-identical.
 
-Numerical and categorical nodes only: categorical-set, oblique and
-vector-sequence nodes raise NotImplementedError (ROADMAP Queue 1 item 9).
+Numerical, categorical and vector-sequence nodes: a tree's anchors are
+scored once per tree (ops/vector_sequence.py, csrc/vector_sequence.cu on
+a card) before its depth loop reads them. Categorical-set and oblique
+nodes raise NotImplementedError (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -26,6 +28,7 @@ from ydf_tpu_torch.models.forest import Forest
 from ydf_tpu_torch.ops import histogram_kernels
 from ydf_tpu_torch.ops.histogram import finish
 from ydf_tpu_torch.ops.histogram_kernels import RouteTables
+from ydf_tpu_torch.ops.vector_sequence import vs_scores
 
 
 def _check_supported(forest: Forest) -> None:
@@ -38,11 +41,6 @@ def _check_supported(forest: Forest) -> None:
     if forest.oblique_weights.numel() > 0:
         raise NotImplementedError(
             "oblique routing is not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    if forest.vs_anchor.numel() > 0:
-        raise NotImplementedError(
-            "vector-sequence routing is not ported yet "
-            "(ROADMAP Queue 1 item 9)"
         )
 
 
@@ -59,6 +57,26 @@ def mask_bit_filled(words: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, ((word >> (bit & 31)) & 1) == 1, True)
 
 
+def vs_tree_projections(forest: Forest, t: int,
+                        x_vs_vals: List[torch.Tensor],
+                        x_vs_len: List[torch.Tensor]) -> torch.Tensor:
+    """Scores [n, Pv] of tree t's anchors (counterpart of the JAX
+    package's _vs_tree_projections): every VS feature is scored against
+    all of the tree's anchors, one kernel launch per feature, and each
+    anchor reads its own feature's column. x_vs_vals holds one f32
+    [n, L, D] tensor per VS feature, x_vs_len one i32 [n]."""
+    anchors = forest.vs_anchor[t].contiguous()
+    closer = forest.vs_is_closer[t].contiguous()
+    per_feat = torch.stack(
+        [vs_scores(v, ln, anchors, closer)
+         for v, ln in zip(x_vs_vals, x_vs_len)], dim=1)  # [n, Fv, Pv]
+    Fv = per_feat.shape[1]
+    fsel = forest.vs_feat[t].long().clamp(0, Fv - 1)
+    return torch.gather(
+        per_feat, 1, fsel[None, None, :].expand(per_feat.shape[0], 1, -1)
+    )[:, 0, :]
+
+
 def route_tree_values(
     forest: Forest,
     t: int,
@@ -66,11 +84,19 @@ def route_tree_values(
     x_cat: torch.Tensor,  # i32 [n, Fc] vocabulary indices (-1 = missing)
     num_numerical: int,
     max_depth: int,
+    vs_proj: Optional[torch.Tensor] = None,     # f32 [n, Pv] tree t's
+    vs_missing: Optional[torch.Tensor] = None,  # bool [n, Fv]
 ) -> torch.Tensor:
     """Leaf node id (int64 [n]) of every example in tree `t`. Feature
-    index space: [0, Fn) numerical, [Fn, Fn+Fc) categorical."""
+    index space: [0, Fn) numerical, [Fn, Fn+Fc) categorical,
+    [Fn+Fc, Fn+Fc+Pv) vector-sequence anchors, whose values are
+    `vs_proj` (vs_tree_projections). A VS score is never NaN (an empty
+    sequence scores -FLT_MAX), so a VS node takes its na_left direction
+    only where `vs_missing` flags the cell (models that route missing
+    values natively); without it missing cells route as empty ones."""
     n = x_num.shape[0] if x_num.numel() else x_cat.shape[0]
     Fn, Fc = x_num.shape[1], x_cat.shape[1]
+    F_total = Fn + Fc
     feature = forest.feature[t].long()
     threshold = forest.threshold[t]
     is_cat = forest.is_cat[t]
@@ -91,6 +117,11 @@ def route_tree_values(
             c = torch.gather(x_cat, 1, fc[:, None])[:, 0]
         else:
             c = torch.zeros(n, dtype=torch.int32, device=node.device)
+        if vs_proj is not None:
+            is_vs = f >= F_total
+            q = (f - F_total).clamp(0, vs_proj.shape[1] - 1)
+            v = torch.where(is_vs,
+                            torch.gather(vs_proj, 1, q[:, None])[:, 0], v)
         node_cat = is_cat[node]
         go_left = torch.where(
             node_cat,
@@ -100,6 +131,13 @@ def route_tree_values(
         # Missing values (NaN numerical / negative categorical code) take
         # the node's stored direction.
         missing = torch.where(node_cat, c < 0, torch.isnan(v))
+        if vs_proj is not None:
+            vm = torch.zeros_like(missing)
+            if vs_missing is not None:
+                fv = forest.vs_feat[t].long()[q].clamp(
+                    0, vs_missing.shape[1] - 1)
+                vm = torch.gather(vs_missing, 1, fv[:, None])[:, 0]
+            missing = torch.where(is_vs, vm, missing)
         go_left = torch.where(missing, na_left[node], go_left)
         nxt = torch.where(go_left, left[node], right[node])
         node = torch.where(is_leaf[node], node, nxt)
@@ -139,9 +177,22 @@ def forest_predict_values(
     num_numerical: int,
     max_depth: int,
     combine: str = "sum",
+    x_vs_vals: Optional[torch.Tensor] = None,   # f32 [n, Fv, L, D]
+    x_vs_len: Optional[torch.Tensor] = None,    # i32 [n, Fv]
+    vs_missing: Optional[torch.Tensor] = None,  # bool [n, Fv]
 ) -> torch.Tensor:
-    """Σ (or mean) over trees of routed leaf values: f32 [n, V]."""
+    """Σ (or mean) over trees of routed leaf values: f32 [n, V]. A forest
+    with vector-sequence anchors needs the padded sequences
+    (Binner.transform_vs on the forest's device)."""
     _check_supported(forest)
+    has_vs = forest.vs_anchor.numel() > 0
+    if has_vs and x_vs_vals is None:
+        raise ValueError("this forest has vector-sequence conditions; pass "
+                         "x_vs_vals and x_vs_len")
+    if has_vs:
+        vals = [x_vs_vals[:, j].contiguous()
+                for j in range(x_vs_vals.shape[1])]
+        lens = [x_vs_len[:, j].contiguous() for j in range(x_vs_len.shape[1])]
     if combine not in ("sum", "mean"):
         raise ValueError(f"combine must be 'sum' or 'mean', got {combine!r}")
     T = forest.num_trees
@@ -151,8 +202,11 @@ def forest_predict_values(
         device=x_num.device,
     )
     for t in range(T):
+        # One batched scoring of the tree's anchors, before its depth loop.
+        proj = vs_tree_projections(forest, t, vals, lens) if has_vs else None
         leaves = route_tree_values(
-            forest, t, x_num, x_cat, num_numerical, max_depth
+            forest, t, x_num, x_cat, num_numerical, max_depth,
+            vs_proj=proj, vs_missing=vs_missing,
         )
         acc = acc + forest.leaf_value[t][leaves]
     if combine == "mean":

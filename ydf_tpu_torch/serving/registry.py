@@ -10,7 +10,10 @@ H100's speed order (see PERF.md):
   QuickScorer  300  leaf-bitmask CUDA kernel, trees of <= 64 leaves
   BankScorer   250  data-bank CUDA kernel, any tree shape (the JAX
                     package's PallasBank; renamed, it is not Pallas here)
-  Routed         0  generic routed scan in plain PyTorch (ops/routing.py)
+  Routed         0  generic routed scan in plain PyTorch (ops/routing.py);
+                    the only engine for a model with vector-sequence
+                    features (the other two refuse it, as the JAX
+                    package's QuickScorer and PallasBank do)
 
 The CPU-only NativeBatch engine, the request-coalescing batcher and the
 serving env knobs are not ported (ROADMAP Queue 1 item 19).
