@@ -10,7 +10,9 @@ kernel, and prints one JSON summary.
 Phases (one line each; any failure is an uncaught exception):
   1 device    card name, count, nvidia-smi name and power limit
   2 build     nvcc for sm_90a (all six sources in parallel), seconds,
-              ptxas registers / shared memory
+              ptxas registers / shared memory / spills (per kernel for the
+              histogram and binning sources); what shared f32 atomicAdd
+              compiles to (cuobjdump -sass of histogram_routed)
   3 kernels   each serving kernel == its plain version (torch.equal) on
               4096 rows of the 300-tree default GBT (QuickScorer,
               BankScorer) and the 50-tree depth-8 GBT (BankScorer)
@@ -20,7 +22,9 @@ Phases (one line each; any failure is an uncaught exception):
               timed alone with CUDA events at 1,048,576 rows
   6 train     the bench GBT (500,000 rows x 28 features, 20 trees,
               depth 6) trained on the card: each training kernel against
-              its plain version at the path's shapes, then the training
+              its plain version at the path's shapes (binning in both
+              layouts; the root histogram also on a pile-up case, 12% of
+              200,000 rows in bin 0 of 36 features), then the training
               itself held against the JAX package's run (the committed
               ydf_tpu_torch/testdata/train_bench fixture), then one more
               training under torch.profiler (device time, idle share of
@@ -43,7 +47,10 @@ Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 phase 6 is the training path, phase 7 the serve_vs and train_vs paths.
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
-The `kernels` line has one entry per (kernel, path).
+The `kernels` line has one entry per (kernel, path). Each timing gives a
+call's time (CUDA events around calls back to back: host work included)
+and its device time (torch.profiler: the sum of the kernels, memsets and
+copies one call launches), and the same two for the library call.
 Exits non-zero without a result when CUDA is absent.
 """
 
@@ -212,6 +219,137 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# The CUDA kernels one call of each wrapper launches, once each (names
+# as the profiler shows them contain these).
+KERNELS_OF = {
+    "quickscorer": ("qs_score_kernel",),
+    "bank_scorer": ("bank_score_kernel",),
+    "histogram": ("hist_kernel", "reduce_partials"),
+    "histogram_routed": ("routed_kernel", "reduce_partials"),
+    "binning": ("bin_feature_major",),
+    "vector_sequence": ("vs_kernel",),
+}
+
+
+def device_ms(fn, kernels=(), reps=10, warm=3):
+    """Device time of one call of `fn` from torch.profiler over `warm` +
+    `reps` calls: for each CUDA kernel, memset or copy, its mean time
+    per record times the times one call launches it (its count over the
+    calls, rounded, so a stray record counts for nothing). The profiler
+    drops records now and then, the window's first most often (hence
+    the `warm` calls): a profile counts only if each of `kernels` (name
+    parts of the kernels one call launches, KERNELS_OF for a wrapper)
+    shows at least `reps` times, and is taken again if not. Returns (ms,
+    how). Without such a profile it falls back to CUDA events around
+    each call alone, which also bracket the call's host work while the
+    card waits: an upper bound, marked so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    calls = warm + reps
+    seen = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        recs = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+                and getattr(e, "device_time_total", 0.0) > 0]
+        seen = {k: sum(e.count for e in recs if k in e.key)
+                for k in kernels}
+        if not recs or min(seen.values(), default=reps) < reps:
+            continue
+        busy_us = sum(e.device_time_total / e.count
+                      * round(e.count / calls) for e in recs)
+        return busy_us / 1e3, "profiler"
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    counts = ", ".join(f"{k} {c} of {calls}" for k, c in seen.items())
+    return total / reps, ("events, an upper bound; last profile: "
+                          f"{counts or 'no device records'}")
+
+
+def shared_atomics_finding(cuda_build):
+    """What shared-memory atomics compile to on sm_90a, read from the
+    SASS (cuobjdump -sass): histogram_routed.cu adds float stats into
+    f64 cells and int8 stats into int32 ones with shared atomicAdd;
+    histogram.cu only int32 ones (int8 stats), its f32 adds go through
+    tag rounds. scripts/bench_shared_adds.py reads the f32 case."""
+    tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()),
+                        "cuobjdump")
+    if not os.path.isfile(tool):
+        return f"cuobjdump not found beside nvcc ({tool}): SASS not read"
+    found, routed = [], []
+    for name in ("histogram_routed", "histogram"):
+        sass = subprocess.run(
+            [tool, "-sass", cuda_build.library_path(name)],
+            capture_output=True, text=True, timeout=120, check=True,
+        ).stdout
+        ops = sorted({tok.rstrip(" ;") for line in sass.splitlines()
+                      for tok in line.split() if tok.startswith("ATOMS")})
+        found.append(f"{name}: {ops or 'no shared atomics'}")
+        routed = routed or ops
+    if any("CAS" in op and "64" in op for op in routed):
+        verdict = "f64 shared atomicAdd is a compare-and-swap loop"
+    elif any("ADD" in op and "64" in op for op in routed):
+        verdict = "f64 shared atomicAdd is a native add"
+    else:
+        verdict = "no f64 shared atomic add recognised"
+    return f"{verdict} ({'; '.join(found)})"
+
+
+def pileup_case(n=200_000, F=36, B=256, frac=0.12, seed=12):
+    """The root histogram at train_vs's width with frac of the rows in
+    bin 0 of every feature (empty vector sequences pile up there):
+    bins_t u8 [F, n], slot i32 [n] (all 0), integer-valued stats f32
+    [n, 3] in -8..8, and real-valued f32 stats [n, 3], on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, B, (F, n)).astype(np.uint8)
+    bins[:, rng.uniform(size=n) < frac] = 0
+    dev = torch.device(DEVICE)
+    ints = rng.integers(-8, 9, (n, 3)).astype(np.float32)
+    real = rng.normal(size=(n, 3)).astype(np.float32)
+    return (torch.from_numpy(bins).to(dev),
+            torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.from_numpy(ints).to(dev), torch.from_numpy(real).to(dev))
+
+
+def pileup_check():
+    """The pile-up case against the plain version: integer-valued stats
+    bitwise in f32, bf16 and int8; real f32 stats within HIST_RTOL x cell
+    mass + HIST_ATOL. Returns the real stats' max abs difference."""
+    import torch
+
+    from ydf_tpu_torch.ops import histogram_kernels as hk
+
+    bins_t, slot, ints, real = pileup_case()
+    B = 256
+    for stats in (ints, ints.to(torch.bfloat16), ints.to(torch.int8)):
+        got = hk.histogram(bins_t, slot, stats, 1, B)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hk.histogram_plain(bins_t, slot, stats, 1,
+                                                   B)), (
+            f"pile-up {stats.dtype}: kernel != plain")
+    return hist_check(
+        hk.histogram(bins_t, slot, real, 1, B),
+        hk.histogram_plain(bins_t, slot, real, 1, B),
+        hk.histogram_plain(bins_t, slot, real.abs(), 1, B),
+        "pile-up f32")
+
+
 def table_bytes(tables):
     return sum(t.numel() * t.element_size() for t in tables
                if hasattr(t, "element_size"))
@@ -241,13 +379,18 @@ def main():
     sources = ["quickscorer", "bank_scorer", "histogram", "histogram_routed",
                "binning", "vector_sequence"]
     secs = cuda_build.build_all(sources, force=True)
-    ptxas = []
+    # ptxas's registers, shared memory and spills of each entry function,
+    # after the (mangled) name ptxas prints before them.
+    ptxas, entry = [], ""
     for name, text in cuda_build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                ptxas.append(f"{name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "Used" in line or "spill" in line:
+                ptxas.append(f"{name} {entry}: {line.strip()}")
     log("2 build", f"nvcc sm_90a, {len(sources)} sources in parallel, "
         f"{secs:.2f} s; " + " | ".join(ptxas))
+    log("2 sass", shared_atomics_finding(cuda_build))
 
     # -- 3 kernels against plain, at full width ------------------------ #
     rng = np.random.default_rng(0)
@@ -322,15 +465,20 @@ def main():
         t = measure(mod, tables, walk_tables, xT)
         max_err[label] = max(max_err[label], t["max_abs_err"])
         log("5 timing", f"{label} at {xT.shape[1]} rows x "
-            f"{xT.shape[0]} features: kernel {t['ms']:.4f} ms, plain "
+            f"{xT.shape[0]} features: kernel {t['ms']:.4f} ms a call back "
+            f"to back, {t['device_ms']:.4f} ms on the card "
+            f"({t['device_how']}), plain "
             f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}; {t['detail']}), {smi}")
         kernels.append({
             "name": label, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[mod.__name__],
             "max_abs_err": max_err[label], "ms": t["ms"],
+            "device_ms": t["device_ms"],
+            "device_how": t["device_how"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
+            "library_device_ms": None,
         })
     torch.cuda.synchronize()
     kernels.extend(train_path(smi, serving=counters))
@@ -432,6 +580,8 @@ def measure(mod, tables, walk_tables, xT, reps=20):
         got = mod.score(tables, xT)
     torch.cuda.synchronize()
     ms = time_ms(lambda: mod.score(tables, xT), reps=reps)
+    dev_ms, how = device_ms(lambda: mod.score(tables, xT),
+                            KERNELS_OF[mod.__name__.rsplit(".", 1)[-1]])
     plain_ms = time_ms(lambda: mod.score_plain(tables, xT), reps=1)
     want = mod.score_plain(tables, xT)
     assert torch.equal(got, want), f"{mod.__name__} at {n} rows: != plain"
@@ -447,7 +597,8 @@ def measure(mod, tables, walk_tables, xT, reps=20):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return {
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "device_ms": dev_ms, "device_how": how,
+        "plain_ms": plain_ms,
         "max_abs_err": float((got - want).abs().max()),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -504,13 +655,10 @@ def train_path(smi, serving):
 
     # -- 6a each training kernel against its plain version ------------- #
     inp = train_inputs(data, jax_binner)
-    got = binning.bin_columns(*inp["binning"])
-    torch.cuda.synchronize()
-    assert torch.equal(got, binning.bin_columns_plain(*inp["binning"])), (
-        "binning kernel != plain")
-    assert sha256(got) == cfg["bins_sha256"], "bins != the JAX package's"
-    log("6 kernels", f"binning {TRAIN_ROWS} x {TRAIN_FEATURES}: torch.equal "
-        "to plain; SHA-256 of the bin matrix == the JAX package's")
+    binning_check(inp["binning"], sha=cfg["bins_sha256"])
+    log("6 kernels", f"binning {TRAIN_ROWS} x {TRAIN_FEATURES}: "
+        "torch.equal to plain, feature-major in memory; SHA-256 of the bin "
+        "matrix == the JAX package's")
     err = {"binning": 0.0}
     err["histogram"] = hist_check(
         histogram_kernels.histogram(*inp["root"]),
@@ -530,6 +678,11 @@ def train_path(smi, serving):
         f"at {TRAIN_ROWS} rows: within {HIST_RTOL} x cell mass + "
         f"{HIST_ATOL} of plain (max abs {err['histogram']:.3g}, "
         f"{err['histogram_routed']:.3g}); new_slot, new_leaf torch.equal")
+    pile = pileup_check()
+    log("6 kernels", "root histogram pile-up case (n=200000, F=36, 12% of "
+        "rows in bin 0 of every feature): integer-valued stats torch.equal "
+        "to plain in f32, bf16 and int8; real f32 stats within "
+        f"{HIST_RTOL} x cell mass + {HIST_ATOL} (max abs {pile:.3g})")
 
     # -- 6b the main path: train on the card -------------------------- #
     counted = {"histogram": None, "histogram_routed": None,
@@ -643,18 +796,17 @@ def train_path(smi, serving):
          "ydf_tpu/ops/histogram_pallas.py:172"),
     ):
         t = measure_train(name, inp)
-        log("6 timing", f"{name} ({t['shape']}): kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.3f} ms, library "
-            f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} "
-            f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
-            f"{t['detail']}), {smi}")
+        log("6 timing", f"{name} ({t['shape']}): {timing_text(t)}, {smi}")
         out.append({
             "name": f"{name}/train_bench", "route": "cuda",
             "source": f"ydf_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": counted[name], "max_abs_err": err[name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "device_how": t["device_how"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
         })
     return out
 
@@ -691,6 +843,24 @@ def profile_train(data):
         "busy_ms": busy, "idle_share": max(0.0, 1 - busy / loop_ms),
         "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6],
     }
+
+
+def binning_check(args, sha=None):
+    """The binning kernel against its plain version, and its bins
+    feature-major in memory: the [n, F] result is the view of a
+    contiguous [F, n]. With `sha`, the [n, F] matrix's SHA-256 against
+    the JAX package's."""
+    import torch
+
+    from ydf_tpu_torch.ops import binning
+
+    got = binning.bin_columns(*args)
+    torch.cuda.synchronize()
+    assert got.t().is_contiguous(), "binning kernel: bins not feature-major"
+    assert torch.equal(got, binning.bin_columns_plain(*args)), (
+        "binning kernel != plain")
+    if sha is not None:
+        assert sha256(got) == sha, "bins != the JAX package's"
 
 
 def sha256(t):
@@ -742,7 +912,7 @@ def train_inputs(data, binner, extra_bins=None):
         torch.from_numpy(binner.feature_num_bins[:Fn] - 1).to(dev),
         torch.from_numpy(binner.impute_values[:Fn]).to(dev),
     )
-    bins_t = bin_columns(*bin_args).t().contiguous()
+    bins_t = bin_columns(*bin_args).t()
     if extra_bins is not None:
         bins_t = torch.cat([bins_t, extra_bins]).contiguous()
     F, n = bins_t.shape
@@ -799,6 +969,7 @@ def measure_train(name, inp, reps=20):
         F, n = values.shape
         v = torch.where(torch.isnan(values), impute[:, None], values)
         library = lambda: torch.searchsorted(bounds, v, right=True)  # noqa
+        library_kernels = ("searchsorted",)
         nbytes = (values.numel() * 4 + bounds.numel() * 4 + F * 8 + n * F)
         # A binary search over nb boundaries: ceil(log2(nb + 1)) compares.
         steps = np.ceil(np.log2(nb.cpu().numpy().astype(np.float64) + 1))
@@ -813,6 +984,7 @@ def measure_train(name, inp, reps=20):
         idx, src = fused_index(bins_t, slot, stats, B)
         library = lambda: torch.zeros(  # noqa: E731
             (L * F * B, S), device=stats.device).index_add_(0, idx, src)
+        library_kernels = ("index",)
         live = n
         nbytes = bins_t.numel() + n * 4 + stats.numel() * 4 + L * F * B * S * 4
         ops = live * F * S
@@ -841,21 +1013,39 @@ def measure_train(name, inp, reps=20):
         kernel()
     torch.cuda.synchronize()
     ms = time_ms(kernel, reps=reps)
+    dev_ms, how = device_ms(kernel, KERNELS_OF[name])
     plain()
     plain_ms = time_ms(plain, reps=1)
-    library_ms = None
+    library_ms = library_dev_ms = None
     if library is not None:
         library()
         library_ms = time_ms(library, reps=reps)
+        library_dev_ms, lib_how = device_ms(library, library_kernels)
+        how = how if lib_how == how else f"{how}; library {lib_how}"
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "device_ms": dev_ms, "device_how": how,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_device_ms": library_dev_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "detail": f"{nbytes} bytes -> {bytes_ms:.4f} ms, {ops} ops -> "
                   f"{ops_ms:.4f} ms", "shape": shape,
     }
+
+
+def timing_text(t):
+    """A `6 timing` / `7 timing` line's numbers: the kernel's call and
+    device times, the plain version's, the library call's both, the
+    bound."""
+    lib = "null" if t["library_ms"] is None else (
+        f"{t['library_ms']:.4f} ms a call, "
+        f"{t['library_device_ms']:.4f} ms on the card")
+    return (f"kernel {t['ms']:.4f} ms a call back to back, "
+            f"{t['device_ms']:.4f} ms on the card ({t['device_how']}), "
+            f"plain {t['plain_ms']:.3f} ms, library {lib}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']})")
 
 
 def fused_index(bins_t, slot, stats, B):
@@ -1191,9 +1381,7 @@ def vs_path(smi, serving):
     err["histogram_routed"] = hist_check(
         got[0], want[0], histogram_kernels.histogram_routed_plain(
             *abs_stats(inp["routed"], 4))[0], "train_vs routed histogram")
-    got = binning.bin_columns(*inp["binning"])
-    torch.cuda.synchronize()
-    assert torch.equal(got, binning.bin_columns_plain(*inp["binning"]))
+    binning_check(inp["binning"])
     err["binning"] = 0.0
     for path, args, launches in (
         ("serve_vs", serve_args, served),
@@ -1202,7 +1390,8 @@ def vs_path(smi, serving):
         t = measure_vs(args)
         log("7 timing", f"vector_sequence on {path} ({t['shape']}): kernel "
             f"{t['ms']:.4f} ms a call back to back ({t['launch_ms']:.4f} ms "
-            f"between events around the launch alone), plain "
+            f"between events around the launch alone, {t['device_ms']:.4f} "
+            f"ms on the card ({t['device_how']})), plain "
             f"{t['plain_ms']:.3f} ms, library null "
             f"(no single PyTorch call scores a masked max/min over a "
             f"sequence), bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
@@ -1212,9 +1401,11 @@ def vs_path(smi, serving):
             "source": "ydf_tpu_torch/csrc/vector_sequence.cu",
             "replaces": "ydf_tpu/ops/vector_sequence.py:59",
             "launches": launches, "max_abs_err": err[f"vs/{path}"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "device_how": t["device_how"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "library_device_ms": None,
         })
     for name, src, replaces in (
         ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
@@ -1223,16 +1414,18 @@ def vs_path(smi, serving):
          "ydf_tpu/ops/histogram_pallas.py:172"),
     ):
         t = measure_train(name, inp)
-        log("7 timing", f"{name} on train_vs ({t['shape']}): kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {smi}")
+        log("7 timing", f"{name} on train_vs ({t['shape']}): "
+            f"{timing_text(t)}, {smi}")
         out.append({
             "name": f"{name}/train_vs", "route": "cuda",
             "source": f"ydf_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": counted[name], "max_abs_err": err[name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "device_how": t["device_how"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
         })
     log("7 vs", f"phase 7 wall {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -1267,6 +1460,8 @@ def measure_vs(args, reps=20):
     torch.cuda.synchronize()
     events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
     launch_ms = sum(s.elapsed_time(e) for _, s, e in events) / len(events)
+    dev_ms, how = device_ms(lambda: vso.vs_scores(*args),
+                            KERNELS_OF["vector_sequence"])
     vso.vs_scores_plain(*args)
     plain_ms = time_ms(lambda: vso.vs_scores_plain(*args), reps=1)
     vectors = int(lengths.clamp(0, L).long().sum())
@@ -1275,7 +1470,8 @@ def measure_vs(args, reps=20):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / SCALAR_OPS_PER_S * 1e3
     return {
-        "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+        "ms": ms, "launch_ms": launch_ms, "device_ms": dev_ms,
+        "device_how": how, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "detail": f"{nbytes} bytes -> {bytes_ms:.4f} ms, {flops} FLOPs -> "

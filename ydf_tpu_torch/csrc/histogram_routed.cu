@@ -33,8 +33,19 @@
 // block re-derives the routing of its rows (a handful of integer ops), and
 // only the blocks of the first feature and slot block write new_slot and
 // new_leaf, so each row is written once. Partials are summed over row
-// chunks in chunk order (f32 in f64), as in csrc/histogram.cu: the f32
-// order varies only inside a block; routing and int32 results are exact.
+// chunks in chunk order; routing and int32 results are exact.
+//
+// Float stats (f32, bf16) add into f64 shared cells, and the partials and
+// their cross-chunk sum stay f64, rounded once to f32. An f32 cell summed
+// a chunk's thousands of rows in whatever order its atomics landed: on a
+// small leaf reached through sibling subtraction that moved the leaf
+// value by 3e-5 against the f64 plain version (scripts/
+// card_leaf_drift.py). In f64 the order moves the f32 result only when a
+// sum lies within a few f64 ulps of an f32 rounding boundary. The cells
+// take twice the bytes; the wrapper gives them twice the budget, so a
+// block holds as many (slot, feature) pairs as with 4-byte cells and
+// routes as many rows (ops/histogram_kernels.py:launch_shape), and runs
+// 512 threads, one such block to an SM.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -42,11 +53,16 @@
 
 namespace {
 
+// Threads of a block: 256 with 4-byte cells, 512 with f64 ones (their
+// block holds twice the bytes, one block to an SM).
 constexpr int kThreads = 256;
+constexpr int kThreadsWide = 512;
 constexpr int kReduceThreads = 256;
 constexpr int kMaxStats = 8;
-constexpr int kSmemBytes = 112 * 1024;
+constexpr int kSmemBytes = 200 * 1024;
 
+// Acc: the output's accumulator type (f32, or int32 for int8 stats);
+// Sum: the shared cells' and partials' type (f64 for float stats).
 template <typename T>
 struct Acc {
   using type = float;
@@ -55,9 +71,17 @@ template <>
 struct Acc<int8_t> {
   using type = int32_t;
 };
+template <typename T>
+struct Sum {
+  using type = double;
+};
+template <>
+struct Sum<int8_t> {
+  using type = int32_t;
+};
 
-__device__ __forceinline__ float to_acc(float v) { return v; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
+__device__ __forceinline__ double to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ int32_t to_acc(int8_t v) {
@@ -83,17 +107,18 @@ __host__ __device__ inline int table_bytes(int L1, int B) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsWide)
 routed_kernel(const uint8_t* __restrict__ bins_t,
               const int32_t* __restrict__ slot,
               const int32_t* __restrict__ leaf, Tables tab,
               const T* __restrict__ stats,
-              typename Acc<T>::type* __restrict__ partial,
+              typename Sum<T>::type* __restrict__ partial,
               int32_t* __restrict__ new_slot, int32_t* __restrict__ new_leaf,
               int n, int F, int B, int Sq, int L, int Lh, int Fb, int Lb,
               int rows_per_chunk) {
-  using A = typename Acc<T>::type;
+  using A = typename Sum<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int nt = blockDim.x;
   const int L1 = L + 1;
   // Table region: int32 tables first (aligned), then the byte tables.
   int32_t* s_route_f = reinterpret_cast<int32_t*>(smem);
@@ -106,7 +131,7 @@ routed_kernel(const uint8_t* __restrict__ bins_t,
   uint8_t* s_gl = s_set + L1;
   A* sh = reinterpret_cast<A*>(smem + table_bytes(L1, B));
 
-  for (int l = threadIdx.x; l < L1; l += kThreads) {
+  for (int l = threadIdx.x; l < L1; l += nt) {
     s_route_f[l] = min(max(tab.route_f[l], 0), F - 1);
     s_left[l] = tab.left_id[l];
     s_right[l] = tab.right_id[l];
@@ -116,7 +141,7 @@ routed_kernel(const uint8_t* __restrict__ bins_t,
     s_split[l] = tab.do_split[l];
     s_set[l] = tab.is_set[l];
   }
-  for (int i = threadIdx.x; i < L1 * B; i += kThreads) {
+  for (int i = threadIdx.x; i < L1 * B; i += nt) {
     s_gl[i] = tab.go_left[i];
   }
   const int trash_hs = tab.hmap[L];
@@ -126,14 +151,14 @@ routed_kernel(const uint8_t* __restrict__ bins_t,
   const int fc = min(Fb, F - f0);
   const int lc = min(Lb, Lh - l0);
   const int cells = lc * fc * B * Sq;
-  for (int i = threadIdx.x; i < cells; i += kThreads) sh[i] = A(0);
+  for (int i = threadIdx.x; i < cells; i += nt) sh[i] = A(0);
   __syncthreads();
 
   const bool write_route = blockIdx.x == 0 && blockIdx.y == 0;
   const int r0 = blockIdx.z * rows_per_chunk;
   const int r1 = min(n, r0 + rows_per_chunk);
   const size_t stride = static_cast<size_t>(n);
-  for (int r = r0 + threadIdx.x; r < r1; r += kThreads) {
+  for (int r = r0 + threadIdx.x; r < r1; r += nt) {
     int l = slot[r];
     if (l < 0 || l > L) l = L;
     int ns, nl, hs;
@@ -170,7 +195,7 @@ routed_kernel(const uint8_t* __restrict__ bins_t,
   __syncthreads();
 
   const size_t base = static_cast<size_t>(blockIdx.z) * Lh * F * B * Sq;
-  for (int i = threadIdx.x; i < cells; i += kThreads) {
+  for (int i = threadIdx.x; i < cells; i += nt) {
     int t = i / Sq;
     const int s = i - t * Sq;
     const int b = t % B;
@@ -182,24 +207,16 @@ routed_kernel(const uint8_t* __restrict__ bins_t,
   }
 }
 
-// The cross-chunk sum: int32 exactly; f32 partials in f64, rounded once.
-template <typename A>
-struct Wide {
-  using type = A;
-};
-template <>
-struct Wide<float> {
-  using type = double;
-};
-
-template <typename A>
+// The cross-chunk sum in chunk order: int32 exactly; f64 partials in f64,
+// rounded once to f32.
+template <typename S, typename A>
 __global__ void __launch_bounds__(kReduceThreads)
-reduce_partials(const A* __restrict__ partial, A* __restrict__ out,
+reduce_partials(const S* __restrict__ partial, A* __restrict__ out,
                 size_t total, int chunks) {
   const size_t i = static_cast<size_t>(blockIdx.x) * kReduceThreads +
                    threadIdx.x;
   if (i >= total) return;
-  typename Wide<A>::type acc = partial[i];
+  S acc = partial[i];
   for (int c = 1; c < chunks; ++c) acc += partial[c * total + i];
   out[i] = static_cast<A>(acc);
 }
@@ -211,8 +228,9 @@ int launch(const void* bins_t, const void* slot, const void* leaf,
            int L, int Lh, int Fb, int Lb, int chunks, int rows_per_chunk,
            cudaStream_t stream) {
   using A = typename Acc<T>::type;
+  using S = typename Sum<T>::type;
   const int smem = table_bytes(L + 1, B) +
-                   Fb * Lb * B * Sq * static_cast<int>(sizeof(A));
+                   Fb * Lb * B * Sq * static_cast<int>(sizeof(S));
   if (Sq > kMaxStats || smem > kSmemBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -222,10 +240,11 @@ int launch(const void* bins_t, const void* slot, const void* leaf,
   if (err != cudaSuccess) return static_cast<int>(err);
   // Lh = 0 still launches one slot block: the rows must be routed.
   const dim3 grid((F + Fb - 1) / Fb, max(1, (Lh + Lb - 1) / Lb), chunks);
-  routed_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const int threads = sizeof(S) == 8 ? kThreadsWide : kThreads;
+  routed_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const uint8_t*>(bins_t), static_cast<const int32_t*>(slot),
       static_cast<const int32_t*>(leaf), tab, static_cast<const T*>(stats),
-      static_cast<A*>(partial), static_cast<int32_t*>(new_slot),
+      static_cast<S*>(partial), static_cast<int32_t*>(new_slot),
       static_cast<int32_t*>(new_leaf), n, F, B, Sq, L, Lh, Fb, Lb,
       rows_per_chunk);
   err = cudaGetLastError();
@@ -234,8 +253,8 @@ int launch(const void* bins_t, const void* slot, const void* leaf,
   if (total == 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((total + kReduceThreads - 1) / kReduceThreads);
-  reduce_partials<A><<<blocks, kReduceThreads, 0, stream>>>(
-      static_cast<const A*>(partial), static_cast<A*>(out), total, chunks);
+  reduce_partials<S, A><<<blocks, kReduceThreads, 0, stream>>>(
+      static_cast<const S*>(partial), static_cast<A*>(out), total, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,7 +263,8 @@ int launch(const void* bins_t, const void* slot, const void* leaf,
 // Tables follow the padded [L + 1] contract of the TPU kernel; go_left is
 // u8 [L + 1, B]; set_go_left is u8 [n] or null. stats_kind: 0 = f32,
 // 1 = bf16, 2 = int8, each [n, Sq]. partial holds chunks * Lh*F*B*Sq
-// accumulators (f32, or int32 for int8), out Lh*F*B*Sq.
+// sums (f64, or int32 for int8), out Lh*F*B*Sq accumulators (f32, or
+// int32 for int8).
 extern "C" int ydf_histogram_routed(
     const void* bins_t, const void* slot, const void* leaf,
     const void* do_split, const void* route_f, const void* go_left,

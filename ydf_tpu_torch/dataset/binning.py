@@ -191,8 +191,10 @@ class Binner:
 
     def transform(self, dataset, device) -> torch.Tensor:
         """The bin matrix u8 [n, F] on `device`: the values f32 [F, n]
-        are copied to the device once and binned by the binning
-        kernel."""
+        are copied to the device once and binned by the binning kernel.
+        The matrix is the [n, F] view of a contiguous feature-major
+        [F, n] (ops/binning.py); `.t()` gives that back, the training
+        layout."""
         if self.num_numerical != self.num_features:
             raise NotImplementedError(
                 "binning categorical, set and vector-sequence features is "

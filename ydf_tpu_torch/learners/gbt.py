@@ -178,7 +178,8 @@ class GradientBoostedTreesLearner(GenericLearner):
         dev = self.device
         num_classes = len(prep.get("classes", [])) or 1
         loss_obj = make_loss(self.loss, self.task, num_classes)
-        n = prep["bins"].shape[0]
+        bins_t = prep["bins_t"]  # one copy for every tree and layer
+        n = bins_t.shape[1]
         tree_cfg = TreeConfig(
             max_depth=self.max_depth,
             max_frontier=resolve_max_frontier(self.max_frontier, n,
@@ -187,8 +188,6 @@ class GradientBoostedTreesLearner(GenericLearner):
             min_examples=self.min_examples,
         )
         rule = HessianGainRule(l2=self.l2_regularization)
-        # One feature-major copy of the bins for every tree and layer.
-        bins_t = prep["bins"].t().contiguous()
         labels = torch.from_numpy(prep["labels"].astype(np.float32)).to(dev)
         weights = torch.from_numpy(prep["sample_weights"]).to(dev)
         Ac, Ap = self._vs_anchor_counts()

@@ -81,7 +81,8 @@ class GenericLearner:
                 if c.name not in exclude and c.type in JAX_FEATURE_TYPES]
 
     def _prepare(self, data: InputData) -> Dict:
-        """Dataset, fitted binner, bins u8 [n, F] on the learner's device,
+        """Dataset, fitted binner, feature-major bins u8 [F, n]
+        ("bins_t") on the learner's device,
         the padded vector sequences (Binner.transform_vs, numpy; None
         without such features), encoded labels and weights (numpy)."""
         t0 = time.perf_counter()
@@ -92,13 +93,14 @@ class GenericLearner:
                             num_bins=resolve_num_bins(self.num_bins,
                                                       ds.num_rows))
         t2 = time.perf_counter()
-        bins = binner.transform(ds, self.device)
+        bins_t = binner.transform(ds, self.device).t()  # no copy
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t3 = time.perf_counter()
         vs = binner.transform_vs(ds)
         t4 = time.perf_counter()
-        out = {"dataset": ds, "binner": binner, "bins": bins, "vs": vs}
+        out = {"dataset": ds, "binner": binner, "bins_t": bins_t,
+               "vs": vs}
         if self.label is not None:
             out["labels"] = ds.encoded_label(self.label, self.task)
             if self.task == Task.CLASSIFICATION:

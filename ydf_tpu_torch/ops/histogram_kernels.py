@@ -29,12 +29,26 @@ from ydf_tpu_torch.utils import cuda_build
 #: Launches of each CUDA kernel in this process (the wrappers add one per
 #: launch; plain-version calls do not count).
 LAUNCHES = {"histogram": 0, "histogram_routed": 0}
-# Shared memory a block's sub-histogram may take (histogram.cu's
-# kSmemBytes; the routed kernel keeps its tables beside it).
+# The routed kernel's launch shape (`launch_shape`): shared memory a
+# block's sub-histogram of 4-byte cells may take (f64 cells get twice;
+# the tables sit beside it, all under histogram_routed.cu's kSmemBytes),
+# blocks to aim for (two on each of the H100's 132 SMs) and the least
+# rows of a chunk.
 SMEM_BUDGET = 96 * 1024
-# Blocks to aim for: two on each of the H100's 132 SMs.
 TARGET_BLOCKS = 264
 MIN_CHUNK_ROWS = 4096
+# The root kernel's launch shape (`root_launch_shape`, histogram.cu): a
+# block's sub-histogram and its one-byte tags take at most
+# ROOT_SMEM_BUDGET bytes (its staged tile of 512 rows beside them keeps
+# the block under 48 KB), a block has a warp per feature (at most 32), and
+# the row chunks aim at ROOT_SM_WARPS resident warps on each of the card's
+# SMS SMs.
+ROOT_SMEM_BUDGET = 32 * 1024
+ROOT_MAX_WARPS = 32
+ROOT_SM_WARPS = 32
+SMS = 132
+TILE_ROWS = 512
+ROWS_PER_LANE = 16
 MAX_STAT_COLUMNS = 8
 # Rows per step of the plain version (bounds its [rows, F, S] temporaries).
 PLAIN_ROW_CHUNK = 1 << 16
@@ -61,16 +75,64 @@ def acc_dtype(stats: torch.Tensor) -> torch.dtype:
 
 
 def launch_shape(n: int, F: int, L: int, B: int, Sq: int,
-                 budget: int = SMEM_BUDGET) -> Tuple[int, int, int, int]:
+                 budget: int = SMEM_BUDGET,
+                 cell_bytes: int = 4) -> Tuple[int, int, int, int]:
     """(features per block, slots per block, row chunks, rows per chunk)
-    so that a block's sub-histogram fits `budget` bytes and the grid
-    holds about TARGET_BLOCKS blocks."""
-    row = B * Sq * 4
+    so that a block's sub-histogram of `cell_bytes` cells fits `budget`
+    bytes and the grid holds about TARGET_BLOCKS blocks."""
+    row = B * Sq * cell_bytes
     Lb = max(1, min(max(L, 1), budget // row))
     Fb = max(1, min(F, budget // (Lb * row)))
     blocks = -(-F // Fb) * -(-max(L, 1) // Lb)
     chunks = max(1, min(-(-n // MIN_CHUNK_ROWS), -(-TARGET_BLOCKS // blocks)))
     return Fb, Lb, chunks, -(-n // chunks)
+
+
+class RootShape(NamedTuple):
+    """Launch shape of csrc/histogram.cu: G feature groups (group g takes
+    features [g*F//G, (g+1)*F//G), at most Fb of them, one warp each),
+    slot_blocks blocks of at most Lb slots, `chunks` row chunks of `rows`
+    rows."""
+
+    G: int
+    Fb: int
+    Lb: int
+    slot_blocks: int
+    chunks: int
+    rows: int
+
+    @property
+    def blocks(self) -> int:
+        return self.G * self.slot_blocks * self.chunks
+
+
+def cell_stride(Sq: int) -> int:
+    """Words a histogram cell takes in histogram.cu: three stats are
+    padded to four (a 16-byte cell)."""
+    return 4 if Sq == 3 else Sq
+
+
+def root_launch_shape(n: int, F: int, L: int, B: int,
+                      Sq: int) -> RootShape:
+    """Feature groups as even as F allows (a divisor of F when one is
+    near), so that no block carries more features than another; slot
+    blocks filling what the budget leaves; then row chunks (multiples of
+    16 rows, at least one 512-row tile) until the grid holds about
+    ROOT_SM_WARPS warps for each SM."""
+    L = max(L, 1)
+    # (slot, feature) sub-histograms: B cells and a one-byte tag each.
+    pairs = max(1, ROOT_SMEM_BUDGET // (B * (cell_stride(Sq) * 4 + 1)))
+    Lb = min(L, pairs)
+    Fb = min(F, max(1, pairs // Lb), ROOT_MAX_WARPS)
+    G0 = -(-F // Fb)
+    G = next((g for g in range(G0, 2 * G0 + 1) if F % g == 0), G0)
+    Fb = -(-F // G)
+    Lb = min(L, max(1, pairs // Fb))
+    slot_blocks = -(-L // Lb)
+    want = -(-SMS * ROOT_SM_WARPS // Fb)
+    chunks = max(1, min(-(-n // TILE_ROWS), -(-want // (G * slot_blocks))))
+    rows = -(-max(-(-n // chunks), 1) // ROWS_PER_LANE) * ROWS_PER_LANE
+    return RootShape(G, Fb, Lb, slot_blocks, max(1, -(-n // rows)), rows)
 
 
 def _check(bins_t, slot, stats, num_bins):
@@ -148,21 +210,22 @@ def histogram(bins_t: torch.Tensor, slot: torch.Tensor, stats: torch.Tensor,
     _check_card(bins_t, slot, stats)
     F, n = bins_t.shape
     L, B, Sq = num_slots, num_bins, stats.shape[1]
-    out = torch.zeros((L, F, B, Sq), dtype=acc_dtype(stats),
-                      device=bins_t.device)
+    dev = bins_t.device
     if n == 0 or F == 0 or L == 0:
-        return out
-    Fb, Lb, chunks, rows = launch_shape(n, F, L, B, Sq)
-    partial = torch.empty(chunks * out.numel(), dtype=out.dtype,
-                          device=out.device)
-    fn = cuda_build.entry_point("histogram", "ydf_histogram", 5, 10)
-    with torch.cuda.device(bins_t.device):
+        return torch.zeros((L, F, B, Sq), dtype=acc_dtype(stats), device=dev)
+    # The reduce pass writes every cell: no zero fill.
+    out = torch.empty((L, F, B, Sq), dtype=acc_dtype(stats), device=dev)
+    shape = root_launch_shape(n, F, L, B, Sq)
+    partial = torch.empty(shape.chunks * out.numel(), dtype=out.dtype,
+                          device=dev)
+    fn = cuda_build.entry_point("histogram", "ydf_histogram", 5, 11)
+    with cuda_build.on_device(dev):
         timer = cuda_build.launch_timer("histogram")
         status = fn(
             bins_t.data_ptr(), slot.data_ptr(), stats.data_ptr(),
             partial.data_ptr(), out.data_ptr(), n, F, B, Sq, L,
-            _STATS_KIND[stats.dtype], Fb, Lb, chunks, rows,
-            torch.cuda.current_stream().cuda_stream,
+            _STATS_KIND[stats.dtype], shape.G, shape.Fb, shape.Lb,
+            shape.chunks, shape.rows, torch.cuda.current_stream().cuda_stream,
         )
         cuda_build.launch_done(timer)
     cuda_build.check_status(status, "histogram kernel")
@@ -261,9 +324,14 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
         return out, new_slot, new_leaf
     # The tables take their bytes out of the same shared-memory budget.
     table_bytes = -(-((L + 1) * (B + 22)) // 16) * 16
-    Fb, Lb, chunks, rows = launch_shape(n, F, Lh, B, Sq,
-                                        budget=SMEM_BUDGET - table_bytes)
-    partial = torch.empty(chunks * max(out.numel(), 1), dtype=out.dtype,
+    # Float stats sum in f64 cells and partials (histogram_routed.cu),
+    # which get twice the budget: the same pairs a block as 4-byte cells.
+    sum_dtype = torch.int32 if stats.dtype == torch.int8 else torch.float64
+    cell = 8 if sum_dtype == torch.float64 else 4
+    Fb, Lb, chunks, rows = launch_shape(
+        n, F, Lh, B, Sq, budget=SMEM_BUDGET * cell // 4 - table_bytes,
+        cell_bytes=cell)
+    partial = torch.empty(chunks * max(out.numel(), 1), dtype=sum_dtype,
                           device=dev)
     set_gl = tables.set_go_left if tables.set_go_left.shape[0] == n else None
     fn = cuda_build.entry_point("histogram_routed", "ydf_histogram_routed",

@@ -136,6 +136,19 @@ def entry_point(name: str, symbol: str, num_pointers: int,
     return fn
 
 
+def on_device(dev):
+    """The context a wrapper launches in: nothing when `dev` is already
+    the current card (the common case; entering torch.cuda.device costs
+    host time on every call), else torch.cuda.device(dev)."""
+    import contextlib
+
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 #: When a list, the training kernels' wrappers append (name, start event,
 #: end event) around each launch (CUDA events; they add no sync). None,
 #: the default, records nothing. chip_smoke.py sums them per kernel.
