@@ -11,15 +11,18 @@ Phases (one line each; any failure is an uncaught exception):
   1 device    card name, count, nvidia-smi name and power limit
   2 build     nvcc for sm_90a (all six sources in parallel), seconds,
               ptxas registers / shared memory / spills (per kernel for the
-              histogram and binning sources); what shared f32 atomicAdd
-              compiles to (cuobjdump -sass of histogram_routed)
+              histogram and binning sources); the shared atomics the two
+              histogram sources compile to (cuobjdump -sass)
   3 kernels   each serving kernel == its plain version (torch.equal) on
               4096 rows of the 300-tree default GBT (QuickScorer,
               BankScorer) and the 50-tree depth-8 GBT (BankScorer)
   4 predict   load_model + predict on the stored rows == the JAX
               package's expected.npz (raw bitwise, predictions 1e-6)
-  5 serve     requests of 1 .. 1,048,576 rows; then the path's kernel
-              timed alone with CUDA events at 1,048,576 rows
+  5 serve     requests of 1 .. 1,048,576 rows; the path's kernel time
+              (CUDA events around each launch) and its launches weighted
+              by their rows; then the kernel timed alone at 1,048,576
+              rows; the registry's order held against the card's
+              (QuickScorer and the bank on gbt_d6)
   6 train     the bench GBT (500,000 rows x 28 features, 20 trees,
               depth 6) trained on the card: each training kernel against
               its plain version at the path's shapes (binning in both
@@ -29,7 +32,8 @@ Phases (one line each; any failure is an uncaught exception):
               ydf_tpu_torch/testdata/train_bench fixture), then one more
               training under torch.profiler (device time, idle share of
               the boosting loop), then each training kernel timed with
-              CUDA events
+              CUDA events, the routed kernel at each hist-slot count of
+              the path
   7 vs        the vector-sequence paths (ydf_tpu_torch/testdata/train_vs,
               the JAX package's run of its GBT on make_vs_data: 200,000
               rows, sequences of up to 16 vectors of 16, 20 trees, depth
@@ -50,7 +54,10 @@ after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
 call's time (CUDA events around calls back to back: host work included)
 and its device time (torch.profiler: the sum of the kernels, memsets and
-copies one call launches), and the same two for the library call.
+copies one call launches), and the same two for the library call; each
+entry also has `path_ms`, the kernel's CUDA-event time summed over the
+path's launches (the serving kernels add their launches weighted by
+rows, the routed kernel its numbers at each hist-slot count).
 Exits non-zero without a result when CUDA is absent.
 """
 
@@ -281,16 +288,18 @@ def device_ms(fn, kernels=(), reps=10, warm=3):
 
 
 def shared_atomics_finding(cuda_build):
-    """What shared-memory atomics compile to on sm_90a, read from the
-    SASS (cuobjdump -sass): histogram_routed.cu adds float stats into
-    f64 cells and int8 stats into int32 ones with shared atomicAdd;
-    histogram.cu only int32 ones (int8 stats), its f32 adds go through
-    tag rounds. scripts/bench_shared_adds.py reads the f32 case."""
+    """What shared-memory atomics the two histogram sources compile to on
+    sm_90a, read from the SASS (cuobjdump -sass). Both add float stats in
+    tag rounds (no float atomics) and int8 stats with int32 atomicAdd;
+    histogram_routed.cu also ranks rows with int32 atomics. An f64 shared
+    atomicAdd would show as a 64-bit compare-and-swap loop
+    (ATOMS.CAST.SPIN.64). scripts/bench_shared_adds.py times the f32
+    ways."""
     tool = os.path.join(os.path.dirname(cuda_build.find_nvcc()),
                         "cuobjdump")
     if not os.path.isfile(tool):
         return f"cuobjdump not found beside nvcc ({tool}): SASS not read"
-    found, routed = [], []
+    found, cas64 = [], False
     for name in ("histogram_routed", "histogram"):
         sass = subprocess.run(
             [tool, "-sass", cuda_build.library_path(name)],
@@ -299,13 +308,9 @@ def shared_atomics_finding(cuda_build):
         ops = sorted({tok.rstrip(" ;") for line in sass.splitlines()
                       for tok in line.split() if tok.startswith("ATOMS")})
         found.append(f"{name}: {ops or 'no shared atomics'}")
-        routed = routed or ops
-    if any("CAS" in op and "64" in op for op in routed):
-        verdict = "f64 shared atomicAdd is a compare-and-swap loop"
-    elif any("ADD" in op and "64" in op for op in routed):
-        verdict = "f64 shared atomicAdd is a native add"
-    else:
-        verdict = "no f64 shared atomic add recognised"
+        cas64 = cas64 or any("CAS" in op and "64" in op for op in ops)
+    verdict = ("a 64-bit compare-and-swap loop remains" if cas64 else
+               "no 64-bit compare-and-swap loop")
     return f"{verdict} ({'; '.join(found)})"
 
 
@@ -451,15 +456,26 @@ def main():
         model.force_engine(forced)
         for c in counters:
             c.KERNEL_LAUNCHES = 0
+            c.KERNEL_ROWS = 0
+        cuda_build.LAUNCH_EVENTS = []
         drive_path(model, name, forced, req[name], paths[name], rng)
+        torch.cuda.synchronize()
+        events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
         launches = {c.__name__: c.KERNEL_LAUNCHES for c in counters}
+        short = mod.__name__.rsplit(".", 1)[-1]
+        path_ms = sum(s.elapsed_time(e) for k, s, e in events if k == short)
+        # The path's launches weighted by their rows, in launches of
+        # TIMING_ROWS rows (the size the kernel is timed at below).
+        path_launches = mod.KERNEL_ROWS / TIMING_ROWS
         for c in counters:
             want_used = c is mod
             assert (launches[c.__name__] > 0) == want_used, (
                 f"{label}: launches {launches}")
         log("4-5 launches", f"{label}: {launches[mod.__name__]} launches "
-            f"of {mod.__name__.rsplit('.', 1)[-1]} on this path, none of "
-            "the other kernel")
+            f"of {short} on this path ({mod.KERNEL_ROWS} rows: "
+            f"{path_launches:.4f} launches of {TIMING_ROWS} rows), none of "
+            f"the other kernel; path time {path_ms:.4f} ms (CUDA events "
+            "around each launch)")
 
         xT = encoded_xT(model, draw_requests(req[name], TIMING_ROWS, rng))
         t = measure(mod, tables, walk_tables, xT)
@@ -479,7 +495,11 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "library_device_ms": None,
+            "path_ms": path_ms, "path_how": "CUDA events around each launch",
+            "path_launches_at_timing_rows": path_launches,
+            "path_bound_ms": t["bound_ms"] * path_launches,
         })
+    registry_check(kernels, models["gbt_d6"], smi)
     torch.cuda.synchronize()
     kernels.extend(train_path(smi, serving=counters))
     torch.cuda.synchronize()
@@ -489,6 +509,24 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0
+
+
+def registry_check(kernels, model, smi):
+    """The registry's order against the card's: QuickScorer's and the
+    bank's device times on gbt_d6 at TIMING_ROWS rows. The registry must
+    pick the faster engine when one is faster by more than 10%."""
+    dev = {k["name"]: k["device_ms"] for k in kernels}
+    qs_ms = dev["quickscorer/gbt_d6"]
+    bank_ms = dev["bank_scorer/gbt_d6/forced"]
+    faster = "QuickScorer" if qs_ms < bank_ms else "BankScorer"
+    picked = model.list_compatible_engines()[0]
+    log("5 registry", f"gbt_d6 at {TIMING_ROWS} rows on the card: "
+        f"QuickScorer {qs_ms:.4f} ms, BankScorer {bank_ms:.4f} ms, so "
+        f"{faster} is faster ({max(qs_ms, bank_ms) / min(qs_ms, bank_ms):.2f}"
+        f"x); the registry picks {picked} (compatible, by rank: "
+        f"{model.list_compatible_engines()}), {smi}")
+    if max(qs_ms, bank_ms) > 1.1 * min(qs_ms, bank_ms):
+        assert picked == faster, f"the registry picks {picked}, {faster} is"
 
 
 def drive_path(model, name, forced, stored, path, rng):
@@ -710,11 +748,11 @@ def train_path(smi, serving):
     assert counted["binning"] >= 1, counted
     assert not any(serving_launches.values()), serving_launches
     kernel_ms = {k: 0.0 for k in counted}
-    for name, start, end in events:
-        kernel_ms[name] += start.elapsed_time(end)
+    ev_ms, routed_lh = split_events(events)
+    kernel_ms.update(ev_ms)
     boost_ms = learner.last_timings["boost_s"] * 1e3
-    log("6 launches", f"train_bench: {counted} launches; serving kernels "
-        f"{serving_launches}")
+    log("6 launches", f"train_bench: {counted} launches (routed by hist "
+        f"slots: {routed_lh}); serving kernels {serving_launches}")
     log("6 train", f"GradientBoostedTreesLearner(**{TRAIN_HP}).train: wall "
         f"{wall * 1e3:.1f} ms (host clock, ends in synchronize); stages "
         + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in
@@ -797,18 +835,49 @@ def train_path(smi, serving):
     ):
         t = measure_train(name, inp)
         log("6 timing", f"{name} ({t['shape']}): {timing_text(t)}, {smi}")
-        out.append({
-            "name": f"{name}/train_bench", "route": "cuda",
-            "source": f"ydf_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": counted[name], "max_abs_err": err[name],
-            "ms": t["ms"], "device_ms": t["device_ms"],
-            "device_how": t["device_how"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "library_device_ms": t["library_device_ms"],
-        })
+        out.append(train_entry(name, "train_bench", src, replaces, t,
+                               counted[name], err[name], kernel_ms[name]))
+        if name == "histogram_routed":
+            layers = routed_by_layer(name, inp, events, routed_lh)
+            out[-1].update(layer_fields(layers))
+            log("6 layers", f"{name} on train_bench by hist slots: "
+                f"{layer_text(layers)}, {smi}")
     return out
+
+
+def train_entry(name, path, src, replaces, t, launches, err, path_ms):
+    """A training kernel's `kernels` entry: its timings at the path's
+    shape (measure_train) and its CUDA-event time over the path's
+    launches."""
+    return {
+        "name": f"{name}/{path}", "route": "cuda",
+        "source": f"ydf_tpu_torch/csrc/{src}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err,
+        "ms": t["ms"], "device_ms": t["device_ms"],
+        "device_how": t["device_how"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+        "library_device_ms": t["library_device_ms"],
+        "path_ms": path_ms, "path_how": "CUDA events around each launch",
+    }
+
+
+def layer_fields(layers):
+    """The routed kernel's per-layer numbers for its `kernels` entry; the
+    path's bound is each layer's bound times its launches."""
+    return {
+        "by_hist_slots": {str(k): v for k, v in layers.items()},
+        "path_bound_ms": sum(v["bound_ms"] * v["launches"]
+                             for v in layers.values()),
+    }
+
+
+def layer_text(layers):
+    return "; ".join(
+        f"Lh={k}: {v['launches']} launches, {v['device_ms']:.4f} ms on the "
+        f"card ({v['device_how']}), bound {v['bound_ms']:.4f} ms, path "
+        f"{v['path_ms']:.3f} ms (events)" for k, v in layers.items())
 
 
 def profile_train(data):
@@ -901,7 +970,6 @@ def train_inputs(data, binner, extra_bins=None):
 
     from ydf_tpu_torch.learners.losses import BinomialLogLikelihood
     from ydf_tpu_torch.ops.binning import bin_columns
-    from ydf_tpu_torch.ops.histogram_kernels import RouteTables
 
     dev = torch.device(DEVICE)
     Fn = binner.num_numerical
@@ -926,8 +994,23 @@ def train_inputs(data, binner, extra_bins=None):
     stats = torch.stack([g * w, h * w, w], dim=1).contiguous()
     root = (bins_t, torch.zeros(n, dtype=torch.int32, device=dev), stats,
             1, B)
-    L, Lh, N = 32, 16, 127
-    rng = np.random.default_rng(6)
+    routed = routed_layer(bins_t, stats, 16, B)
+    return {"binning": bin_args, "root": root, "routed": routed}
+
+
+def routed_layer(bins_t, stats, Lh, B, L=32, seed=6):
+    """A fused layer's inputs with Lh hist slots, on the card: the previous
+    layer's Lh splits into 2 Lh of L = 32 slots, each split's smaller
+    child on a hist slot (the other on the trash slot), seeded tables over
+    the real bins, 3% of the rows on the trash slot."""
+    import torch
+
+    from ydf_tpu_torch.ops.histogram_kernels import RouteTables
+
+    dev = bins_t.device
+    F, n = bins_t.shape
+    N = 127
+    rng = np.random.default_rng(seed)
     do_split = np.zeros(L + 1, bool)
     do_split[:Lh] = True
     split_rank = np.where(do_split, np.arange(L + 1), 0).astype(np.int32)
@@ -946,17 +1029,49 @@ def train_inputs(data, binner, extra_bins=None):
     slot = np.where(rng.uniform(size=n) < 0.03, L,
                     rng.integers(0, Lh, n)).astype(np.int32)
     leaf = rng.integers(15, 31, n).astype(np.int32)
-    routed = (bins_t, torch.from_numpy(slot).to(dev),
-              torch.from_numpy(leaf).to(dev), tables, stats, Lh, B)
-    return {"binning": bin_args, "root": root, "routed": routed}
+    return (bins_t, torch.from_numpy(slot).to(dev),
+            torch.from_numpy(leaf).to(dev), tables, stats, Lh, B)
 
 
-def measure_train(name, inp, reps=20):
+def routed_by_layer(name, inp, events, launches_by_lh):
+    """The routed kernel at each hist-slot count of the path (the Lh of
+    its launches): device time and bound from measure_train on
+    routed_layer inputs, and the path's CUDA-event time of those
+    launches. Returns {Lh: {...}}."""
+    out = {}
+    bins_t, _, _, _, stats, _, B = inp["routed"]
+    for lh in sorted(launches_by_lh):
+        layer = dict(inp, routed=routed_layer(bins_t, stats, lh, B))
+        t = measure_train(name, layer, timing_only=True)
+        out[lh] = {
+            "launches": launches_by_lh[lh], "device_ms": t["device_ms"],
+            "device_how": t["device_how"], "bound_ms": t["bound_ms"],
+            "path_ms": sum(s.elapsed_time(e) for k, s, e in events
+                           if k == f"histogram_routed/Lh={lh}"),
+        }
+    return out
+
+
+def split_events(events):
+    """Event time summed by kernel (the name before any '/'), and the
+    routed kernel's launches by hist-slot count."""
+    kernel_ms, by_lh = {}, {}
+    for name, start, end in events:
+        base = name.split("/")[0]
+        kernel_ms[base] = kernel_ms.get(base, 0.0) + start.elapsed_time(end)
+        if name.startswith("histogram_routed/Lh="):
+            lh = int(name.split("=")[1])
+            by_lh[lh] = by_lh.get(lh, 0) + 1
+    return kernel_ms, by_lh
+
+
+def measure_train(name, inp, reps=20, timing_only=False):
     """Kernel time (CUDA events, after warm-up), the plain version's time
     (once, after one call), the library call's time, and the bound: the
     larger of the bytes the function must move (inputs read once,
     outputs written once) over HBM bandwidth and its least operations
-    on these inputs over the card's 32-bit scalar rate."""
+    on these inputs over the card's 32-bit scalar rate. timing_only skips
+    the plain version and the library call."""
     import torch
 
     from ydf_tpu_torch.ops import binning, histogram_kernels
@@ -1014,10 +1129,11 @@ def measure_train(name, inp, reps=20):
     torch.cuda.synchronize()
     ms = time_ms(kernel, reps=reps)
     dev_ms, how = device_ms(kernel, KERNELS_OF[name])
-    plain()
-    plain_ms = time_ms(plain, reps=1)
-    library_ms = library_dev_ms = None
-    if library is not None:
+    plain_ms = library_ms = library_dev_ms = None
+    if not timing_only:
+        plain()
+        plain_ms = time_ms(plain, reps=1)
+    if library is not None and not timing_only:
         library()
         library_ms = time_ms(library, reps=reps)
         library_dev_ms, lib_how = device_ms(library, library_kernels)
@@ -1220,12 +1336,16 @@ def vs_path(smi, serving):
     vso.KERNEL_LAUNCHES = 0
     for c in serving:
         c.KERNEL_LAUNCHES = 0
+    cuda_build.LAUNCH_EVENTS = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = ydf_tpu_torch.load_model(TRAIN_VS, device=DEVICE)
     pred = model.predict(req)
     torch.cuda.synchronize()
     serve_wall = time.perf_counter() - t0
+    events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
+    path_ms = {"serve_vs": split_events(events)[0].get("vector_sequence",
+                                                        0.0)}
     served = vso.KERNEL_LAUNCHES
     T = TRAIN_HP["num_trees"]
     assert served == T, served  # one launch per tree and VS feature
@@ -1297,10 +1417,12 @@ def vs_path(smi, serving):
     assert counted["binning"] >= 1, counted
     assert not any(c.KERNEL_LAUNCHES for c in serving)
     kernel_ms = {k: 0.0 for k in counted}
-    for name, start, end in events:
-        kernel_ms[name] += start.elapsed_time(end)
+    ev_ms, routed_lh = split_events(events)
+    kernel_ms.update(ev_ms)
+    path_ms["train_vs"] = kernel_ms["vector_sequence"]
     boost_ms = learner.last_timings["boost_s"] * 1e3
-    log("7 launches", f"train_vs: {counted}")
+    log("7 launches", f"train_vs: {counted} (routed by hist slots: "
+        f"{routed_lh})")
     log("7 train", f"train_vs GradientBoostedTreesLearner(**{TRAIN_HP})"
         f".train: wall {wall * 1e3:.1f} ms (host clock, ends in "
         "synchronize); stages " + " ".join(
@@ -1406,6 +1528,8 @@ def vs_path(smi, serving):
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "library_device_ms": None,
+            "path_ms": path_ms[path],
+            "path_how": "CUDA events around each launch",
         })
     for name, src, replaces in (
         ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
@@ -1416,17 +1540,13 @@ def vs_path(smi, serving):
         t = measure_train(name, inp)
         log("7 timing", f"{name} on train_vs ({t['shape']}): "
             f"{timing_text(t)}, {smi}")
-        out.append({
-            "name": f"{name}/train_vs", "route": "cuda",
-            "source": f"ydf_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": counted[name], "max_abs_err": err[name],
-            "ms": t["ms"], "device_ms": t["device_ms"],
-            "device_how": t["device_how"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "library_device_ms": t["library_device_ms"],
-        })
+        out.append(train_entry(name, "train_vs", src, replaces, t,
+                               counted[name], err[name], kernel_ms[name]))
+        if name == "histogram_routed":
+            layers = routed_by_layer(name, inp, events, routed_lh)
+            out[-1].update(layer_fields(layers))
+            log("7 layers", f"{name} on train_vs by hist slots: "
+                f"{layer_text(layers)}, {smi}")
     log("7 vs", f"phase 7 wall {time.perf_counter() - t_phase:.1f} s")
     return out
 

@@ -8,9 +8,9 @@ package where it has the function.
     nb = 0, 1 and 255, ragged n);
   * root_launch_shape at train_bench's and train_vs's shapes and at
     L = 1, 16, 32, 100: a block's sub-histogram fits its budget, the
-    grid fills the card, feature groups are balanced; the routed
-    kernel's launch_shape is unchanged for 4-byte cells and halves the
-    (slot, feature) pairs of a block for its f64 cells;
+    grid fills the card, feature groups are balanced (the routed
+    kernel's routed_launch_shape is held in
+    tests/test_torch_kernel_redesign.py);
   * on the card (marked gpu): the root histogram on a pile-up case (12%
     of the rows in bin 0 of every feature) against its plain version,
     the binning kernel against its plain version, and the routed
@@ -42,23 +42,6 @@ torch.set_num_threads(1)
 # features; 4 numerical + 32 vector-sequence candidate columns).
 PATH_SHAPES = {"train_bench": (500_000, 28), "train_vs": (200_000, 36)}
 B, SQ = 256, 3
-# histogram_routed's launch shape at the paths' deepest fused layer
-# (L = 32, Lh = 16, and the identity map Lh = 32): (Fb, Lb, chunks, rows
-# per chunk). With 4-byte cells (int8 stats) as it stood before the root
-# kernel got its own; the 8-byte cells of float stats get twice the
-# budget, so a block holds as many (slot, feature) pairs.
-ROUTED_SHAPES = {
-    ("train_bench", 16): (1, 16, 10, 50_000),
-    ("train_bench", 32): (1, 29, 5, 100_000),
-    ("train_vs", 16): (1, 16, 8, 25_000),
-    ("train_vs", 32): (1, 29, 4, 50_000),
-}
-ROUTED_F64_SHAPES = {
-    ("train_bench", 16): (1, 16, 10, 50_000),
-    ("train_bench", 32): (1, 30, 5, 100_000),
-    ("train_vs", 16): (1, 16, 8, 25_000),
-    ("train_vs", 32): (1, 30, 4, 50_000),
-}
 
 
 def binning_case(n, nbs, seed):
@@ -180,38 +163,6 @@ def test_root_launch_shape_small_and_ragged(n, F, Sq):
                  for g in range(shape.G)]
         assert max(sizes) - min(sizes) <= 1
         assert shape.chunks * shape.rows >= n > (shape.chunks - 1) * shape.rows
-
-
-def _routed_budget(L=32, cell_bytes=4):
-    """The wrapper's budget: f64 cells get twice the bytes, the tables
-    sit beside the sub-histogram."""
-    return (hk.SMEM_BUDGET * cell_bytes // 4
-            - -(-((L + 1) * (B + 22)) // 16) * 16)
-
-
-@pytest.mark.parametrize("key", list(ROUTED_SHAPES))
-def test_routed_launch_shape_unchanged(key):
-    path, Lh = key
-    n, F = PATH_SHAPES[path]
-    got = hk.launch_shape(n, F, Lh, B, SQ, budget=_routed_budget())
-    assert got == ROUTED_SHAPES[key]
-
-
-@pytest.mark.parametrize("key", list(ROUTED_F64_SHAPES))
-def test_routed_launch_shape_with_f64_cells(key):
-    path, Lh = key
-    n, F = PATH_SHAPES[path]
-    got = hk.launch_shape(n, F, Lh, B, SQ, budget=_routed_budget(
-        cell_bytes=8), cell_bytes=8)
-    assert got == ROUTED_F64_SHAPES[key]
-    Fb, Lb, chunks, rows = got
-    # As many (slot, feature) pairs a block as with 4-byte cells, or more;
-    # the f64 sub-histogram and the tables fit histogram_routed.cu's
-    # 200 KB of shared memory.
-    assert Fb * Lb >= ROUTED_SHAPES[key][0] * ROUTED_SHAPES[key][1]
-    assert Fb * Lb * B * SQ * 8 <= _routed_budget(cell_bytes=8)
-    assert _routed_budget(cell_bytes=8) + 9 * 1024 <= 200 * 1024
-    assert chunks * rows >= n
 
 
 # ---- on the card -------------------------------------------------------

@@ -29,14 +29,16 @@ from ydf_tpu_torch.utils import cuda_build
 #: Launches of each CUDA kernel in this process (the wrappers add one per
 #: launch; plain-version calls do not count).
 LAUNCHES = {"histogram": 0, "histogram_routed": 0}
-# The routed kernel's launch shape (`launch_shape`): shared memory a
-# block's sub-histogram of 4-byte cells may take (f64 cells get twice;
-# the tables sit beside it, all under histogram_routed.cu's kSmemBytes),
-# blocks to aim for (two on each of the H100's 132 SMs) and the least
-# rows of a chunk.
-SMEM_BUDGET = 96 * 1024
-TARGET_BLOCKS = 264
-MIN_CHUNK_ROWS = 4096
+# The routed kernel's launch shape (`routed_launch_shape`,
+# histogram_routed.cu): a block of ROUTED_THREADS threads routes a tile of
+# as many rows, a warp for each of at most ROUTED_MAX_PAIRS (feature, hist
+# slot) pairs adds them, and all its shared memory stays under
+# ROUTED_SMEM_LIMIT bytes (the most a block may opt into on sm_90). Its
+# 1024 threads may take all of an SM's registers: one block to an SM.
+ROUTED_THREADS = 1024
+ROUTED_TILE_ROWS = ROUTED_THREADS
+ROUTED_MAX_PAIRS = ROUTED_THREADS // 32
+ROUTED_SMEM_LIMIT = 232_448
 # The root kernel's launch shape (`root_launch_shape`, histogram.cu): a
 # block's sub-histogram and its one-byte tags take at most
 # ROOT_SMEM_BUDGET bytes (its staged tile of 512 rows beside them keeps
@@ -74,18 +76,73 @@ def acc_dtype(stats: torch.Tensor) -> torch.dtype:
     return torch.int32 if stats.dtype == torch.int8 else torch.float32
 
 
-def launch_shape(n: int, F: int, L: int, B: int, Sq: int,
-                 budget: int = SMEM_BUDGET,
-                 cell_bytes: int = 4) -> Tuple[int, int, int, int]:
-    """(features per block, slots per block, row chunks, rows per chunk)
-    so that a block's sub-histogram of `cell_bytes` cells fits `budget`
-    bytes and the grid holds about TARGET_BLOCKS blocks."""
-    row = B * Sq * cell_bytes
-    Lb = max(1, min(max(L, 1), budget // row))
-    Fb = max(1, min(F, budget // (Lb * row)))
-    blocks = -(-F // Fb) * -(-max(L, 1) // Lb)
-    chunks = max(1, min(-(-n // MIN_CHUNK_ROWS), -(-TARGET_BLOCKS // blocks)))
-    return Fb, Lb, chunks, -(-n // chunks)
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def routed_smem_bytes(Fb: int, Lb: int, B: int, Sq: int, L: int,
+                      cell_bytes: int) -> int:
+    """A routed block's shared memory as histogram_routed.cu lays it out:
+    the pairs' cells (and one-byte tags for f64 cells), the tile's staged
+    stats, list rows and bins, the tables (go_left as bits), each warp's
+    count of each slot, the slot totals and list starts."""
+    L1 = L + 1
+    P = Fb * Lb
+    cells = _align16(P * B * Sq * cell_bytes)
+    tags = _align16(P * B) if cell_bytes == 8 else 0
+    tile = (ROUTED_TILE_ROWS * Sq * 4 + ROUTED_TILE_ROWS * 2
+            + _align16(Fb * ROUTED_TILE_ROWS))
+    tables = _align16(L1 * 6 * 4 + L1 * (-(-B // 32)) * 4 + L1 * 2)
+    return (cells + tags + tile + tables
+            + (ROUTED_MAX_PAIRS * Lb + 2 * Lb + 1) * 4)
+
+
+class RoutedShape(NamedTuple):
+    """Launch shape of csrc/histogram_routed.cu: G feature groups (group g
+    takes features [g*F//G, (g+1)*F//G), at most Fb), slot_blocks blocks
+    of Lb hist slots, `chunks` row chunks of `rows` rows; a block's warp
+    w < Fb * Lb owns the pair (feature w // Lb, slot w % Lb); `smem`
+    bytes of shared memory a block."""
+
+    G: int
+    Fb: int
+    Lb: int
+    slot_blocks: int
+    chunks: int
+    rows: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.G * self.slot_blocks * self.chunks
+
+
+def routed_launch_shape(n: int, F: int, Lh: int, B: int, Sq: int, L: int,
+                        cell_bytes: int) -> RoutedShape:
+    """Every hist slot in one block where the pairs allow (Lb = Lh up to
+    32), then as many features as the pairs and the shared memory leave,
+    in groups as even as F allows, so that a row is routed once per
+    feature group; then row chunks until the grid holds one wave of
+    blocks on the card's SMS SMs."""
+    Lb = min(max(Lh, 1), ROUTED_MAX_PAIRS)
+    Fb = min(F, ROUTED_MAX_PAIRS // Lb)
+
+    def smem(fb, lb):
+        return routed_smem_bytes(fb, lb, B, Sq, L, cell_bytes)
+
+    while Fb > 1 and smem(Fb, Lb) > ROUTED_SMEM_LIMIT:
+        Fb -= 1
+    while Lb > 1 and smem(Fb, Lb) > ROUTED_SMEM_LIMIT:
+        Lb -= 1
+    G0 = -(-F // Fb)
+    G = next((g for g in range(G0, 2 * G0 + 1) if F % g == 0), G0)
+    Fb = -(-F // G)
+    slot_blocks = -(-Lh // Lb) if Lh > 0 else 1
+    wave = SMS // (G * slot_blocks)
+    chunks = max(1, min(-(-n // ROUTED_TILE_ROWS), wave))
+    rows = -(-max(-(-n // chunks), 1) // ROWS_PER_LANE) * ROWS_PER_LANE
+    return RoutedShape(G, Fb, Lb, slot_blocks, max(1, -(-n // rows)), rows,
+                       smem(Fb, Lb))
 
 
 class RootShape(NamedTuple):
@@ -317,27 +374,25 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
     L = tables.do_split.shape[0] - 1
     Lh, B, Sq = num_slots, num_bins, stats.shape[1]
     dev = bins_t.device
-    out = torch.zeros((Lh, F, B, Sq), dtype=acc_dtype(stats), device=dev)
     new_slot = torch.empty(n, dtype=torch.int32, device=dev)
     new_leaf = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0 or F == 0:
+        out = torch.zeros((Lh, F, B, Sq), dtype=acc_dtype(stats), device=dev)
         return out, new_slot, new_leaf
-    # The tables take their bytes out of the same shared-memory budget.
-    table_bytes = -(-((L + 1) * (B + 22)) // 16) * 16
-    # Float stats sum in f64 cells and partials (histogram_routed.cu),
-    # which get twice the budget: the same pairs a block as 4-byte cells.
+    # The reduce pass writes every cell: no zero fill.
+    out = torch.empty((Lh, F, B, Sq), dtype=acc_dtype(stats), device=dev)
+    # Float stats sum in f64 cells and partials (histogram_routed.cu).
     sum_dtype = torch.int32 if stats.dtype == torch.int8 else torch.float64
-    cell = 8 if sum_dtype == torch.float64 else 4
-    Fb, Lb, chunks, rows = launch_shape(
-        n, F, Lh, B, Sq, budget=SMEM_BUDGET * cell // 4 - table_bytes,
-        cell_bytes=cell)
-    partial = torch.empty(chunks * max(out.numel(), 1), dtype=sum_dtype,
-                          device=dev)
+    shape = routed_launch_shape(n, F, Lh, B, Sq, L,
+                                8 if sum_dtype == torch.float64 else 4)
+    partial = torch.empty(shape.chunks * max(out.numel(), 1),
+                          dtype=sum_dtype, device=dev)
     set_gl = tables.set_go_left if tables.set_go_left.shape[0] == n else None
     fn = cuda_build.entry_point("histogram_routed", "ydf_histogram_routed",
-                                17, 11)
-    with torch.cuda.device(dev):
-        timer = cuda_build.launch_timer("histogram_routed")
+                                17, 12)
+    with cuda_build.on_device(dev):
+        # Named by hist slots, so that a path's time splits by layer.
+        timer = cuda_build.launch_timer(f"histogram_routed/Lh={Lh}")
         status = fn(
             bins_t.data_ptr(), slot.data_ptr(), leaf_id.data_ptr(),
             tables.do_split.data_ptr(), tables.route_f.data_ptr(),
@@ -347,8 +402,9 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
             None if set_gl is None else set_gl.data_ptr(),
             stats.data_ptr(), partial.data_ptr(), out.data_ptr(),
             new_slot.data_ptr(), new_leaf.data_ptr(),
-            n, F, B, Sq, L, Lh, _STATS_KIND[stats.dtype], Fb, Lb, chunks,
-            rows, torch.cuda.current_stream().cuda_stream,
+            n, F, B, Sq, L, Lh, _STATS_KIND[stats.dtype], shape.G, shape.Fb,
+            shape.Lb, shape.chunks, shape.rows,
+            torch.cuda.current_stream().cuda_stream,
         )
         cuda_build.launch_done(timer)
     cuda_build.check_status(status, "routed histogram kernel")

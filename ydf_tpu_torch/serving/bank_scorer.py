@@ -31,6 +31,8 @@ from ydf_tpu_torch.utils import cuda_build
 #: Launches of the CUDA kernel in this process (the wrapper adds one per
 #: launch; plain-version calls do not count).
 KERNEL_LAUNCHES = 0
+#: Rows those launches scored (a path's launches weighted by their rows).
+KERNEL_ROWS = 0
 # Rows per step of the plain version (bounds its [T, rows] temporaries).
 PLAIN_ROW_CHUNK = 1 << 16
 
@@ -165,7 +167,7 @@ def score_plain(tables: BankTables, xT: torch.Tensor) -> torch.Tensor:
 def score(tables: BankTables, xT: torch.Tensor) -> torch.Tensor:
     """Raw scores f32 [n] of xT f32 [F, n] (contiguous). A CPU tensor
     runs the plain version; a CUDA tensor launches the kernel."""
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, KERNEL_ROWS
     if xT.device.type == "cpu":
         return score_plain(tables, xT)
     if xT.device.type != "cuda":
@@ -180,18 +182,21 @@ def score(tables: BankTables, xT: torch.Tensor) -> torch.Tensor:
     fn = cuda_build.entry_point("bank_scorer", "ydf_bank_score", 10, 5)
     T, N = tables.feature.shape
     W = tables.mask.shape[2]
-    with torch.cuda.device(xT.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with cuda_build.on_device(xT.device):
+        timer = cuda_build.launch_timer("bank_scorer")
         status = fn(
             xT.data_ptr(), tables.feature.data_ptr(),
             tables.thresh.data_ptr(), tables.left.data_ptr(),
             tables.right.data_ptr(), tables.leaf_value.data_ptr(),
             tables.is_cat.data_ptr(), tables.is_leaf.data_ptr(),
             tables.mask.data_ptr(), out.data_ptr(),
-            n, T, N, W, tables.max_depth, stream,
+            n, T, N, W, tables.max_depth,
+            torch.cuda.current_stream().cuda_stream,
         )
+        cuda_build.launch_done(timer)
     cuda_build.check_status(status, "bank kernel")
     KERNEL_LAUNCHES += 1
+    KERNEL_ROWS += n
     return out
 
 

@@ -4,10 +4,15 @@ compatible_engines / best_engine).
 
 Every engine declares a compatibility check and a rank; a model serves
 through the highest-ranked compatible engine unless one is forced by
-name. Ranks follow the JAX package's TPU ranking, which is not the
-H100's speed order (see PERF.md):
+name. The ranks are the JAX package's TPU ranking, and since the
+QuickScorer kernel's redesign they are also the H100's own order:
+chip_smoke.py times both CUDA engines on the default GBT (gbt_d6, 300
+trees of depth 6) at 1,048,576 rows and fails if the registry does not
+pick the faster one when one is more than 10% faster (PERF.md has the
+times):
 
   QuickScorer  300  leaf-bitmask CUDA kernel, trees of <= 64 leaves
+                    whose tree blocks fit its shared memory
   BankScorer   250  data-bank CUDA kernel, any tree shape (the JAX
                     package's PallasBank; renamed, it is not Pallas here)
   Routed         0  generic routed scan in plain PyTorch (ops/routing.py);
@@ -74,10 +79,11 @@ def best_engine(model, forced: Optional[str] = None) -> EngineFactory:
 def _qs_compatible(model) -> bool:
     if not bank_scorer.in_envelope(model):
         return False
-    return quickscorer.compile_forest_cached(
+    qsm = quickscorer.compile_forest_cached(
         model.forest, model.binner.num_numerical,
         num_features=model.binner.num_scalar,
-    ) is not None
+    )
+    return qsm is not None and quickscorer.fits_shared_memory(qsm)
 
 
 register_engine(EngineFactory(

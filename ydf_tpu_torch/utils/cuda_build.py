@@ -149,9 +149,9 @@ def on_device(dev):
     return torch.cuda.device(dev)
 
 
-#: When a list, the training kernels' wrappers append (name, start event,
-#: end event) around each launch (CUDA events; they add no sync). None,
-#: the default, records nothing. chip_smoke.py sums them per kernel.
+#: When a list, the kernel wrappers append (name, start event, end event)
+#: around each launch (CUDA events; they add no sync). None, the default,
+#: records nothing. chip_smoke.py sums them per kernel.
 LAUNCH_EVENTS: Optional[list] = None
 
 
