@@ -430,7 +430,8 @@ def test_routed_kernel_all_trash_rows_on_card(kind):
 def test_entry_points_match_their_c_signatures():
     """Every wrapper declares its C entry point with the pointer and int
     counts of the extern "C" signature in csrc/ (a mismatch makes ctypes
-    refuse the call, or pass pointers as 32-bit ints, only on the card)."""
+    refuse the call, or pass pointers as 32-bit ints, only on the card),
+    and every extern "C" entry point in csrc/ has such a wrapper."""
     import re
 
     root = os.path.join(os.path.dirname(os.path.dirname(
@@ -444,6 +445,12 @@ def test_entry_points_match_their_c_signatures():
                     r'entry_point\(\s*"(\w+)",\s*"(\w+)",\s*(\d+),\s*(\d+)\)',
                     src)
     assert len(calls) >= 6
+    # Every C entry point in csrc/ has a wrapper that declares it.
+    declared = {(name, symbol) for name, symbol, _, _ in calls}
+    for f in os.listdir(os.path.join(root, "csrc")):
+        src = open(os.path.join(root, "csrc", f)).read()
+        for symbol in re.findall(r'extern "C" int (\w+)\(', src):
+            assert (f[:-3], symbol) in declared, (f, symbol)
     for name, symbol, n_ptr, n_int in calls:
         src = open(os.path.join(root, "csrc", f"{name}.cu")).read()
         sig = re.search(r'extern "C" int ' + symbol + r'\((.*?)\)', src,

@@ -333,7 +333,7 @@ def test_wrappers_on_card_raise_on_what_they_do_not_take():
     F = pm.binner.num_scalar
     on_cpu = {
         quickscorer: qs._replace(leaf_values=qs.leaf_values.cpu()),
-        bank_scorer: bank._replace(feature=bank.feature.cpu()),
+        bank_scorer: bank._replace(words=bank.words.cpu()),
     }
     for mod, tables in ((quickscorer, qs), (bank_scorer, bank)):
         with pytest.raises(ValueError, match="contiguous"):

@@ -164,7 +164,8 @@ def test_encoding_matches_jax(trained, name):
 
 
 @pytest.mark.parametrize("name", ["cls_d4", "reg_d6"])
-@pytest.mark.parametrize("engine", [None, "BankScorer", "Routed"])
+@pytest.mark.parametrize("engine", [None, "BankScorer", "QuickScorer",
+                                    "Routed"])
 def test_predict_matches_jax_end_to_end(trained, name, engine):
     m, path = trained[name]
     pm = ydf_tpu_torch.load_model(path, device="cpu")
@@ -209,15 +210,16 @@ def test_predict_links_and_multi_output(trained):
 def test_registry_ranks_and_forcing(trained):
     pm = ydf_tpu_torch.load_model(trained["reg_d6"][1], device="cpu")
     assert pm.list_compatible_engines() == [
-        "QuickScorer", "BankScorer", "Routed"]
-    from ydf_tpu_torch.serving import quickscorer
+        "BankScorer", "QuickScorer", "Routed"]
+    from ydf_tpu_torch.serving import bank_scorer, quickscorer
 
+    assert isinstance(pm._fast_engine(), bank_scorer.BankScorerEngine)
+    pm.force_engine("QuickScorer")
     assert isinstance(pm._fast_engine(), quickscorer.QuickScorerEngine)
+    pm.force_engine(None)
     d8 = ydf_tpu_torch.load_model(os.path.join(TESTDATA, "gbt_d8"),
                                   device="cpu")
     assert d8.list_compatible_engines() == ["BankScorer", "Routed"]
-    from ydf_tpu_torch.serving import bank_scorer
-
     assert isinstance(d8._fast_engine(), bank_scorer.BankScorerEngine)
     with pytest.raises(ValueError, match="not compatible"):
         d8.force_engine("QuickScorer")

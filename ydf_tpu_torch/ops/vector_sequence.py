@@ -31,10 +31,15 @@ NEG_INF_SCORE = torch.finfo(torch.float32).min  # -FLT_MAX, exactly
 #: Launches of the CUDA kernel in this process (the wrapper adds one per
 #: launch; plain-version calls do not count).
 KERNEL_LAUNCHES = 0
-# Shared memory for a block's anchors and their squared norms
-# (vector_sequence.cu's kSmemBytes), and anchors per block.
-SMEM_BUDGET = 48 * 1024
-MAX_ANCHORS_PER_BLOCK = 32
+# The kernel's blocks: WARPS warps, a warp a row at a time (grid-stride);
+# at most BLOCKS_PER_SM blocks for each of the card's SMS SMs (H100 SXM),
+# enough resident warps to keep the loads in flight.
+WARPS = 4
+SMS = 132
+BLOCKS_PER_SM = 8
+# The vector width the staged instantiation of the kernel is built for
+# (the paths' width); other widths take the generic one.
+STAGED_DIM = 16
 # Examples per step of the plain version (bounds its float64 temporaries).
 PLAIN_ROW_CHUNK = 1 << 14
 
@@ -117,11 +122,10 @@ def vs_scores_plain(values: torch.Tensor, lengths: torch.Tensor,
     ])
 
 
-def anchors_per_block(num_anchors: int, dim: int) -> int:
-    """Anchors a block keeps in shared memory with their squared norms;
-    0 when one anchor does not fit."""
-    return min(num_anchors, MAX_ANCHORS_PER_BLOCK,
-               SMEM_BUDGET // (4 * (dim + 1)))
+def vs_launch_shape(n: int) -> int:
+    """Blocks of the kernel's grid for n rows: one row a warp while the
+    card holds them all, then a grid-stride loop over rows."""
+    return max(1, min(-(-n // WARPS), SMS * BLOCKS_PER_SM))
 
 
 def vs_scores(values: torch.Tensor, lengths: torch.Tensor,
@@ -148,20 +152,16 @@ def vs_scores(values: torch.Tensor, lengths: torch.Tensor,
         return out
     if L == 0 or D == 0:
         return out.fill_(NEG_INF_SCORE)
-    At = anchors_per_block(A, D)
-    if At == 0:
-        raise ValueError(
-            f"vector dimension {D} exceeds the kernel's shared-memory "
-            f"budget ({SMEM_BUDGET // 4 - 1} floats per anchor)"
-        )
     closer_u8 = is_closer.to(torch.uint8)
-    fn = cuda_build.entry_point("vector_sequence", "ydf_vs_scores", 5, 6)
-    with torch.cuda.device(dev):
+    staged = D == STAGED_DIM and values.data_ptr() % 16 == 0
+    fn = cuda_build.entry_point("vector_sequence", "ydf_vs_scores", 5, 7)
+    with cuda_build.on_device(dev):
         timer = cuda_build.launch_timer("vector_sequence")
         status = fn(
             values.data_ptr(), lengths.data_ptr(), anchors.data_ptr(),
-            closer_u8.data_ptr(), out.data_ptr(), n, L, D,
-            A, At, dot_lanes(A, D), torch.cuda.current_stream().cuda_stream,
+            closer_u8.data_ptr(), out.data_ptr(), n, L, D, A,
+            dot_lanes(A, D), vs_launch_shape(n), int(staged),
+            torch.cuda.current_stream().cuda_stream,
         )
         cuda_build.launch_done(timer)
     cuda_build.check_status(status, "vector-sequence kernel")

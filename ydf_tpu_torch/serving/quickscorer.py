@@ -517,7 +517,7 @@ def score(tables: QuickScorerTables, xT: torch.Tensor) -> torch.Tensor:
     shape = launch_shape(tables)
     fn = cuda_build.entry_point("quickscorer", "ydf_qs_score", 9, 8)
     with cuda_build.on_device(xT.device):
-        timer = cuda_build.launch_timer("quickscorer")
+        timer = cuda_build.launch_timer(f"quickscorer/rows={n}")
         status = fn(
             xT.data_ptr(), tables.rec.data_ptr(), tables.tree_off.data_ptr(),
             tables.num_end.data_ptr(), tables.block_tree.data_ptr(),

@@ -4,17 +4,18 @@ compatible_engines / best_engine).
 
 Every engine declares a compatibility check and a rank; a model serves
 through the highest-ranked compatible engine unless one is forced by
-name. The ranks are the JAX package's TPU ranking, and since the
-QuickScorer kernel's redesign they are also the H100's own order:
-chip_smoke.py times both CUDA engines on the default GBT (gbt_d6, 300
-trees of depth 6) at 1,048,576 rows and fails if the registry does not
-pick the faster one when one is more than 10% faster (PERF.md has the
-times):
+name. The ranks follow the H100's own order: chip_smoke.py times both
+CUDA engines on the default GBT (gbt_d6, 300 trees of depth 6) at
+1,048,576 rows and fails if the registry does not pick the faster one
+when one is more than 10% faster (PERF.md has the times). Since the bank
+kernel's redesign the bank is the faster, so its rank is above
+QuickScorer's, the reverse of the JAX package's TPU ranking; both add
+the same leaf values in the same order, so the scores do not change:
 
-  QuickScorer  300  leaf-bitmask CUDA kernel, trees of <= 64 leaves
-                    whose tree blocks fit its shared memory
-  BankScorer   250  data-bank CUDA kernel, any tree shape (the JAX
+  BankScorer   300  data-bank CUDA kernel, any tree shape (the JAX
                     package's PallasBank; renamed, it is not Pallas here)
+  QuickScorer  250  leaf-bitmask CUDA kernel, trees of <= 64 leaves
+                    whose tree blocks fit its shared memory
   Routed         0  generic routed scan in plain PyTorch (ops/routing.py);
                     the only engine for a model with vector-sequence
                     features (the other two refuse it, as the JAX
@@ -88,14 +89,14 @@ def _qs_compatible(model) -> bool:
 
 register_engine(EngineFactory(
     name="QuickScorer",  # csrc/quickscorer.cu
-    rank=300,
+    rank=250,
     is_compatible=_qs_compatible,
     build=quickscorer.build_quickscorer,
 ))
 
 register_engine(EngineFactory(
     name="BankScorer",  # csrc/bank_scorer.cu
-    rank=250,
+    rank=300,
     is_compatible=bank_scorer.in_envelope,
     build=bank_scorer.build_bank_scorer,
 ))
