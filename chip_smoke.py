@@ -1,9 +1,10 @@
 """Chip smoke of ydf_tpu_torch, the PyTorch/CUDA port: builds its CUDA
 kernels, checks each against its plain PyTorch version at full width,
 serves the committed fixture models through `load_model(...).predict`
-on the card, trains the bench GBT and a GBT on vector sequences on the
-card through `GradientBoostedTreesLearner(...).train`, times each
-kernel, and prints one JSON summary.
+on the card, trains the bench GBT, a GBT on vector sequences and the
+library's default GBT on the card through
+`GradientBoostedTreesLearner(...).train`, evaluates, saves and loads
+the last, times each kernel, and prints one JSON summary.
 
     python3 chip_smoke.py        # needs one CUDA card and nvcc
 
@@ -53,10 +54,26 @@ Phases (one line each; any failure is an uncaught exception):
               trained on the card
               against the JAX run (anchors bitwise, tree 0, losses, raw
               scores); then each kernel timed at the path's shapes
+  8 default   train_default (ydf_tpu_torch/testdata/train_default, the
+              JAX package's GradientBoostedTreesLearner(label="label")
+              with every default on make_frame: 500,000 rows, 28
+              numerical and 4 categorical columns, evaluated on 100,000
+              fresh rows): the frames' SHA-256; the main path (train with
+              the validation split, look-ahead early stopping and
+              categorical splits, then evaluate) with its launches, host
+              reads and stage walls; against the JAX run (bins and
+              validation rows bitwise, the kept and trained tree counts,
+              tree 0 with its categorical masks, losses, raw scores,
+              evaluate's metrics); the JAX model loaded and evaluated on
+              the card; save -> load; the routed kernel against its plain
+              version on the path's categorical tables; a profiled train
+              of 50 trees (the device's idle share); each of the path's
+              kernels timed at its shapes
 
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
-phase 6 is the training path, phase 7 the serve_vs and train_vs paths.
+phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
+phase 8 the default train path (train, then evaluate).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -118,6 +135,26 @@ VS_ATOL = 1e-6
 VS_SERVE_ATOL = 1e-5
 VS_MAX_EXPLAINED = 0.005
 VS_THRESHOLD_ULPS = 4
+# The default train path (train_default): the JAX package's
+# GradientBoostedTreesLearner(label="label") with every default, on
+# make_frame's recipe (the 28 numerical columns of make_data with NaNs in
+# three of them, four categorical columns), evaluated on fresh rows.
+TRAIN_DEFAULT = os.path.join(TESTDATA, "train_default")
+DEFAULT_ROWS = 500_000
+DEFAULT_TEST_ROWS = 100_000
+DEFAULT_CAT_SEED = 7
+DEFAULT_CAT_VOCABS = (5, 12, 40, 200)
+DEFAULT_MISSING = (0, 5, 11)
+DEFAULT_HP = dict(label="label")
+DEFAULT_COMPARE_ROWS = 1024
+# train_default: evaluate() of the card-trained model against the JAX
+# model's metrics on the test rows (a few split flips move them a
+# little); the JAX model loaded by the port evaluates to within
+# EVAL_SAME_ATOL of the JAX package's own evaluation.
+EVAL_ATOL = 2e-3
+EVAL_SAME_ATOL = 1e-12
+# Trees of phase 8's profiled train: two chunks of the look-ahead stop.
+PROFILE_TREES = 50
 # Tolerances against the JAX package's run. The port's f32 histograms sum
 # rows in another order (shared-memory atomics) than the JAX package's
 # f64 block partials, so near-tie splits may flip in late trees; the
@@ -173,6 +210,49 @@ def make_data(rows, features):
     data = {f"f{i}": x[:, i] for i in range(features)}
     data["label"] = y
     return data
+
+
+def make_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED):
+    """scripts/make_torch_port_fixtures.py:make_frame with the test rows'
+    labels kept: (train, test) columns; numerical f32 (NaNs in
+    DEFAULT_MISSING), categorical unicode with some signal about the
+    label, an int label; the test rows carry unseen ("unseen") and
+    missing ("") categories."""
+    n = train_rows + test_rows
+    data = make_data(n, TRAIN_FEATURES)
+    y = data["label"]
+    rng = np.random.default_rng(seed)
+    for j, vocab in enumerate(DEFAULT_CAT_VOCABS):
+        code = rng.integers(0, vocab, n)
+        # Positive rows favour the lower third of the vocabulary.
+        skew = (y == 1) & (rng.uniform(size=n) < 0.4)
+        code = np.where(skew, code % max(vocab // 3, 1), code)
+        data[f"c{j}"] = np.array([f"v{c}" for c in code])
+    for i in DEFAULT_MISSING:
+        miss = rng.uniform(size=n) < 0.03
+        data[f"f{i}"] = np.where(miss, np.nan, data[f"f{i}"]).astype(
+            np.float32)
+    train = {k: v[:train_rows] for k, v in data.items()}
+    test = {k: v[train_rows:].copy() for k, v in data.items()}
+    for j in range(len(DEFAULT_CAT_VOCABS)):
+        col = test[f"c{j}"].astype("<U8")
+        col[rng.uniform(size=test_rows) < 0.05] = "unseen"
+        col[rng.uniform(size=test_rows) < 0.03] = ""
+        test[f"c{j}"] = col
+    return train, test
+
+
+def frame_sha256(frame):
+    """SHA-256 of a frame's columns: names, dtypes, shapes and bytes, in
+    name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(frame):
+        a = np.ascontiguousarray(frame[name])
+        h.update(f"{name}|{a.dtype.str}|{a.shape}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def make_vs_data(rows, max_len=VS_MAX_LEN, dim=VS_DIM, noise=VS_NOISE,
@@ -657,6 +737,8 @@ def main():
     torch.cuda.synchronize()
     kernels.extend(vs_path(smi, serving=counters))
     torch.cuda.synchronize()
+    kernels.extend(default_path(smi, serving=counters))
+    torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -1053,18 +1135,18 @@ def layer_text(layers):
         f"{v['path_ms']:.3f} ms (events)" for k, v in layers.items())
 
 
-def profile_train(data):
-    """One training of train_bench under torch.profiler: device time by
-    kernel name, the number of device kernels, and the device's idle
-    share of the boosting loop, bounded from below by 1 - (device time
-    of the whole train) / (loop wall)."""
+def profile_train(data, hp=TRAIN_HP):
+    """One training (train_bench's configuration unless `hp` says
+    otherwise) under torch.profiler: device time by kernel name, the
+    number of device kernels, and the device's idle share of the
+    boosting loop, bounded from below by 1 - (device time of the whole
+    train) / (loop wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import ydf_tpu_torch
 
-    learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
-                                                        **TRAIN_HP)
+    learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE, **hp)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1724,6 +1806,347 @@ def vs_path(smi, serving):
                 f"{layer_text(layers)}, {smi}")
     log("7 vs", f"phase 7 wall {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# --------------------------------------------------------------------- #
+# 8 default: the library's default GBT workflow on the card
+# --------------------------------------------------------------------- #
+
+
+def default_path(smi, serving):
+    """Phase 8: GradientBoostedTreesLearner(label="label") with every
+    default (the validation split, look-ahead early stopping, categorical
+    splits) trained on the card, evaluated, saved and loaded, against the
+    JAX package's run (ydf_tpu_torch/testdata/train_default). Returns the
+    `kernels` entries of the path's four kernels."""
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.serving import bank_scorer
+    from ydf_tpu_torch.utils import cuda_build
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(TRAIN_DEFAULT, "config.json")) as f:
+        cfg = json.load(f)
+    assert (cfg["rows"], cfg["test_rows"], cfg["cat_seed"],
+            cfg["data_seed"], cfg["compare_rows"], cfg["learner"],
+            cfg["generator"]) == (
+        DEFAULT_ROWS, DEFAULT_TEST_ROWS, DEFAULT_CAT_SEED, DATA_SEED,
+        DEFAULT_COMPARE_ROWS, DEFAULT_HP,
+        dict(features=TRAIN_FEATURES, cat_vocabs=list(DEFAULT_CAT_VOCABS),
+             missing_features=list(DEFAULT_MISSING))), cfg
+    exp = np.load(os.path.join(TRAIN_DEFAULT, "expected.npz"))
+    jax_forest = dict(np.load(os.path.join(TRAIN_DEFAULT, "forest.npz")))
+    t0 = time.perf_counter()
+    train, test = make_frame(DEFAULT_ROWS, DEFAULT_TEST_ROWS)
+    assert frame_sha256(train) == cfg["train_sha256"], "train frame"
+    assert frame_sha256(test) == cfg["test_sha256"], "test frame"
+    log("8 default", f"frames {DEFAULT_ROWS} + {DEFAULT_TEST_ROWS} rows in "
+        f"{time.perf_counter() - t0:.2f} s, SHA-256 == the fixture's; JAX "
+        f"fixture: jax {cfg['jax_version']}, impls {cfg['jax_impls']}")
+
+    # -- 8a the main path: train with every default, evaluate ---------- #
+    for k in histogram_kernels.LAUNCHES:
+        histogram_kernels.LAUNCHES[k] = 0
+    binning.KERNEL_LAUNCHES = 0
+    for c in serving:
+        c.KERNEL_LAUNCHES = 0
+        c.KERNEL_ROWS = 0
+    reads0 = port_gbt.HOST_READS
+    cuda_build.LAUNCH_EVENTS = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                        **DEFAULT_HP)
+    model = learner.train(train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = model.evaluate(test)
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
+    counted = dict(histogram_kernels.LAUNCHES)
+    counted["binning"] = binning.KERNEL_LAUNCHES
+    counted["bank_scorer"] = bank_scorer.KERNEL_LAUNCHES
+    others = {c.__name__: c.KERNEL_LAUNCHES for c in serving
+              if c is not bank_scorer}
+    reads = port_gbt.HOST_READS - reads0
+    logs = model.training_logs
+    trained, kept = logs["num_trees_trained"], logs["num_trees"]
+    depth = learner.max_depth
+    chunks = -(-trained // min(learner.early_stopping_num_trees_look_ahead,
+                               port_gbt.MAX_CHUNK_TREES))
+    assert counted["histogram"] == trained, counted
+    assert counted["histogram_routed"] == trained * (depth - 1), counted
+    assert counted["binning"] >= 1 and counted["bank_scorer"] >= 1, counted
+    assert not any(others.values()), others
+    assert reads == chunks, (reads, chunks)
+    kernel_ms, routed_lh = split_events(events)
+    boost_ms = learner.last_timings["boost_s"] * 1e3
+    valid_ms = kernel_ms.pop("valid_route", 0.0)
+    log("8 launches", f"train_default (train + evaluate): {counted} "
+        f"launches (routed by hist slots: {routed_lh}); other serving "
+        f"kernels {others}")
+    log("8 train", f"GradientBoostedTreesLearner(**{DEFAULT_HP}).train: "
+        f"wall {wall * 1e3:.1f} ms (host clock, ends in synchronize); "
+        "stages " + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in
+                             learner.last_timings.items())
+        + f"; {trained} trees trained, {kept} kept; {chunks} chunks, "
+        f"{reads} host reads of the validation losses; "
+        f"{boost_ms / trained:.2f} ms a tree (loop wall / trees trained); "
+        f"validation routing {valid_ms:.1f} ms (CUDA events around each "
+        f"tree's route, predictions and loss) = "
+        f"{100 * valid_ms / boost_ms:.2f}% of the loop; kernel time (CUDA "
+        "events, train + evaluate) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; evaluate of {DEFAULT_TEST_ROWS} rows {eval_wall * 1e3:.1f} "
+        f"ms; {smi}")
+
+    # -- 8b against the JAX package's run ------------------------------ #
+    bins = model.binner.transform(
+        Dataset.from_data(train, dataspec=model.dataspec), model.device)
+    assert sha256(bins) == cfg["bins_sha256"], "bins != the JAX package's"
+    _, va_idx = port_gbt.split_validation(DEFAULT_ROWS,
+                                          learner.validation_ratio,
+                                          learner.random_seed)
+    import hashlib
+
+    assert hashlib.sha256(va_idx.astype(np.int64).tobytes()).hexdigest() \
+        == cfg["valid_idx_sha256"], "validation rows != the JAX package's"
+    jv = exp["valid_loss"].astype(np.float64)
+    pv = np.array([r["valid_loss"] for r in logs["iterations"]])
+    pt = np.array([r["train_loss"] for r in logs["iterations"]])
+    two = np.sort(jv)[:2]
+    jax_tie = two[1] - two[0] <= 1e-5 * two[0]
+    counts_same = (kept, trained) == (cfg["num_trees"],
+                                      cfg["num_trees_trained"])
+    if not counts_same:
+        a = cfg["num_trees"] - 1
+        lo, hi = max(a - 5, 0), a + 6
+        log("8 vs JAX", f"kept/trained {kept}/{trained} != JAX "
+            f"{cfg['num_trees']}/{cfg['num_trees_trained']}; validation "
+            f"losses near JAX's argmin, iterations {lo + 1}-{hi}: JAX "
+            f"{jv[lo:hi].tolist()}, port {pv[lo:hi].tolist()}")
+    assert counts_same or jax_tie, (
+        "the kept tree count differs from JAX's where JAX's two smallest "
+        "validation losses lie more than rtol 1e-5 apart")
+    pf = model.forest.to_numpy()
+    for field in ("feature", "threshold_bin", "is_cat", "cat_mask", "left",
+                  "right", "is_leaf", "num_nodes"):
+        assert np.array_equal(pf[field][0], jax_forest[field][0]), (
+            f"tree 0 {field} != the JAX package's")
+    T = min(kept, cfg["num_trees"])
+    jf = {k: v[:T] for k, v in jax_forest.items()}
+    split = ~jf["is_leaf"] | ~pf["is_leaf"][:T]
+    differ = split & ((pf["feature"][:T] != jf["feature"])
+                      | (pf["threshold_bin"][:T] != jf["threshold_bin"])
+                      | (pf["is_leaf"][:T] != jf["is_leaf"])
+                      | (pf["cat_mask"][:T] != jf["cat_mask"]).any(-1))
+    per_tree = differ.sum(axis=1)
+    m = min(len(pv), len(jv))
+    rel = {"train": np.abs(pt[:m] / exp["train_loss"][:m] - 1),
+           "valid": np.abs(pv[:m] / jv[:m] - 1)}
+    for k, r in rel.items():
+        assert r.max() <= TRAIN_LOSS_RTOL, (k, r.max())
+    head = {k: v[:DEFAULT_COMPARE_ROWS] for k, v in test.items()}
+    raw = model._raw_scores(head, combine="sum")[:, 0] \
+        + model.initial_predictions[0]
+    raw_exp = exp["raw"] + exp["initial_predictions"][0]
+    assert raw.shape == raw_exp.shape and np.isfinite(raw).all()
+    raw_err = np.abs(raw - raw_exp)
+    assert raw_err.max() <= RAW_SCORE_ATOL, raw_err.max()
+    assert raw_err.mean() <= RAW_SCORE_MEAN_ATOL, raw_err.mean()
+    jev = cfg["jax_evaluate"]
+    ev_err = {k: abs(ev.metrics[k] - jev[k]) for k in jev}
+    assert ev_err["accuracy"] <= EVAL_ATOL and ev_err["auc"] <= EVAL_ATOL, \
+        ev_err
+    assert ev_err["loss"] <= TRAIN_LOSS_RTOL * jev["loss"], ev_err
+    cat_nodes = int((pf["is_cat"] & ~pf["is_leaf"]).sum())
+    log("8 vs JAX", f"bins and validation rows bitwise == JAX; kept "
+        f"{kept} of {trained} trained (JAX {cfg['num_trees']} of "
+        f"{cfg['num_trees_trained']}; JAX's two smallest validation losses "
+        f"{two[0]:.9g}, {two[1]:.9g}); tree 0 == JAX, categorical masks "
+        f"included; {cat_nodes} of {int((~pf['is_leaf']).sum())} split "
+        f"nodes categorical; split nodes differing from JAX over {T} "
+        f"trees: {int(per_tree.sum())} (first differing tree "
+        f"{int(np.argmax(per_tree > 0)) if per_tree.any() else None}); "
+        f"losses over {m} iterations: train max rel "
+        f"{rel['train'].max():.2e}, valid max rel {rel['valid'].max():.2e} "
+        f"(<= {TRAIN_LOSS_RTOL}); raw scores on {DEFAULT_COMPARE_ROWS} "
+        f"test rows: max abs {raw_err.max():.3g} (<= {RAW_SCORE_ATOL}), "
+        f"mean {raw_err.mean():.3g} (<= {RAW_SCORE_MEAN_ATOL}); evaluate "
+        f"on {DEFAULT_TEST_ROWS} rows: " + " ".join(
+            f"{k} {ev.metrics[k]:.6f} (JAX {jev[k]:.6f})" for k in jev))
+
+    # -- 8c the JAX model served and evaluated by the port ------------- #
+    jm = ydf_tpu_torch.load_model(TRAIN_DEFAULT, device=DEVICE)
+    jraw = jm._raw_scores(head, combine="sum")[:, 0]
+    assert np.array_equal(jraw.view(np.int32), exp["raw"].view(np.int32)), (
+        "the JAX model's raw scores on the card != JAX's")
+    jme = jm.evaluate(test)
+    same = max(abs(jme.metrics[k] - jev[k]) for k in jev)
+    assert same <= EVAL_SAME_ATOL, (jme.metrics, jev)
+    log("8 load", f"the JAX model on the card: raw scores on "
+        f"{DEFAULT_COMPARE_ROWS} rows bitwise == JAX; evaluate on "
+        f"{DEFAULT_TEST_ROWS} rows within {same:.3g} of JAX's metrics "
+        f"(<= {EVAL_SAME_ATOL})")
+
+    # -- 8d save -> load ----------------------------------------------- #
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "m"))
+        back = ydf_tpu_torch.load_model(os.path.join(tmp, "m"),
+                                        device=DEVICE)
+        got, want = back.predict(test), model.predict(test)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32)), (
+        "save -> load changed the predictions")
+    log("8 save", f"model.save -> load_model: predictions on "
+        f"{DEFAULT_TEST_ROWS} rows bitwise equal")
+
+    # -- 8e the routed kernel on the path's categorical tables --------- #
+    tr_idx, _ = port_gbt.split_validation(DEFAULT_ROWS,
+                                          learner.validation_ratio,
+                                          learner.random_seed)
+    layers = captured_routed_layers(model, learner, train, tr_idx)
+    cat_layers = [a for a in layers if categorical_tables(a[3])]
+    assert len(cat_layers) >= 3, f"{len(cat_layers)} categorical layers"
+    err_routed = 0.0
+    for args in cat_layers:
+        got = histogram_kernels.histogram_routed(*args)
+        want = histogram_kernels.histogram_routed_plain(*args)
+        assert torch.equal(got[1], want[1]) and torch.equal(
+            got[2], want[2]), "routed kernel: new_slot / new_leaf != plain"
+        err_routed = max(err_routed, hist_check(
+            got[0], want[0], histogram_kernels.histogram_routed_plain(
+                *abs_stats(args, 4))[0], "routed histogram, categorical"))
+    log("8 kernels", f"histogram_routed on {len(cat_layers)} layers of the "
+        f"path's first two trees whose tables hold categorical (not prefix) "
+        f"go_left rows (Lh = {[a[5] for a in cat_layers]}): new_slot, "
+        f"new_leaf torch.equal to plain, the histogram within {HIST_RTOL} x "
+        f"cell mass + {HIST_ATOL} (max abs {err_routed:.3g})")
+
+    # -- 8f where the loop's time goes (torch.profiler) ---------------- #
+    prof = profile_train(train, dict(DEFAULT_HP, num_trees=PROFILE_TREES))
+    log("8 profile", f"one more train, num_trees={PROFILE_TREES} (two "
+        "chunks), under torch.profiler (the profiler slows the host): wall "
+        f"{prof['wall_ms']:.1f} ms, boosting loop {prof['loop_ms']:.1f} ms; "
+        f"{prof['kernels']} device kernels, {prof['busy_ms']:.3f} ms of "
+        "device time over the whole train, so the device is idle at least "
+        f"{100 * prof['idle_share']:.1f}% of the loop; largest: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms" for name, ms in prof["top"]))
+
+    # -- 8g each kernel timed at the path's shapes --------------------- #
+    rows = {k: v[tr_idx] for k, v in train.items()}
+    Fn = model.binner.num_numerical
+    cat_rows = bins.t()[Fn:].index_select(
+        1, torch.from_numpy(tr_idx).to(bins.device)).contiguous()
+    inp = train_inputs(rows, model.binner, extra_bins=cat_rows)
+    inp["routed"] = max(cat_layers, key=lambda a: a[5])
+    err = {"binning": 0.0, "histogram_routed": err_routed}
+    err["histogram"] = hist_check(
+        histogram_kernels.histogram(*inp["root"]),
+        histogram_kernels.histogram_plain(*inp["root"]),
+        histogram_kernels.histogram_plain(*abs_stats(inp["root"], 2)),
+        "root histogram")
+    out = []
+    for name, src, replaces in (
+        ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+        ("histogram", "histogram.cu", "ydf_tpu/ops/histogram_pallas.py:81"),
+        ("histogram_routed", "histogram_routed.cu",
+         "ydf_tpu/ops/histogram_pallas.py:172"),
+    ):
+        t = measure_train(name, inp)
+        log("8 timing", f"{name} ({t['shape']}): {timing_text(t)}, {smi}")
+        out.append(train_entry(name, "train_default", src, replaces, t,
+                               counted[name], err[name],
+                               kernel_ms.get(name, 0.0)))
+    bank = bank_scorer.build_bank_scorer(model)
+    xT = encoded_xT(model, test)
+    t = measure(bank_scorer, bank.tables, bank.tables, xT)
+    log("8 timing", f"bank_scorer/train_default at {xT.shape[1]} rows x "
+        f"{xT.shape[0]} features ({kept} trees): kernel {t['ms']:.4f} ms a "
+        f"call back to back, {t['device_ms']:.4f} ms on the card "
+        f"({t['device_how']}), plain {t['plain_ms']:.2f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']}), {smi}")
+    out.append({
+        "name": "bank_scorer/train_default", "route": "cuda",
+        "source": "ydf_tpu_torch/csrc/bank_scorer.cu",
+        "replaces": "ydf_tpu/serving/pallas_scorer.py:118",
+        "launches": counted["bank_scorer"], "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "device_ms": t["device_ms"],
+        "device_how": t["device_how"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "path_ms": kernel_ms.get("bank_scorer", 0.0),
+        "path_how": "CUDA events around each launch",
+    })
+    log("8 default", f"phase 8 wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def categorical_tables(tables):
+    """Does a layer's table route some split by a mask that is not a
+    prefix of bins (a categorical split)?"""
+    import torch
+
+    gl = tables.go_left[tables.do_split]
+    prefix = torch.cummin(gl.to(torch.uint8), dim=1).values.bool()
+    return bool((gl != prefix).any())
+
+
+def captured_routed_layers(model, learner, train, tr_idx, num_trees=2):
+    """The routed kernel's arguments at every fused layer of the first
+    `num_trees` trees the default path grows (its training rows and
+    binner, the learner's configuration), cloned as the kernel got them:
+    the path's own tables, categorical splits included."""
+    import torch
+
+    from ydf_tpu_torch.config import TreeConfig, resolve_max_frontier
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.learners.losses import make_loss
+    from ydf_tpu_torch.ops import histogram_kernels
+    from ydf_tpu_torch.ops.split_rules import HessianGainRule
+
+    binner = model.binner
+    dev = model.device
+    idx = torch.from_numpy(tr_idx).to(dev)
+    bins_t = binner.transform(Dataset.from_data(train, model.dataspec),
+                              dev).t().index_select(1, idx).contiguous()
+    n = bins_t.shape[1]
+    labels = torch.from_numpy(
+        (train["label"][tr_idx].astype(str) == model.classes[1]).astype(
+            np.float32)).to(dev)
+    cfg = TreeConfig(max_depth=learner.max_depth,
+                     max_frontier=resolve_max_frontier(
+                         learner.max_frontier, n, learner.min_examples),
+                     num_bins=binner.num_bins,
+                     min_examples=learner.min_examples)
+    captured = []
+    original = histogram_kernels.histogram_routed
+
+    def record(*args):
+        captured.append(tuple(
+            a.clone() if isinstance(a, torch.Tensor) else
+            type(a)(*(t.clone() for t in a)) if isinstance(
+                a, histogram_kernels.RouteTables) else a for a in args))
+        return original(*args)
+
+    histogram_kernels.histogram_routed = record
+    try:
+        port_gbt.boost(bins_t, labels, torch.ones(n, device=dev),
+                       loss_obj=make_loss("DEFAULT", model.task, 2),
+                       rule=HessianGainRule(), tree_cfg=cfg,
+                       num_trees=num_trees, shrinkage=learner.shrinkage,
+                       num_numerical=binner.num_numerical)
+    finally:
+        histogram_kernels.histogram_routed = original
+    return captured
 
 
 def measure_vs(args, reps=20):

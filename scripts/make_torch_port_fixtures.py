@@ -54,9 +54,30 @@ CPU. It holds:
                  (make_vs_data with seed 1: missing and empty sequences
                  included).
 
+Training fixture `train_default/`: the JAX package's
+`GradientBoostedTreesLearner(label="label")` with every default (the
+10% validation split, look-ahead early stopping, categorical splits) on
+make_frame's recipe at 500,000 training rows (the 28 numerical columns,
+NaNs in f0, f5, f11, categorical c0-c3) on the CPU, and its model
+evaluated on 100,000 fresh rows of the same generator (labels kept,
+unseen and missing categories injected). It holds:
+
+  config.json    the configuration (rows, seeds, the generator's
+                 constants, learner arguments), the JAX version and
+                 implementations used, the classes, the SHA-256 of the
+                 train and test frames (chip_smoke.frame_sha256), of the
+                 JAX bin matrix (u8 [500000, 32]) and of the validation
+                 rows (int64, the JAX learner's split expression),
+                 num_trees / num_trees_trained, and the JAX evaluate()
+                 metrics on all 100,000 test rows;
+  model.json, forest.npz  the JAX package's saved model;
+  expected.npz   initial prediction, the per-iteration train and
+                 validation losses (every trained iteration), and raw
+                 scores and predictions on the first 1,024 test rows.
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
-(~4 minutes on a CPU; `--only train_bench`, `--only train_vs` or
-`--only serving` for one part).
+(~6 minutes on a CPU; `--only train_bench`, `--only train_vs`,
+`--only train_default` or `--only serving` for one part).
 """
 
 import os
@@ -78,12 +99,14 @@ MODELS = {"gbt_d6": dict(num_trees=300, max_depth=6),
           "gbt_d8": dict(num_trees=50, max_depth=8)}
 
 
-def make_frame(seed: int = 7):
+def make_frame(seed: int = 7, train_rows: int = TRAIN_ROWS,
+               request_rows: int = REQUEST_ROWS, keep_label: bool = False):
     """(train columns, request columns): numerical f32, categorical
-    unicode, binary int label on the train side only."""
+    unicode, binary int label on the train side (and on the request side
+    with keep_label)."""
     import bench
 
-    data, _, y = bench.make_data(TRAIN_ROWS + REQUEST_ROWS, 28)
+    data, _, y = bench.make_data(train_rows + request_rows, 28)
     rng = np.random.default_rng(seed)
     n = len(y)
     for j, vocab in enumerate(CAT_VOCABS):
@@ -97,13 +120,14 @@ def make_frame(seed: int = 7):
         data[f"f{i}"] = np.where(miss, np.nan, data[f"f{i}"]).astype(
             np.float32
         )
-    train = {k: v[:TRAIN_ROWS] for k, v in data.items()}
-    req = {k: v[TRAIN_ROWS:].copy() for k, v in data.items() if k != "label"}
+    train = {k: v[:train_rows] for k, v in data.items()}
+    req = {k: v[train_rows:].copy() for k, v in data.items()
+           if keep_label or k != "label"}
     # Unseen and missing categories in the requests.
     for j in range(len(CAT_VOCABS)):
         col = req[f"c{j}"].astype("<U8")
-        col[rng.uniform(size=REQUEST_ROWS) < 0.05] = "unseen"
-        col[rng.uniform(size=REQUEST_ROWS) < 0.03] = ""
+        col[rng.uniform(size=request_rows) < 0.05] = "unseen"
+        col[rng.uniform(size=request_rows) < 0.03] = ""
         req[f"c{j}"] = col
     return train, req
 
@@ -232,6 +256,78 @@ def write_train_vs():
           f"{out['jax_impls']}")
 
 
+TRAIN_DEFAULT = dict(
+    rows=500_000, test_rows=100_000, data_seed=0, cat_seed=7,
+    compare_rows=1024, learner=dict(label="label"),
+)
+
+
+def write_train_default():
+    import hashlib
+    import json
+
+    import jax
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.dataset.dataset import Dataset
+    from ydf_tpu.ops.histogram import resolve_hist_impl, resolve_hist_quant
+    from ydf_tpu.ops.routing_native import (
+        resolve_route_impl,
+        update_uses_fma,
+    )
+
+    cfg = dict(TRAIN_DEFAULT)
+    assert cfg["data_seed"] == 0  # bench.make_data's RandomState(0)
+    cfg["generator"] = dict(features=28, cat_vocabs=list(CAT_VOCABS),
+                            missing_features=[0, 5, 11])
+    d = os.path.join(OUT, "train_default")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    train, test = make_frame(cfg["cat_seed"], cfg["rows"], cfg["test_rows"],
+                             keep_label=True)
+    m = ydf.GradientBoostedTreesLearner(**cfg["learner"]).train(train)
+    m.save(d)
+    bins = m.binner.transform(Dataset.from_data(train, dataspec=m.dataspec))
+    # The JAX learner's split (ydf_tpu/learners/gbt.py:421-423).
+    perm = np.random.RandomState(123456).permutation(cfg["rows"])
+    va_idx = perm[:min(max(int(cfg["rows"] * 0.1), 1), cfg["rows"] - 1)]
+    ev = m.evaluate(test)
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    out = dict(cfg)
+    out["jax_impls"] = {
+        "hist_impl": resolve_hist_impl("auto"),
+        "hist_quant": resolve_hist_quant(None),
+        "route_impl": resolve_route_impl(None),
+        "update_uses_fma": bool(update_uses_fma()),
+    }
+    out["jax_version"] = jax.__version__
+    out["classes"] = m.classes
+    out["train_sha256"] = chip_smoke.frame_sha256(train)
+    out["test_sha256"] = chip_smoke.frame_sha256(test)
+    out["bins_sha256"] = hashlib.sha256(
+        np.ascontiguousarray(bins).tobytes()).hexdigest()
+    out["valid_idx_sha256"] = hashlib.sha256(
+        np.ascontiguousarray(va_idx, np.int64).tobytes()).hexdigest()
+    out["num_trees"] = m.training_logs["num_trees"]
+    out["num_trees_trained"] = m.training_logs["num_trees_trained"]
+    out["jax_evaluate"] = dict(ev.metrics)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    logs = m.training_logs["iterations"]
+    np.savez_compressed(
+        os.path.join(d, "expected.npz"),
+        initial_predictions=np.asarray(m.initial_predictions, np.float32),
+        train_loss=np.array([r["train_loss"] for r in logs], np.float32),
+        valid_loss=np.array([r["valid_loss"] for r in logs], np.float32),
+        raw=m._raw_scores(head, combine="sum")[:, 0],
+        predictions=m.predict(head),
+    )
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"train_default: {out['num_trees']} of {out['num_trees_trained']} "
+          f"trees, {size} bytes, {out['jax_impls']}, {ev.metrics}")
+
+
 def main():
     import jax
 
@@ -242,6 +338,8 @@ def main():
         write_train_bench()
     if only in (None, "train_vs"):
         write_train_vs()
+    if only in (None, "train_default"):
+        write_train_default()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

@@ -20,6 +20,8 @@ On a machine with a card but without JAX (tests/conftest.py imports it):
     python -m pytest --noconftest -m gpu tests/test_torch_*.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -107,24 +109,27 @@ def test_binner_transform_is_a_view_of_feature_major_bins():
     assert torch.equal(rows, want)
 
 
-def _smem_bytes(shape, B, Sq):
+def _smem_bytes(shape, B, Sq, cell_bytes=4):
     """A block's shared memory as histogram.cu sizes it: sub-histogram
-    and its one-byte tags, the staged tile's stats and slots (a padding
-    word per lane)."""
+    (cells of `cell_bytes` words) and its one-byte tags, the staged
+    tile's stats and slots (a padding word per lane)."""
     tile_words = lambda s: 32 * (hk.ROWS_PER_LANE * s + 1)  # noqa: E731
-    return ((shape.Fb * shape.Lb * B * hk.cell_stride(Sq) + tile_words(Sq)
-             + tile_words(1)) * 4 + shape.Fb * shape.Lb * B)
+    return (shape.Fb * shape.Lb * B * hk.cell_stride(Sq) * cell_bytes
+            + (tile_words(Sq) + tile_words(1)) * 4
+            + shape.Fb * shape.Lb * B)
 
 
+@pytest.mark.parametrize("cell_bytes", [4, 8])  # bf16 / f32 stats
 @pytest.mark.parametrize("L", [1, 16, 32, 100])
 @pytest.mark.parametrize("path", list(PATH_SHAPES))
-def test_root_launch_shape_fills_the_card_in_balanced_blocks(path, L):
+def test_root_launch_shape_fills_the_card_in_balanced_blocks(path, L,
+                                                             cell_bytes):
     n, F = PATH_SHAPES[path]
-    shape = hk.root_launch_shape(n, F, L, B, SQ)
+    shape = hk.root_launch_shape(n, F, L, B, SQ, cell_bytes)
     # A block's sub-histogram and tags fit the budget, the block 48 KB.
-    assert (shape.Fb * shape.Lb * B * (hk.cell_stride(SQ) * 4 + 1)
+    assert (shape.Fb * shape.Lb * B * (hk.cell_stride(SQ) * cell_bytes + 1)
             <= hk.ROOT_SMEM_BUDGET)
-    assert _smem_bytes(shape, B, SQ) <= 48 * 1024
+    assert _smem_bytes(shape, B, SQ, cell_bytes) <= 48 * 1024
     assert 1 <= shape.Fb <= hk.ROOT_MAX_WARPS
     # At least 4 blocks and 32 warps for each of the 132 SMs.
     assert shape.blocks >= 4 * hk.SMS
@@ -142,10 +147,23 @@ def test_root_launch_shape_fills_the_card_in_balanced_blocks(path, L):
 
 
 def test_root_launch_shape_at_the_paths_root_layer():
-    """The root layer's shapes (L = 1): 28 features in 4 groups of 7 and
-    36 in 6 of 6, not 32 + 4."""
-    bench = hk.root_launch_shape(500_000, 28, 1, B, SQ)
-    vs = hk.root_launch_shape(200_000, 36, 1, B, SQ)
+    """The root layer's shapes (L = 1). The paths' f32 stats take f64
+    cells, three (feature, slot) pairs a block: 28 features in 14 groups
+    of 2, 36 in 12 of 3 and train_default's 32 in 16 of 2, not 30 + 2.
+    4-byte cells (bf16 halves) take seven: 28 in 4 groups of 7 and 36 in
+    6 of 6, not 32 + 4."""
+    stats = torch.zeros((1, SQ), dtype=torch.float32)
+    cell = hk.root_cell_bytes(stats)
+    assert cell == 8
+    bench = hk.root_launch_shape(500_000, 28, 1, B, SQ, cell)
+    vs = hk.root_launch_shape(200_000, 36, 1, B, SQ, cell)
+    default = hk.root_launch_shape(450_000, 32, 1, B, SQ, cell)
+    assert (bench.G, bench.Fb, bench.Lb) == (14, 2, 1)
+    assert (vs.G, vs.Fb, vs.Lb) == (12, 3, 1)
+    assert (default.G, default.Fb, default.Lb) == (16, 2, 1)
+    assert hk.root_cell_bytes(stats.to(torch.bfloat16)) == 4
+    bench = hk.root_launch_shape(500_000, 28, 1, B, SQ, 4)
+    vs = hk.root_launch_shape(200_000, 36, 1, B, SQ, 4)
     assert (bench.G, bench.Fb, bench.Lb) == (4, 7, 1)
     assert (vs.G, vs.Fb, vs.Lb) == (6, 6, 1)
 
@@ -155,9 +173,10 @@ def test_root_launch_shape_at_the_paths_root_layer():
 @pytest.mark.parametrize("Sq", [1, 3, 6, 8])
 def test_root_launch_shape_small_and_ragged(n, F, Sq):
     """Every shape the wrapper can ask for is one the kernel takes."""
-    for L, Bn in ((1, 256), (7, 64), (100, 256)):
-        shape = hk.root_launch_shape(n, F, L, Bn, Sq)
-        assert _smem_bytes(shape, Bn, Sq) <= 48 * 1024
+    for (L, Bn), cell in itertools.product(((1, 256), (7, 64), (100, 256)),
+                                           (4, 8)):
+        shape = hk.root_launch_shape(n, F, L, Bn, Sq, cell)
+        assert _smem_bytes(shape, Bn, Sq, cell) <= 48 * 1024
         assert -(-F // shape.G) <= shape.Fb <= hk.ROOT_MAX_WARPS
         sizes = [(g + 1) * F // shape.G - g * F // shape.G
                  for g in range(shape.G)]

@@ -13,10 +13,10 @@ fused route + histogram per deeper layer, standalone last route).
 Tolerances, and why:
   * int8 stats: every node array bitwise (integer accumulation is exact
     in both packages);
-  * f32 stats: the same splits (feature, threshold_bin, children,
-    leaves); leaf stats within rtol 1e-5 and atol 1e-3: the port sums
-    histograms and prefix sums in f64 and rounds once, the JAX package
-    takes f64 block partials but f32 prefix sums over bins;
+  * f32 stats: every node array bitwise too (the port rounds the
+    histograms once from f64 sums, as the JAX package's f64 block
+    partials do, and replays its f32 root totals and prefix sums over
+    bins: ops/histogram.py:sum_rows_f32, utils/prng.py:cumsum_f32);
   * end to end: the same trees at these seeds; the train loss within
     rtol 1e-5 and predictions within 1e-5 (the sigmoid and the f32 sums
     round differently in torch and XLA by an ulp or so).
@@ -241,14 +241,7 @@ def test_grower_matches_jax_on_the_same_stats(quant):
                   "num_nodes", "cat_mask", "is_cat", "is_set"):
         assert np.array_equal(gt[field], wt[field]), field
     assert np.array_equal(got.leaf_id.numpy(), np.asarray(want.leaf_id))
-    if quant == "int8":
-        assert np.array_equal(gt["leaf_stats"], wt["leaf_stats"])
-    else:
-        # The JAX package takes f32 prefix sums over bins, so a node's
-        # stats carry rounding of partial sums as large as its parent's
-        # (a few ulps of 5000): atol 1e-3 beside rtol 1e-5.
-        np.testing.assert_allclose(gt["leaf_stats"], wt["leaf_stats"],
-                                   rtol=1e-5, atol=1e-3)
+    assert np.array_equal(gt["leaf_stats"], wt["leaf_stats"])
 
 
 def test_sibling_reconstruction_matches_direct_histograms():
@@ -276,7 +269,6 @@ def test_sibling_reconstruction_matches_direct_histograms():
 def test_learner_surface_raises_for_what_is_not_ported():
     kw = dict(label="label", device="cpu")
     cases = [
-        dict(validation_ratio=0.1),  # default early stopping + a split
         dict(validation_ratio=0.0, dart_dropout=0.1),
         dict(validation_ratio=0.0, subsample=0.5),
         dict(validation_ratio=0.0, sampling_method="GOSS"),
@@ -289,10 +281,15 @@ def test_learner_surface_raises_for_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ydf_tpu_torch.GradientBoostedTreesLearner(**{**kw, **extra})
     data = make_data(300, 6, seed=1)
+    # Ported since: the validation split with early stopping (the
+    # defaults) and categorical input columns both train.
+    split = ydf_tpu_torch.GradientBoostedTreesLearner(
+        validation_ratio=0.1, num_trees=2, **kw).train(data)
+    assert split.training_logs["valid_loss"] is not None
     learner = ydf_tpu_torch.GradientBoostedTreesLearner(
         validation_ratio=0.0, num_trees=2, **kw)
-    with pytest.raises(NotImplementedError, match="categorical"):
-        learner.train({**data, "c": np.array(["a", "b", "c"] * 100)})
+    cat = learner.train({**data, "c": np.array(["a", "b", "c"] * 100)})
+    assert "c" in cat.binner.feature_names[cat.binner.num_numerical:]
     multi = {**data, "label": np.arange(300) % 3}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         learner.train(multi)

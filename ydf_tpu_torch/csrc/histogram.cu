@@ -12,9 +12,14 @@
 //   out[l, f, b, s] = sum over rows r with slot[r] == l and
 //                     bins_t[f, r] == b of stats[r, s]
 // for l < L; rows on the trash slot (slot >= L, or < 0) and bins >= B are
-// dropped. The accumulator follows the stats type as the TPU kernel's
+// dropped. The output follows the stats type as the TPU kernel's
 // operand precision does: f32 -> f32, bf16 (the bf16x2 halves) -> f32,
-// int8 -> int32 (exact; the wrapper dequantizes once).
+// int8 -> int32 (exact; the wrapper dequantizes once). f32 stats add
+// into f64 cells and partials, rounded once to f32 (the correctly
+// rounded sum but for a double-rounding case, like the plain version's
+// and the JAX package's f64 block partials): so the card's histograms,
+// and the splits they pick, match the CPU's and the JAX package's; the
+// routed kernel does the same.
 //
 // What bounds it on this card: not the bytes (one byte of bins per (row,
 // feature) and the stats once: 0.0066 ms at 500,000 x 28 at 3.35 TB/s)
@@ -52,17 +57,19 @@
 //     again. Lanes on one cell (the empty vector sequences that all land
 //     in bin 0, or the root layer's chance collisions) cost one round
 //     each, no retries against other warps. Tags are one byte, and three
-//     stats take a 16-byte cell (one load and one store a round): both
-//     cut shared-memory traffic, which bounds the rounds. The order of the adds is set
-//     by which write to a tag the hardware keeps, so in practice f32
-//     results repeat from run to run (CUDA does not promise it). int8
-//     stats add with native int32 atomics, exact in any order;
+//     stats take a 16-byte cell, 32 bytes in f64 (one or two loads and
+//     stores a round): both cut shared-memory traffic, which bounds the
+//     rounds. f32 stats add into f64 cells, so the order of the adds
+//     (set by which write to a tag the hardware keeps) does not reach
+//     the rounded result; f64 cells halve the (feature, slot) pairs a
+//     block holds. int8 stats add with native int32 atomics, exact in any
+//     order;
 //   * each block writes its sub-histogram to its own slice of a partials
 //     buffer, and a second kernel sums the chunks in a fixed order (f32
-//     partials in f64, rounded once; int32 exactly): 8 warps each take
-//     every 8th chunk, then one sums the 8 in order. No atomics cross
-//     blocks, and every output cell is written, so the output needs no
-//     zero fill;
+//     and f64 partials in f64, rounded once; int32 exactly): 8 warps each
+//     take every 8th chunk, then one sums the 8 in order. No atomics
+//     cross blocks, and every output cell is written, so the output needs
+//     no zero fill;
 //   * all shared memory stays under the 48 KB a block gets without
 //     cudaFuncSetAttribute, so a call is two launches and nothing else.
 
@@ -82,12 +89,34 @@ constexpr int kMaxWarps = 32;
 constexpr int kSmemBytes = 48 * 1024;
 constexpr int kReduceWarps = 8;
 
+// Cells and partials: f32 stats in f64, bf16 halves in f32, int8 in
+// int32. Out: the histogram's type. Stage: the tile's staged stats.
 template <typename T>
 struct Acc {
+  using type = double;
+};
+template <>
+struct Acc<__nv_bfloat16> {
   using type = float;
 };
 template <>
 struct Acc<int8_t> {
+  using type = int32_t;
+};
+template <typename T>
+struct Out {
+  using type = float;
+};
+template <>
+struct Out<int8_t> {
+  using type = int32_t;
+};
+template <typename T>
+struct Stage {
+  using type = float;
+};
+template <>
+struct Stage<int8_t> {
   using type = int32_t;
 };
 
@@ -100,7 +129,8 @@ __device__ __forceinline__ int32_t to_acc(int8_t v) {
 }
 
 // Words a histogram cell takes: three stats are padded to four, so that a
-// lane's read-modify-write of its cell is one 16-byte load and store.
+// lane's read-modify-write of its cell is one 16-byte load and store (two
+// for f64 cells).
 __host__ __device__ constexpr int cell_stride(int sq) {
   return sq == 3 ? 4 : sq;
 }
@@ -123,6 +153,7 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
             typename Acc<T>::type* __restrict__ partial, int n, int F,
             int B, int L, int G, int Lb, int rows_per_chunk) {
   using A = typename Acc<T>::type;
+  using S = typename Stage<T>::type;
   constexpr int CS = cell_stride(SQ);
   constexpr int kGroup = kRowsPerLane * SQ + 1;  // a lane's stats, padded
   extern __shared__ __align__(16) unsigned char smem[];
@@ -139,7 +170,7 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
   // them, so that the lanes' reads at one step fall on 32 banks, then a
   // one-byte tag per cell of the sub-histogram ([f][l][b]).
   A* sh = reinterpret_cast<A*>(smem);
-  A* s_stats = sh + Fb * Lb * BC;
+  S* s_stats = reinterpret_cast<S*>(sh + Fb * Lb * BC);
   int32_t* s_slot = reinterpret_cast<int32_t*>(s_stats + 32 * kGroup);
   for (int i = threadIdx.x; i < fc * lc * BC; i += blockDim.x) sh[i] = A(0);
 
@@ -150,7 +181,7 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
   A* hf = sh + warp * lc * BC;
   const uint8_t* brow =
       bins_t + static_cast<size_t>(f0 + min(warp, fc - 1)) * n;
-  const A* sv = s_stats + lane * kGroup;
+  const S* sv = s_stats + lane * kGroup;
   const int32_t* sl = s_slot + lane * (kRowsPerLane + 1);
   uint8_t* tag = reinterpret_cast<uint8_t*>(s_slot + 32 * (kRowsPerLane + 1)) +
                  warp * lc * B;
@@ -209,7 +240,18 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
           __syncwarp();
           const bool win = pending && tag[key] == lane;
           if (win) {
-            if constexpr (CS == 4) {  // one 16-byte load and store
+            if constexpr (CS == 4 && std::is_same<A, double>::value) {
+              // An f64 cell: two 16-byte loads and stores.
+              double2* c2 = reinterpret_cast<double2*>(cell);
+              double2 lo = c2[0];
+              double2 hi = c2[1];
+              lo.x += static_cast<double>(sv[k * SQ]);
+              lo.y += static_cast<double>(sv[k * SQ + 1]);
+              hi.x += static_cast<double>(sv[k * SQ + 2]);
+              if constexpr (SQ == 4) hi.y += static_cast<double>(sv[k * SQ + 3]);
+              c2[0] = lo;
+              c2[1] = hi;
+            } else if constexpr (CS == 4) {  // one 16-byte load and store
               float4 c = *reinterpret_cast<float4*>(cell);
               c.x += sv[k * SQ];
               c.y += sv[k * SQ + 1];
@@ -218,7 +260,9 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
               *reinterpret_cast<float4*>(cell) = c;
             } else {
 #pragma unroll
-              for (int s = 0; s < SQ; ++s) cell[s] += sv[k * SQ + s];
+              for (int s = 0; s < SQ; ++s) {
+                cell[s] += static_cast<A>(sv[k * SQ + s]);
+              }
             }
           }
           pending = pending && !win;
@@ -243,7 +287,8 @@ hist_kernel(const uint8_t* __restrict__ bins_t,
   }
 }
 
-// The cross-chunk sum: int32 exactly; f32 partials in f64, rounded once.
+// The cross-chunk sum: int32 exactly; f32 and f64 partials in f64,
+// rounded once to the output type.
 template <typename A>
 struct Wide {
   using type = A;
@@ -256,9 +301,9 @@ struct Wide<float> {
 // out[i] = sum over chunks of partial[c][i] in a fixed order: warp w sums
 // chunks w, w + 8, ... in order, then the 8 sums are added in warp order.
 // A block takes 32 consecutive cells, so each load is one 128-byte line.
-template <typename A>
+template <typename A, typename O>
 __global__ void __launch_bounds__(kReduceWarps * 32)
-reduce_partials(const A* __restrict__ partial, A* __restrict__ out,
+reduce_partials(const A* __restrict__ partial, O* __restrict__ out,
                 size_t total, int chunks) {
   using W = typename Wide<A>::type;
   __shared__ W part[kReduceWarps][32];
@@ -278,7 +323,7 @@ reduce_partials(const A* __restrict__ partial, A* __restrict__ out,
     W sum = part[0][lane];
 #pragma unroll
     for (int w = 1; w < kReduceWarps; ++w) sum += part[w][lane];
-    out[i] = static_cast<A>(sum);
+    out[i] = static_cast<O>(sum);
   }
 }
 
@@ -288,8 +333,9 @@ int launch(const void* bins_t, const void* slot, const void* stats,
            int Fb, int Lb, int chunks, int rows_per_chunk,
            cudaStream_t stream) {
   using A = typename Acc<T>::type;
-  const int smem = (Fb * Lb * B * cell_stride(SQ) +
-                    32 * (kRowsPerLane * SQ + 1) + 32 * (kRowsPerLane + 1)) *
+  using O = typename Out<T>::type;
+  const int smem = Fb * Lb * B * cell_stride(SQ) * static_cast<int>(sizeof(A)) +
+                   (32 * (kRowsPerLane * SQ + 1) + 32 * (kRowsPerLane + 1)) *
                        4 +
                    Fb * Lb * B;
   if (Fb < 1 || Fb > kMaxWarps || G < 1 || Lb < 1 ||
@@ -306,8 +352,8 @@ int launch(const void* bins_t, const void* slot, const void* stats,
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(L) * F * B * SQ;
   const unsigned blocks = static_cast<unsigned>((total + 31) / 32);
-  reduce_partials<A><<<blocks, kReduceWarps * 32, 0, stream>>>(
-      static_cast<const A*>(partial), static_cast<A*>(out), total, chunks);
+  reduce_partials<A, O><<<blocks, kReduceWarps * 32, 0, stream>>>(
+      static_cast<const A*>(partial), static_cast<O*>(out), total, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -340,8 +386,9 @@ int launch_sq(int Sq, const void* bins_t, const void* slot,
 // stats_kind: 0 = f32 [n, Sq], 1 = bf16 [n, Sq], 2 = int8 [n, Sq].
 // G feature groups of at most Fb features (group g takes features
 // [g*F/G, (g+1)*F/G)), slot blocks of Lb slots, `chunks` row chunks of
-// rows_per_chunk rows. partial holds chunks * L*F*B*Sq accumulators (f32,
-// or int32 for int8), out L*F*B*Sq; every cell of out is written.
+// rows_per_chunk rows. partial holds chunks * L*F*B*Sq accumulators (f64
+// for f32 stats, f32 for bf16, int32 for int8), out L*F*B*Sq (f32, or
+// int32 for int8); every cell of out is written.
 extern "C" int ydf_histogram(const void* bins_t, const void* slot,
                              const void* stats, void* partial, void* out,
                              int n, int F, int B, int Sq, int L,

@@ -6,17 +6,21 @@ Numerical and boolean columns: missing values impute to the column mean;
 bin(v) = #{b : boundary_b <= v}, so "bin <= t" is "v < boundary_t". A
 column with at most num_bins - 1 distinct values gets the midpoints
 between them as boundaries (exact split search); otherwise deduplicated
-quantiles of a fixed-seed 200k-row sample. NUMERICAL_VECTOR_SEQUENCE
-columns are not binned: the binner records their names, vector lengths
-and longest sequence, and `transform_vs` pads them densely. Fitting
-other column types raises NotImplementedError (categorical and set
-features wait for ROADMAP Queue 1 item 14); serving reads any saved
-Binner.
+quantiles of a fixed-seed 200k-row sample. CATEGORICAL columns: bin =
+dictionary index (0 = out of vocabulary); indices >= num_bins collapse
+to 0, and the dictionary is frequency-sorted, so only the rarest
+categories collapse. NUMERICAL_VECTOR_SEQUENCE columns are not binned:
+the binner records their names, vector lengths and longest sequence,
+and `transform_vs` pads them densely. Fitting a categorical-set column
+raises NotImplementedError (ROADMAP Queue 1 item 14); serving reads any
+saved Binner.
 
 Fitting runs on the host in numpy with the JAX package's expressions, so
-boundaries are bitwise equal to its own. `transform` bins on the device:
-through csrc/binning.cu on a card, through its plain version on the
-CPU.
+boundaries are bitwise equal to its own. `transform` bins the numerical
+columns on the device, through csrc/binning.cu on a card and through
+its plain version on the CPU; categorical codes are looked up on the
+host, as the JAX package does, and copied into their rows of the same
+feature-major matrix.
 
 Feature order is [numericals..., categoricals..., sets...]; vector
 sequences are kept apart (vs_names).
@@ -158,18 +162,23 @@ class Binner:
                 f"num_bins must be a multiple of 32 (packed category "
                 f"masks), got {num_bins}"
             )
-        vs_type = ColumnType.NUMERICAL_VECTOR_SEQUENCE
-        numericals = [f for f in features
-                      if spec.column_by_name(f).type in _NUMERICAL_LIKE]
-        vs = [f for f in features if spec.column_by_name(f).type == vs_type]
+        def of_type(*types):
+            return [f for f in features
+                    if spec.column_by_name(f).type in types]
+
+        numericals = of_type(*_NUMERICAL_LIKE)
+        categoricals = of_type(ColumnType.CATEGORICAL)
+        vs = of_type(ColumnType.NUMERICAL_VECTOR_SEQUENCE)
         unported = [f for f in features
-                    if f not in numericals and f not in vs]
+                    if f not in numericals + categoricals + vs]
         if unported:
             raise NotImplementedError(
-                f"feature columns {unported}: categorical and set input "
-                "features are not ported yet (ROADMAP Queue 1 item 14)"
+                f"feature columns {unported}: categorical-set and other "
+                "input features are not ported yet (ROADMAP Queue 1 item "
+                "14)"
             )
-        F = len(numericals)
+        ordered = numericals + categoricals
+        F = len(ordered)
         boundaries = np.full((F, num_bins - 1), np.inf, dtype=np.float32)
         impute = np.zeros((F,), dtype=np.float32)
         fnb = np.ones((F,), dtype=np.int32)
@@ -178,8 +187,11 @@ class Binner:
             boundaries[i, : len(b)] = b
             impute[i] = np.float32(spec.column_by_name(name).mean)
             fnb[i] = len(b) + 1
+        for j, name in enumerate(categoricals):
+            fnb[len(numericals) + j] = min(
+                spec.column_by_name(name).vocab_size, num_bins)
         return Binner(
-            feature_names=numericals, num_numerical=F,
+            feature_names=ordered, num_numerical=len(numericals),
             num_bins=num_bins, boundaries=boundaries, impute_values=impute,
             feature_num_bins=fnb, vs_names=vs,
             vs_dims=[spec.column_by_name(f).vector_length for f in vs],
@@ -190,26 +202,34 @@ class Binner:
         )
 
     def transform(self, dataset, device) -> torch.Tensor:
-        """The bin matrix u8 [n, F] on `device`: the values f32 [F, n]
-        are copied to the device once and binned by the binning kernel.
-        The matrix is the [n, F] view of a contiguous feature-major
-        [F, n] (ops/binning.py); `.t()` gives that back, the training
-        layout."""
-        if self.num_numerical != self.num_features:
+        """The bin matrix u8 [n, F] on `device`, the [n, F] view of a
+        contiguous feature-major [F, n] (`.t()` gives that back, the
+        training layout): the numerical values f32 [Fn, n] are copied to
+        the device once and binned by the binning kernel (ops/binning.py);
+        the categorical codes are looked up on the host and fill the rows
+        after them."""
+        if self.num_set:
             raise NotImplementedError(
-                "binning categorical, set and vector-sequence features is "
-                "not ported yet (ROADMAP Queue 1 item 14)"
+                "binning categorical-set features is not ported yet "
+                "(ROADMAP Queue 1 item 14)"
             )
-        F = self.num_features
-        values = np.empty((F, dataset.num_rows), np.float32)
-        for i, name in enumerate(self.feature_names):
+        Fn, n = self.num_numerical, dataset.num_rows
+        values = np.empty((Fn, n), np.float32)
+        for i, name in enumerate(self.feature_names[:Fn]):
             values[i] = dataset.encoded_numerical(name, impute=False)
-        return bin_columns(
+        bins = bin_columns(
             torch.from_numpy(values).to(device),
-            torch.from_numpy(self.boundaries).to(device),
-            torch.from_numpy(self.feature_num_bins - 1).to(device),
-            torch.from_numpy(self.impute_values).to(device),
+            torch.from_numpy(self.boundaries[:Fn]).to(device),
+            torch.from_numpy(self.feature_num_bins[:Fn] - 1).to(device),
+            torch.from_numpy(self.impute_values[:Fn]).to(device),
         )
+        if self.num_categorical == 0:
+            return bins
+        codes = np.empty((self.num_categorical, n), np.uint8)
+        for j, name in enumerate(self.feature_names[Fn:]):
+            idx = dataset.encoded_categorical(name)
+            codes[j] = np.where(idx >= self.num_bins, 0, idx)
+        return torch.cat([bins.t(), torch.from_numpy(codes).to(device)]).t()
 
     def transform_vs(self, dataset):
         """Dense padded vector sequences, or None without VS features

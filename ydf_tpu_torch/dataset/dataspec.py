@@ -83,6 +83,12 @@ class DataSpecification:
     def has_column(self, name: str) -> bool:
         return any(c.name == name for c in self.columns)
 
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "columns": [c.to_json() for c in self.columns],
+            "created_num_rows": self.created_num_rows,
+        }
+
     @staticmethod
     def from_json(d: Dict[str, Any]) -> "DataSpecification":
         return DataSpecification(

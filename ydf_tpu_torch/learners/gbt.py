@@ -2,18 +2,31 @@
 GradientBoostedTreesLearner and the boosting step of _make_boost_fn).
 
     import ydf_tpu_torch as ydf
-    model = ydf.GradientBoostedTreesLearner(
-        label="label", num_trees=20, max_depth=6, validation_ratio=0.0,
-        early_stopping="NONE").train(data)     # on the card by default
-    model.predict(rows)
+    model = ydf.GradientBoostedTreesLearner(label="label").train(data)
+    model.predict(rows)                          # on the card by default
+    model.evaluate(test)
 
 One boosting iteration, K = 1 (binary classification or regression):
 gradients and hessians of the loss at the current predictions, the
 [g*w, h*w, w] stats rows, one tree grown by ops/grower.py, leaf values
 -sum g / (sum h + l2) scaled by the shrinkage for the model, and the
-prediction update. The whole loop stays on the device: the trees, leaf
-values and losses are collected as device tensors and read back once
-after the last tree.
+prediction update. The loop stays on the device: the trees, leaf values
+and losses are collected as device tensors and read back after the last
+tree.
+
+Validation and early stopping (the JAX package's defaults,
+validation_ratio=0.1 and early_stopping="LOSS_INCREASE"): the rows are
+split by np.random.RandomState(random_seed).permutation, the first
+min(max(int(n * ratio), 1), n - 1) rows validating (gbt.py:396-430);
+the binner is fitted on every row first, and the split gathers columns
+of the one device bin matrix. Every tree routes the validation rows
+(ops/routing.py:route_tree_bins), updates their predictions as the
+training ones and records their loss. With look-ahead stopping the
+loop runs in chunks of min(look_ahead, 25) trees and reads the chunk's
+validation losses back once after it, the loop's only host read: it
+stops once the best loss lies `look_ahead` trees back
+(_early_stop_hit), and the model keeps argmin + 1 trees. Trees never
+depend on the chunking: a chunk only decides where the loop stops.
 
 NUMERICAL_VECTOR_SEQUENCE features (the JAX package's per-tree anchor
 candidates, gbt.py:1312-1383): every tree draws, for each VS feature,
@@ -21,7 +34,8 @@ num_anchors closer-than anchors (vectors drawn from the data) and as many
 projected-more-than anchors (differences of two drawn vectors), scores
 every example against them (ops/vector_sequence.py, csrc/
 vector_sequence.cu on a card), and bins the scores at their quantiles
-into candidate columns inserted after the numerical features. The draws
+into candidate columns inserted after the numerical features (before the
+categorical ones, the JAX package's layout). The draws
 follow the JAX package's key chain bit for bit (utils/prng.py):
 PRNGKey(seed); per iteration key, k_sub = split(fold_in(key, it)) and
 key, k_vs = split(key); per feature split(fold_in(k_vs, fv), A); per
@@ -62,9 +76,18 @@ from ydf_tpu_torch.learners.losses import make_loss
 from ydf_tpu_torch.models.forest import forest_from_stacked_trees
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
 from ydf_tpu_torch.ops import grower
+from ydf_tpu_torch.ops.routing import route_tree_bins
 from ydf_tpu_torch.ops.split_rules import HessianGainRule
 from ydf_tpu_torch.ops.vector_sequence import vs_scores
-from ydf_tpu_torch.utils import prng
+from ydf_tpu_torch.utils import cuda_build, prng
+
+
+#: Reads of the validation losses by the boosting loop in this process
+#: (one per chunk of the look-ahead stop); the loop makes no other.
+HOST_READS = 0
+#: Most trees a chunk of the look-ahead stop grows (the JAX package's
+#: in-memory early-stop loop, gbt.py:1918-1920).
+MAX_CHUNK_TREES = 25
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -80,11 +103,35 @@ def fma_update(preds: torch.Tensor, raw: torch.Tensor,
     return (preds.double() + raw.double() * s).float()
 
 
+def split_validation(n: int, ratio: float, seed: int):
+    """(train rows, validation rows) int64 numpy, the JAX package's
+    split of n rows: RandomState(seed).permutation(n), the first
+    min(max(int(n * ratio), 1), n - 1) validating; no validation rows
+    when that is 0 (n = 1)."""
+    perm = np.random.RandomState(seed).permutation(n)
+    nv = min(max(int(n * ratio), 1), n - 1)
+    if nv <= 0:
+        return np.arange(n), np.zeros((0,), np.int64)
+    return perm[nv:], perm[:nv]
+
+
+def early_stop_hit(valid_losses: np.ndarray, lookahead: int) -> bool:
+    """Look-ahead early stopping (the JAX package's _early_stop_hit,
+    reference early_stopping.h:29-66): the loss of the trees trained so
+    far has not improved for `lookahead` trees."""
+    if lookahead <= 0 or len(valid_losses) == 0:
+        return False
+    return len(valid_losses) - (int(np.argmin(valid_losses)) + 1) \
+        >= lookahead
+
+
 class GradientBoostedTreesLearner(GenericLearner):
     """The JAX package's learner surface for the training slices: binary
     classification (binomial loss) and regression (squared error) on
-    numerical, boolean and numerical-vector-sequence features, no
-    validation split."""
+    numerical, boolean, categorical and numerical-vector-sequence
+    features, with its validation split and look-ahead early stopping.
+    `train(data, valid=None)`: an explicit validation set replaces the
+    split."""
 
     def __init__(
         self,
@@ -97,6 +144,7 @@ class GradientBoostedTreesLearner(GenericLearner):
         subsample: float = 1.0,
         validation_ratio: float = 0.1,
         early_stopping: str = "LOSS_INCREASE",
+        early_stopping_num_trees_look_ahead: int = 30,
         l2_regularization: float = 0.0,
         num_candidate_attributes: int = -1,
         num_candidate_attributes_ratio: float = -1.0,
@@ -121,10 +169,6 @@ class GradientBoostedTreesLearner(GenericLearner):
     ):
         if task not in (Task.CLASSIFICATION, Task.REGRESSION):
             raise _unported(f"task {task.value}", 15)
-        if validation_ratio > 0 and early_stopping != "NONE":
-            raise _unported(
-                "the validation split and early stopping (pass "
-                "validation_ratio=0.0 or early_stopping='NONE')", 13)
         if dart_dropout > 0.0:
             raise _unported("DART (dart_dropout > 0)", 13)
         if sampling_method != "RANDOM":
@@ -150,6 +194,8 @@ class GradientBoostedTreesLearner(GenericLearner):
         self.min_examples = min_examples
         self.validation_ratio = validation_ratio
         self.early_stopping = early_stopping
+        self.early_stopping_num_trees_look_ahead = (
+            early_stopping_num_trees_look_ahead)
         self.l2_regularization = l2_regularization
         self.loss = loss
         self.max_frontier = max_frontier
@@ -171,14 +217,34 @@ class GradientBoostedTreesLearner(GenericLearner):
                 k if self.numerical_vector_sequence_enable_projected_more_than
                 else 0)
 
-    def train(self, data: InputData) -> GradientBoostedTreesModel:
+    def train(self, data: InputData, valid: Optional[InputData] = None
+              ) -> GradientBoostedTreesModel:
         t0 = time.perf_counter()
-        prep = self._prepare(data)
+        prep = self._prepare(data, valid=valid)
         binner = prep["binner"]
         dev = self.device
         num_classes = len(prep.get("classes", [])) or 1
         loss_obj = make_loss(self.loss, self.task, num_classes)
         bins_t = prep["bins_t"]  # one copy for every tree and layer
+        labels, weights, vs_all = (prep["labels"], prep["sample_weights"],
+                                   prep["vs"])
+        va = None  # (bins_t, labels, weights, vs) of the validation rows
+        if valid is not None:
+            va = (prep["valid_bins_t"], prep["valid_labels"],
+                  prep["valid_sample_weights"], prep["valid_vs"])
+        elif self.validation_ratio > 0 and self.early_stopping != "NONE":
+            tr_idx, va_idx = split_validation(
+                bins_t.shape[1], self.validation_ratio, self.random_seed)
+            if len(va_idx):
+                def rows(idx):
+                    return (bins_t.index_select(
+                                1, torch.from_numpy(idx).to(dev)),
+                            labels[idx], weights[idx],
+                            None if vs_all is None else
+                            tuple(a[idx] for a in vs_all))
+
+                va = rows(va_idx)
+                bins_t, labels, weights, vs_all = rows(tr_idx)
         n = bins_t.shape[1]
         tree_cfg = TreeConfig(
             max_depth=self.max_depth,
@@ -188,25 +254,47 @@ class GradientBoostedTreesLearner(GenericLearner):
             min_examples=self.min_examples,
         )
         rule = HessianGainRule(l2=self.l2_regularization)
-        labels = torch.from_numpy(prep["labels"].astype(np.float32)).to(dev)
-        weights = torch.from_numpy(prep["sample_weights"]).to(dev)
+
+        def on_device(y, w):
+            return (torch.from_numpy(y.astype(np.float32)).to(dev),
+                    torch.from_numpy(w).to(dev))
+
         Ac, Ap = self._vs_anchor_counts()
-        vs = None
-        if prep["vs"] is not None and Ac + Ap > 0:
-            vs = vs_inputs(prep["vs"], Ac, Ap, dev)
+        vs = valid_set = None
+        if vs_all is not None and Ac + Ap > 0:
+            vs = vs_inputs(vs_all, Ac, Ap, dev)
+        if va is not None and va[0].shape[1] > 0:
+            valid_set = ValidSet(
+                va[0], *on_device(va[1], va[2]),
+                None if vs is None else vs_inputs(va[3], Ac, Ap, dev))
+        lookahead = (self.early_stopping_num_trees_look_ahead
+                     if self.early_stopping == "LOSS_INCREASE" else 0)
 
         t1 = time.perf_counter()
-        trees, leaf_values, losses, init_pred, vs_out = boost(
-            bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
-            tree_cfg=tree_cfg, num_trees=self.num_trees,
+        out = boost(
+            bins_t, *on_device(labels, weights), loss_obj=loss_obj,
+            rule=rule, tree_cfg=tree_cfg, num_trees=self.num_trees,
             shrinkage=self.shrinkage, seed=self.random_seed, vs=vs,
+            num_numerical=binner.num_numerical, valid=valid_set,
+            lookahead=lookahead,
         )
+        train_losses = out.train_loss.cpu().numpy()
+        valid_losses = (None if out.valid_loss is None
+                        else out.valid_loss.cpu().numpy())
+        if valid_losses is not None and self.early_stopping != "NONE":
+            num_iters = int(np.argmin(valid_losses)) + 1
+        else:
+            num_iters = len(train_losses)
+        trees = grower.TreeArrays(*(f[:num_iters] for f in out.trees))
         kwargs = {}
         if vs is not None:
-            kwargs = forest_vs_kwargs(vs, *vs_out)
-        forest = forest_from_stacked_trees(trees, leaf_values,
-                                           binner.boundaries, **kwargs)
-        train_losses = losses.cpu().numpy()
+            trees = trees._replace(feature=vs_feature_ids(
+                trees.feature, binner.num_numerical, binner.num_features,
+                out.vs_out[0].shape[1]))
+            kwargs = forest_vs_kwargs(vs, *(a[:num_iters]
+                                            for a in out.vs_out))
+        forest = forest_from_stacked_trees(
+            trees, out.leaf_values[:num_iters], binner.boundaries, **kwargs)
         t2 = time.perf_counter()
         self.last_timings["boost_s"] = t2 - t1
         model = GradientBoostedTreesModel(
@@ -214,18 +302,49 @@ class GradientBoostedTreesLearner(GenericLearner):
             classes=prep.get("classes"),
             dataspec=prep["dataset"].dataspec, binner=binner, forest=forest,
             max_depth=self.max_depth,
-            initial_predictions=init_pred.cpu().numpy(),
+            initial_predictions=out.init_pred.cpu().numpy(),
             num_trees_per_iter=1, loss_name=loss_obj.name,
             apply_link_function=self.apply_link_function,
             training_logs={
-                "train_loss": train_losses.tolist(),
-                "valid_loss": None,
-                "num_trees": int(len(train_losses)),
+                "train_loss": train_losses[:num_iters].tolist(),
+                "valid_loss": None if valid_losses is None
+                else valid_losses[:num_iters].tolist(),
+                "num_trees": num_iters,
                 "num_trees_trained": int(len(train_losses)),
+                "iterations": iteration_records(
+                    train_losses, valid_losses, out.chunk_walls),
             },
         )
         self.last_timings["train_s"] = time.perf_counter() - t0
         return model
+
+
+def iteration_records(train_losses, valid_losses, chunk_walls):
+    """training_logs["iterations"] as the JAX package writes it
+    (_iteration_records): one record a trained iteration, 1-based, its
+    losses and seconds, each chunk's host wall spread evenly over its
+    trees."""
+    secs = np.zeros((len(train_losses),), np.float64)
+    for start, count, seconds in chunk_walls:
+        secs[start:start + count] = seconds / count
+    return [
+        {"iteration": i + 1, "train_loss": float(train_losses[i]),
+         "valid_loss": (None if valid_losses is None
+                        else float(valid_losses[i])),
+         "seconds": float(secs[i])}
+        for i in range(len(train_losses))
+    ]
+
+
+def vs_feature_ids(feature: torch.Tensor, Fn: int, F: int,
+                   Pv: int) -> torch.Tensor:
+    """Grown feature ids ([numericals, anchors, categoricals], the JAX
+    package's candidate layout) -> the forest's ([numericals,
+    categoricals, anchors]): anchors move after the F binned features."""
+    anchor = (feature >= Fn) & (feature < Fn + Pv)
+    return torch.where(anchor, feature - Fn + F,
+                       torch.where(feature >= Fn + Pv, feature - Pv,
+                                   feature))
 
 
 class VSInputs(NamedTuple):
@@ -311,14 +430,34 @@ def make_vs_projections(vs: VSInputs, draws: Dict[str, torch.Tensor],
         anchors_f = torch.cat(parts).contiguous()
         scores = vs_scores(vals, lens, anchors_f, closer)  # [n, A]
         bnd = torch.clamp_min(
-            prng.quantile_linear(scores, qs, dim=0).t(), -1e29)
-        # Empty sequences (-FLT_MAX) stay strictly below every threshold.
-        cols.append(prng.searchsorted_scan(
-            bnd.contiguous(), scores.t().contiguous(), right=True
-        ).to(torch.uint8))
+            prng.quantile_linear(scores, qs, dim=0).t(), -1e29).contiguous()
+        cols.append(_vs_bins(bnd, scores))
         anchors.append(anchors_f)
         bounds.append(bnd)
     return torch.cat(anchors), torch.cat(bounds), torch.cat(cols)
+
+
+def _vs_bins(bounds: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """Scores f32 [n, A] binned under their anchors' boundaries [A, B-1]:
+    u8 [A, n]. Empty sequences (-FLT_MAX) stay strictly below every
+    threshold."""
+    return prng.searchsorted_scan(bounds, scores.t().contiguous(),
+                                  right=True).to(torch.uint8)
+
+
+def vs_valid_columns(valid: VSInputs, anchors: torch.Tensor,
+                     bounds: torch.Tensor) -> torch.Tensor:
+    """The validation rows' candidate bins u8 [Pv, nv] under one tree's
+    anchors [Pv, D] and boundaries [Pv, B-1] (make_vs_projections), as
+    the JAX package bins its validation rows."""
+    A = valid.anchors_per_feature
+    closer = valid.is_closer
+    return torch.cat([
+        _vs_bins(bounds[fv * A:(fv + 1) * A],
+                 vs_scores(vals, lens, anchors[fv * A:(fv + 1) * A]
+                           .contiguous(), closer))
+        for fv, (vals, lens) in enumerate(zip(valid.values, valid.lengths))
+    ])
 
 
 def forest_vs_kwargs(vs: VSInputs, anchors: torch.Tensor,
@@ -337,16 +476,45 @@ def forest_vs_kwargs(vs: VSInputs, anchors: torch.Tensor,
     }
 
 
+class ValidSet(NamedTuple):
+    """The validation rows on the training device."""
+
+    bins_t: torch.Tensor        # u8 [F, nv] feature-major
+    labels: torch.Tensor        # f32 [nv]
+    weights: torch.Tensor       # f32 [nv]
+    vs: Optional[VSInputs]      # their vector sequences, or None
+
+
+class BoostResult(NamedTuple):
+    """boost()'s outputs, on the training device but `chunk_walls`."""
+
+    trees: grower.TreeArrays    # stacked [T, ...]
+    leaf_values: torch.Tensor   # f32 [T, N, 1]
+    train_loss: torch.Tensor    # f32 [T]
+    init_pred: torch.Tensor     # f32 [1]
+    vs_out: Optional[tuple]     # (anchors [T, Pv, D], boundaries
+                                # [T, Pv, B-1]) or None
+    valid_loss: Optional[torch.Tensor]  # f32 [T], None without `valid`
+    chunk_walls: List[tuple]    # (first tree, trees, host seconds)
+
+
 def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
           *, loss_obj, rule, tree_cfg: TreeConfig, num_trees: int,
           shrinkage: float, seed: int = 123456,
-          vs: Optional[VSInputs] = None, hist_quant: str = "f32"):
-    """The boosting loop on the device of `bins_t` (u8 [F, n]): returns
-    (stacked TreeArrays [T, ...], leaf values f32 [T, N, 1], train loss
-    f32 [T], initial prediction f32 [1], VS block), all on that device;
-    the VS block is (anchors [T, Pv, D], boundaries [T, Pv, B-1]), or
-    None without `vs`. On a card the loop runs under torch's sync debug
-    mode "error": no host sync happens inside it."""
+          vs: Optional[VSInputs] = None, hist_quant: str = "f32",
+          num_numerical: Optional[int] = None,
+          valid: Optional[ValidSet] = None,
+          lookahead: int = 0) -> BoostResult:
+    """The boosting loop on the device of `bins_t` (u8 [F, n]; rows
+    [0, num_numerical) numerical, the rest categorical; default all
+    numerical), T <= num_trees trees. With `valid`, every tree scores the
+    validation rows; with lookahead > 0 as well (and num_trees >
+    lookahead, as the JAX package), the loop runs in chunks of
+    min(lookahead, MAX_CHUNK_TREES) trees, reads each chunk's validation
+    losses back once (HOST_READS) and stops once early_stop_hit. On a
+    card each chunk runs under torch's sync debug mode "error": no other
+    host sync happens inside the loop."""
+    global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
     draws = None
@@ -354,60 +522,121 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
         draws = vs_draws(seed, num_trees, len(vs.values),
                          vs.num_closer + 2 * vs.num_projected,
                          bins_t.device)
+    stopping = valid is not None and 0 < lookahead < num_trees
+    clen = min(lookahead, MAX_CHUNK_TREES) if stopping else num_trees
+    loop = _Loop(bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
+                 tree_cfg=tree_cfg, shrinkage=shrinkage,
+                 hist_quant=hist_quant, vs=vs, draws=draws,
+                 num_numerical=num_numerical, valid=valid)
     on_card = bins_t.device.type == "cuda"
-    if on_card:
-        # The loop must never wait on the card: any synchronizing call
-        # inside it raises instead of silently serializing the trees.
-        prev_mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        return _boost(bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
-                      tree_cfg=tree_cfg, num_trees=num_trees,
-                      shrinkage=shrinkage, hist_quant=hist_quant, vs=vs,
-                      draws=draws)
-    finally:
+    walls = []
+    while len(loop.trees) < num_trees:
+        start = len(loop.trees)
+        count = min(clen, num_trees - start)
+        t0 = time.perf_counter()
         if on_card:
-            torch.cuda.set_sync_debug_mode(prev_mode)
+            # The loop must never wait on the card: any synchronizing
+            # call inside it raises instead of silently serializing the
+            # trees.
+            prev_mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for it in range(start, start + count):
+                loop.step(it)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(prev_mode)
+        if stopping:
+            # The chunk's one host read.
+            seen = torch.stack(loop.valid_losses).cpu().numpy()
+            HOST_READS += 1
+        walls.append((start, count, time.perf_counter() - t0))
+        if stopping and early_stop_hit(seen, lookahead):
+            break
+    return loop.result(walls)
 
 
-def _boost(bins_t, labels, weights, *, loss_obj, rule, tree_cfg, num_trees,
-           shrinkage, hist_quant, vs, draws):
-    n = bins_t.shape[1]
-    B = tree_cfg.num_bins
-    init_pred = loss_obj.initial_predictions(labels, weights)
-    preds = init_pred.expand(n).contiguous()
-    trees, leaf_values, losses, vs_anchors, vs_bounds = [], [], [], [], []
-    if vs is not None:
-        qs = prng.linspace_f32(1.0 / B, 1.0 - 1.0 / B, B - 1,
-                               device=bins_t.device)
-    for it in range(num_trees):
-        g, h = loss_obj.grad_hess(labels, preds)
-        # w_eff = w * 1: sampling at subsample 1.0 keeps every row.
-        stats = torch.stack([g * weights, h * weights, weights], dim=1)
-        grow_bins = bins_t
+class _Loop:
+    """The boosting loop's state: predictions (training and validation)
+    and the per-tree outputs, as device tensors."""
+
+    def __init__(self, bins_t, labels, weights, *, loss_obj, rule,
+                 tree_cfg, shrinkage, hist_quant, vs, draws, num_numerical,
+                 valid):
+        self.bins_t, self.labels, self.weights = bins_t, labels, weights
+        self.loss_obj, self.rule, self.cfg = loss_obj, rule, tree_cfg
+        self.shrinkage, self.hist_quant = shrinkage, hist_quant
+        self.vs, self.draws, self.valid = vs, draws, valid
+        self.Fn = bins_t.shape[0] if num_numerical is None else num_numerical
+        self.init_pred = loss_obj.initial_predictions(labels, weights)
+        self.preds = self.init_pred.expand(bins_t.shape[1]).contiguous()
+        if valid is not None:
+            self.vpreds = self.init_pred.expand(
+                valid.bins_t.shape[1]).contiguous()
+        self.trees, self.leaf_values, self.losses = [], [], []
+        self.valid_losses, self.vs_anchors, self.vs_bounds = [], [], []
+        B = tree_cfg.num_bins
         if vs is not None:
-            # The anchor columns go after the numerical features: [num,
-            # vs] (no categorical features in this slice).
+            self.qs = prng.linspace_f32(1.0 / B, 1.0 - 1.0 / B, B - 1,
+                                        device=bins_t.device)
+
+    def step(self, it: int) -> None:
+        """Tree `it`: stats, grow, leaf values, prediction updates,
+        losses."""
+        cfg, loss_obj, valid = self.cfg, self.loss_obj, self.valid
+        g, h = loss_obj.grad_hess(self.labels, self.preds)
+        # w_eff = w * 1: sampling at subsample 1.0 keeps every row.
+        w = self.weights
+        stats = torch.stack([g * w, h * w, w], dim=1)
+        grow_bins = self.bins_t
+        grow_va = None if valid is None else valid.bins_t
+        Fn = self.Fn
+        if self.vs is not None:
+            # The anchor columns go between the numerical and the
+            # categorical features, the JAX package's [num, vs, cat].
             anchors, bounds, cols = make_vs_projections(
-                vs, {k: v[it] for k, v in draws.items()}, qs)
-            grow_bins = torch.cat([bins_t, cols])
-            vs_anchors.append(anchors)
-            vs_bounds.append(bounds)
+                self.vs, {k: v[it] for k, v in self.draws.items()},
+                self.qs)
+            grow_bins = torch.cat([grow_bins[:Fn], cols, grow_bins[Fn:]])
+            if valid is not None:
+                cols_va = vs_valid_columns(valid.vs, anchors, bounds)
+                grow_va = torch.cat([grow_va[:Fn], cols_va, grow_va[Fn:]])
+            Fn += cols.shape[0]
+            self.vs_anchors.append(anchors)
+            self.vs_bounds.append(bounds)
         res = grower.grow_tree(
-            grow_bins, stats, rule=rule, max_depth=tree_cfg.max_depth,
-            frontier=tree_cfg.frontier, max_nodes=tree_cfg.max_nodes,
-            num_bins=tree_cfg.num_bins, min_examples=tree_cfg.min_examples,
-            hist_quant=hist_quant,
+            grow_bins, stats, rule=self.rule, max_depth=cfg.max_depth,
+            frontier=cfg.frontier, max_nodes=cfg.max_nodes,
+            num_bins=cfg.num_bins, num_numerical=Fn,
+            min_examples=cfg.min_examples, hist_quant=self.hist_quant,
         )
-        lv_raw = rule.leaf_value(res.tree.leaf_stats)  # [N, 1]
-        preds = fma_update(preds, lv_raw[res.leaf_id.long(), 0], shrinkage)
-        trees.append(res.tree)
-        leaf_values.append(lv_raw * shrinkage)
-        losses.append(loss_obj.loss(labels, preds, weights))
-    stacked = grower.TreeArrays(*(torch.stack(field)
-                                  for field in zip(*trees)))
-    vs_out = None
-    if vs is not None:
-        vs_out = (torch.stack(vs_anchors), torch.stack(vs_bounds))
-    return (stacked, torch.stack(leaf_values), torch.stack(losses),
-            init_pred, vs_out)
+        lv_raw = self.rule.leaf_value(res.tree.leaf_stats)  # [N, 1]
+        self.preds = fma_update(self.preds, lv_raw[res.leaf_id.long(), 0],
+                                self.shrinkage)
+        self.trees.append(res.tree)
+        self.leaf_values.append(lv_raw * self.shrinkage)
+        self.losses.append(loss_obj.loss(self.labels, self.preds, w))
+        if valid is not None:
+            timer = cuda_build.launch_timer("valid_route")
+            vleaf = route_tree_bins(res.tree, grow_va, cfg.max_depth)
+            self.vpreds = fma_update(self.vpreds, lv_raw[vleaf, 0],
+                                     self.shrinkage)
+            self.valid_losses.append(
+                loss_obj.loss(valid.labels, self.vpreds, valid.weights))
+            cuda_build.launch_done(timer)
+
+    def result(self, walls) -> BoostResult:
+        stacked = grower.TreeArrays(*(torch.stack(field)
+                                      for field in zip(*self.trees)))
+        vs_out = None
+        if self.vs is not None:
+            vs_out = (torch.stack(self.vs_anchors),
+                      torch.stack(self.vs_bounds))
+        return BoostResult(
+            trees=stacked, leaf_values=torch.stack(self.leaf_values),
+            train_loss=torch.stack(self.losses), init_pred=self.init_pred,
+            vs_out=vs_out,
+            valid_loss=(torch.stack(self.valid_losses)
+                        if self.valid is not None else None),
+            chunk_walls=walls,
+        )

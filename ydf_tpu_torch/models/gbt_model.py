@@ -84,6 +84,15 @@ class GradientBoostedTreesModel(GenericModel):
             return _softmax(scores)
         return scores
 
+    def _metadata(self) -> Dict[str, Any]:
+        return {
+            "initial_predictions": self.initial_predictions.tolist(),
+            "num_trees_per_iter": self.num_trees_per_iter,
+            "loss_name": self.loss_name,
+            "training_logs": self.training_logs,
+            "apply_link_function": self.apply_link_function,
+        }
+
     @classmethod
     def _from_saved(cls, common, specific):
         return cls(

@@ -1,6 +1,7 @@
 """GenericModel: serving surface shared by the port's models
 (counterpart of ydf_tpu/models/generic_model.py: _encode_inputs,
-_raw_scores, _fast_engine, list_compatible_engines, force_engine).
+_raw_scores, _fast_engine, list_compatible_engines, force_engine,
+evaluate and save).
 
 Raw columns are encoded on the host in numpy, exactly as the JAX package
 encodes them, then moved to the model's device; the engines take and
@@ -22,6 +23,7 @@ from ydf_tpu_torch.config import Task
 from ydf_tpu_torch.dataset.binning import Binner
 from ydf_tpu_torch.dataset.dataset import Dataset, InputData
 from ydf_tpu_torch.dataset.dataspec import DataSpecification
+from ydf_tpu_torch.metrics.metrics import Evaluation, evaluate_predictions
 from ydf_tpu_torch.models.forest import Forest
 from ydf_tpu_torch.ops.routing import forest_predict_values
 
@@ -160,3 +162,38 @@ class GenericModel:
             max_depth=self.max_depth, combine=combine, **vs_kwargs,
         )
         return out.cpu().numpy()
+
+    # ------------------------------------------------------------------ #
+    # Evaluation and persistence
+    # ------------------------------------------------------------------ #
+
+    def evaluate(self, data: InputData, weights: Optional[str] = None,
+                 confidence_intervals: bool = False,
+                 num_bootstrap: int = 2000) -> Evaluation:
+        """Metrics of predict(data) against the label column of `data`
+        (classification and regression; metrics/metrics.py), each row
+        weighted by the column `weights` when given."""
+        if self.task not in (Task.CLASSIFICATION, Task.REGRESSION):
+            raise NotImplementedError(
+                f"evaluating a {self.task.value} model is not ported yet "
+                "(ROADMAP Queue 1 items 11 and 20)"
+            )
+        ds = Dataset.from_data(data, dataspec=self.dataspec)
+        preds = self.predict(ds)
+        w = ds.data[weights].astype(np.float32) if weights else None
+        return evaluate_predictions(
+            self.task, ds.encoded_label(self.label, self.task), preds,
+            classes=self.classes, weights=w,
+            confidence_intervals=confidence_intervals,
+            num_bootstrap=num_bootstrap,
+        )
+
+    def save(self, path: str) -> None:
+        """Writes the JAX package's model directory (models/io.py)."""
+        from ydf_tpu_torch.models.io import save_model
+
+        save_model(self, path)
+
+    def _metadata(self) -> Dict[str, Any]:
+        """Subclass-specific JSON metadata."""
+        return {}

@@ -1,11 +1,13 @@
-"""Model loading (counterpart of ydf_tpu/models/io.py:load_model).
+"""Model loading and saving (counterpart of ydf_tpu/models/io.py:
+load_model, save_model).
 
-Reads the JAX package's model directory — `model.json` (task, label,
-dataspec, binner, model-specific fields) and `forest.npz` (node arrays) —
-into the port's model on a torch device: the node arrays, each tree's
-vector-sequence anchors (vs_anchor, vs_feat, vs_is_closer) and the
-binner's vector-sequence fields included. The reference-format reader
-(ydf_format.py) and save_model are not ported (ROADMAP Queue 1 item 10).
+The JAX package's model directory — `model.json` (task, label,
+dataspec, binner, model-specific fields) and `forest.npz` (node arrays)
+— read into the port's model on a torch device (the node arrays, each
+tree's vector-sequence anchors and the binner's vector-sequence fields
+included), and written from it in the same layout, so that each package
+loads the other's saves. The reference-format reader (ydf_format.py)
+and the multitasker directory are not ported (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -50,8 +52,32 @@ def binner_from_jax(d: Dict) -> Binner:
     return Binner.from_json(d)
 
 
+def save_model(model: GradientBoostedTreesModel, path: str) -> None:
+    """Writes `model` to the directory `path` as the JAX package's
+    save_model does: model.json and a compressed forest.npz."""
+    os.makedirs(path, exist_ok=True)
+    meta = {
+        "format_version": 1,
+        "framework": "ydf_tpu",
+        "model_type": model.model_type,
+        "task": model.task.value,
+        "label": model.label,
+        "classes": model.classes,
+        "max_depth": model.max_depth,
+        "dataspec": model.dataspec.to_json(),
+        "binner": model.binner.to_json(),
+        "native_missing": model.native_missing,
+        "extra_metadata": model.extra_metadata,
+        "specific": model._metadata(),
+    }
+    with open(os.path.join(path, "model.json"), "w") as f:
+        json.dump(meta, f)
+    np.savez_compressed(os.path.join(path, "forest.npz"),
+                        **model.forest.to_numpy())
+
+
 def load_model(path: str, device=None) -> GradientBoostedTreesModel:
-    """Loads a model saved by the JAX package's `model.save(path)` onto
+    """Loads a model saved by `model.save(path)` of either package onto
     `device` (default: the CUDA card)."""
     dev = resolve_device(device)
     meta_path = os.path.join(path, "model.json")

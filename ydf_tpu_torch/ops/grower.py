@@ -1,6 +1,7 @@
-"""Layer-synchronous decision-tree grower, numerical features (counterpart
-of ydf_tpu/ops/grower.py: sibling_reconstruct, scalar_candidates,
-layer_decide, sibling_next_state and the grow_tree layer loop).
+"""Layer-synchronous decision-tree grower, numerical and categorical
+features (counterpart of ydf_tpu/ops/grower.py: sibling_reconstruct,
+scalar_candidates, layer_decide, sibling_next_state and the grow_tree
+layer loop).
 
 Per layer: histogram -> prefix sums over bins -> hessian gains -> best cut
 per frontier slot -> child allocation -> routing. Every shape is static
@@ -18,20 +19,26 @@ The loop has the JAX package's fused structure (its default on a CPU):
     child's histogram is parent - small child);
   * the last layer: one standalone route of the rows to their leaves.
 
-Scope of this slice: numerical (and boolean) features only, all features
-candidate at every node, no monotone constraints. Ties pick the first
-best cut, as jnp.argmax does.
+Feature order in the bins: [numericals..., categoricals...]. A
+numerical cut t sends bins <= t left; a categorical feature's bins are
+sorted by the rule's key (empty bins last, a stable sort, as
+jnp.argsort), and cut t sends the t + 1 first bins of that order left,
+so the routing table of a categorical split is any per-bin mask. One
+ordering per categorical feature (the binomial and squared-error
+losses). All features are candidates at every node, no monotone
+constraints. Ties pick the first best cut, as jnp.argmax does.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ydf_tpu_torch.ops.histogram import histogram, prepare_stats_for_hist
 from ydf_tpu_torch.ops.histogram_kernels import RouteTables, route_plain
 from ydf_tpu_torch.ops.routing import route_histogram_fused
+from ydf_tpu_torch.utils import prng
 
 
 class TreeArrays(NamedTuple):
@@ -57,6 +64,7 @@ class GrowResult(NamedTuple):
 
 class LayerDecision(NamedTuple):
     do_split: torch.Tensor      # bool [Ld]
+    is_cat_split: torch.Tensor  # bool [Ld]
     split_rank: torch.Tensor    # i64 [Ld] rank among this layer's splits
     wid: torch.Tensor           # i64 [Ld] node write index (N = trash)
     left_id: torch.Tensor       # i64 [Ld] child ids (N = none)
@@ -102,20 +110,41 @@ def sibling_reconstruct(hist_small: torch.Tensor, parent_hist: torch.Tensor,
     return hist
 
 
-def scalar_candidates(hist: torch.Tensor) -> torch.Tensor:
-    """Left stats of every numerical cut: prefix sums over bins,
-    [Ld, F, B, S]. Summed in f64 and rounded once, so the CPU and the
-    card give the same prefixes (a parallel f32 scan on the card would
-    round otherwise)."""
-    return torch.cumsum(hist.double(), dim=2).float()
+def scalar_candidates(hist: torch.Tensor, *, num_numerical: int, rule
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Left stats of every cut, [Ld, F, B, S]: prefix sums over the bins
+    of a numerical feature, over the sorted bins of a categorical one;
+    and each categorical bin's rank in its order, i64 [Ld, Fc, B] (None
+    without categorical features). Prefixes and the sort key are f32
+    with the JAX package's rounding (jnp.cumsum's blocked scan,
+    prng.cumsum_f32; a sequential scan, torch.cumsum or f64 sums round
+    otherwise), so a near tie breaks the same way in both packages."""
+    Fn = num_numerical
+    if Fn == hist.shape[1]:
+        return prng.cumsum_f32(hist, 2), None
+    hist_cat = hist[:, Fn:]  # [Ld, Fc, B, S]
+    # Empty bins sort last, so unseen categories route right.
+    key = torch.where(hist_cat[..., -1] > 0, rule.cat_sort_key(hist_cat),
+                      float("inf"))
+    # Stable, as jnp.argsort: ties keep the bins' order.
+    order = torch.argsort(key, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True)
+    sorted_hist = torch.gather(
+        hist_cat, 2, order[..., None].expand(hist_cat.shape))
+    # One scan for both blocks: the scan is per (slot, feature, stat).
+    return prng.cumsum_f32(torch.cat([hist[:, :Fn], sorted_hist], dim=1),
+                           2), ranks
 
 
-def layer_decide(left_all, parent, active, nid, num_nodes, *, rule, L: int,
-                 B: int, N: int, min_examples: int, min_split_gain: float,
+def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
+                 L: int, B: int, N: int, num_numerical: int,
+                 min_examples: int, min_split_gain: float,
                  children_in_frontier: bool) -> LayerDecision:
     """One layer's split search: gains -> validity -> best cut per slot
     -> frontier-overflow cap -> child allocation -> chosen stats and the
-    per-bin routing masks."""
+    per-bin routing masks (a prefix of bin ids for a numerical split,
+    the bins ranked <= the cut for a categorical one; `ranks` from
+    scalar_candidates)."""
     Ld, F = left_all.shape[0], left_all.shape[1]
     dev = left_all.device
     right_all = parent[:, None, None, :] - left_all
@@ -160,9 +189,20 @@ def layer_decide(left_all, parent, active, nid, num_nodes, *, rule, L: int,
     right_stats = parent - left_stats
     cut_ids = torch.arange(B, device=dev)
     go_left_bins = cut_ids[None, :] <= best_t[:, None]
+    is_cat_split = best_f >= num_numerical
+    if ranks is not None:
+        Fc = ranks.shape[1]
+        chosen_rank = torch.gather(
+            ranks, 1,
+            (best_f - num_numerical).clamp(0, Fc - 1)[:, None, None].expand(
+                Ld, 1, B))[:, 0]  # [Ld, B]
+        go_left_bins = torch.where(is_cat_split[:, None],
+                                   chosen_rank <= best_t[:, None],
+                                   go_left_bins)
     num_nodes_new = (num_nodes + 2 * do_split.sum()).to(torch.int32)
     return LayerDecision(
-        do_split=do_split, split_rank=split_rank, wid=wid, left_id=left_id,
+        do_split=do_split, is_cat_split=is_cat_split,
+        split_rank=split_rank, wid=wid, left_id=left_id,
         right_id=right_id, best_t=best_t, best_f=best_f,
         go_left_bins=go_left_bins, left_stats=left_stats,
         right_stats=right_stats, num_nodes=num_nodes_new,
@@ -206,13 +246,17 @@ def grow_tree(
     frontier: int,
     max_nodes: int,
     num_bins: int = 256,
+    num_numerical: Optional[int] = None,
     min_examples: int = 5,
     min_split_gain: float = 1e-9,
     hist_quant: str = "f32",
 ) -> GrowResult:
-    """Grows one tree (module docstring). `hist_quant` is the stats
-    operand's precision, as in ops/histogram.py."""
+    """Grows one tree (module docstring). Rows [0, num_numerical) of
+    `bins_t` are numerical features, the rest categorical (default: all
+    numerical). `hist_quant` is the stats operand's precision, as in
+    ops/histogram.py."""
     F, n = bins_t.shape
+    Fn = F if num_numerical is None else num_numerical
     S = stats.shape[1]
     L, B, N = frontier, num_bins, max_nodes
     W = (B + 31) // 32
@@ -223,6 +267,7 @@ def grow_tree(
     # and synchronize.
     feature = torch.full((N + 1,), -1, dtype=i32, device=dev)
     threshold_bin = torch.zeros(N + 1, dtype=i32, device=dev)
+    is_cat = torch.zeros(N + 1, dtype=torch.bool, device=dev)
     cat_mask = torch.zeros((N + 1, W), dtype=i32, device=dev)
     left = torch.zeros(N + 1, dtype=i32, device=dev)
     right = torch.zeros(N + 1, dtype=i32, device=dev)
@@ -269,17 +314,20 @@ def grow_tree(
                 bins_t, slot, leaf_id, tables, hist_stats, num_slots=Ld,
                 num_bins=B, quant_scale=qscale,
             )
-        left_all = scalar_candidates(hist)
+        left_all, ranks = scalar_candidates(hist, num_numerical=Fn,
+                                            rule=rule)
 
         dec = layer_decide(
-            left_all, parent, active, frontier_id[:Ld], num_nodes,
-            rule=rule, L=L, B=B, N=N, min_examples=min_examples,
+            left_all, ranks, parent, active, frontier_id[:Ld], num_nodes,
+            rule=rule, L=L, B=B, N=N, num_numerical=Fn,
+            min_examples=min_examples,
             min_split_gain=min_split_gain,
             children_in_frontier=children_in_frontier,
         )
         do_split, split_rank = dec.do_split, dec.split_rank
         feature[dec.wid] = dec.best_f.to(i32)
         threshold_bin[dec.wid] = dec.best_t.to(i32)
+        is_cat[dec.wid] = dec.is_cat_split
         cat_mask[dec.wid] = pack_mask(dec.go_left_bins)
         left[dec.wid] = dec.left_id.to(i32)
         right[dec.wid] = dec.right_id.to(i32)
@@ -333,7 +381,7 @@ def grow_tree(
 
     tree = TreeArrays(
         feature=feature[:N], threshold_bin=threshold_bin[:N],
-        is_cat=torch.zeros(N, dtype=torch.bool, device=dev),
+        is_cat=is_cat[:N],
         is_set=torch.zeros(N, dtype=torch.bool, device=dev),
         cat_mask=cat_mask[:N], left=left[:N], right=right[:N],
         is_leaf=is_leaf[:N], leaf_stats=leaf_stats[:N], num_nodes=num_nodes,

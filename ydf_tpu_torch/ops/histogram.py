@@ -64,18 +64,46 @@ def split_bf16x2(stats: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi, lo], dim=1)
 
 
+# XLA's CPU reduction of a long axis (its tree-reduction rewrite): windows
+# of REDUCE_WINDOW elements, each summed in order, level after level.
+REDUCE_WINDOW = 32
+
+
+def sum_rows_f32(x: torch.Tensor) -> torch.Tensor:
+    """x f32 [n, S] summed over rows as XLA sums jnp.sum(x, axis=0) on
+    the CPU, bit for bit: while more than 32 rows remain, pad the rows
+    to a multiple of 32 (half the padding before them, the rest after)
+    and add each window of 32 in order; then add the rest in order. The
+    root totals then equal the JAX package's, so every right child's
+    stats (parent - left) do too."""
+    w = REDUCE_WINDOW
+    while x.shape[0] > w:
+        pad = -x.shape[0] % w
+        x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
+        x = _sum_in_order(x.reshape(-1, w, x.shape[1]), 1)
+    return _sum_in_order(x, 0)
+
+
+def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """0 + x_0 + x_1 + ... along `dim`, one f32 rounding per add."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for i in range(x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
 def prepare_stats_for_hist(stats: torch.Tensor, hist_quant: str
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                       torch.Tensor]:
     """Per-tree stats preparation: (the histogram operand, the int8 scale
     or None, the root totals [S] on the grid every layer's histograms
-    sum). Totals sum in f64 and round once, as the histograms do."""
+    sum). Totals are f32 sums in the JAX package's order (sum_rows_f32)."""
     if hist_quant == "int8":
         qscale = int8_scale(stats)
         stats_q = quantize_int8(stats, qscale)
-        total = stats_q.double().sum(dim=0).float() * qscale
+        total = sum_rows_f32(stats_q) * qscale
         return stats_q.to(torch.int8), qscale, total
-    total = stats.double().sum(dim=0).float()
+    total = sum_rows_f32(stats.float())
     if hist_quant == "bf16x2":
         return split_bf16x2(stats), None, total
     if hist_quant == "f32":

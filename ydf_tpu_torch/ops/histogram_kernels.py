@@ -40,11 +40,11 @@ ROUTED_TILE_ROWS = ROUTED_THREADS
 ROUTED_MAX_PAIRS = ROUTED_THREADS // 32
 ROUTED_SMEM_LIMIT = 232_448
 # The root kernel's launch shape (`root_launch_shape`, histogram.cu): a
-# block's sub-histogram and its one-byte tags take at most
-# ROOT_SMEM_BUDGET bytes (its staged tile of 512 rows beside them keeps
-# the block under 48 KB), a block has a warp per feature (at most 32), and
-# the row chunks aim at ROOT_SM_WARPS resident warps on each of the card's
-# SMS SMs.
+# block's sub-histogram (f64 cells for f32 stats, else 4-byte cells) and
+# its one-byte tags take at most ROOT_SMEM_BUDGET bytes (its staged tile
+# of 512 rows beside them keeps the block under 48 KB), a block has a
+# warp per feature (at most 32), and the row chunks aim at ROOT_SM_WARPS
+# resident warps on each of the card's SMS SMs.
 ROOT_SMEM_BUDGET = 32 * 1024
 ROOT_MAX_WARPS = 32
 ROOT_SM_WARPS = 32
@@ -169,16 +169,24 @@ def cell_stride(Sq: int) -> int:
     return 4 if Sq == 3 else Sq
 
 
-def root_launch_shape(n: int, F: int, L: int, B: int,
-                      Sq: int) -> RootShape:
+def root_cell_bytes(stats: torch.Tensor) -> int:
+    """Bytes of a cell word in histogram.cu: f64 for f32 stats (summed
+    exactly enough to round once), else 4."""
+    return 8 if stats.dtype == torch.float32 else 4
+
+
+def root_launch_shape(n: int, F: int, L: int, B: int, Sq: int,
+                      cell_bytes: int = 4) -> RootShape:
     """Feature groups as even as F allows (a divisor of F when one is
     near), so that no block carries more features than another; slot
     blocks filling what the budget leaves; then row chunks (multiples of
     16 rows, at least one 512-row tile) until the grid holds about
-    ROOT_SM_WARPS warps for each SM."""
+    ROOT_SM_WARPS warps for each SM. `cell_bytes`: root_cell_bytes of
+    the stats."""
     L = max(L, 1)
     # (slot, feature) sub-histograms: B cells and a one-byte tag each.
-    pairs = max(1, ROOT_SMEM_BUDGET // (B * (cell_stride(Sq) * 4 + 1)))
+    pairs = max(1, ROOT_SMEM_BUDGET
+                // (B * (cell_stride(Sq) * cell_bytes + 1)))
     Lb = min(L, pairs)
     Fb = min(F, max(1, pairs // Lb), ROOT_MAX_WARPS)
     G0 = -(-F // Fb)
@@ -272,9 +280,11 @@ def histogram(bins_t: torch.Tensor, slot: torch.Tensor, stats: torch.Tensor,
         return torch.zeros((L, F, B, Sq), dtype=acc_dtype(stats), device=dev)
     # The reduce pass writes every cell: no zero fill.
     out = torch.empty((L, F, B, Sq), dtype=acc_dtype(stats), device=dev)
-    shape = root_launch_shape(n, F, L, B, Sq)
-    partial = torch.empty(shape.chunks * out.numel(), dtype=out.dtype,
-                          device=dev)
+    cell_bytes = root_cell_bytes(stats)
+    shape = root_launch_shape(n, F, L, B, Sq, cell_bytes)
+    partial = torch.empty(
+        shape.chunks * out.numel(),
+        dtype=torch.float64 if cell_bytes == 8 else out.dtype, device=dev)
     fn = cuda_build.entry_point("histogram", "ydf_histogram", 5, 11)
     with cuda_build.on_device(dev):
         timer = cuda_build.launch_timer("histogram")

@@ -1,7 +1,10 @@
 """Tree routing (counterpart of ydf_tpu/ops/routing.py).
 
 Training: `route_histogram_fused`, the fused routing + histogram step of
-every layer below the root, through csrc/histogram_routed.cu.
+every layer below the root, through csrc/histogram_routed.cu; and
+`route_tree_bins`, a grown tree's leaf for every row of a bin matrix
+(the validation rows of early stopping), plain PyTorch as the JAX
+package's is XLA.
 
 Serving: value-mode routing in plain PyTorch (route_tree_values /
 forest_predict_values).
@@ -141,6 +144,34 @@ def route_tree_values(
         go_left = torch.where(missing, na_left[node], go_left)
         nxt = torch.where(go_left, left[node], right[node])
         node = torch.where(is_leaf[node], node, nxt)
+    return node
+
+
+def route_tree_bins(tree, bins_t: torch.Tensor,
+                    max_depth: int) -> torch.Tensor:
+    """Leaf node id (int64 [n]) of every row of the feature-major bins
+    u8 [F, n] in one grown tree (ops/grower.py:TreeArrays; counterpart of
+    ydf_tpu/ops/routing.py:route_tree_bins, impl="xla"): `max_depth`
+    steps, each reading the node's feature bin; a categorical node sends
+    bin b left when bit b of its mask is set, a numerical one when
+    b <= threshold_bin; leaves self-loop. No host sync: every step is a
+    gather on the tree's device."""
+    F, n = bins_t.shape
+    flat = bins_t.reshape(-1)
+    rows = torch.arange(n, device=bins_t.device)
+    feature = tree.feature.long()
+    left, right = tree.left.long(), tree.right.long()
+    node = torch.zeros(n, dtype=torch.long, device=bins_t.device)
+    for _ in range(max(max_depth, 0)):
+        f = feature[node].clamp(0, max(F - 1, 0))
+        b = flat[f * n + rows].long() if F else torch.zeros_like(node)
+        go_left = torch.where(
+            tree.is_cat[node],
+            mask_bit_filled(tree.cat_mask[node], b),
+            b <= tree.threshold_bin[node],
+        )
+        nxt = torch.where(go_left, left[node], right[node])
+        node = torch.where(tree.is_leaf[node], node, nxt)
     return node
 
 

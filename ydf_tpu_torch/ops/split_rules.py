@@ -1,6 +1,6 @@
 """GBT split rule (counterpart of ydf_tpu/ops/split_rules.py:
-HessianGainRule): stats = [g, h, w]; the hessian gain of a cut and the
-Newton leaf value, with the JAX package's expressions and epsilon so the
+HessianGainRule): stats = [g, h, w]; the hessian gain of a cut, the
+Newton leaf value and the categorical sort key, with the JAX package's expressions and epsilon so the
 f32 results round alike. stats[..., -1] is the weighted example count.
 """
 
@@ -34,3 +34,10 @@ class HessianGainRule:
     def leaf_value(self, stats: torch.Tensor) -> torch.Tensor:
         g, h = stats[..., 0], stats[..., 1]
         return (-g / (h + self.l2 + _EPS))[..., None]
+
+    def cat_sort_key(self, hist: torch.Tensor) -> torch.Tensor:
+        """Order of a categorical feature's bins (f32, [..., B] of
+        hist [..., B, S]): the bins' Newton leaf values; the candidate
+        left sets are the prefixes of that order."""
+        g, h = hist[..., 0], hist[..., 1]
+        return -g / (h + self.l2 + _EPS)

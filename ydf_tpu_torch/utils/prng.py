@@ -174,19 +174,27 @@ def _sequential_scan(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
-    """jnp.cumsum of a float32 vector as XLA computes it on the CPU: the
-    recursive blocked scan of the module docstring."""
-    n = x.shape[0]
+def cumsum_f32(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """jnp.cumsum of float32 `x` along `dim` as XLA computes it on the
+    CPU: the recursive blocked scan of the module docstring (the
+    anchors' row-choice probabilities; the grower's prefix sums over
+    bins, where an ulp decides a near-tie split)."""
+    return _cumsum_last(x.movedim(dim, -1)).movedim(-1, dim)
+
+
+def _cumsum_last(x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[-1]
     b = CUMSUM_BLOCK
     if n <= b:
         return _sequential_scan(x)
     pad = (-n) % b
-    xp = torch.cat([x, x.new_zeros(pad)]) if pad else x
-    blocks = _sequential_scan(xp.reshape(-1, b))
-    prefix = cumsum_f32(blocks[:, -1].contiguous())
-    excl = torch.cat([prefix.new_zeros(1), prefix[:-1]])
-    return (blocks + excl[:, None]).reshape(-1)[:n]
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+    blocks = _sequential_scan(x.reshape(x.shape[:-1] + (-1, b)))
+    prefix = _cumsum_last(blocks[..., -1])
+    excl = torch.cat([prefix.new_zeros(prefix.shape[:-1] + (1,)),
+                      prefix[..., :-1]], dim=-1)
+    return (blocks + excl[..., None]).reshape(x.shape)[..., :n]
 
 
 def searchsorted_scan(sorted_arr: torch.Tensor, query: torch.Tensor,
