@@ -3,8 +3,10 @@ kernels, checks each against its plain PyTorch version at full width,
 serves the committed fixture models through `load_model(...).predict`
 on the card, trains the bench GBT, a GBT on vector sequences and the
 library's default GBT on the card through
-`GradientBoostedTreesLearner(...).train`, evaluates, saves and loads
-the last, times each kernel, and prints one JSON summary.
+`GradientBoostedTreesLearner(...).train` and the library's default
+random forest through `RandomForestLearner(...).train`, evaluates,
+saves and loads the last two, times each kernel, and prints one JSON
+summary.
 
     python3 chip_smoke.py        # needs one CUDA card and nvcc
 
@@ -69,11 +71,31 @@ Phases (one line each; any failure is an uncaught exception):
               version on the path's categorical tables; a profiled train
               of 50 trees (the device's idle share); each of the path's
               kernels timed at its shapes
+  9 rf        train_rf (ydf_tpu_torch/testdata/train_rf, the JAX
+              package's RandomForestLearner(label="label") with every
+              default on make_frame: 50,000 rows, evaluated on 10,000
+              fresh ones; 300 trees of depth 16, frontier 1024): the
+              frames' SHA-256; the main path (train, then evaluate) with
+              its launches, host reads and stage walls; against the JAX
+              run's hashes: bins, every tree's bootstrap counts, tree
+              0's candidate masks at every layer, every tree's node
+              arrays (a differing tree is located by depth and its
+              closest gain pair printed), trees 0-2 node for node
+              against the JAX package's saved 3-tree forest; out-of-bag
+              and evaluate metrics, probabilities on 1,024 rows; tree 0
+              in full (one long line); save -> load; the JAX
+              forest served on the card; the routed kernel at every
+              layer of tree 0 (Lh 1 .. 512, binary Sq 3 and 3-class
+              Sq 4) and the root histogram torch.equal to plain, the
+              routed kernel's launch shape at L = 1024; a profiled train
+              of 20 trees; each kernel timed, the routed kernel at each
+              Lh on the path's own layers
 
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
 phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
-phase 8 the default train path (train, then evaluate).
+phase 8 the default train path (train, then evaluate), phase 9 the
+random forest's (train, then evaluate).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -155,6 +177,27 @@ EVAL_ATOL = 2e-3
 EVAL_SAME_ATOL = 1e-12
 # Trees of phase 8's profiled train: two chunks of the look-ahead stop.
 PROFILE_TREES = 50
+# train_rf (phase 9): the JAX package's RandomForestLearner(label=
+# "label") with every default on make_frame's recipe, 50,000 training
+# rows, evaluated on 10,000 fresh ones (ydf_tpu_torch/testdata/train_rf).
+# At least RF_SAME_TREES of the trees equal JAX's by hash (a tree that
+# differs is explained by a printed gain near-tie); the out-of-bag and
+# evaluate accuracy and AUC within EVAL_ATOL; probabilities on the
+# stored rows within RF_PROBA_ATOL (max) and RF_PROBA_MEAN_ATOL (mean).
+TRAIN_RF = os.path.join(TESTDATA, "train_rf")
+RF_ROWS = 50_000
+RF_TEST_ROWS = 10_000
+RF_HP = dict(label="label")
+RF_COMPARE_ROWS = 1024
+RF_SAME_TREES = 0.99
+RF_PROBA_ATOL = 1e-2
+RF_PROBA_MEAN_ATOL = 1e-3
+# Trees of phase 9's profiled train.
+RF_PROFILE_TREES = 20
+# Trees of phase 9's main path: None is the learner's default, the
+# fixture's 300; a rehearsal on a CPU sets a few (the checks that need
+# the whole forest, its out-of-bag and test metrics, then only log).
+RF_TREES = None
 # Tolerances against the JAX package's run. The port's f32 histograms sum
 # rows in another order (shared-memory atomics) than the JAX package's
 # f64 block partials, so near-tie splits may flip in late trees; the
@@ -253,6 +296,53 @@ def frame_sha256(frame):
         h.update(f"{name}|{a.dtype.str}|{a.shape}|".encode())
         h.update(a.tobytes())
     return h.hexdigest()
+
+
+#: The node arrays a forest's tree hash covers, in order (a tree of
+#: either package as Forest.to_numpy() holds it).
+TREE_HASH_FIELDS = ("feature", "threshold_bin", "is_cat", "cat_mask",
+                    "left", "right", "is_leaf", "leaf_value", "cover")
+
+
+def tree_sha256(forest_np, t, nodes=None):
+    """SHA-256 of tree t's node arrays (TREE_HASH_FIELDS of
+    Forest.to_numpy()), of the nodes `nodes` (a bool mask) or all."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in TREE_HASH_FIELDS:
+        a = np.asarray(forest_np[f][t])
+        if nodes is not None:
+            a = a[nodes]
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def node_depths(forest_np, t):
+    """Depth of each node of tree t (-1: no node), from the root down the
+    left/right ids of its split nodes."""
+    left, right = forest_np["left"][t], forest_np["right"][t]
+    leaf = forest_np["is_leaf"][t]
+    depth = np.full(left.shape[0], -1, np.int64)
+    depth[0] = 0
+    for i in range(int(forest_np["num_nodes"][t])):
+        if not leaf[i] and depth[i] >= 0:
+            depth[left[i]] = depth[right[i]] = depth[i] + 1
+    return depth
+
+
+def layer_sha256s(forest_np, t, max_depth):
+    """tree_sha256 of each depth's nodes of tree t, [max_depth + 1]."""
+    depth = node_depths(forest_np, t)
+    return [tree_sha256(forest_np, t, depth == d)
+            for d in range(max_depth + 1)]
+
+
+def array_sha256(a):
+    """SHA-256 of an array's bytes (C order)."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 def make_vs_data(rows, max_len=VS_MAX_LEN, dim=VS_DIM, noise=VS_NOISE,
@@ -739,6 +829,8 @@ def main():
     torch.cuda.synchronize()
     kernels.extend(default_path(smi, serving=counters))
     torch.cuda.synchronize()
+    kernels.extend(rf_path(smi, serving=counters))
+    torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -1135,18 +1227,20 @@ def layer_text(layers):
         f"{v['path_ms']:.3f} ms (events)" for k, v in layers.items())
 
 
-def profile_train(data, hp=TRAIN_HP):
+def profile_train(data, hp=TRAIN_HP, learner_cls=None, loop="boost_s"):
     """One training (train_bench's configuration unless `hp` says
+    otherwise; a GradientBoostedTreesLearner unless `learner_cls` says
     otherwise) under torch.profiler: device time by kernel name, the
-    number of device kernels, and the device's idle share of the
-    boosting loop, bounded from below by 1 - (device time of the whole
-    train) / (loop wall)."""
+    number of device kernels, and the device's idle share of the tree
+    loop (its wall in last_timings[loop]), bounded from below by 1 -
+    (device time of the whole train) / (loop wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import ydf_tpu_torch
 
-    learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE, **hp)
+    cls = learner_cls or ydf_tpu_torch.GradientBoostedTreesLearner
+    learner = cls(device=DEVICE, **hp)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1160,7 +1254,7 @@ def profile_train(data, hp=TRAIN_HP):
             by_name[e.key] = by_name.get(e.key, 0.0) + dev_us / 1e3
             kernels += e.count
     busy = sum(by_name.values())
-    loop_ms = learner.last_timings["boost_s"] * 1e3
+    loop_ms = learner.last_timings[loop] * 1e3
     assert kernels > 0, "the profiler saw no device kernel"
     return {
         "wall_ms": wall * 1e3, "loop_ms": loop_ms, "kernels": kernels,
@@ -2065,6 +2159,12 @@ def default_path(smi, serving):
         out.append(train_entry(name, "train_default", src, replaces, t,
                                counted[name], err[name],
                                kernel_ms.get(name, 0.0)))
+        if name == "histogram_routed":
+            by_lh = routed_by_captured(name, layers, events, routed_lh)
+            out[-1].update(layer_fields(by_lh))
+            log("8 layers", f"{name} on train_default by hist slots (timed "
+                f"on the path's own layers of tree 0): "
+                f"{layer_text(by_lh)}, {smi}")
     bank = bank_scorer.build_bank_scorer(model)
     xT = encoded_xT(model, test)
     t = measure(bank_scorer, bank.tables, bank.tables, xT)
@@ -2087,6 +2187,408 @@ def default_path(smi, serving):
     })
     log("8 default", f"phase 8 wall {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def rf_path(smi, serving):
+    """Phase 9: RandomForestLearner(label="label") with every default
+    (Poisson bootstrap, per-node candidate features, depth 16, frontier
+    1024, out-of-bag evaluation) trained on the card, evaluated, saved
+    and loaded, against the JAX package's run (ydf_tpu_torch/testdata/
+    train_rf). Returns the `kernels` entries of the path's three
+    kernels."""
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.learners import random_forest as port_rf
+    from ydf_tpu_torch.ops import binning, grower, histogram_kernels
+    from ydf_tpu_torch.utils import cuda_build
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(TRAIN_RF, "config.json")) as f:
+        cfg = json.load(f)
+    assert (cfg["rows"], cfg["test_rows"], cfg["cat_seed"],
+            cfg["compare_rows"], cfg["learner"], cfg["generator"]) == (
+        RF_ROWS, RF_TEST_ROWS, DEFAULT_CAT_SEED, RF_COMPARE_ROWS, RF_HP,
+        dict(features=TRAIN_FEATURES, cat_vocabs=list(DEFAULT_CAT_VOCABS),
+             missing_features=list(DEFAULT_MISSING))), cfg
+    exp = np.load(os.path.join(TRAIN_RF, "expected.npz"))
+    small_dir = os.path.join(TRAIN_RF, "rf_small")
+    jax_small = dict(np.load(os.path.join(small_dir, "forest.npz")))
+    t0 = time.perf_counter()
+    train, test = make_frame(RF_ROWS, RF_TEST_ROWS)
+    assert frame_sha256(train) == cfg["train_sha256"], "train frame"
+    assert frame_sha256(test) == cfg["test_sha256"], "test frame"
+    log("9 rf", f"frames {RF_ROWS} + {RF_TEST_ROWS} rows in "
+        f"{time.perf_counter() - t0:.2f} s, SHA-256 == the fixture's; JAX "
+        f"fixture: jax {cfg['jax_version']}, impls {cfg['jax_impls']}, "
+        f"{cfg['num_trees']} trees in {cfg['jax_train_s_cpu']:.1f} s on "
+        "the CPU that wrote it")
+
+    # -- 9a the main path: train with every default, evaluate ---------- #
+    for k in histogram_kernels.LAUNCHES:
+        histogram_kernels.LAUNCHES[k] = 0
+    binning.KERNEL_LAUNCHES = 0
+    for c in serving:
+        c.KERNEL_LAUNCHES = 0
+        c.KERNEL_ROWS = 0
+    reads0 = port_rf.HOST_READS
+    cuda_build.LAUNCH_EVENTS = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp = dict(RF_HP) if RF_TREES is None else dict(RF_HP, num_trees=RF_TREES)
+    learner = ydf_tpu_torch.RandomForestLearner(device=DEVICE, **hp)
+    model = learner.train(train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = model.evaluate(test)
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
+    counted = dict(histogram_kernels.LAUNCHES)
+    counted["binning"] = binning.KERNEL_LAUNCHES
+    others = {c.__name__: c.KERNEL_LAUNCHES for c in serving}
+    reads = port_rf.HOST_READS - reads0
+    T = model.forest.num_trees
+    depth = learner.max_depth
+    full = T == cfg["num_trees"]
+    assert T == learner.num_trees and (full or RF_TREES is not None), T
+    assert counted["histogram"] == T, counted
+    assert counted["histogram_routed"] == T * (depth - 1), counted
+    assert counted["binning"] >= 1, counted
+    assert not any(others.values()), others
+    assert reads == 2, reads
+    kernel_ms, routed_lh = split_events(events)
+    stages = learner.last_timings
+    loop_ms = stages["loop_s"] * 1e3
+    log("9 launches", f"train_rf (train + evaluate): {counted} launches "
+        f"({(counted['histogram'] + counted['histogram_routed']) / T:.0f} "
+        f"training-kernel launches a tree; routed by hist slots: "
+        f"{routed_lh}); serving kernels {others} (an RF serves routed)")
+    log("9 train", f"RandomForestLearner(**{RF_HP}).train: wall "
+        f"{wall * 1e3:.1f} ms (host clock, ends in synchronize); stages "
+        + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in stages.items())
+        + f"; {T} trees, depth {depth}, frontier "
+        f"{cfg['frontier']}; {reads} host reads, both before the tree "
+        f"loop; {loop_ms / T:.2f} ms a tree (loop wall / trees); kernel "
+        "time (CUDA events, train + evaluate) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; evaluate of {RF_TEST_ROWS} rows {eval_wall * 1e3:.1f} ms; "
+        f"{smi}")
+
+    # -- 9b against the JAX package's run ------------------------------ #
+    bins = model.binner.transform(
+        Dataset.from_data(train, dataspec=model.dataspec), model.device)
+    assert sha256(bins) == cfg["bins_sha256"], "bins != the JAX package's"
+    keys = port_rf.tree_keys(cfg["seed"], T, model.device)
+    counts = port_rf.bootstrap_counts(keys[:, 0], RF_ROWS).cpu().numpy()
+    boot_same = [array_sha256(c.astype(np.int32)) == exp["boot_sha256"][t]
+                 .tobytes().hex() for t, c in enumerate(counts)]
+    assert all(boot_same), f"bootstrap counts differ in trees " \
+        f"{[t for t, ok in enumerate(boot_same) if not ok][:10]}"
+    k_feat = grower.layer_feature_keys(keys[:1, 1], depth)
+    kept = []
+    for d, kf in enumerate(k_feat):
+        mask = grower.candidate_masks(kf, min(2 ** d, cfg["frontier"]),
+                                      cfg["num_features"],
+                                      cfg["candidate_features"])[0]
+        m = mask.cpu().numpy()
+        assert array_sha256(m) == exp["mask_sha256"][d].tobytes().hex(), d
+        kept.append(int(m.sum()))
+    assert kept == exp["mask_kept"].tolist()
+    pf = model.forest.to_numpy()
+    same = [tree_sha256(pf, t) == exp["tree_sha256"][t].tobytes().hex()
+            for t in range(T)]
+    differ = [t for t, ok in enumerate(same) if not ok]
+    for t in range(min(T, cfg["small_trees"])):
+        for field in TREE_HASH_FIELDS + ("num_nodes", "threshold"):
+            assert np.array_equal(pf[field][t], jax_small[field][t]), (
+                f"tree {t} {field} != the JAX package's")
+    assert np.array_equal(pf["num_nodes"], exp["num_nodes"][:T]) or differ, (
+        "node counts differ with every tree hash equal")
+    diagnosis = "none"
+    if differ:
+        diagnosis = rf_tree_diagnosis(model, learner, train, pf, exp,
+                                      differ[0], cfg)
+    assert len(differ) <= (1 - RF_SAME_TREES) * T, (
+        f"{len(differ)} of {T} trees differ from JAX's: {diagnosis}")
+    jo, po = cfg["oob_evaluation"], model.self_evaluation()
+    oob_err = {k: abs(po["metrics"][k] - jo["metrics"][k])
+               for k in jo["metrics"]}
+    head = {k: v[:RF_COMPARE_ROWS] for k, v in test.items()}
+    proba = model.predict(head)
+    assert proba.shape == exp["proba"].shape and np.isfinite(proba).all()
+    p_err = np.abs(proba - exp["proba"])
+    jev = cfg["jax_evaluate"]
+    ev_err = {k: abs(ev.metrics[k] - jev[k]) for k in jev}
+    if full:
+        assert po["num_examples"] == jo["num_examples"], (po, jo)
+        assert oob_err["accuracy"] <= EVAL_ATOL and \
+            oob_err["auc"] <= EVAL_ATOL, oob_err
+        assert p_err.max() <= RF_PROBA_ATOL and p_err.mean() <= \
+            RF_PROBA_MEAN_ATOL, (p_err.max(), p_err.mean())
+        assert ev_err["accuracy"] <= EVAL_ATOL and \
+            ev_err["auc"] <= EVAL_ATOL, ev_err
+    cat_nodes = int((pf["is_cat"] & ~pf["is_leaf"]).sum())
+    log("9 vs JAX", ("" if full else f"REHEARSAL of {T} trees, metrics "
+        "not held; ") + f"bins bitwise == JAX; bootstrap counts of all {T} "
+        f"trees == JAX's (SHA-256, {int(counts.max()) + 1} Knuth steps "
+        f"needed); tree 0's candidate masks == JAX's at all {depth} "
+        f"layers ({cfg['candidate_features']} of {cfg['num_features']} "
+        f"features, kept per layer {kept}); trees equal to JAX's by "
+        f"SHA-256: {T - len(differ)} of {T} (first differing: {diagnosis});"
+        f" trees 0-{cfg['small_trees'] - 1} == the JAX package's node for "
+        f"node; {cat_nodes} of {int((~pf['is_leaf']).sum())} split nodes "
+        f"categorical, {int(pf['num_nodes'].sum())} nodes; out-of-bag on "
+        f"{po['num_examples']} rows: " + " ".join(
+            f"{k} {po['metrics'][k]:.6f} (JAX {jo['metrics'][k]:.6f})"
+            for k in jo["metrics"])
+        + f"; P(class 1) on {RF_COMPARE_ROWS} test rows: max abs "
+        f"{p_err.max():.3g} (<= {RF_PROBA_ATOL}), mean {p_err.mean():.3g} "
+        f"(<= {RF_PROBA_MEAN_ATOL}), bitwise "
+        f"{proba.tobytes() == exp['proba'].tobytes()}; evaluate on "
+        f"{RF_TEST_ROWS} rows: " + " ".join(
+            f"{k} {ev.metrics[k]:.6f} (JAX {jev[k]:.6f})" for k in jev))
+    f0 = {k: v[0] for k, v in pf.items() if k in TREE_HASH_FIELDS}
+    nodes0 = int(pf["num_nodes"][0])
+    log("9 tree 0", f"{nodes0} nodes, {int((~f0['is_leaf'][:nodes0]).sum())}"
+        f" splits; node: feature threshold_bin is_cat left right leaf "
+        f"value: " + "; ".join(
+            f"{i}: {f0['feature'][i]} {f0['threshold_bin'][i]} "
+            f"{int(f0['is_cat'][i])} {f0['left'][i]} {f0['right'][i]} "
+            f"{int(f0['is_leaf'][i])} "
+            f"{np.array2string(f0['leaf_value'][i], precision=4)}"
+            for i in range(nodes0)))
+
+    # -- 9c save -> load, and the JAX package's saved forest ----------- #
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "m"))
+        back = ydf_tpu_torch.load_model(os.path.join(tmp, "m"),
+                                        device=DEVICE)
+        got, want = back.predict(test), model.predict(test)
+        bf = back.forest.to_numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32)), (
+        "save -> load changed the predictions")
+    assert all(np.array_equal(bf[k], pf[k]) for k in pf), "save -> load"
+    assert back.self_evaluation() == model.self_evaluation()
+    jm = ydf_tpu_torch.load_model(small_dir, device=DEVICE)
+    jp = jm.predict(head)
+    assert jp.tobytes() == exp["small_proba"].tobytes(), (
+        "the JAX forest's probabilities on the card != JAX's")
+    log("9 save", f"model.save -> load_model: node arrays, out-of-bag "
+        f"evaluation and predictions on {RF_TEST_ROWS} rows bitwise equal; "
+        f"the JAX package's saved {cfg['small_trees']}-tree forest on the "
+        f"card: probabilities on {RF_COMPARE_ROWS} rows bitwise == JAX's")
+
+    # -- 9d each training kernel against its plain version ------------- #
+    layers = captured_rf_layers(train, learner)
+    layers3 = captured_rf_layers(dict(train, label=three_class_label(train)),
+                                 learner)
+    checked = []
+    for case in (layers, layers3):
+        for args in case["routed"]:
+            got = histogram_kernels.histogram_routed(*args)
+            want = histogram_kernels.histogram_routed_plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (
+                    f"routed kernel != plain at Lh {args[5]}, "
+                    f"Sq {args[4].shape[1]}")
+            checked.append((args[5], args[4].shape[1]))
+        got = histogram_kernels.histogram(*case["root"])
+        want = histogram_kernels.histogram_plain(*case["root"])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), "root histogram != plain"
+    inp = train_inputs(train, model.binner)
+    binning_check(inp["binning"])
+    inp["root"] = layers["root"]
+    lh_list = sorted({lh for lh, _ in checked})
+    log("9 kernels", f"histogram_routed on every fused layer of tree 0 of "
+        f"the path (binary label, Sq 3) and of a 3-class forest's tree 0 "
+        f"on the same rows (Sq 4): new_slot, new_leaf and the class-count "
+        f"histogram torch.equal to plain at Lh {lh_list} ({len(checked)} "
+        f"layers); the root histogram (Sq 3 and 4) torch.equal; binning "
+        f"torch.equal at {RF_ROWS} x {model.binner.num_numerical}; the "
+        f"routed kernel's launch at L = {cfg['frontier']}: " + "; ".join(
+            f"Lh {lh}: {routed_memory(args)}" for lh, args in {
+                a[5]: a for a in layers["routed"]}.items()))
+
+    # -- 9e where the loop's time goes (torch.profiler) ---------------- #
+    prof = profile_train(train, dict(RF_HP, num_trees=RF_PROFILE_TREES),
+                         ydf_tpu_torch.RandomForestLearner, "loop_s")
+    log("9 profile", f"one more train, num_trees={RF_PROFILE_TREES}, under "
+        "torch.profiler (the profiler slows the host): wall "
+        f"{prof['wall_ms']:.1f} ms, tree loop {prof['loop_ms']:.1f} ms; "
+        f"{prof['kernels']} device kernels "
+        f"({prof['kernels'] / RF_PROFILE_TREES:.0f} a tree), "
+        f"{prof['busy_ms']:.3f} ms of device "
+        "time over the whole train, so the device is idle at least "
+        f"{100 * prof['idle_share']:.1f}% of the loop; largest: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms" for name, ms in prof["top"]))
+
+    # -- 9f each kernel timed at the path's shapes --------------------- #
+    out = []
+    for name, src, replaces in (
+        ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+        ("histogram", "histogram.cu", "ydf_tpu/ops/histogram_pallas.py:81"),
+        ("histogram_routed", "histogram_routed.cu",
+         "ydf_tpu/ops/histogram_pallas.py:172"),
+    ):
+        if name == "histogram_routed":
+            inp["routed"] = max(layers["routed"], key=lambda a: a[5])
+        t = measure_train(name, inp)
+        log("9 timing", f"{name} ({t['shape']}): {timing_text(t)}, {smi}")
+        # Every comparison above is torch.equal: no difference.
+        out.append(train_entry(name, "train_rf", src, replaces, t,
+                               counted[name], 0.0, kernel_ms.get(name, 0.0)))
+        if name == "histogram_routed":
+            by_lh = routed_by_captured(name, layers["routed"], events,
+                                       routed_lh)
+            out[-1].update(layer_fields(by_lh))
+            log("9 layers", f"{name} on train_rf by hist slots: "
+                f"{layer_text(by_lh)}, {smi}")
+    log("9 rf", f"phase 9 wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def three_class_label(train):
+    """A 3-class label on the train frame (the binary label split by the
+    sign of f0): phase 9's Sq = 4 case."""
+    return np.where(train["label"] == 1, 2,
+                    (train["f0"] > 0).astype(np.int64))
+
+
+def captured_rf_layers(train, learner):
+    """The training kernels' arguments in tree 0 of the default forest
+    on `train` (a one-tree RandomForestLearner with `learner`'s
+    settings): "root", the root histogram's, and "routed", the routed
+    kernel's at every fused layer (Lh = 1 .. 512), as the path's own."""
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.ops import histogram_kernels
+
+    captured = {"routed": []}
+    originals = (histogram_kernels.histogram,
+                 histogram_kernels.histogram_routed)
+
+    def root(*args):
+        captured["root"] = args
+        return originals[0](*args)
+
+    def routed(*args):
+        captured["routed"].append(args)
+        return originals[1](*args)
+
+    histogram_kernels.histogram = root
+    histogram_kernels.histogram_routed = routed
+    try:
+        ydf_tpu_torch.RandomForestLearner(
+            device=DEVICE, num_trees=1, max_depth=learner.max_depth,
+            random_seed=learner.random_seed, **RF_HP).train(train)
+    finally:
+        (histogram_kernels.histogram,
+         histogram_kernels.histogram_routed) = originals
+    torch.cuda.synchronize()
+    return captured
+
+
+def routed_memory(args):
+    """The routed kernel's launch shape at a captured layer: its shared
+    memory a block (against the opt-in limit) and its f64 partials."""
+    from ydf_tpu_torch.ops import histogram_kernels as hk
+
+    bins_t, _, _, tables, stats, Lh, B = args
+    F, n = bins_t.shape
+    L = tables.do_split.shape[0] - 1
+    shape = hk.routed_launch_shape(n, F, Lh, B, stats.shape[1], L, 8)
+    assert shape.smem <= hk.ROUTED_SMEM_LIMIT, shape
+    partial = shape.chunks * Lh * F * B * stats.shape[1] * 8
+    return (f"{shape.smem} B a block (<= {hk.ROUTED_SMEM_LIMIT}), "
+            f"{shape.slot_blocks} slot blocks x {shape.G} feature groups x "
+            f"{shape.chunks} chunks, partials {partial / 2**20:.1f} MiB")
+
+
+def routed_by_captured(name, layers, events, launches_by_lh):
+    """The routed kernel at each hist-slot count of a path, timed on the
+    path's own captured layer of that count (its first): device time and
+    bound (measure_train), the path's launches and CUDA-event time there.
+    Returns {Lh: {...}}."""
+    out = {}
+    first = {}
+    for args in layers:
+        first.setdefault(args[5], args)
+    for lh in sorted(launches_by_lh):
+        t = measure_train(name, {"routed": first[lh]}, timing_only=True)
+        out[lh] = {
+            "launches": launches_by_lh[lh], "device_ms": t["device_ms"],
+            "device_how": t["device_how"], "bound_ms": t["bound_ms"],
+            "path_ms": sum(s.elapsed_time(e) for k, s, e in events
+                           if k == f"histogram_routed/Lh={lh}"),
+        }
+    return out
+
+
+def rf_tree_diagnosis(model, learner, train, pf, exp, t, cfg):
+    """Where tree t first differs from the JAX package's (its per-depth
+    hashes) and the two best gains of the port's slots at that depth when
+    the tree is grown again alone (the closest pair that is not an exact
+    tie: a near tie a last ulp can flip)."""
+    import torch
+
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.learners import random_forest as port_rf
+    from ydf_tpu_torch.ops import grower
+    from ydf_tpu_torch.ops.split_rules import ClassificationRule
+
+    ours = layer_sha256s(pf, t, learner.max_depth)
+    want = [h.tobytes().hex() for h in exp["layer_sha256"][t]]
+    d = next(i for i, (a, b) in enumerate(zip(ours, want)) if a != b)
+    depths = node_depths(pf, t)
+    nodes = np.flatnonzero(depths == d)
+    dev = model.device
+    binner = model.binner
+    bins_t = binner.transform(Dataset.from_data(train, model.dataspec),
+                              dev).t().contiguous()
+    n = bins_t.shape[1]
+    keys = port_rf.tree_keys(cfg["seed"], t + 1, dev)[t:]
+    counts = port_rf.bootstrap_counts(keys[:, 0], n)
+    y = torch.from_numpy((train["label"].astype(str) == model.classes[1])
+                         .astype(np.int64)).to(dev)
+    basis = torch.cat([torch.nn.functional.one_hot(y, 2).float(),
+                       torch.ones((n, 1), device=dev)], 1)
+    rule = ClassificationRule(num_classes=2)
+    columns = port_rf.layer_columns(
+        keys[:, 1], max_depth=learner.max_depth, frontier=cfg["frontier"],
+        num_features=binner.num_features,
+        num_numerical=binner.num_numerical, orderings=1,
+        k=cfg["candidate_features"])
+    grower.GAIN_TRACE = []
+    try:
+        grower.grow_tree(
+            bins_t, basis * counts[0].float()[:, None], rule=rule,
+            max_depth=learner.max_depth, frontier=cfg["frontier"],
+            max_nodes=pf["feature"].shape[1], num_bins=binner.num_bins,
+            num_numerical=binner.num_numerical,
+            min_examples=learner.min_examples,
+            columns=[(i[0].long(), ok[0]) for i, ok in columns])
+        top2 = grower.GAIN_TRACE[d - 1 if d > 0 else 0].cpu().numpy()
+    finally:
+        grower.GAIN_TRACE = None
+    # Exact ties break by index in both packages; a flip needs two gains
+    # an ulp or so apart.
+    near = np.isfinite(top2).all(axis=1) & (top2[:, 0] != top2[:, 1])
+    with np.errstate(invalid="ignore"):
+        gap = np.where(near, np.abs(top2[:, 0] - top2[:, 1])
+                       / np.maximum(np.abs(top2[:, 0]), 1e-30), np.inf)
+    s = int(np.argmin(gap))
+    return (f"tree {t}, depth {d} (nodes {nodes[:1].tolist()}-"
+            f"{nodes[-1:].tolist()}); the split layer before it, slot {s}: "
+            f"best gain {top2[s, 0]!r}, runner-up {top2[s, 1]!r} (relative "
+            f"gap {gap[s]:.3g})")
 
 
 def categorical_tables(tables):

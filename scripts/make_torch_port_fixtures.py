@@ -328,6 +328,122 @@ def write_train_default():
           f"trees, {size} bytes, {out['jax_impls']}, {ev.metrics}")
 
 
+TRAIN_RF = dict(
+    rows=50_000, test_rows=10_000, cat_seed=7, compare_rows=1024,
+    learner=dict(label="label"), small_trees=3, seed=123456,
+)
+
+
+def write_train_rf():
+    import json
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.config import TreeConfig, resolve_max_frontier
+    from ydf_tpu.dataset.dataset import Dataset
+    from ydf_tpu.ops.histogram import resolve_hist_impl, resolve_hist_quant
+    from ydf_tpu.ops.routing_native import resolve_route_impl
+
+    cfg = dict(TRAIN_RF)
+    cfg["generator"] = dict(features=28, cat_vocabs=list(CAT_VOCABS),
+                            missing_features=[0, 5, 11])
+    d = os.path.join(OUT, "train_rf")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    train, test = make_frame(cfg["cat_seed"], cfg["rows"], cfg["test_rows"],
+                             keep_label=True)
+    t0 = time.perf_counter()
+    m = ydf.RandomForestLearner(**cfg["learner"]).train(train)
+    train_s = time.perf_counter() - t0
+    small = ydf.RandomForestLearner(num_trees=cfg["small_trees"],
+                                    **cfg["learner"]).train(train)
+    small.save(os.path.join(d, "rf_small"))
+    fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    T, n = fo["feature"].shape[0], cfg["rows"]
+    F = m.binner.num_features
+    depth = m.max_depth
+    seed = cfg["seed"]
+
+    # The bootstrap counts of every tree (random_forest.py:644-651).
+    @jax.jit
+    def counts(ts):
+        def one(t):
+            key = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+            return jax.random.poisson(jax.random.split(key, 4)[0], 1.0, (n,))
+        return jax.vmap(one)(ts)
+
+    boot = np.concatenate([np.asarray(counts(jnp.arange(t, min(t + 50, T))))
+                           for t in range(0, T, 50)]).astype(np.int32)
+    # Tree 0's candidate-feature masks, layer by layer (grower.py:726 and
+    # :251-285: uniform scores, kept when >= the k-th largest).
+    cand = max(int(np.ceil(np.sqrt(F))), 1)
+    L = TreeConfig(max_depth=depth, max_frontier=resolve_max_frontier(
+        "auto", n, 5)).frontier
+    key = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), 0),
+                           4)[1]
+    masks = []
+    for dd in range(depth):
+        key, _, k_feat = jax.random.split(jax.random.fold_in(key, dd), 3)
+        base = jax.random.uniform(k_feat, (min(2 ** dd, L), F))
+        kth = jax.lax.top_k(base, cand)[0][:, -1]
+        masks.append(np.asarray(base >= kth[:, None]))
+    bins = m.binner.transform(Dataset.from_data(train, dataspec=m.dataspec))
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    ev = m.evaluate(test)
+    out = dict(cfg)
+    out["jax_impls"] = {
+        "hist_impl": resolve_hist_impl("auto"),
+        "hist_quant": resolve_hist_quant(None),
+        "route_impl": resolve_route_impl(None),
+    }
+    out["jax_version"] = jax.__version__
+    out["jax_train_s_cpu"] = train_s
+    out["classes"] = m.classes
+    out["num_trees"] = T
+    out["frontier"] = L
+    out["max_nodes"] = int(fo["feature"].shape[1])
+    out["candidate_features"] = cand
+    out["num_features"] = F
+    out["knuth_steps"] = int(boot.max()) + 1
+    out["train_sha256"] = chip_smoke.frame_sha256(train)
+    out["test_sha256"] = chip_smoke.frame_sha256(test)
+    out["bins_sha256"] = chip_smoke.array_sha256(np.asarray(bins))
+    out["oob_evaluation"] = m.oob_evaluation
+    out["jax_evaluate"] = dict(ev.metrics)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+
+    def digest(h):
+        return np.frombuffer(bytes.fromhex(h), np.uint8)
+
+    np.savez_compressed(
+        os.path.join(d, "expected.npz"),
+        boot_sha256=np.stack([digest(chip_smoke.array_sha256(b))
+                              for b in boot]),
+        mask_sha256=np.stack([digest(chip_smoke.array_sha256(mk))
+                              for mk in masks]),
+        mask_kept=np.array([mk.sum() for mk in masks], np.int64),
+        tree_sha256=np.stack([digest(chip_smoke.tree_sha256(fo, t))
+                              for t in range(T)]),
+        layer_sha256=np.stack([
+            np.stack([digest(h) for h in chip_smoke.layer_sha256s(
+                fo, t, depth)]) for t in range(T)]),
+        num_nodes=fo["num_nodes"].astype(np.int32),
+        proba=np.asarray(m.predict(head), np.float32),
+        small_proba=np.asarray(small.predict(head), np.float32),
+    )
+    size = sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+    print(f"train_rf: {T} trees in {train_s:.1f} s, {size} bytes, "
+          f"{out['jax_impls']}, oob {m.oob_evaluation['metrics']}, "
+          f"evaluate {ev.metrics}")
+
+
 def main():
     import jax
 
@@ -340,6 +456,8 @@ def main():
         write_train_vs()
     if only in (None, "train_default"):
         write_train_default()
+    if only in (None, "train_rf"):
+        write_train_rf()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

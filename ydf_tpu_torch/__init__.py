@@ -2,12 +2,14 @@
 
 Serving: load a model saved by the JAX package and score it on an NVIDIA
 H100 (sm_90a) through hand-written CUDA kernels. Training: grow a
-gradient boosted trees model on the card, binning and histograms through
-hand-written CUDA kernels too.
+gradient boosted trees model or a random forest on the card, binning and
+histograms through hand-written CUDA kernels too.
 
     import ydf_tpu_torch as ydf
     model = ydf.load_model("path/to/model")      # device="cuda" by default
     model = ydf.GradientBoostedTreesLearner(label="y").train(data)
+    model = ydf.RandomForestLearner(label="y").train(data)
+    model.self_evaluation()                      # the forest's out-of-bag
     model.predict(data)                          # numpy, like the JAX package
     model.evaluate(test)                         # metrics on the host
     model.save("path/to/dir")                    # loads in either package
@@ -25,12 +27,14 @@ from ydf_tpu_torch.dataset.dataspec import (
     infer_dataspec,
 )
 from ydf_tpu_torch.learners.gbt import GradientBoostedTreesLearner
+from ydf_tpu_torch.learners.random_forest import RandomForestLearner
 from ydf_tpu_torch.models.io import (
     binner_from_jax,
     forest_from_jax,
     load_model,
     save_model,
 )
+from ydf_tpu_torch.models.rf_model import RandomForestModel
 
 __all__ = [
     "Column",
@@ -38,6 +42,8 @@ __all__ = [
     "DataSpecification",
     "Dataset",
     "GradientBoostedTreesLearner",
+    "RandomForestLearner",
+    "RandomForestModel",
     "Task",
     "binner_from_jax",
     "forest_from_jax",

@@ -1,0 +1,394 @@
+"""Random Forest learner (counterpart of ydf_tpu/learners/random_forest.py:
+RandomForestLearner, _train_rf and the per-tree step of _rf_run_chunk).
+
+    import ydf_tpu_torch as ydf
+    model = ydf.RandomForestLearner(label="label").train(data)
+    model.predict(rows)                          # on the card by default
+    model.evaluate(test)
+    model.self_evaluation()                      # out-of-bag evaluation
+
+The JAX package's defaults: 300 trees of depth 16, min_examples 5, a
+Poisson(1) bootstrap of the rows, sqrt(F) candidate features per node for
+classification and F/3 for regression, winner-take-all votes, out-of-bag
+evaluation, max_frontier="auto" (1024 slots from 10,240 rows up).
+
+Tree t draws from key = fold_in(PRNGKey(seed), t): k_boot, k_grow, _, _ =
+split(key, 4). Its rows weigh w = w_base * poisson(k_boot, 1.0, (n,)),
+its stats are basis * w (classification: [one-hot label..., 1], so the
+stats are class counts; regression: [y, y^2, 1]), the grower draws each
+layer's candidate features from k_grow (ops/grower.py), and the leaves
+hold rule.leaf_value (the class distribution, or the mean). Rows the
+bootstrap left out (count 0, base weight > 0) vote on the tree for the
+out-of-bag evaluation: one-hot of the leaf's top class (winner take all)
+or the leaf value, summed in tree order in f32, as the JAX package does.
+
+The bootstrap counts and the candidate features depend on the seed
+alone, so they are drawn for every tree before the loop (utils/prng.py:
+poisson1; grower.candidate_masks) and read on the host once there: the
+count of Knuth steps that sufficed and the widest candidate set of each
+layer (HOST_READS). The loop itself reads nothing back (it runs under
+torch.cuda.set_sync_debug_mode("error") on a card); the trees, leaf
+values and out-of-bag sums are read after the last tree.
+
+What the JAX package's learner offers and this port does not (honest
+trees, sparse-oblique splits, uplift tasks, out-of-bag permutation
+importances, a mesh, maximum_training_duration) raises
+NotImplementedError naming the ROADMAP item. bootstrap_size_ratio is
+stored and unused, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ydf_tpu_torch.config import Task, TreeConfig, resolve_max_frontier
+from ydf_tpu_torch.dataset.dataset import InputData
+from ydf_tpu_torch.dataset.dataspec import ColumnType
+from ydf_tpu_torch.learners.generic import GenericLearner
+from ydf_tpu_torch.metrics.metrics import evaluate_predictions
+from ydf_tpu_torch.models.forest import (
+    bake_winner_take_all,
+    forest_from_stacked_trees,
+)
+from ydf_tpu_torch.models.rf_model import RandomForestModel
+from ydf_tpu_torch.ops import grower
+from ydf_tpu_torch.ops.split_rules import ClassificationRule, RegressionRule
+from ydf_tpu_torch.utils import prng
+
+#: Reads of device values on the host by train_rf in this process: the
+#: bootstrap's stop check and the candidate widths, before the loop; the
+#: loop makes none.
+HOST_READS = 0
+#: Knuth steps of the first bootstrap draw; a draw that does not stop in
+#: them is drawn again with twice as many (rate 1 passes 16 with
+#: probability about 1e-14 a row).
+POISSON_STEPS = 16
+#: Trees whose bootstrap counts are drawn together (bounds the draw's
+#: temporaries at POISSON_CHUNK x n).
+POISSON_CHUNK = 25
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
+    )
+
+
+class RandomForestLearner(GenericLearner):
+    """The JAX package's RandomForestLearner for classification and
+    regression on numerical, boolean and categorical features."""
+
+    def __init__(
+        self,
+        label: str,
+        task: Task = Task.CLASSIFICATION,
+        num_trees: int = 300,
+        max_depth: int = 16,
+        min_examples: int = 5,
+        bootstrap_training_dataset: bool = True,
+        bootstrap_size_ratio: float = 1.0,
+        num_candidate_attributes: int = 0,
+        num_candidate_attributes_ratio: float = -1.0,
+        split_axis: str = "AXIS_ALIGNED",
+        winner_take_all: bool = True,
+        compute_oob_performances: bool = True,
+        compute_oob_variable_importances: bool = False,
+        max_frontier="auto",
+        uplift_treatment: Optional[str] = None,
+        honest: bool = False,
+        honest_ratio_leaf_examples: float = 0.5,
+        maximum_training_duration: float = -1.0,
+        mesh=None,
+        features: Optional[Sequence[str]] = None,
+        weights: Optional[str] = None,
+        num_bins="auto",
+        max_vocab_count: int = 2000,
+        min_vocab_frequency: int = 5,
+        column_types: Optional[Dict[str, ColumnType]] = None,
+        random_seed: int = 123456,
+        device=None,
+    ):
+        if task not in (Task.CLASSIFICATION, Task.REGRESSION):
+            raise _unported(f"random forest task {task.value}", 15)
+        if split_axis != "AXIS_ALIGNED":
+            raise _unported(f"split_axis={split_axis!r}", 14)
+        if uplift_treatment:
+            raise _unported("uplift_treatment", 15)
+        if honest:
+            raise _unported("honest trees", 15)
+        if compute_oob_variable_importances:
+            raise _unported("out-of-bag permutation importances", 20)
+        if mesh is not None:
+            raise _unported("mesh (multi-device training)", 18)
+        if maximum_training_duration and maximum_training_duration > 0:
+            raise _unported("maximum_training_duration", 17)
+        super().__init__(
+            label=label, task=task, features=features, weights=weights,
+            max_vocab_count=max_vocab_count,
+            min_vocab_frequency=min_vocab_frequency, num_bins=num_bins,
+            random_seed=random_seed, column_types=column_types,
+            device=device,
+        )
+        self.num_trees = num_trees
+        self.max_depth = max_depth
+        self.min_examples = min_examples
+        self.bootstrap_training_dataset = bootstrap_training_dataset
+        self.bootstrap_size_ratio = bootstrap_size_ratio
+        self.num_candidate_attributes = num_candidate_attributes
+        self.num_candidate_attributes_ratio = num_candidate_attributes_ratio
+        self.winner_take_all = winner_take_all
+        self.compute_oob_performances = compute_oob_performances
+        self.max_frontier = max_frontier
+        self.honest_ratio_leaf_examples = honest_ratio_leaf_examples
+
+    def _candidate_features(self, F: int) -> int:
+        """Per-node attribute sample size; 0 selects the reference
+        defaults, sqrt(F) for classification and F/3 for regression;
+        -1 lets every feature compete."""
+        if self.num_candidate_attributes_ratio > 0:
+            return max(int(np.ceil(self.num_candidate_attributes_ratio * F)),
+                       1)
+        if self.num_candidate_attributes > 0:
+            return min(self.num_candidate_attributes, F)
+        if self.num_candidate_attributes == 0:
+            if self.task == Task.CLASSIFICATION:
+                return max(int(np.ceil(np.sqrt(F))), 1)
+            return max(int(np.ceil(F / 3)), 1)
+        return -1
+
+    def train(self, data: InputData, valid: Optional[InputData] = None
+              ) -> RandomForestModel:
+        """Trains on `data`; `valid` is ignored, as in the JAX package
+        (the forest evaluates itself out of bag)."""
+        t0 = time.perf_counter()
+        prep = self._prepare(data)
+        binner = prep["binner"]
+        dev = self.device
+        bins_t = prep["bins_t"]
+        n = bins_t.shape[1]
+        w_base = torch.from_numpy(prep["sample_weights"]).to(dev)
+        labels = prep["labels"]
+        classes = None
+        if self.task == Task.CLASSIFICATION:
+            classes = prep["classes"]
+            C = len(classes)
+            rule = ClassificationRule(num_classes=C)
+            y = torch.from_numpy(np.asarray(labels, np.int64)).to(dev)
+            basis = torch.cat([
+                torch.nn.functional.one_hot(y, C).to(torch.float32),
+                torch.ones((n, 1), dtype=torch.float32, device=dev)], 1)
+        else:
+            rule = RegressionRule()
+            y = torch.from_numpy(labels.astype(np.float32)).to(dev)
+            basis = torch.stack([y, torch.square(y), torch.ones_like(y)], 1)
+        tree_cfg = TreeConfig(
+            max_depth=self.max_depth,
+            max_frontier=resolve_max_frontier(self.max_frontier, n,
+                                              self.min_examples),
+            num_bins=binner.num_bins,
+            min_examples=self.min_examples,
+        )
+        oob_enabled = (self.compute_oob_performances
+                       and self.bootstrap_training_dataset)
+        t1 = time.perf_counter()
+        out = train_rf(
+            bins_t, w_base, basis, rule=rule, tree_cfg=tree_cfg,
+            # Every leaf holds a row: at most 2n - 1 nodes.
+            max_nodes=min(tree_cfg.max_nodes, 2 * n + 3),
+            num_trees=self.num_trees,
+            bootstrap=self.bootstrap_training_dataset,
+            candidate_features=self._candidate_features(binner.num_features),
+            num_numerical=binner.num_numerical, seed=self.random_seed,
+            winner_take_all=(self.winner_take_all
+                             and self.task == Task.CLASSIFICATION),
+            compute_oob=oob_enabled,
+        )
+        t2 = time.perf_counter()
+        forest = forest_from_stacked_trees(out.trees, out.leaf_values,
+                                           binner.boundaries)
+        model = RandomForestModel(
+            task=self.task, label=self.label, classes=classes,
+            dataspec=prep["dataset"].dataspec, binner=binner, forest=forest,
+            max_depth=self.max_depth, winner_take_all=self.winner_take_all,
+        )
+        if oob_enabled:
+            model.oob_evaluation = oob_evaluation(
+                self.task, labels, prep["sample_weights"],
+                out.oob_sum.cpu().numpy(), out.oob_count.cpu().numpy(),
+                classes, self.num_trees)
+        t3 = time.perf_counter()
+        self.last_timings.update(out.timings)
+        self.last_timings.update({"train_rf_s": t2 - t1,
+                                  "finalize_s": t3 - t2,
+                                  "train_s": t3 - t0})
+        return model
+
+
+def oob_evaluation(task: Task, labels: np.ndarray, weights: np.ndarray,
+                   sums: np.ndarray, count: np.ndarray,
+                   classes: Optional[List[str]], num_trees: int) -> dict:
+    """The out-of-bag evaluation (the JAX package's _attach_oob, itself
+    the reference's EvaluateOOBPredictions) of the rows that were out of
+    bag at least once: the votes normalized to probabilities, or the
+    mean of the votes."""
+    idx = count > 0
+    s = np.asarray(sums, np.float64)[idx]
+    if task == Task.CLASSIFICATION:
+        preds = s / np.maximum(s.sum(axis=1, keepdims=True), 1e-12)
+    else:
+        preds = s[:, 0] / count[idx]
+    ev = evaluate_predictions(task, np.asarray(labels)[idx], preds,
+                              classes=classes,
+                              weights=np.asarray(weights)[idx])
+    return {
+        "source": "oob",
+        "num_examples": int(idx.sum()),
+        "num_trees": num_trees,
+        "metrics": {k: float(v) for k, v in ev.metrics.items()},
+    }
+
+
+class RFResult(NamedTuple):
+    """train_rf's outputs, on the training device but `timings`."""
+
+    trees: grower.TreeArrays       # stacked [T, ...]
+    leaf_values: torch.Tensor      # f32 [T, N, V]
+    oob_sum: Optional[torch.Tensor]    # f32 [n, V]
+    oob_count: Optional[torch.Tensor]  # f32 [n]
+    timings: Dict[str, float]
+
+
+def tree_keys(seed: int, num_trees: int, device) -> torch.Tensor:
+    """[T, 4, 2]: split(fold_in(PRNGKey(seed), t), 4) for every tree:
+    k_boot, k_grow, k_honest, k_oblique."""
+    base = prng.prng_key(seed, device)[None]
+    return prng.split(prng.fold_in(base, torch.arange(num_trees,
+                                                      device=device)), 4)
+
+
+def bootstrap_counts(k_boot: torch.Tensor, n: int) -> torch.Tensor:
+    """u8 [T, n]: every tree's Poisson(1) counts (prng.poisson1) in
+    chunks of POISSON_CHUNK trees, then one host read of whether every
+    row stopped (if not, every chunk is drawn again with twice the
+    steps)."""
+    global HOST_READS
+    steps = POISSON_STEPS
+    while True:
+        parts, stopped = [], []
+        for t0 in range(0, k_boot.shape[0], POISSON_CHUNK):
+            c, ok = prng.poisson1(k_boot[t0:t0 + POISSON_CHUNK], n, steps)
+            parts.append(c.to(torch.uint8))
+            stopped.append(ok)
+        HOST_READS += 1
+        if bool(torch.stack(stopped).all()):
+            return torch.cat(parts)
+        steps *= 2
+
+
+def layer_columns(k_grow: torch.Tensor, *, max_depth: int, frontier: int,
+                  num_features: int, num_numerical: int, orderings: int,
+                  k: int) -> List[tuple]:
+    """Per layer, every tree's candidate columns (grower.
+    candidate_columns: i32 [T, Ld, K], bool [T, Ld, K]), K the most
+    columns a slot of that layer keeps in any tree (one host read for all
+    layers)."""
+    global HOST_READS
+    masks, widths = [], []
+    for d, k_feat in enumerate(grower.layer_feature_keys(k_grow,
+                                                         max_depth)):
+        Ld = min(2 ** d, frontier)
+        cm = grower.column_mask(
+            grower.candidate_masks(k_feat, Ld, num_features, k),
+            num_numerical, orderings)
+        masks.append(cm)
+        widths.append(cm.sum(-1).amax())
+    HOST_READS += 1
+    widths = torch.stack(widths).tolist()
+    out = []
+    for cm, K in zip(masks, widths):
+        idx, ok = grower.candidate_columns(cm, max(int(K), 1))
+        out.append((idx.to(torch.int32), ok))
+    return out
+
+
+def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
+             basis: torch.Tensor, *, rule, tree_cfg: TreeConfig,
+             max_nodes: int, num_trees: int, bootstrap: bool,
+             candidate_features: int, num_numerical: int, seed: int,
+             winner_take_all: bool, compute_oob: bool) -> RFResult:
+    """Grows `num_trees` trees on the device of `bins_t` (u8 [F, n];
+    rows [0, num_numerical) numerical, the rest categorical) from the
+    row weights w_base f32 [n] and the stat basis f32 [n, S] (module
+    docstring). On a card the tree loop runs under torch's sync debug
+    mode "error"."""
+    if num_trees < 1:
+        raise ValueError(f"num_trees must be >= 1, got {num_trees}")
+    if compute_oob and not bootstrap:
+        raise ValueError("out-of-bag evaluation needs the bootstrap")
+    F, n = bins_t.shape
+    dev = bins_t.device
+    cfg = tree_cfg
+    t0 = time.perf_counter()
+    keys = tree_keys(seed, num_trees, dev)
+    counts = bootstrap_counts(keys[:, 0], n) if bootstrap else None
+    O = rule.num_cat_orderings if F > num_numerical else 1
+    columns = None
+    if 0 < candidate_features < F:
+        columns = layer_columns(
+            keys[:, 1], max_depth=cfg.max_depth, frontier=cfg.frontier,
+            num_features=F, num_numerical=num_numerical, orderings=O,
+            k=candidate_features)
+    V = rule.num_outputs
+    oob_sum = oob_count = None
+    if compute_oob:
+        oob_sum = torch.zeros((n, V), dtype=torch.float32, device=dev)
+        oob_count = torch.zeros(n, dtype=torch.float32, device=dev)
+        in_base = w_base > 0
+    t1 = time.perf_counter()
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        prev_mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+    trees, leaf_values = [], []
+    try:
+        for t in range(num_trees):
+            if bootstrap:
+                draws = counts[t]
+                w = w_base * draws.to(torch.float32)
+            else:
+                w = w_base
+            res = grower.grow_tree(
+                bins_t, basis * w[:, None], rule=rule,
+                max_depth=cfg.max_depth, frontier=cfg.frontier,
+                max_nodes=max_nodes, num_bins=cfg.num_bins,
+                num_numerical=num_numerical,
+                min_examples=cfg.min_examples,
+                columns=None if columns is None else [
+                    (idx[t].long(), ok[t]) for idx, ok in columns],
+            )
+            lv = rule.leaf_value(res.tree.leaf_stats)  # [N, V]
+            if compute_oob:
+                oob_f = ((draws == 0) & in_base).to(torch.float32)
+                vote = lv[res.leaf_id.long()]
+                if winner_take_all:
+                    vote = bake_winner_take_all(vote)
+                oob_sum = oob_sum + vote * oob_f[:, None]
+                oob_count = oob_count + oob_f
+            trees.append(res.tree)
+            leaf_values.append(lv)
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(prev_mode)
+    stacked = grower.TreeArrays(*(torch.stack(f) for f in zip(*trees)))
+    if on_card:
+        torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    return RFResult(
+        trees=stacked, leaf_values=torch.stack(leaf_values), oob_sum=oob_sum, oob_count=oob_count,
+        timings={"draws_s": t1 - t0, "loop_s": t2 - t1},
+    )

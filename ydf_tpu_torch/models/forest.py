@@ -103,6 +103,17 @@ def _per_tree_block_thresholds(feature: torch.Tensor, tbin: torch.Tensor,
     return torch.gather(rows, 2, t_safe[:, :, None])[:, :, 0]
 
 
+def bake_winner_take_all(leaf_value: torch.Tensor) -> torch.Tensor:
+    """Hard per-leaf votes [..., V]: one-hot of each leaf's top class
+    (the first on a tie), the JAX package's bake_winner_take_all
+    (reference AddClassificationLeafToAccumulator with
+    winner_take_all_inference)."""
+    V = leaf_value.shape[-1]
+    classes = torch.arange(V, device=leaf_value.device)
+    return (leaf_value.argmax(dim=-1, keepdim=True) == classes).to(
+        leaf_value.dtype)
+
+
 def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
                               boundaries: np.ndarray, vs_anchors=None,
                               vs_boundaries=None, vs_feat=None,
@@ -116,7 +127,8 @@ def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
     Vector-sequence anchors occupy the feature block [F, F + Pv) after
     the F binned features: `vs_anchors` [T, Pv, D], `vs_boundaries`
     [T, Pv, B-1] (those nodes' thresholds), `vs_feat` [T, Pv] and
-    `vs_is_closer` [T, Pv]."""
+    `vs_is_closer` [T, Pv]. V = leaf_value.shape[-1] outputs a leaf
+    (a random forest's class distributions: V = C)."""
     feature = stacked.feature
     tbin = stacked.threshold_bin
     dev = feature.device

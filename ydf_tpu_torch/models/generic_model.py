@@ -30,6 +30,9 @@ from ydf_tpu_torch.ops.routing import forest_predict_values
 
 class GenericModel:
     model_type = "GENERIC"
+    #: How predict combines the trees' leaf values: "sum" (served by the
+    #: bank and QuickScorer kernels too) or "mean" (the routed engine).
+    combine = "sum"
 
     def __init__(
         self,

@@ -3,7 +3,8 @@ load_model, save_model).
 
 The JAX package's model directory — `model.json` (task, label,
 dataspec, binner, model-specific fields) and `forest.npz` (node arrays)
-— read into the port's model on a torch device (the node arrays, each
+— of a gradient boosted trees or random forest model, read into the
+port's model on a torch device (the node arrays, each
 tree's vector-sequence anchors and the binner's vector-sequence fields
 included), and written from it in the same layout, so that each package
 loads the other's saves. The reference-format reader (ydf_format.py)
@@ -24,6 +25,12 @@ from ydf_tpu_torch.dataset.binning import Binner
 from ydf_tpu_torch.dataset.dataspec import DataSpecification
 from ydf_tpu_torch.models.forest import Forest
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
+from ydf_tpu_torch.models.generic_model import GenericModel
+from ydf_tpu_torch.models.rf_model import RandomForestModel
+
+#: The ported model types, by the JAX package's model_type name.
+MODEL_TYPES = {cls.model_type: cls for cls in (GradientBoostedTreesModel,
+                                               RandomForestModel)}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]
@@ -52,7 +59,7 @@ def binner_from_jax(d: Dict) -> Binner:
     return Binner.from_json(d)
 
 
-def save_model(model: GradientBoostedTreesModel, path: str) -> None:
+def save_model(model: GenericModel, path: str) -> None:
     """Writes `model` to the directory `path` as the JAX package's
     save_model does: model.json and a compressed forest.npz."""
     os.makedirs(path, exist_ok=True)
@@ -76,7 +83,7 @@ def save_model(model: GradientBoostedTreesModel, path: str) -> None:
                         **model.forest.to_numpy())
 
 
-def load_model(path: str, device=None) -> GradientBoostedTreesModel:
+def load_model(path: str, device=None) -> GenericModel:
     """Loads a model saved by `model.save(path)` of either package onto
     `device` (default: the CUDA card)."""
     dev = resolve_device(device)
@@ -89,7 +96,8 @@ def load_model(path: str, device=None) -> GradientBoostedTreesModel:
         )
     with open(meta_path) as f:
         meta = json.load(f)
-    if meta["model_type"] != GradientBoostedTreesModel.model_type:
+    cls = MODEL_TYPES.get(meta["model_type"])
+    if cls is None:
         raise NotImplementedError(
             f"model type {meta['model_type']} is not ported yet "
             "(ROADMAP Queue 1 item 9)"
@@ -107,4 +115,4 @@ def load_model(path: str, device=None) -> GradientBoostedTreesModel:
         extra_metadata=meta.get("extra_metadata") or {},
         native_missing=meta.get("native_missing", False),
     )
-    return GradientBoostedTreesModel._from_saved(common, meta["specific"])
+    return cls._from_saved(common, meta["specific"])

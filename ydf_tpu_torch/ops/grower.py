@@ -23,15 +23,28 @@ Feature order in the bins: [numericals..., categoricals...]. A
 numerical cut t sends bins <= t left; a categorical feature's bins are
 sorted by the rule's key (empty bins last, a stable sort, as
 jnp.argsort), and cut t sends the t + 1 first bins of that order left,
-so the routing table of a categorical split is any per-bin mask. One
-ordering per categorical feature (the binomial and squared-error
-losses). All features are candidates at every node, no monotone
-constraints. Ties pick the first best cut, as jnp.argmax does.
+so the routing table of a categorical split is any per-bin mask. A rule
+may scan O orders per categorical feature (`num_cat_orderings`: one per
+class for multiclass classification); each order is a candidate column,
+so the candidate columns are [Fn numericals, Fc x O categorical
+orders]. No monotone constraints. Ties pick the first best cut, as
+jnp.argmax does.
+
+Per-node candidate features (a random forest's attribute sampling,
+the JAX package's layer_decide): every layer d draws key, k_gain, k_feat
+= split(fold_in(key, d), 3) from the tree's key, scores u =
+uniform(k_feat, [Ld, F]) and keeps, in each slot, the features whose
+score is at least the k-th largest (the value, so that a tie at the
+boundary lets every tied feature in). The scores depend on the seed
+alone, so the learner draws them for every tree before its loop
+(`candidate_masks`) and hands the grower each layer's candidate columns
+(`candidate_columns`: the kept columns in ascending order, padded to the
+most any slot keeps); the gains are computed on those columns only.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +52,12 @@ from ydf_tpu_torch.ops.histogram import histogram, prepare_stats_for_hist
 from ydf_tpu_torch.ops.histogram_kernels import RouteTables, route_plain
 from ydf_tpu_torch.ops.routing import route_histogram_fused
 from ydf_tpu_torch.utils import prng
+
+
+#: When a list, layer_decide appends each layer's two best gains per slot
+#: (f32 [Ld, 2]): a diagnostic of near ties; None (the default) records
+#: nothing.
+GAIN_TRACE: Optional[list] = None
 
 
 class TreeArrays(NamedTuple):
@@ -65,12 +84,13 @@ class GrowResult(NamedTuple):
 class LayerDecision(NamedTuple):
     do_split: torch.Tensor      # bool [Ld]
     is_cat_split: torch.Tensor  # bool [Ld]
+    best_f_scalar: torch.Tensor  # i64 [Ld] the chosen column's feature
     split_rank: torch.Tensor    # i64 [Ld] rank among this layer's splits
     wid: torch.Tensor           # i64 [Ld] node write index (N = trash)
     left_id: torch.Tensor       # i64 [Ld] child ids (N = none)
     right_id: torch.Tensor
     best_t: torch.Tensor        # i64 [Ld] chosen cut
-    best_f: torch.Tensor        # i64 [Ld] chosen feature
+    best_f: torch.Tensor        # i64 [Ld] chosen candidate column
     go_left_bins: torch.Tensor  # bool [Ld, B]
     left_stats: torch.Tensor    # f32 [Ld, S]
     right_stats: torch.Tensor
@@ -112,9 +132,10 @@ def sibling_reconstruct(hist_small: torch.Tensor, parent_hist: torch.Tensor,
 
 def scalar_candidates(hist: torch.Tensor, *, num_numerical: int, rule
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Left stats of every cut, [Ld, F, B, S]: prefix sums over the bins
-    of a numerical feature, over the sorted bins of a categorical one;
-    and each categorical bin's rank in its order, i64 [Ld, Fc, B] (None
+    """Left stats of every cut, [Ld, Fn + Fc * O, B, S]: prefix sums
+    over the bins of a numerical feature, over the sorted bins of each of
+    a categorical feature's O orders (O = rule.num_cat_orderings); and
+    each categorical bin's rank in each order, i64 [Ld, Fc * O, B] (None
     without categorical features). Prefixes and the sort key are f32
     with the JAX package's rounding (jnp.cumsum's blocked scan,
     prng.cumsum_f32; a sequential scan, torch.cumsum or f64 sums round
@@ -122,45 +143,119 @@ def scalar_candidates(hist: torch.Tensor, *, num_numerical: int, rule
     Fn = num_numerical
     if Fn == hist.shape[1]:
         return prng.cumsum_f32(hist, 2), None
+    Ld, F, B, S = hist.shape
+    O = rule.num_cat_orderings
     hist_cat = hist[:, Fn:]  # [Ld, Fc, B, S]
+    if O > 1:
+        key = rule.cat_sort_keys(hist_cat)              # [Ld, Fc, O, B]
+    else:
+        key = rule.cat_sort_key(hist_cat)[:, :, None]   # [Ld, Fc, 1, B]
     # Empty bins sort last, so unseen categories route right.
-    key = torch.where(hist_cat[..., -1] > 0, rule.cat_sort_key(hist_cat),
+    key = torch.where((hist_cat[..., -1] > 0)[:, :, None], key,
                       float("inf"))
     # Stable, as jnp.argsort: ties keep the bins' order.
     order = torch.argsort(key, dim=-1, stable=True)
     ranks = torch.argsort(order, dim=-1, stable=True)
     sorted_hist = torch.gather(
-        hist_cat, 2, order[..., None].expand(hist_cat.shape))
-    # One scan for both blocks: the scan is per (slot, feature, stat).
-    return prng.cumsum_f32(torch.cat([hist[:, :Fn], sorted_hist], dim=1),
-                           2), ranks
+        hist_cat[:, :, None].expand(-1, -1, O, -1, -1), 3,
+        order[..., None].expand(-1, -1, -1, -1, S))  # [Ld, Fc, O, B, S]
+    # One scan for both blocks: the scan is per (slot, column, stat).
+    return prng.cumsum_f32(torch.cat(
+        [hist[:, :Fn], sorted_hist.reshape(Ld, -1, B, S)], dim=1), 2), \
+        ranks.reshape(Ld, -1, B)
+
+
+def layer_feature_keys(key: torch.Tensor, max_depth: int
+                       ) -> List[torch.Tensor]:
+    """k_feat of every layer (keys [..., 2]) from the trees' grow keys
+    [..., 2]: key, k_gain, k_feat = split(fold_in(key, d), 3)."""
+    out = []
+    for depth in range(max_depth):
+        ks = prng.split(prng.fold_in(key, depth), 3)
+        key = ks[..., 0, :]
+        out.append(ks[..., 2, :])
+    return out
+
+
+def candidate_masks(k_feat: torch.Tensor, Ld: int, F: int,
+                    k: int) -> torch.Tensor:
+    """bool [..., Ld, F]: the features each slot of a layer may split on,
+    from the layer's keys [..., 2] (kept_by_score of uniform scores)."""
+    return kept_by_score(prng.uniform(k_feat, (Ld, F)), k)
+
+
+def kept_by_score(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """bool [..., F]: a score at least the k-th largest of its row
+    (jax.lax.top_k's k-th value, compared by value: every feature tied
+    with it is kept)."""
+    kth = torch.topk(scores, k, dim=-1).values[..., -1:]
+    return scores >= kth
+
+
+def column_mask(mask: torch.Tensor, num_numerical: int,
+                orderings: int) -> torch.Tensor:
+    """Feature mask [..., F] -> candidate-column mask [..., Fn + Fc * O]:
+    a categorical feature's O order columns share its score."""
+    Fn = num_numerical
+    return torch.cat([mask[..., :Fn],
+                      mask[..., Fn:].repeat_interleave(orderings, dim=-1)],
+                     dim=-1)
+
+
+def candidate_columns(cmask: torch.Tensor, width: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Column mask [..., C] -> (the kept columns in ascending order, i64
+    [..., width], padded with unkept ones; bool [..., width]: kept).
+    `width` is at least the most columns any slot keeps."""
+    idx = torch.argsort((~cmask).to(torch.uint8), dim=-1,
+                        stable=True)[..., :width]
+    return idx, torch.gather(cmask, -1, idx)
 
 
 def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
                  L: int, B: int, N: int, num_numerical: int,
                  min_examples: int, min_split_gain: float,
-                 children_in_frontier: bool) -> LayerDecision:
+                 children_in_frontier: bool,
+                 columns: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> LayerDecision:
     """One layer's split search: gains -> validity -> best cut per slot
     -> frontier-overflow cap -> child allocation -> chosen stats and the
     per-bin routing masks (a prefix of bin ids for a numerical split,
     the bins ranked <= the cut for a categorical one; `ranks` from
-    scalar_candidates)."""
-    Ld, F = left_all.shape[0], left_all.shape[1]
+    scalar_candidates). `columns` (candidate_columns: i64 [Ld, K] and
+    its kept mask) restricts each slot to those columns; they are in
+    ascending order, so the first best cut is the JAX package's."""
+    Ld, Fa = left_all.shape[0], left_all.shape[1]
     dev = left_all.device
-    right_all = parent[:, None, None, :] - left_all
-    gain = rule.gain(left_all, right_all, parent[:, None, None, :])
+    O = rule.num_cat_orderings
+    if columns is None:
+        cand = left_all
+    else:
+        col_idx, col_ok = columns
+        cand = torch.gather(left_all, 1, col_idx[:, :, None, None].expand(
+            -1, -1, B, left_all.shape[3]))
+    K = cand.shape[1]
+    right_all = parent[:, None, None, :] - cand
+    gain = rule.gain(cand, right_all, parent[:, None, None, :])
     valid = (
-        (left_all[..., -1] >= min_examples)
+        (cand[..., -1] >= min_examples)
         & (right_all[..., -1] >= min_examples)
         & active[:, None, None]
     )
+    if columns is not None:
+        valid &= col_ok[:, :, None]
     gain = torch.where(valid, gain, float("-inf"))
 
-    flat = gain.reshape(Ld, F * B)
+    flat = gain.reshape(Ld, K * B)
     best_idx = torch.argmax(flat, dim=1)
     best_gain = torch.gather(flat, 1, best_idx[:, None])[:, 0]
     best_f = best_idx // B
     best_t = best_idx % B
+    if columns is not None:
+        best_f = torch.gather(col_idx, 1, best_f[:, None])[:, 0]
+    if GAIN_TRACE is not None:
+        GAIN_TRACE.append(torch.topk(flat, min(2, flat.shape[1]),
+                                     dim=1).values)
 
     do_split = active & torch.isfinite(best_gain) & (
         best_gain > min_split_gain)
@@ -190,18 +285,21 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
     cut_ids = torch.arange(B, device=dev)
     go_left_bins = cut_ids[None, :] <= best_t[:, None]
     is_cat_split = best_f >= num_numerical
+    # The order columns collapse back onto their categorical feature.
+    best_f_scalar = torch.where(
+        is_cat_split, num_numerical + (best_f - num_numerical) // O, best_f)
     if ranks is not None:
-        Fc = ranks.shape[1]
         chosen_rank = torch.gather(
             ranks, 1,
-            (best_f - num_numerical).clamp(0, Fc - 1)[:, None, None].expand(
-                Ld, 1, B))[:, 0]  # [Ld, B]
+            (best_f - num_numerical).clamp(0, ranks.shape[1] - 1)[
+                :, None, None].expand(Ld, 1, B))[:, 0]  # [Ld, B]
         go_left_bins = torch.where(is_cat_split[:, None],
                                    chosen_rank <= best_t[:, None],
                                    go_left_bins)
     num_nodes_new = (num_nodes + 2 * do_split.sum()).to(torch.int32)
     return LayerDecision(
         do_split=do_split, is_cat_split=is_cat_split,
+        best_f_scalar=best_f_scalar,
         split_rank=split_rank, wid=wid, left_id=left_id,
         right_id=right_id, best_t=best_t, best_f=best_f,
         go_left_bins=go_left_bins, left_stats=left_stats,
@@ -250,11 +348,14 @@ def grow_tree(
     min_examples: int = 5,
     min_split_gain: float = 1e-9,
     hist_quant: str = "f32",
+    columns: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> GrowResult:
     """Grows one tree (module docstring). Rows [0, num_numerical) of
     `bins_t` are numerical features, the rest categorical (default: all
     numerical). `hist_quant` is the stats operand's precision, as in
-    ops/histogram.py."""
+    ops/histogram.py. `columns` holds each layer's candidate columns
+    (candidate_columns at Ld = min(2^d, frontier)); None lets every
+    column compete at every node."""
     F, n = bins_t.shape
     Fn = F if num_numerical is None else num_numerical
     S = stats.shape[1]
@@ -323,9 +424,10 @@ def grow_tree(
             min_examples=min_examples,
             min_split_gain=min_split_gain,
             children_in_frontier=children_in_frontier,
+            columns=None if columns is None else columns[depth],
         )
         do_split, split_rank = dec.do_split, dec.split_rank
-        feature[dec.wid] = dec.best_f.to(i32)
+        feature[dec.wid] = dec.best_f_scalar.to(i32)
         threshold_bin[dec.wid] = dec.best_t.to(i32)
         is_cat[dec.wid] = dec.is_cat_split
         cat_mask[dec.wid] = pack_mask(dec.go_left_bins)
@@ -350,7 +452,7 @@ def grow_tree(
             hmap = torch.arange(L + 1, dtype=i32, device=dev)
         tables = RouteTables(
             do_split=_pad(do_split, L + 1, False),
-            route_f=_pad(dec.best_f.to(i32), L + 1, 0),
+            route_f=_pad(dec.best_f_scalar.to(i32), L + 1, 0),
             go_left=_pad(dec.go_left_bins, L + 1, False),
             left_id=_pad(dec.left_id.to(i32), L + 1, N),
             right_id=_pad(dec.right_id.to(i32), L + 1, N),

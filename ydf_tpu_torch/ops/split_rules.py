@@ -1,7 +1,20 @@
-"""GBT split rule (counterpart of ydf_tpu/ops/split_rules.py:
-HessianGainRule): stats = [g, h, w]; the hessian gain of a cut, the
-Newton leaf value and the categorical sort key, with the JAX package's expressions and epsilon so the
-f32 results round alike. stats[..., -1] is the weighted example count.
+"""Split rules (counterpart of ydf_tpu/ops/split_rules.py): the gain of
+a cut, the leaf value and the categorical sort key of a task, with the
+JAX package's expressions and epsilon so the f32 results round alike.
+stats[..., -1] is always the weighted example count.
+
+  * `HessianGainRule`: GBT, stats = [g, h, w];
+  * `ClassificationRule`: RF classification (entropy, or gini),
+    stats = [w 1[y=0], ..., w 1[y=C-1], w];
+  * `RegressionRule`: RF regression (variance reduction),
+    stats = [w y, w y^2, w].
+
+A gain is computed as XLA's CPU code computes the JAX package's
+expression inside its grower (the same operations, the multiply-adds
+that LLVM fuses fused, its log): a split whose gain ties another to the
+last bit then breaks the same way in both packages, which matters most
+for the integer class counts of a random forest, where two cuts often
+tie exactly.
 """
 
 from __future__ import annotations
@@ -9,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ydf_tpu_torch.utils.xla_cpu import fma_f32, log_f32
 
 _EPS = 1e-12
 
@@ -21,6 +36,7 @@ class HessianGainRule:
     num_outputs: int = 1
 
     num_stats = 3
+    num_cat_orderings = 1
 
     def _score(self, s: torch.Tensor) -> torch.Tensor:
         g, h = s[..., 0], s[..., 1]
@@ -41,3 +57,102 @@ class HessianGainRule:
         left sets are the prefixes of that order."""
         g, h = hist[..., 0], hist[..., 1]
         return -g / (h + self.l2 + _EPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassificationRule:
+    """Information-gain (default) or Gini classification splits over
+    class counts; the leaf value is the class distribution."""
+
+    num_classes: int
+    criterion: str = "entropy"  # or "gini"
+
+    def __post_init__(self):
+        if self.criterion not in ("entropy", "gini"):
+            raise ValueError(f"unknown criterion {self.criterion!r}")
+
+    @property
+    def num_stats(self) -> int:
+        return self.num_classes + 1
+
+    @property
+    def num_outputs(self) -> int:
+        return self.num_classes
+
+    @property
+    def num_cat_orderings(self) -> int:
+        """Sorted orders a categorical feature is scanned in: one per
+        class for C > 2 ("one class against the others"), one for a
+        binary label (its two per-class orders are each other's
+        reverse)."""
+        return self.num_classes if self.num_classes > 2 else 1
+
+    def _probs(self, s: torch.Tensor) -> torch.Tensor:
+        return s[..., :self.num_classes] / (s[..., -1:] + _EPS)
+
+    def _sum_over_classes(self, s: torch.Tensor, entropy: bool
+                          ) -> torch.Tensor:
+        """sum_c p_c log(p_c + EPS) (entropy) or sum_c p_c^2 (gini) in
+        XLA's reduction: the first term, then one fused multiply-add per
+        further class."""
+        p = self._probs(s)
+        q = log_f32(p + _EPS) if entropy else p
+        acc = p[..., 0] * q[..., 0]
+        for c in range(1, self.num_classes):
+            acc = fma_f32(p[..., c], q[..., c], acc)
+        return acc
+
+    def gain(self, left: torch.Tensor, right: torch.Tensor,
+             parent: torch.Tensor) -> torch.Tensor:
+        """mass(parent) - mass(left) - mass(right), mass = w * impurity,
+        as XLA evaluates it. Entropy (impurity -S, S = sum p log p): XLA
+        folds the negations into w_l S_l - w_p S_p + w_r S_r and fuses
+        both multiply-adds. Gini (impurity 1 - Q, Q = sum p^2): m_p -
+        w_l (1 - Q_l) - w_r (1 - Q_r), both subtractions fused."""
+        wl, wr, wp = left[..., -1], right[..., -1], parent[..., -1]
+        entropy = self.criterion == "entropy"
+        sides = self._sum_over_classes(
+            torch.stack(torch.broadcast_tensors(left, right)), entropy)
+        sp = self._sum_over_classes(parent, entropy)
+        if entropy:
+            return fma_f32(wr, sides[1], fma_f32(wl, sides[0], -(wp * sp)))
+        mass_p = wp * (1.0 - sp)
+        return fma_f32(-wr, 1.0 - sides[1],
+                       fma_f32(-wl, 1.0 - sides[0], mass_p))
+
+    def leaf_value(self, stats: torch.Tensor) -> torch.Tensor:
+        return self._probs(stats)
+
+    def cat_sort_key(self, hist: torch.Tensor) -> torch.Tensor:
+        """P(class 1 | category): the exact order for a binary label."""
+        c = hist[..., min(1, self.num_classes - 1)]
+        return c / (hist[..., -1] + _EPS)
+
+    def cat_sort_keys(self, hist: torch.Tensor) -> torch.Tensor:
+        """[..., B, S] -> [..., C, B]: ordering c sorts the categories by
+        P(class c | category)."""
+        return self._probs(hist).movedim(-1, -2)
+
+
+@dataclasses.dataclass(frozen=True)
+class RegressionRule:
+    """Variance-reduction regression splits; the leaf value is the mean
+    label."""
+
+    num_stats = 3
+    num_outputs = 1
+    num_cat_orderings = 1
+
+    @staticmethod
+    def _sse(s: torch.Tensor) -> torch.Tensor:
+        return s[..., 1] - torch.square(s[..., 0]) / (s[..., 2] + _EPS)
+
+    def gain(self, left: torch.Tensor, right: torch.Tensor,
+             parent: torch.Tensor) -> torch.Tensor:
+        return self._sse(parent) - self._sse(left) - self._sse(right)
+
+    def leaf_value(self, stats: torch.Tensor) -> torch.Tensor:
+        return (stats[..., 0] / (stats[..., 2] + _EPS))[..., None]
+
+    def cat_sort_key(self, hist: torch.Tensor) -> torch.Tensor:
+        return hist[..., 0] / (hist[..., -1] + _EPS)

@@ -305,10 +305,12 @@ def make_tables(forest, max_depth: int, device) -> BankTables:
 
 def in_envelope(model) -> bool:
     """Single-accumulator forest of numerical/categorical nodes with
-    encode-time imputation (no set, oblique or vector-sequence node)."""
+    encode-time imputation (no set, oblique or vector-sequence node),
+    served by a sum of its trees (a random forest's mean is not)."""
     fo = model.forest
     return (
-        model.binner.num_set == 0
+        getattr(model, "combine", "sum") == "sum"
+        and model.binner.num_set == 0
         and model.binner.num_vs == 0
         and not model.native_missing
         and int(fo.leaf_value.shape[-1]) == 1

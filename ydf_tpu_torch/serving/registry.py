@@ -19,7 +19,9 @@ the same leaf values in the same order, so the scores do not change:
   Routed         0  generic routed scan in plain PyTorch (ops/routing.py);
                     the only engine for a model with vector-sequence
                     features (the other two refuse it, as the JAX
-                    package's QuickScorer and PallasBank do)
+                    package's QuickScorer and PallasBank do) and for a
+                    random forest (its predict takes the mean of the
+                    trees, which the JAX package also serves routed)
 
 The CPU-only NativeBatch engine, the request-coalescing batcher and the
 serving env knobs are not ported (ROADMAP Queue 1 item 19).

@@ -1,7 +1,8 @@
 """JAX's threefry random numbers, bit for bit, on torch tensors
-(counterpart of the parts of jax.random the JAX package's learner uses:
-PRNGKey, fold_in, split, random bits, uniform, randint and choice with
-probabilities; jax 0.9.0, threefry2x32, jax_threefry_partitionable=True).
+(counterpart of the parts of jax.random the JAX package's learners use:
+PRNGKey, fold_in, split, random bits, uniform, randint, choice with
+probabilities and poisson at rate 1; jax 0.9.0, threefry2x32,
+jax_threefry_partitionable=True).
 
 A key is an int64 tensor [..., 2] holding two 32-bit words; leading
 dimensions batch keys, as jax.vmap over keys does. Every 32-bit word is
@@ -30,6 +31,8 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
+from ydf_tpu_torch.utils.xla_cpu import log_f32
+
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -40,24 +43,24 @@ CUMSUM_BLOCK = 16
 IntLike = Union[int, torch.Tensor]
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & MASK32
-
-
 def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
                  x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The threefry-2x32 hash (20 rounds) of the counter pairs (x1, x2)
     under the key (k1, k2); every operand int64 in [0, 2^32), broadcast
     together. Returns the two output words."""
     ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
-    x1 = (x1 + ks[0]) & MASK32
-    x2 = (x2 + ks[1]) & MASK32
+    x1, x2 = torch.broadcast_tensors((x1 + ks[0]) & MASK32,
+                                     (x2 + ks[1]) & MASK32)
+    # Fresh tensors from here on: the rounds update them in place.
+    x1, x2 = x1.contiguous(), x2.contiguous()
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & MASK32
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & MASK32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+            x1.add_(x2).bitwise_and_(MASK32)
+            hi = x2 >> (32 - r)
+            x2.bitwise_left_shift_(r).bitwise_or_(hi).bitwise_and_(MASK32)
+            x2.bitwise_xor_(x1)
+        x1.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        x2.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK32)
     return x1, x2
 
 
@@ -130,6 +133,35 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """jax.random.uniform(key, shape) in float32."""
     return uniform_from_bits(random_bits(key, shape))
+
+
+def poisson1(keys: torch.Tensor, n: int, steps: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """jax.random.poisson(key, 1.0, (n,)) for each key of keys [T, 2]:
+    (counts i32 [T, n], stopped bool []).
+
+    JAX draws rate-1 variates with Knuth's loop (jax/_src/random.py,
+    _poisson_knuth): rng, sub = split(rng); k += log_prod > -1;
+    log_prod += log(uniform(sub, (n,))), while any row of the key has
+    log_prod > -1; the result is k - 1. A row that stopped never counts
+    again (log(u) <= 0), so the result depends only on the key and n, and
+    any number of steps at least the loop's gives it. The loop here runs
+    exactly `steps` steps, reading nothing on the host; `stopped` says
+    whether every row stopped within them (read it once, after drawing
+    every tree: a False means draw again with more steps). The log is
+    XLA's (utils/xla_cpu.py), bitwise on every value uniform draws, so
+    that a row whose log_prod lands near -1 counts as in JAX."""
+    T = keys.shape[0]
+    dev = keys.device
+    count = torch.zeros((T, n), dtype=torch.int32, device=dev)
+    log_prod = torch.zeros((T, n), dtype=torch.float32, device=dev)
+    rng = keys
+    for _ in range(steps):
+        pair = split(rng)
+        rng, sub = pair[:, 0], pair[:, 1]
+        count += (log_prod > -1.0).to(torch.int32)
+        log_prod += log_f32(uniform(sub, (n,)))
+    return count - 1, (log_prod <= -1.0).all()
 
 
 def randint_bits(key: torch.Tensor, shape: Sequence[int] = ()
