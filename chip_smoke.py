@@ -2,11 +2,11 @@
 kernels, checks each against its plain PyTorch version at full width,
 serves the committed fixture models through `load_model(...).predict`
 on the card, trains the bench GBT, a GBT on vector sequences and the
-library's default GBT on the card through
+library's default GBT (binary and three classes) on the card through
 `GradientBoostedTreesLearner(...).train` and the library's default
 random forest through `RandomForestLearner(...).train`, evaluates,
-saves and loads the last two, times each kernel, and prints one JSON
-summary.
+saves and loads them, trains each ported GBT loss and sampling option,
+times each kernel, and prints one JSON summary.
 
     python3 chip_smoke.py        # needs one CUDA card and nvcc
 
@@ -90,12 +90,30 @@ Phases (one line each; any failure is an uncaught exception):
               routed kernel's launch shape at L = 1024; a profiled train
               of 20 trees; each kernel timed, the routed kernel at each
               Lh on the path's own layers
+  10 multiclass  train_multiclass (ydf_tpu_torch/testdata/
+              train_multiclass, the JAX package's default learner on the
+              three-class variant of make_frame: 200,000 rows, evaluated
+              on 50,000; K = 3 trees an iteration): the frames' SHA-256;
+              the main path (train, then evaluate) with its launches,
+              host reads and stage walls; against the JAX run: bins,
+              validation rows, every tree's hash and the kept count
+              (the fixture's update_form is replayed), the first 10
+              iterations node for node, the validation loss (all
+              bitwise), evaluate's
+              metrics and confusion matrix, probabilities; the JAX model
+              on the card and save -> load bitwise; each
+              train_gbt_options configuration (Poisson, MAE, focal,
+              subsample, GOSS, candidate features, three classes with
+              both) trained on the card against its JAX run; the root
+              and routed kernels against plain on the path's own layers;
+              a profiled train of 20 iterations; each kernel timed
 
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
 phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
 phase 8 the default train path (train, then evaluate), phase 9 the
-random forest's (train, then evaluate).
+random forest's and phase 10 the multiclass GBT's (train, then
+evaluate).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -198,6 +216,38 @@ RF_PROFILE_TREES = 20
 # fixture's 300; a rehearsal on a CPU sets a few (the checks that need
 # the whole forest, its out-of-bag and test metrics, then only log).
 RF_TREES = None
+# Repetitions of phase 9's root-histogram and index_add_ timings (call
+# and device time, each).
+RF_ROOT_REPS = 50
+# train_multiclass (phase 10): the JAX package's
+# GradientBoostedTreesLearner(label="label") with every default on the
+# three-class variant of make_frame (classes cut from the generator's
+# logit plus logistic noise at CLASS_CUTS): 200,000 training rows,
+# evaluated on 50,000 fresh ones (ydf_tpu_torch/testdata/
+# train_multiclass). The fixture records the K > 1 prediction update XLA
+# compiled ("unfused" in every class column, which the port replays), so
+# the trees, the kept count and the validation loss at it must equal
+# JAX's. The first MC_FULL_ITERATIONS iterations are held node for node
+# against the committed JAX model, leaf values bitwise; evaluate's
+# accuracy within EVAL_ATOL and
+# its loss within MC_LOSS_RTOL (relative); probabilities on the stored
+# rows within MC_PROBA_ATOL (max) and MC_PROBA_MEAN_ATOL (mean).
+TRAIN_MULTICLASS = os.path.join(TESTDATA, "train_multiclass")
+MC_ROWS = 200_000
+MC_TEST_ROWS = 50_000
+MC_HP = dict(label="label")
+MC_COMPARE_ROWS = 1024
+CLASS_CUTS = (-0.8, 0.8)
+MC_FULL_ITERATIONS = 10
+MC_LOSS_RTOL = 2e-3
+MC_PROBA_ATOL = 2e-2
+MC_PROBA_MEAN_ATOL = 2e-3
+# Iterations of phase 10's profiled train.
+MC_PROFILE_ITERS = 20
+# train_gbt_options (phase 10): one small configuration per ported
+# option (ydf_tpu_torch/testdata/train_gbt_options), each held against
+# the JAX run: every tree's hash, the kept count, predictions bitwise.
+TRAIN_GBT_OPTIONS = os.path.join(TESTDATA, "train_gbt_options")
 # Tolerances against the JAX package's run. The port's f32 histograms sum
 # rows in another order (shared-memory atomics) than the JAX package's
 # f64 block partials, so near-tie splits may flip in late trees; the
@@ -255,21 +305,41 @@ def make_data(rows, features):
     return data
 
 
-def make_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED):
+def logit_class_label(x, seed):
+    """scripts/make_torch_port_fixtures.py:logit_class_label: the
+    generator's logit of the features x [n, 28] (float64) plus logistic
+    noise from default_rng([seed, 3]), cut at CLASS_CUTS (int64)."""
+    xd = x.astype(np.float64)
+    logit = (xd[:, 0] - 0.5 * xd[:, 1] + np.sin(2 * xd[:, 2])
+             + xd[:, 3] * xd[:, 4])
+    noise = np.random.default_rng([seed, 3]).logistic(size=len(x))
+    return np.digitize(logit + noise, CLASS_CUTS).astype(np.int64)
+
+
+def make_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED, classes=2):
     """scripts/make_torch_port_fixtures.py:make_frame with the test rows'
     labels kept: (train, test) columns; numerical f32 (NaNs in
     DEFAULT_MISSING), categorical unicode with some signal about the
-    label, an int label; the test rows carry unseen ("unseen") and
-    missing ("") categories."""
+    label, an int label (binary, or with classes=3 logit_class_label);
+    the test rows carry unseen ("unseen") and missing ("") categories."""
     n = train_rows + test_rows
     data = make_data(n, TRAIN_FEATURES)
     y = data["label"]
+    if classes == 3:
+        x = np.stack([data[f"f{i}"] for i in range(TRAIN_FEATURES)], 1)
+        y = data["label"] = logit_class_label(x, seed)
     rng = np.random.default_rng(seed)
     for j, vocab in enumerate(DEFAULT_CAT_VOCABS):
         code = rng.integers(0, vocab, n)
-        # Positive rows favour the lower third of the vocabulary.
-        skew = (y == 1) & (rng.uniform(size=n) < 0.4)
-        code = np.where(skew, code % max(vocab // 3, 1), code)
+        third = max(vocab // 3, 1)
+        if classes == 2:
+            # Positive rows favour the lower third of the vocabulary.
+            skew = (y == 1) & (rng.uniform(size=n) < 0.4)
+            code = np.where(skew, code % third, code)
+        else:
+            # Classes 1 and 2 favour the lower and middle thirds.
+            skew = (y > 0) & (rng.uniform(size=n) < 0.4)
+            code = np.where(skew, code % third + (y - 1) * third, code)
         data[f"c{j}"] = np.array([f"v{c}" for c in code])
     for i in DEFAULT_MISSING:
         miss = rng.uniform(size=n) < 0.03
@@ -831,6 +901,8 @@ def main():
     torch.cuda.synchronize()
     kernels.extend(rf_path(smi, serving=counters))
     torch.cuda.synchronize()
+    kernels.extend(multiclass_path(smi, serving=counters))
+    torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -979,8 +1051,6 @@ def measure(mod, tables, walk_tables, xT, reps=20):
     model's bank tables) and one add per tree."""
     import torch
 
-    from ydf_tpu_torch.serving import bank_scorer
-
     n = xT.shape[1]
     for _ in range(3):
         got = mod.score(tables, xT)
@@ -991,6 +1061,21 @@ def measure(mod, tables, walk_tables, xT, reps=20):
     plain_ms = time_ms(lambda: mod.score_plain(tables, xT), reps=1)
     want = mod.score_plain(tables, xT)
     assert torch.equal(got, want), f"{mod.__name__} at {n} rows: != plain"
+    return {
+        "ms": ms, "device_ms": dev_ms, "device_how": how,
+        "plain_ms": plain_ms,
+        "max_abs_err": float((got - want).abs().max()),
+        **score_bound(tables, walk_tables, xT),
+    }
+
+
+def score_bound(tables, walk_tables, xT):
+    """The least time of one scoring call (see `measure`): bytes moved
+    over HBM bandwidth against the walk's compares, selects and adds
+    over the card's 32-bit scalar rate, whichever is larger."""
+    from ydf_tpu_torch.serving import bank_scorer
+
+    n = xT.shape[1]
     nbytes = xT.numel() * 4 + table_bytes(tables) + n * 4
     steps = 0
     chunk = bank_scorer.PLAIN_ROW_CHUNK
@@ -1001,9 +1086,6 @@ def measure(mod, tables, walk_tables, xT, reps=20):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return {
-        "ms": ms, "device_ms": dev_ms, "device_how": how,
-        "plain_ms": plain_ms,
-        "max_abs_err": float((got - want).abs().max()),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "detail": f"{nbytes} bytes -> {bytes_ms:.4f} ms, {ops} ops -> "
@@ -1416,7 +1498,8 @@ def split_events(events):
 
 def measure_train(name, inp, reps=20, timing_only=False):
     """Kernel time (CUDA events, after warm-up), the plain version's time
-    (once, after one call), the library call's time, and the bound: the
+    (once, after one call), the library call's time (each timed over
+    `reps` calls, device times over `reps` profiled calls), and the bound: the
     larger of the bytes the function must move (inputs read once,
     outputs written once) over HBM bandwidth and its least operations
     on these inputs over the card's 32-bit scalar rate. timing_only skips
@@ -1477,7 +1560,7 @@ def measure_train(name, inp, reps=20, timing_only=False):
         kernel()
     torch.cuda.synchronize()
     ms = time_ms(kernel, reps=reps)
-    dev_ms, how = device_ms(kernel, KERNELS_OF[name])
+    dev_ms, how = device_ms(kernel, KERNELS_OF[name], reps=reps)
     plain_ms = library_ms = library_dev_ms = None
     if not timing_only:
         plain()
@@ -1485,7 +1568,8 @@ def measure_train(name, inp, reps=20, timing_only=False):
     if library is not None and not timing_only:
         library()
         library_ms = time_ms(library, reps=reps)
-        library_dev_ms, lib_how = device_ms(library, library_kernels)
+        library_dev_ms, lib_how = device_ms(library, library_kernels,
+                                            reps=reps)
         how = how if lib_how == how else f"{how}; library {lib_how}"
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
@@ -2384,9 +2468,11 @@ def rf_path(smi, serving):
         f"card: probabilities on {RF_COMPARE_ROWS} rows bitwise == JAX's")
 
     # -- 9d each training kernel against its plain version ------------- #
-    layers = captured_rf_layers(train, learner)
-    layers3 = captured_rf_layers(dict(train, label=three_class_label(train)),
-                                 learner)
+    hp = dict(RF_HP, max_depth=learner.max_depth,
+              random_seed=learner.random_seed)
+    layers = captured_layers(ydf_tpu_torch.RandomForestLearner, hp, train)
+    layers3 = captured_layers(ydf_tpu_torch.RandomForestLearner, hp,
+                              dict(train, label=three_class_label(train)))
     checked = []
     for case in (layers, layers3):
         for args in case["routed"]:
@@ -2398,13 +2484,13 @@ def rf_path(smi, serving):
                     f"routed kernel != plain at Lh {args[5]}, "
                     f"Sq {args[4].shape[1]}")
             checked.append((args[5], args[4].shape[1]))
-        got = histogram_kernels.histogram(*case["root"])
-        want = histogram_kernels.histogram_plain(*case["root"])
+        got = histogram_kernels.histogram(*case["root"][0])
+        want = histogram_kernels.histogram_plain(*case["root"][0])
         torch.cuda.synchronize()
         assert torch.equal(got, want), "root histogram != plain"
     inp = train_inputs(train, model.binner)
     binning_check(inp["binning"])
-    inp["root"] = layers["root"]
+    inp["root"] = layers["root"][0]
     lh_list = sorted({lh for lh, _ in checked})
     log("9 kernels", f"histogram_routed on every fused layer of tree 0 of "
         f"the path (binary label, Sq 3) and of a 3-class forest's tree 0 "
@@ -2439,8 +2525,13 @@ def rf_path(smi, serving):
     ):
         if name == "histogram_routed":
             inp["routed"] = max(layers["routed"], key=lambda a: a[5])
-        t = measure_train(name, inp)
-        log("9 timing", f"{name} ({t['shape']}): {timing_text(t)}, {smi}")
+        # The root histogram against index_add_ (PERF.md's open question
+        # at 50,000 rows): RF_ROOT_REPS repetitions of each.
+        t = measure_train(name, inp, reps=RF_ROOT_REPS
+                          if name == "histogram" else 20)
+        log("9 timing", f"{name} ({t['shape']}): {timing_text(t)}"
+            + (f" (each over {RF_ROOT_REPS} calls)" if name == "histogram"
+               else "") + f", {smi}")
         # Every comparison above is torch.equal: no difference.
         out.append(train_entry(name, "train_rf", src, replaces, t,
                                counted[name], 0.0, kernel_ms.get(name, 0.0)))
@@ -2459,41 +2550,6 @@ def three_class_label(train):
     sign of f0): phase 9's Sq = 4 case."""
     return np.where(train["label"] == 1, 2,
                     (train["f0"] > 0).astype(np.int64))
-
-
-def captured_rf_layers(train, learner):
-    """The training kernels' arguments in tree 0 of the default forest
-    on `train` (a one-tree RandomForestLearner with `learner`'s
-    settings): "root", the root histogram's, and "routed", the routed
-    kernel's at every fused layer (Lh = 1 .. 512), as the path's own."""
-    import torch
-
-    import ydf_tpu_torch
-    from ydf_tpu_torch.ops import histogram_kernels
-
-    captured = {"routed": []}
-    originals = (histogram_kernels.histogram,
-                 histogram_kernels.histogram_routed)
-
-    def root(*args):
-        captured["root"] = args
-        return originals[0](*args)
-
-    def routed(*args):
-        captured["routed"].append(args)
-        return originals[1](*args)
-
-    histogram_kernels.histogram = root
-    histogram_kernels.histogram_routed = routed
-    try:
-        ydf_tpu_torch.RandomForestLearner(
-            device=DEVICE, num_trees=1, max_depth=learner.max_depth,
-            random_seed=learner.random_seed, **RF_HP).train(train)
-    finally:
-        (histogram_kernels.histogram,
-         histogram_kernels.histogram_routed) = originals
-    torch.cuda.synchronize()
-    return captured
 
 
 def routed_memory(args):
@@ -2561,7 +2617,7 @@ def rf_tree_diagnosis(model, learner, train, pf, exp, t, cfg):
     basis = torch.cat([torch.nn.functional.one_hot(y, 2).float(),
                        torch.ones((n, 1), device=dev)], 1)
     rule = ClassificationRule(num_classes=2)
-    columns = port_rf.layer_columns(
+    columns = grower.layer_columns(
         keys[:, 1], max_depth=learner.max_depth, frontier=cfg["frontier"],
         num_features=binner.num_features,
         num_numerical=binner.num_numerical, orderings=1,
@@ -2698,6 +2754,395 @@ def measure_vs(args, reps=20):
                   f"{ops_ms:.4f} ms", "shape": f"n={n}, L={L}, D={D}, A={A}, "
                   f"{vectors} real vectors",
     }
+
+
+# --------------------------------------------------------------------- #
+# 10 multiclass: the default GBT on three classes, and the GBT options
+# --------------------------------------------------------------------- #
+
+
+def options_frame(kind, seed, rows, test_rows):
+    """scripts/make_torch_port_fixtures.py:options_frame: make_frame
+    (binary or three classes), or the binary frame with a regression label
+    from the generator's logit (float64): "poisson" counts with rate
+    exp(0.3 logit), "laplace" the logit plus Laplace noise, both drawn
+    from default_rng([seed, 5])."""
+    classes = 3 if kind == "three_class" else 2
+    train, test = make_frame(rows, test_rows, seed=seed, classes=classes)
+    if kind in ("poisson", "laplace"):
+        data = make_data(rows + test_rows, TRAIN_FEATURES)
+        xd = np.stack([data[f"f{i}"] for i in range(5)], 1).astype(
+            np.float64)
+        logit = (xd[:, 0] - 0.5 * xd[:, 1] + np.sin(2 * xd[:, 2])
+                 + xd[:, 3] * xd[:, 4])
+        rng = np.random.default_rng([seed, 5])
+        if kind == "poisson":
+            y = rng.poisson(np.exp(0.3 * logit)).astype(np.float32)
+        else:
+            y = (logit + rng.laplace(size=len(logit))).astype(np.float32)
+        train["label"], test["label"] = y[:rows], y[rows:]
+    return train, test
+
+
+def captured_layers(learner_cls, hp, train):
+    """The training kernels' arguments, cloned as the kernels got them, in
+    a one-iteration train of `learner_cls(**hp)` on `train` (the path's
+    own layers): "root", every root histogram's, and "routed", every
+    fused layer's (a forest's tree 0: Lh = 1 .. 512; a GBT's first K
+    trees)."""
+    import torch
+
+    from ydf_tpu_torch.ops import histogram_kernels
+
+    captured = {"root": [], "routed": []}
+    originals = (histogram_kernels.histogram,
+                 histogram_kernels.histogram_routed)
+
+    def clone(args):
+        return tuple(
+            a.clone() if isinstance(a, torch.Tensor) else
+            type(a)(*(t.clone() for t in a)) if isinstance(
+                a, histogram_kernels.RouteTables) else a for a in args)
+
+    def root(*args):
+        captured["root"].append(clone(args))
+        return originals[0](*args)
+
+    def routed(*args):
+        captured["routed"].append(clone(args))
+        return originals[1](*args)
+
+    histogram_kernels.histogram = root
+    histogram_kernels.histogram_routed = routed
+    try:
+        learner_cls(device=DEVICE, **dict(hp, num_trees=1)).train(train)
+    finally:
+        (histogram_kernels.histogram,
+         histogram_kernels.histogram_routed) = originals
+    torch.cuda.synchronize()
+    return captured
+
+
+def multiclass_path(smi, serving):
+    """Phase 10: GradientBoostedTreesLearner(label="label") with every
+    default on three classes (K = 3 trees an iteration, the validation
+    split, look-ahead early stopping, categorical splits) trained on the
+    card, evaluated, saved and loaded, against the JAX package's run
+    (ydf_tpu_torch/testdata/train_multiclass); then each small
+    configuration of ydf_tpu_torch/testdata/train_gbt_options (the
+    Poisson, MAE and focal losses, subsample, GOSS, candidate features,
+    three classes with both samplings). Returns the `kernels` entries of
+    the multiclass path's four kernels."""
+    import hashlib
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.config import Task
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.serving import bank_scorer
+    from ydf_tpu_torch.utils import cuda_build
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(TRAIN_MULTICLASS, "config.json")) as f:
+        cfg = json.load(f)
+    assert (cfg["rows"], cfg["test_rows"], cfg["cat_seed"],
+            cfg["data_seed"], cfg["compare_rows"], cfg["learner"],
+            cfg["full_iterations"], cfg["generator"]) == (
+        MC_ROWS, MC_TEST_ROWS, DEFAULT_CAT_SEED, DATA_SEED, MC_COMPARE_ROWS,
+        MC_HP, MC_FULL_ITERATIONS,
+        dict(features=TRAIN_FEATURES, cat_vocabs=list(DEFAULT_CAT_VOCABS),
+             missing_features=list(DEFAULT_MISSING),
+             class_cuts=list(CLASS_CUTS))), cfg
+    K = cfg["num_trees_per_iter"]
+    # The fixture writer refuses a fused update, so the port replays
+    # JAX's update and every tree must come out bitwise.
+    assert cfg["update_form"] == ["unfused"] * K, cfg["update_form"]
+    exp = np.load(os.path.join(TRAIN_MULTICLASS, "expected.npz"))
+    model_dir = os.path.join(TRAIN_MULTICLASS, "model")
+    jax_forest = dict(np.load(os.path.join(model_dir, "forest.npz")))
+    t0 = time.perf_counter()
+    train, test = make_frame(MC_ROWS, MC_TEST_ROWS, classes=3)
+    assert frame_sha256(train) == cfg["train_sha256"], "train frame"
+    assert frame_sha256(test) == cfg["test_sha256"], "test frame"
+    log("10 multiclass", f"frames {MC_ROWS} + {MC_TEST_ROWS} rows in "
+        f"{time.perf_counter() - t0:.2f} s, SHA-256 == the fixture's; "
+        f"classes {cfg['class_fractions']}; JAX fixture: jax "
+        f"{cfg['jax_version']}, impls {cfg['jax_impls']}, {K} trees an "
+        f"iteration, update form {cfg['update_form']} (the fusions XLA "
+        f"compiled: {cfg['update_fusions']}), trained in "
+        f"{cfg['jax_train_s_cpu']:.1f} s on the CPU that wrote it")
+
+    # -- 10a the main path: train with every default, evaluate --------- #
+    for k in histogram_kernels.LAUNCHES:
+        histogram_kernels.LAUNCHES[k] = 0
+    binning.KERNEL_LAUNCHES = 0
+    for c in serving:
+        c.KERNEL_LAUNCHES = 0
+        c.KERNEL_ROWS = 0
+    reads0 = port_gbt.HOST_READS
+    cuda_build.LAUNCH_EVENTS = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                        **MC_HP)
+    model = learner.train(train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = model.evaluate(test)
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
+    counted = dict(histogram_kernels.LAUNCHES)
+    counted["binning"] = binning.KERNEL_LAUNCHES
+    counted["bank_scorer"] = bank_scorer.KERNEL_LAUNCHES
+    others = {c.__name__: c.KERNEL_LAUNCHES for c in serving
+              if c is not bank_scorer}
+    reads = port_gbt.HOST_READS - reads0
+    logs = model.training_logs
+    trained, kept = logs["num_trees_trained"], logs["num_trees"]
+    depth = learner.max_depth
+    chunks = -(-trained // min(learner.early_stopping_num_trees_look_ahead,
+                               port_gbt.MAX_CHUNK_TREES))
+    assert model.num_trees_per_iter == K, model.num_trees_per_iter
+    assert counted["histogram"] == trained * K, counted
+    assert counted["histogram_routed"] == trained * K * (depth - 1), counted
+    assert counted["binning"] >= 1 and counted["bank_scorer"] == K, counted
+    assert not any(others.values()), others
+    assert reads == chunks, (reads, chunks)
+    kernel_ms, routed_lh = split_events(events)
+    boost_ms = learner.last_timings["boost_s"] * 1e3
+    valid_ms = kernel_ms.pop("valid_route", 0.0)
+    log("10 launches", f"train_multiclass (train + evaluate): {counted} "
+        f"launches (routed by hist slots: {routed_lh}); other serving "
+        f"kernels {others}")
+    log("10 train", f"GradientBoostedTreesLearner(**{MC_HP}).train: wall "
+        f"{wall * 1e3:.1f} ms (host clock, ends in synchronize); stages "
+        + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in
+                   learner.last_timings.items())
+        + f"; {trained} iterations ({trained * K} trees) trained, {kept} "
+        f"kept; {chunks} chunks, {reads} host reads of the validation "
+        f"losses; {boost_ms / trained:.2f} ms an iteration (loop wall / "
+        f"iterations trained); validation routing {valid_ms:.1f} ms (CUDA "
+        f"events) = {100 * valid_ms / boost_ms:.2f}% of the loop; kernel "
+        "time (CUDA events, train + evaluate) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; evaluate of {MC_TEST_ROWS} rows {eval_wall * 1e3:.1f} ms; "
+        f"{smi}")
+
+    # -- 10b against the JAX package's run ----------------------------- #
+    bins = model.binner.transform(
+        Dataset.from_data(train, dataspec=model.dataspec), model.device)
+    assert sha256(bins) == cfg["bins_sha256"], "bins != the JAX package's"
+    _, va_idx = port_gbt.split_validation(MC_ROWS, learner.validation_ratio,
+                                          learner.random_seed)
+    assert hashlib.sha256(va_idx.astype(np.int64).tobytes()).hexdigest() \
+        == cfg["valid_idx_sha256"], "validation rows != the JAX package's"
+    pf = model.forest.to_numpy()
+    T = min(kept, cfg["num_trees"]) * K
+    same = [tree_sha256(pf, t) == exp["tree_sha256"][t].tobytes().hex()
+            for t in range(T)]
+    differ = [t for t, ok in enumerate(same) if not ok]
+    first = MC_FULL_ITERATIONS * K
+    for field in ("feature", "threshold_bin", "is_cat", "cat_mask", "left",
+                  "right", "is_leaf", "num_nodes"):
+        assert np.array_equal(pf[field][:first], jax_forest[field][:first]), (
+            f"the first {MC_FULL_ITERATIONS} iterations' {field} != JAX's")
+    assert pf["leaf_value"][:first].tobytes() == \
+        jax_forest["leaf_value"][:first].tobytes(), (
+            f"the first {MC_FULL_ITERATIONS} iterations' leaf values")
+    jv = exp["valid_loss"].astype(np.float64)
+    pv = np.array([r["valid_loss"] for r in logs["iterations"]])
+    assert pv[kept - 1] == jv.min(), (pv[kept - 1], jv.min())
+    assert (kept, trained) == (cfg["num_trees"], cfg["num_trees_trained"]), (
+        kept, trained, cfg["num_trees"], cfg["num_trees_trained"])
+    assert not differ, f"trees differing from JAX's: {differ[:10]}"
+    head = {k: v[:MC_COMPARE_ROWS] for k, v in test.items()}
+    proba = model.predict(head)
+    assert proba.shape == exp["proba"].shape and np.isfinite(proba).all()
+    p_err = np.abs(proba - exp["proba"])
+    assert p_err.max() <= MC_PROBA_ATOL and p_err.mean() <= \
+        MC_PROBA_MEAN_ATOL, (p_err.max(), p_err.mean())
+    jev = cfg["jax_evaluate"]
+    assert abs(ev.metrics["accuracy"] - jev["accuracy"]) <= EVAL_ATOL, (
+        ev.metrics, jev)
+    assert abs(ev.metrics["loss"] / jev["loss"] - 1) <= MC_LOSS_RTOL, (
+        ev.metrics, jev)
+    confusion_same = np.array_equal(ev.confusion, cfg["jax_confusion"])
+    log("10 vs JAX", f"bins and validation rows bitwise == JAX; kept "
+        f"{kept} of {trained} iterations trained (JAX {cfg['num_trees']} "
+        f"of {cfg['num_trees_trained']}); trees equal to JAX's by SHA-256: "
+        f"{T - len(differ)} of {T} (first differing: "
+        f"{differ[0] if differ else None}); the first {MC_FULL_ITERATIONS} "
+        f"iterations' {first} trees == the JAX model's splits and leaf "
+        f"values bitwise; validation loss at the kept count "
+        f"{pv[kept - 1]!r} == JAX's best {jv.min()!r}; probabilities on "
+        f"{MC_COMPARE_ROWS} test rows: max abs {p_err.max():.3g}, mean "
+        f"{p_err.mean():.3g}, bitwise "
+        f"{proba.tobytes() == exp['proba'].tobytes()}; evaluate on "
+        f"{MC_TEST_ROWS} rows: " + " ".join(
+            f"{k} {ev.metrics[k]:.6f} (JAX {jev[k]:.6f})" for k in jev)
+        + f"; confusion matrix equal {confusion_same}")
+
+    # -- 10c the JAX model on the card; save -> load ------------------- #
+    jm = ydf_tpu_torch.load_model(model_dir, device=DEVICE)
+    jp = jm.predict(head)
+    assert jp.tobytes() == exp["model_proba"].tobytes(), (
+        "the JAX model's probabilities on the card != JAX's")
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "m"))
+        back = ydf_tpu_torch.load_model(os.path.join(tmp, "m"),
+                                        device=DEVICE)
+        got, want = back.predict(test), model.predict(test)
+    assert got.tobytes() == want.tobytes(), "save -> load changed them"
+    log("10 save", f"the JAX model ({cfg['model_iterations']} iterations) "
+        f"on the card: probabilities on {MC_COMPARE_ROWS} rows bitwise == "
+        f"JAX's; model.save -> load_model: probabilities on "
+        f"{MC_TEST_ROWS} rows bitwise equal")
+
+    # -- 10d the options, each against its JAX run --------------------- #
+    with open(os.path.join(TRAIN_GBT_OPTIONS, "config.json")) as f:
+        ocfg = json.load(f)
+    oexp = np.load(os.path.join(TRAIN_GBT_OPTIONS, "expected.npz"))
+    for name, c in ocfg["configs"].items():
+        res = ocfg["results"][name]
+        tr, te = options_frame(c["frame"], ocfg["cat_seed"], ocfg["rows"],
+                               ocfg["test_rows"])
+        assert frame_sha256(tr) == res["train_sha256"], name
+        t0 = time.perf_counter()
+        m = ydf_tpu_torch.GradientBoostedTreesLearner(
+            label="label", num_trees=ocfg["num_trees"], device=DEVICE,
+            task=Task[c.get("task", "CLASSIFICATION")],
+            **c["learner"]).train(tr)
+        torch.cuda.synchronize()
+        o_wall = time.perf_counter() - t0
+        fo = m.forest.to_numpy()
+        want = [h.tobytes().hex() for h in oexp[f"{name}/tree_sha256"]]
+        got = [tree_sha256(fo, t) for t in range(fo["feature"].shape[0])]
+        pred = m.predict(te)
+        ok = (got == want
+              and m.training_logs["num_trees"] == res["num_trees"]
+              and pred.tobytes() == oexp[f"{name}/predictions"].tobytes())
+        log("10 options", f"{name} ({c['learner']}): {len(got)} trees, "
+            f"kept {m.training_logs['num_trees']} (JAX {res['num_trees']})"
+            f", trees equal to JAX's by SHA-256: "
+            f"{sum(a == b for a, b in zip(got, want))} of {len(want)}, "
+            f"predictions on {ocfg['test_rows']} rows bitwise "
+            f"{pred.tobytes() == oexp[f'{name}/predictions'].tobytes()}; "
+            f"train wall {o_wall * 1e3:.1f} ms")
+        assert ok, f"{name} differs from the JAX package's run"
+
+    # -- 10e the kernels against plain on the path's own layers -------- #
+    layers = captured_layers(ydf_tpu_torch.GradientBoostedTreesLearner,
+                             MC_HP, train)
+    # f64 cells round once, so the kernels equal plain (as in phase 9)
+    # and every max abs error is 0.
+    err = {"binning": 0.0, "histogram": 0.0, "histogram_routed": 0.0}
+    for args in layers["routed"]:
+        got = histogram_kernels.histogram_routed(*args)
+        want = histogram_kernels.histogram_routed_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (
+                f"routed kernel != plain at Lh {args[5]}")
+    for args in layers["root"]:
+        got = histogram_kernels.histogram(*args)
+        want = histogram_kernels.histogram_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), "root histogram != plain"
+    inp = train_inputs(train, model.binner)
+    binning_check(inp["binning"])
+    inp["root"] = layers["root"][0]
+    lh_list = sorted({a[5] for a in layers["routed"]})
+    log("10 kernels", f"on iteration 0's {K} trees of the path: the root "
+        f"histogram ({len(layers['root'])} launches) and the routed kernel "
+        f"({len(layers['routed'])} layers, Lh {lh_list}) against plain: "
+        f"new_slot, new_leaf and the histograms torch.equal; binning "
+        f"torch.equal at {MC_ROWS} x {model.binner.num_numerical}")
+
+    # -- 10f where the loop's time goes (torch.profiler) --------------- #
+    prof = profile_train(train, dict(MC_HP, num_trees=MC_PROFILE_ITERS))
+    log("10 profile", f"one more train, num_trees={MC_PROFILE_ITERS} "
+        f"iterations of {K} trees, under torch.profiler (the profiler "
+        f"slows the host): wall {prof['wall_ms']:.1f} ms, boosting loop "
+        f"{prof['loop_ms']:.1f} ms = {prof['loop_ms'] / MC_PROFILE_ITERS:.2f}"
+        f" ms an iteration; {prof['kernels']} device kernels "
+        f"({prof['kernels'] / MC_PROFILE_ITERS:.0f} an iteration), "
+        f"{prof['busy_ms']:.3f} ms of device time over the whole train, so "
+        f"the device is idle at least {100 * prof['idle_share']:.1f}% of "
+        "the loop; largest: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms" for name, ms in prof["top"]))
+
+    # -- 10g each kernel timed at the path's shapes -------------------- #
+    out = []
+    for name, src, replaces in (
+        ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+        ("histogram", "histogram.cu", "ydf_tpu/ops/histogram_pallas.py:81"),
+        ("histogram_routed", "histogram_routed.cu",
+         "ydf_tpu/ops/histogram_pallas.py:172"),
+    ):
+        if name == "histogram_routed":
+            inp["routed"] = max(layers["routed"], key=lambda a: a[5])
+        t = measure_train(name, inp)
+        log("10 timing", f"{name} ({t['shape']}): {timing_text(t)}, {smi}")
+        out.append(train_entry(name, "train_multiclass", src, replaces, t,
+                               counted[name], err[name],
+                               kernel_ms.get(name, 0.0)))
+        if name == "histogram":
+            out[-1]["path_bound_ms"] = t["bound_ms"] * counted[name]
+        if name == "binning":
+            out[-1]["path_bound_ms"] = t["bound_ms"] * counted[name]
+        if name == "histogram_routed":
+            by_lh = routed_by_captured(name, layers["routed"], events,
+                                       routed_lh)
+            out[-1].update(layer_fields(by_lh))
+            log("10 layers", f"{name} on train_multiclass by hist slots "
+                f"(timed on the path's own layers of iteration 0): "
+                f"{layer_text(by_lh)}, {smi}")
+    # The bank is timed on class 0's trees; evaluate scores each class's
+    # sub-forest once, so the path bound sums every class's own bound.
+    full = model.forest
+    xT = encoded_xT(model, test)
+    class_bounds = []
+    try:
+        for k in range(K):
+            model.forest = model._dim_forests[k]
+            bank = bank_scorer.build_bank_scorer(model)
+            if k == 0:
+                t = measure(bank_scorer, bank.tables, bank.tables, xT)
+                class_bounds.append(t["bound_ms"])
+            else:
+                class_bounds.append(score_bound(bank.tables, bank.tables,
+                                                xT)["bound_ms"])
+    finally:
+        model.forest = full
+    log("10 timing", f"bank_scorer/train_multiclass at {xT.shape[1]} rows x "
+        f"{xT.shape[0]} features (class 0's {kept} trees): kernel "
+        f"{t['ms']:.4f} ms a call back to back, {t['device_ms']:.4f} ms on "
+        f"the card ({t['device_how']}), plain {t['plain_ms']:.2f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']}); each "
+        f"class's bound " + " ".join(f"{b:.4f}" for b in class_bounds)
+        + f" ms, {smi}")
+    out.append({
+        "name": "bank_scorer/train_multiclass", "route": "cuda",
+        "source": "ydf_tpu_torch/csrc/bank_scorer.cu",
+        "replaces": "ydf_tpu/serving/pallas_scorer.py:118",
+        "launches": counted["bank_scorer"], "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "device_ms": t["device_ms"],
+        "device_how": t["device_how"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "path_ms": kernel_ms.get("bank_scorer", 0.0),
+        "path_how": "CUDA events around each launch",
+        "path_bound_ms": sum(class_bounds),
+    })
+    log("10 multiclass", f"phase 10 wall {time.perf_counter() - t_phase:.1f} "
+        "s")
+    return out
 
 
 if __name__ == "__main__":

@@ -75,9 +75,25 @@ unseen and missing categories injected). It holds:
                  validation losses (every trained iteration), and raw
                  scores and predictions on the first 1,024 test rows.
 
+Training fixture `train_multiclass/`: the JAX package's default learner
+on the three-class variant of make_frame (classes=3: the generator's
+logit plus logistic noise cut at CLASS_CUTS), 200,000 training rows and
+50,000 to evaluate. Its config.json adds `update_form`, how XLA lowered
+the K > 1 prediction update in every class column, read from the dump
+of the boosting programs this script asks XLA for (`update_forms`, with
+objdump); expected.npz holds the losses, a SHA-256 per tree, the
+probabilities on 1,024 rows, and model/ the JAX model (the first
+small_iterations iterations if the whole would pass max_bytes).
+
+Training fixture `train_gbt_options/`: one 20,000-row, 30-iteration
+configuration per ported option (TRAIN_GBT_OPTIONS), each with its tree
+hashes, kept count, losses and predictions on 1,024 rows.
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
-(~6 minutes on a CPU; `--only train_bench`, `--only train_vs`,
-`--only train_default` or `--only serving` for one part).
+(~30 minutes on a CPU, train_rf most of it; `--only train_bench`,
+`--only train_vs`, `--only train_default`, `--only train_rf`,
+`--only train_multiclass`, `--only train_gbt_options` or
+`--only serving` for one part).
 """
 
 import os
@@ -99,21 +115,52 @@ MODELS = {"gbt_d6": dict(num_trees=300, max_depth=6),
           "gbt_d8": dict(num_trees=50, max_depth=8)}
 
 
+#: Cuts of the three-class label: the generator's logit plus logistic
+#: noise, below -0.8 -> class 0, below 0.8 -> class 1, else class 2
+#: (each class 25-40% of the rows).
+CLASS_CUTS = (-0.8, 0.8)
+
+
+def logit_class_label(x, seed: int):
+    """The three-class variant's label (int64) of bench.make_data's
+    features x [n, 28]: its logit (computed in float64) plus logistic
+    noise drawn from default_rng([seed, 3]), cut at CLASS_CUTS."""
+    xd = x.astype(np.float64)
+    logit = (xd[:, 0] - 0.5 * xd[:, 1] + np.sin(2 * xd[:, 2])
+             + xd[:, 3] * xd[:, 4])
+    noise = np.random.default_rng([seed, 3]).logistic(size=len(x))
+    return np.digitize(logit + noise, CLASS_CUTS).astype(np.int64)
+
+
 def make_frame(seed: int = 7, train_rows: int = TRAIN_ROWS,
-               request_rows: int = REQUEST_ROWS, keep_label: bool = False):
+               request_rows: int = REQUEST_ROWS, keep_label: bool = False,
+               classes: int = 2):
     """(train columns, request columns): numerical f32, categorical
-    unicode, binary int label on the train side (and on the request side
-    with keep_label)."""
+    unicode, an int label on the train side (and on the request side
+    with keep_label): bench.make_data's binary label, or with classes=3
+    logit_class_label. The binary frame's bytes do not depend on the
+    variant."""
     import bench
 
-    data, _, y = bench.make_data(train_rows + request_rows, 28)
+    data, x, y = bench.make_data(train_rows + request_rows, 28)
+    if classes == 3:
+        y = logit_class_label(x, seed)
+        data["label"] = y
+    elif classes != 2:
+        raise ValueError(f"classes must be 2 or 3, got {classes}")
     rng = np.random.default_rng(seed)
     n = len(y)
     for j, vocab in enumerate(CAT_VOCABS):
         code = rng.integers(0, vocab, n)
-        # Positive rows favour the lower third of the vocabulary.
-        skew = (y == 1) & (rng.uniform(size=n) < 0.4)
-        code = np.where(skew, code % max(vocab // 3, 1), code)
+        third = max(vocab // 3, 1)
+        if classes == 2:
+            # Positive rows favour the lower third of the vocabulary.
+            skew = (y == 1) & (rng.uniform(size=n) < 0.4)
+            code = np.where(skew, code % third, code)
+        else:
+            # Classes 1 and 2 favour the lower and middle thirds.
+            skew = (y > 0) & (rng.uniform(size=n) < 0.4)
+            code = np.where(skew, code % third + (y - 1) * third, code)
         data[f"c{j}"] = np.array([f"v{c}" for c in code])
     for i in (0, 5, 11):
         miss = rng.uniform(size=n) < 0.03
@@ -444,12 +491,286 @@ def write_train_rf():
           f"evaluate {ev.metrics}")
 
 
+def update_forms(dump_dir: str, num_classes: int, shrinkage: float):
+    """How XLA lowered the multiclass boosting programs' prediction
+    updates, from an XLA dump (XLA_FLAGS=--xla_dump_to): every fusion of
+    a boosting program (module `run` or `run_chunk`) that scales leaf
+    values by the shrinkage and gathers them, with its rows and the
+    fused multiply-add instructions in its machine code (objdump).
+    Returns (one form a class column: "unfused" when no such fusion
+    holds a fused multiply-add, the fusions)."""
+    import re
+    import subprocess
+
+    shr = str(np.float32(shrinkage))  # as HLO prints an f32 constant
+    fusions = []
+    for hlo in sorted(os.listdir(dump_dir)):
+        if not re.search(r"jit_run(_chunk)?\.cpu_after_optimizations\.txt$",
+                         hlo):
+            continue
+        mod = hlo.split(".cpu_after")[0]
+        text = open(os.path.join(dump_dir, hlo)).read()
+        for comp in re.split(r"\n(?=%?[\w.\-]+ \(.*\) -> .* \{)", text):
+            name = comp.split(" ", 1)[0].lstrip("%")
+            root = re.search(r"ROOT %\S+ = f32\[(\d+),(\d+)\]", comp)
+            if (f"constant({shr})" not in comp or "gather(" not in comp
+                    or root is None or int(root.group(2)) != num_classes):
+                continue
+            call = re.search(r"%(\S+) = \S+ fusion\([^\n]*calls=%"
+                             + re.escape(name) + r"[,\s]", text)
+            obj = os.path.join(dump_dir, f"{mod}.obj-file.{call.group(1)}"
+                               "_kernel_module.o")
+            asm = subprocess.run(["objdump", "-d", obj], capture_output=True,
+                                 text=True, check=True).stdout
+            fusions.append({
+                "module": mod, "fusion": call.group(1),
+                "rows": int(root.group(1)),
+                "fma": len(re.findall(r"\bvfn?m(add|sub)", asm)),
+            })
+    if not fusions:
+        raise RuntimeError(f"no prediction-update fusion in {dump_dir}")
+    if any(f["fma"] for f in fusions):
+        raise RuntimeError(f"a fused multiply-add in an update: {fusions}")
+    return ["unfused"] * num_classes, fusions
+
+
+TRAIN_MULTICLASS = dict(
+    rows=200_000, test_rows=50_000, data_seed=0, cat_seed=7, classes=3,
+    compare_rows=1024, learner=dict(label="label"), full_iterations=10,
+    small_iterations=30, max_bytes=2_000_000,
+)
+
+
+def write_train_multiclass():
+    """train_multiclass/: the JAX default learner on the three-class
+    frame (make_frame(classes=3)), with the update form read from the
+    XLA dump this script asks for (XLA_FLAGS, set in main)."""
+    import copy
+    import json
+    import time
+
+    import jax
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.dataset.dataset import Dataset
+    from ydf_tpu.models.forest import Forest
+    from ydf_tpu.ops.histogram import resolve_hist_impl, resolve_hist_quant
+    from ydf_tpu.ops.routing_native import resolve_route_impl
+
+    cfg = dict(TRAIN_MULTICLASS)
+    cfg["generator"] = dict(features=28, cat_vocabs=list(CAT_VOCABS),
+                            missing_features=[0, 5, 11],
+                            class_cuts=list(CLASS_CUTS))
+    d = os.path.join(OUT, "train_multiclass")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    train, test = make_frame(cfg["cat_seed"], cfg["rows"], cfg["test_rows"],
+                             keep_label=True, classes=3)
+    dump = DUMP_DIR
+    for f in os.listdir(dump):
+        os.remove(os.path.join(dump, f))
+    t0 = time.perf_counter()
+    m = ydf.GradientBoostedTreesLearner(**cfg["learner"]).train(train)
+    train_s = time.perf_counter() - t0
+    K = m.num_trees_per_iter
+    forms, fusions = update_forms(dump, K, 0.1)
+    fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    T = fo["feature"].shape[0]
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    ev = m.evaluate(test)
+    # The whole model when the directory stays under max_bytes, else the
+    # first small_iterations iterations.
+    m.save(os.path.join(d, "model"))
+    served = m
+    if sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+           os.walk(d) for f in fs) > cfg["max_bytes"] * 0.8:
+        shutil.rmtree(os.path.join(d, "model"))
+        served = copy.copy(m)
+        served.forest = Forest.from_numpy(
+            {f: a[:cfg["small_iterations"] * K] for f, a in fo.items()})
+        served._dim_forests = None
+        served._qs_cache = {}
+        served.training_logs = {}
+        served.save(os.path.join(d, "model"))
+    bins = m.binner.transform(Dataset.from_data(train, dataspec=m.dataspec))
+    perm = np.random.RandomState(123456).permutation(cfg["rows"])
+    va_idx = perm[:min(max(int(cfg["rows"] * 0.1), 1), cfg["rows"] - 1)]
+    out = dict(cfg)
+    out["jax_impls"] = {
+        "hist_impl": resolve_hist_impl("auto"),
+        "hist_quant": resolve_hist_quant(None),
+        "route_impl": "xla (the JAX learner's choice for K > 1)",
+        "route_impl_env": resolve_route_impl(None),
+    }
+    out["update_form"] = forms
+    out["update_fusions"] = fusions
+    out["jax_version"] = jax.__version__
+    out["jax_train_s_cpu"] = train_s
+    out["classes"] = m.classes
+    out["class_fractions"] = (np.bincount(train["label"], minlength=3)
+                              / cfg["rows"]).tolist()
+    out["num_trees_per_iter"] = K
+    out["model_iterations"] = served.forest.feature.shape[0] // K
+    out["train_sha256"] = chip_smoke.frame_sha256(train)
+    out["test_sha256"] = chip_smoke.frame_sha256(test)
+    out["bins_sha256"] = chip_smoke.array_sha256(np.asarray(bins))
+    out["valid_idx_sha256"] = chip_smoke.array_sha256(
+        va_idx.astype(np.int64))
+    out["num_trees"] = m.training_logs["num_trees"]
+    out["num_trees_trained"] = m.training_logs["num_trees_trained"]
+    out["jax_evaluate"] = dict(ev.metrics)
+    out["jax_confusion"] = np.asarray(ev.confusion).tolist()
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    logs = m.training_logs["iterations"]
+
+    def digest(h):
+        return np.frombuffer(bytes.fromhex(h), np.uint8)
+
+    np.savez_compressed(
+        os.path.join(d, "expected.npz"),
+        initial_predictions=np.asarray(m.initial_predictions, np.float32),
+        train_loss=np.array([r["train_loss"] for r in logs], np.float32),
+        valid_loss=np.array([r["valid_loss"] for r in logs], np.float32),
+        tree_sha256=np.stack([digest(chip_smoke.tree_sha256(fo, t))
+                              for t in range(T)]),
+        num_nodes=fo["num_nodes"].astype(np.int32),
+        proba=np.asarray(m.predict(head), np.float32),
+        model_proba=np.asarray(served.predict(head), np.float32),
+    )
+    size = sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+    assert size < cfg["max_bytes"], size
+    print(f"train_multiclass: {out['num_trees']} of "
+          f"{out['num_trees_trained']} iterations in {train_s:.1f} s, "
+          f"{size} bytes, model {out['model_iterations']} iterations, "
+          f"classes {out['class_fractions']}, update {forms} "
+          f"({len(fusions)} fusions), evaluate {ev.metrics}")
+
+
+#: train_gbt_options/: one small configuration per option the learner
+#: ports beyond the defaults, each on `frame` ("binary", "three_class" or
+#: "poisson"/"laplace": regression labels from the binary frame's logit).
+TRAIN_GBT_OPTIONS = dict(
+    rows=20_000, test_rows=1024, cat_seed=7, num_trees=30,
+    configs={
+        "poisson": dict(frame="poisson", task="REGRESSION",
+                        learner=dict(loss="POISSON")),
+        "mae": dict(frame="laplace", task="REGRESSION",
+                    learner=dict(loss="MEAN_AVERAGE_ERROR")),
+        "focal": dict(frame="binary", learner=dict(
+            loss="BINARY_FOCAL_LOSS")),
+        "subsample": dict(frame="binary", learner=dict(subsample=0.8)),
+        "goss": dict(frame="binary", learner=dict(sampling_method="GOSS")),
+        "candidates": dict(frame="binary", learner=dict(
+            num_candidate_attributes_ratio=0.5)),
+        "three_class": dict(frame="three_class", learner=dict(
+            subsample=0.8, num_candidate_attributes_ratio=0.5)),
+    },
+)
+
+
+def options_frame(kind: str, seed: int, rows: int, test_rows: int):
+    """(train, test) of a train_gbt_options configuration: make_frame
+    (binary or three classes), or the binary frame with a regression
+    label from the generator's logit (float64): "poisson" draws counts
+    with rate exp(0.3 logit), "laplace" adds Laplace noise; both draws
+    from default_rng([seed, 5])."""
+    import bench
+
+    classes = 3 if kind == "three_class" else 2
+    train, test = make_frame(seed, rows, test_rows, keep_label=True,
+                             classes=classes)
+    if kind in ("poisson", "laplace"):
+        _, x, _ = bench.make_data(rows + test_rows, 28)
+        xd = x.astype(np.float64)
+        logit = (xd[:, 0] - 0.5 * xd[:, 1] + np.sin(2 * xd[:, 2])
+                 + xd[:, 3] * xd[:, 4])
+        rng = np.random.default_rng([seed, 5])
+        if kind == "poisson":
+            y = rng.poisson(np.exp(0.3 * logit)).astype(np.float32)
+        else:
+            y = (logit + rng.laplace(size=len(logit))).astype(np.float32)
+        train["label"], test["label"] = y[:rows], y[rows:]
+    return train, test
+
+
+def write_train_gbt_options():
+    import json
+
+    import jax
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.config import Task
+
+    cfg = TRAIN_GBT_OPTIONS
+    d = os.path.join(OUT, "train_gbt_options")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    out = dict(cfg, jax_version=jax.__version__, results={})
+    arrays = {}
+
+    def digest(h):
+        return np.frombuffer(bytes.fromhex(h), np.uint8)
+
+    for name, c in cfg["configs"].items():
+        train, test = options_frame(c["frame"], cfg["cat_seed"], cfg["rows"],
+                                    cfg["test_rows"])
+        m = ydf.GradientBoostedTreesLearner(
+            label="label", num_trees=cfg["num_trees"],
+            task=Task[c.get("task", "CLASSIFICATION")],
+            **c["learner"]).train(train)
+        fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+        out["results"][name] = {
+            "train_sha256": chip_smoke.frame_sha256(train),
+            "test_sha256": chip_smoke.frame_sha256(test),
+            "num_trees": m.training_logs["num_trees"],
+            "num_trees_trained": m.training_logs["num_trees_trained"],
+            "num_trees_per_iter": m.num_trees_per_iter,
+            "classes": m.classes,
+        }
+        arrays[f"{name}/tree_sha256"] = np.stack([
+            digest(chip_smoke.tree_sha256(fo, t))
+            for t in range(fo["feature"].shape[0])])
+        arrays[f"{name}/initial_predictions"] = np.asarray(
+            m.initial_predictions, np.float32)
+        arrays[f"{name}/train_loss"] = np.asarray(
+            m.training_logs["train_loss"], np.float32)
+        arrays[f"{name}/valid_loss"] = np.asarray(
+            m.training_logs["valid_loss"], np.float32)
+        arrays[f"{name}/predictions"] = np.asarray(m.predict(test),
+                                                   np.float32)
+        print(f"train_gbt_options/{name}: {out['results'][name]}")
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    np.savez_compressed(os.path.join(d, "expected.npz"), **arrays)
+
+
+#: Where main() asks XLA to dump the boosting programs (for
+#: write_train_multiclass's update_forms); removed afterwards.
+DUMP_DIR = None
+
+
 def main():
+    import tempfile
+
+    global DUMP_DIR
+    only = sys.argv[sys.argv.index("--only") + 1] if (
+        "--only" in sys.argv) else None
+    if only in (None, "train_multiclass"):
+        # Before JAX starts its backend: the dump is read after the
+        # multiclass training (update_forms).
+        DUMP_DIR = tempfile.mkdtemp(prefix="xla_dump_")
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "") + f" --xla_dump_to={DUMP_DIR}"
+            " --xla_dump_hlo_module_re=.*jit_run.*").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    only = sys.argv[sys.argv.index("--only") + 1] if (
-        "--only" in sys.argv) else None
     if only in (None, "train_bench"):
         write_train_bench()
     if only in (None, "train_vs"):
@@ -458,6 +779,13 @@ def main():
         write_train_default()
     if only in (None, "train_rf"):
         write_train_rf()
+    if only in (None, "train_multiclass"):
+        try:
+            write_train_multiclass()
+        finally:
+            shutil.rmtree(DUMP_DIR, ignore_errors=True)
+    if only in (None, "train_gbt_options"):
+        write_train_gbt_options()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

@@ -270,19 +270,23 @@ def test_learner_surface_raises_for_what_is_not_ported():
     kw = dict(label="label", device="cpu")
     cases = [
         dict(validation_ratio=0.0, dart_dropout=0.1),
-        dict(validation_ratio=0.0, subsample=0.5),
-        dict(validation_ratio=0.0, sampling_method="GOSS"),
-        dict(validation_ratio=0.0, num_candidate_attributes=3),
         dict(validation_ratio=0.0, split_axis="SPARSE_OBLIQUE"),
         dict(validation_ratio=0.0, monotonic_constraints={"f0": 1}),
         dict(validation_ratio=0.0, task=Task.RANKING),
+        dict(validation_ratio=0.0, sampling_method="SELGB"),
     ]
     for extra in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ydf_tpu_torch.GradientBoostedTreesLearner(**{**kw, **extra})
+    # SELGB's ratio is not taken at all, so setting it cannot pass
+    # silently.
+    with pytest.raises(TypeError, match="selective_gradient_boosting"):
+        ydf_tpu_torch.GradientBoostedTreesLearner(
+            selective_gradient_boosting_ratio=0.2, **kw)
     data = make_data(300, 6, seed=1)
     # Ported since: the validation split with early stopping (the
-    # defaults) and categorical input columns both train.
+    # defaults), categorical input columns, row sampling, candidate
+    # features, more than two classes and the pointwise losses all train.
     split = ydf_tpu_torch.GradientBoostedTreesLearner(
         validation_ratio=0.1, num_trees=2, **kw).train(data)
     assert split.training_logs["valid_loss"] is not None
@@ -290,12 +294,20 @@ def test_learner_surface_raises_for_what_is_not_ported():
         validation_ratio=0.0, num_trees=2, **kw)
     cat = learner.train({**data, "c": np.array(["a", "b", "c"] * 100)})
     assert "c" in cat.binner.feature_names[cat.binner.num_numerical:]
-    multi = {**data, "label": np.arange(300) % 3}
+    for extra in (dict(subsample=0.5), dict(sampling_method="GOSS"),
+                  dict(num_candidate_attributes=3)):
+        m = ydf_tpu_torch.GradientBoostedTreesLearner(
+            validation_ratio=0.0, num_trees=2, **kw, **extra).train(data)
+        assert m.forest.num_trees == 2
+    multi = learner.train({**data, "label": np.arange(300) % 3})
+    assert multi.num_trees_per_iter == 3 and multi.forest.num_trees == 6
+    poisson = ydf_tpu_torch.GradientBoostedTreesLearner(
+        loss="POISSON", validation_ratio=0.0, num_trees=2,
+        task=Task.REGRESSION, **kw).train(data)
+    assert poisson.loss_name == "POISSON"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        learner.train(multi)
-    with pytest.raises(NotImplementedError, match="loss"):
         ydf_tpu_torch.GradientBoostedTreesLearner(
-            loss="POISSON", validation_ratio=0.0, **kw).train(data)
+            loss="LAMBDA_MART_NDCG", validation_ratio=0.0, **kw).train(data)
 
 
 def test_learner_defaults_to_cuda():

@@ -6,13 +6,33 @@ GradientBoostedTreesLearner and the boosting step of _make_boost_fn).
     model.predict(rows)                          # on the card by default
     model.evaluate(test)
 
-One boosting iteration, K = 1 (binary classification or regression):
-gradients and hessians of the loss at the current predictions, the
-[g*w, h*w, w] stats rows, one tree grown by ops/grower.py, leaf values
--sum g / (sum h + l2) scaled by the shrinkage for the model, and the
-prediction update. The loop stays on the device: the trees, leaf values
-and losses are collected as device tensors and read back after the last
-tree.
+One boosting iteration: gradients and hessians of the loss at the current
+predictions (f32 [n, K]; K = 1 for a pointwise loss, the number of
+classes for the multinomial one), the row sample of the iteration, then
+K trees, one per class column, each grown by ops/grower.py from that
+column's [g*w, h*w, w] stats rows, with leaf values -sum g / (sum h +
+l2) scaled by the shrinkage for the model, and the prediction update.
+Trees are stored iteration-major (tree it * K + k), the order
+models/gbt_model.py serves with a[k::K]. The loop stays on the device:
+the trees, leaf values and losses are collected as device tensors and
+read back after the last iteration.
+
+Random draws follow the JAX package's key chain bit for bit
+(utils/prng.py): PRNGKey(seed); per iteration key, k_sub =
+split(fold_in(key, it)), then (with vector-sequence features) key, k_vs
+= split(key); class k's tree key is fold_in(key, k). The row sample
+(gbt.py:sample_mask) draws from k_sub: subsample < 1 keeps a row with
+bernoulli(k_sub, subsample); GOSS keeps the rows whose sum over the K
+columns of |g| is at least the goss_alpha * n-th largest (a value
+comparison, so ties keep more rows), and of the rest each with
+bernoulli(k_sub, goss_beta / (1 - goss_alpha)), up-weighted by
+(1 - goss_alpha) / goss_beta. One sample serves the iteration's K trees;
+the loss is reported on every row. The sample words are drawn on the
+device inside the loop, from keys computed before it. Candidate features
+(num_candidate_attributes(_ratio)) come from each tree's key through the
+grower's per-layer draws (ops/grower.py:layer_columns); they depend on
+the seed alone, so every tree's columns are drawn before the loop, with
+one host read of each layer's widest set there.
 
 Validation and early stopping (the JAX package's defaults,
 validation_ratio=0.1 and early_stopping="LOSS_INCREASE"): the rows are
@@ -21,39 +41,42 @@ min(max(int(n * ratio), 1), n - 1) rows validating (gbt.py:396-430);
 the binner is fitted on every row first, and the split gathers columns
 of the one device bin matrix. Every tree routes the validation rows
 (ops/routing.py:route_tree_bins), updates their predictions as the
-training ones and records their loss. With look-ahead stopping the
-loop runs in chunks of min(look_ahead, 25) trees and reads the chunk's
-validation losses back once after it, the loop's only host read: it
-stops once the best loss lies `look_ahead` trees back
-(_early_stop_hit), and the model keeps argmin + 1 trees. Trees never
-depend on the chunking: a chunk only decides where the loop stops.
+training ones and records the iteration's loss. With look-ahead
+stopping the loop runs in chunks of min(look_ahead, 25) iterations and
+reads the chunk's validation losses back once after it, the loop's only
+host read: it stops once the best loss lies `look_ahead` iterations back
+(_early_stop_hit), and the model keeps argmin + 1 iterations, (argmin +
+1) * K trees. Trees never depend on the chunking: a chunk only decides
+where the loop stops.
 
-NUMERICAL_VECTOR_SEQUENCE features (the JAX package's per-tree anchor
-candidates, gbt.py:1312-1383): every tree draws, for each VS feature,
-num_anchors closer-than anchors (vectors drawn from the data) and as many
-projected-more-than anchors (differences of two drawn vectors), scores
-every example against them (ops/vector_sequence.py, csrc/
-vector_sequence.cu on a card), and bins the scores at their quantiles
-into candidate columns inserted after the numerical features (before the
-categorical ones, the JAX package's layout). The draws
-follow the JAX package's key chain bit for bit (utils/prng.py):
-PRNGKey(seed); per iteration key, k_sub = split(fold_in(key, it)) and
-key, k_vs = split(key); per feature split(fold_in(k_vs, fv), A); per
+NUMERICAL_VECTOR_SEQUENCE features (the JAX package's per-iteration
+anchor candidates, gbt.py:1312-1383): every iteration draws, for each VS
+feature, num_anchors closer-than anchors (vectors drawn from the data)
+and as many projected-more-than anchors (differences of two drawn
+vectors), scores every example against them (ops/vector_sequence.py,
+csrc/vector_sequence.cu on a card), and bins the scores at their
+quantiles into candidate columns inserted after the numerical features
+(before the categorical ones, the JAX package's layout); the K trees of
+the iteration share them. Per feature split(fold_in(k_vs, fv), A); per
 anchor k1, k2 = split(k), a row choice(k1, n, p) uniform over non-empty
 sequences and a vector randint(k2, 0, max(len, 1)). The random words
-depend on the seed alone, so they are drawn for every tree at once
+depend on the seed alone, so they are drawn for every iteration at once
 before the loop (one copy to the device); the data-dependent steps (the
 row and vector from those words, the scores, quantiles and bins) run on
 the device inside it.
 
-Prediction update: preds + raw * shrinkage as ONE rounding (a fused
-multiply-add), what the JAX package computes on an x86 host whose XLA
-contracts the multiply into the add (ydf_tpu/ops/routing_native.py:
+Prediction update. K = 1: preds + raw * shrinkage as ONE rounding (a
+fused multiply-add), what the JAX package computes on an x86 host whose
+XLA contracts the multiply into the add (ydf_tpu/ops/routing_native.py:
 update_uses_fma). The product of two f32 values is exact in f64, so the
 port forms it there, adds in f64 and rounds to f32; that differs from a
 true fused multiply-add only when the f64 sum rounds onto an f32
-half-way point (double rounding), one row in about 2^29. The model
-stores round(raw * shrinkage), as the reference does.
+half-way point (double rounding), one row in about 2^29. K > 1: the JAX
+package routes with XLA and adds the stored round(raw * shrinkage) to
+every class column (jax 0.9.0 contracts none of them: read from the
+machine code of its boosting programs at K = 3 and 5, with and without
+validation, chunked or not; the fixture train_multiclass records it).
+The model stores round(raw * shrinkage), as the reference does.
 
 What this slice does not port raises NotImplementedError naming the
 ROADMAP item; nothing falls back to a default the JAX package would not
@@ -72,7 +95,7 @@ from ydf_tpu_torch.config import Task, TreeConfig, resolve_max_frontier
 from ydf_tpu_torch.dataset.dataset import InputData
 from ydf_tpu_torch.dataset.dataspec import ColumnType
 from ydf_tpu_torch.learners.generic import GenericLearner
-from ydf_tpu_torch.learners.losses import make_loss
+from ydf_tpu_torch.learners.losses import CustomLoss, make_loss, sum_classes
 from ydf_tpu_torch.models.forest import forest_from_stacked_trees
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
 from ydf_tpu_torch.ops import grower
@@ -82,11 +105,13 @@ from ydf_tpu_torch.ops.vector_sequence import vs_scores
 from ydf_tpu_torch.utils import cuda_build, prng
 
 
-#: Reads of the validation losses by the boosting loop in this process
-#: (one per chunk of the look-ahead stop); the loop makes no other.
+#: Reads of device values on the host by boost() in this process: the
+#: validation losses once per chunk of the look-ahead stop, and the
+#: candidate columns' widths once before the loop when candidate
+#: features are sampled; the loop makes no other.
 HOST_READS = 0
-#: Most trees a chunk of the look-ahead stop grows (the JAX package's
-#: in-memory early-stop loop, gbt.py:1918-1920).
+#: Most iterations a chunk of the look-ahead stop runs (the JAX
+#: package's in-memory early-stop loop, gbt.py:1918-1920).
 MAX_CHUNK_TREES = 25
 
 
@@ -126,12 +151,15 @@ def early_stop_hit(valid_losses: np.ndarray, lookahead: int) -> bool:
 
 
 class GradientBoostedTreesLearner(GenericLearner):
-    """The JAX package's learner surface for the training slices: binary
-    classification (binomial loss) and regression (squared error) on
-    numerical, boolean, categorical and numerical-vector-sequence
-    features, with its validation split and look-ahead early stopping.
-    `train(data, valid=None)`: an explicit validation set replaces the
-    split."""
+    """The JAX package's learner surface for the training slices:
+    classification (binomial loss for two classes, multinomial for more)
+    and regression (squared error) by default, the Poisson, mean
+    absolute error, binary focal and custom losses, on numerical,
+    boolean, categorical and numerical-vector-sequence features, with
+    its validation split, look-ahead early stopping, row sampling
+    (subsample, GOSS) and candidate features. `train(data, valid=None)`:
+    an explicit validation set replaces the split. `loss` is a loss name
+    or a learners/losses.py:CustomLoss."""
 
     def __init__(
         self,
@@ -148,9 +176,11 @@ class GradientBoostedTreesLearner(GenericLearner):
         l2_regularization: float = 0.0,
         num_candidate_attributes: int = -1,
         num_candidate_attributes_ratio: float = -1.0,
-        loss: str = "DEFAULT",
+        loss="DEFAULT",
         max_frontier="auto",
         sampling_method: str = "RANDOM",
+        goss_alpha: float = 0.2,
+        goss_beta: float = 0.1,
         apply_link_function: bool = True,
         dart_dropout: float = 0.0,
         split_axis: str = "AXIS_ALIGNED",
@@ -171,12 +201,14 @@ class GradientBoostedTreesLearner(GenericLearner):
             raise _unported(f"task {task.value}", 15)
         if dart_dropout > 0.0:
             raise _unported("DART (dart_dropout > 0)", 13)
-        if sampling_method != "RANDOM":
-            raise _unported(f"sampling_method={sampling_method!r}", 12)
-        if subsample < 1.0:
-            raise _unported("subsample < 1", 12)
-        if num_candidate_attributes > 0 or num_candidate_attributes_ratio > 0:
-            raise _unported("candidate-feature sampling", 12)
+        if sampling_method not in ("RANDOM", "GOSS", "SELGB"):
+            raise ValueError(
+                f"Unknown sampling_method {sampling_method!r}; expected "
+                "RANDOM, GOSS or SELGB")
+        if sampling_method == "SELGB":
+            # Selective gradient boosting ranks query groups: it needs
+            # the ranking task and its groups.
+            raise _unported("sampling_method='SELGB'", 12)
         if split_axis != "AXIS_ALIGNED":
             raise _unported(f"split_axis={split_axis!r}", 14)
         if monotonic_constraints:
@@ -192,15 +224,21 @@ class GradientBoostedTreesLearner(GenericLearner):
         self.shrinkage = shrinkage
         self.max_depth = max_depth
         self.min_examples = min_examples
+        self.subsample = subsample
         self.validation_ratio = validation_ratio
         self.early_stopping = early_stopping
         self.early_stopping_num_trees_look_ahead = (
             early_stopping_num_trees_look_ahead)
         self.l2_regularization = l2_regularization
+        self.num_candidate_attributes = num_candidate_attributes
+        self.num_candidate_attributes_ratio = num_candidate_attributes_ratio
         self.loss = loss
         self.max_frontier = max_frontier
+        self.sampling_method = sampling_method
+        self.goss_alpha = goss_alpha
+        self.goss_beta = goss_beta
         self.apply_link_function = apply_link_function
-        # Anchors per kind per (tree, VS feature) (reference
+        # Anchors per kind per (iteration, VS feature) (reference
         # decision_tree.proto numerical_vector_sequence, :433-442).
         self.numerical_vector_sequence_num_anchors = (
             numerical_vector_sequence_num_anchors)
@@ -217,6 +255,20 @@ class GradientBoostedTreesLearner(GenericLearner):
                 k if self.numerical_vector_sequence_enable_projected_more_than
                 else 0)
 
+    def _candidate_features(self, num_features: int) -> int:
+        """Candidate features a node, -1 for all (gbt.py:614-619)."""
+        if self.num_candidate_attributes_ratio > 0:
+            return max(int(np.ceil(self.num_candidate_attributes_ratio
+                                   * num_features)), 1)
+        if self.num_candidate_attributes > 0:
+            return min(self.num_candidate_attributes, num_features)
+        return -1
+
+    def _loss_object(self, num_classes: int):
+        if isinstance(self.loss, CustomLoss):
+            return self.loss
+        return make_loss(self.loss, self.task, num_classes)
+
     def train(self, data: InputData, valid: Optional[InputData] = None
               ) -> GradientBoostedTreesModel:
         t0 = time.perf_counter()
@@ -224,7 +276,8 @@ class GradientBoostedTreesLearner(GenericLearner):
         binner = prep["binner"]
         dev = self.device
         num_classes = len(prep.get("classes", [])) or 1
-        loss_obj = make_loss(self.loss, self.task, num_classes)
+        loss_obj = self._loss_object(num_classes)
+        K = loss_obj.num_dims
         bins_t = prep["bins_t"]  # one copy for every tree and layer
         labels, weights, vs_all = (prep["labels"], prep["sample_weights"],
                                    prep["vs"])
@@ -277,6 +330,10 @@ class GradientBoostedTreesLearner(GenericLearner):
             shrinkage=self.shrinkage, seed=self.random_seed, vs=vs,
             num_numerical=binner.num_numerical, valid=valid_set,
             lookahead=lookahead,
+            sampling=Sampling(self.sampling_method, self.subsample,
+                              self.goss_alpha, self.goss_beta),
+            candidate_features=self._candidate_features(
+                binner.num_features),
         )
         train_losses = out.train_loss.cpu().numpy()
         valid_losses = (None if out.valid_loss is None
@@ -285,16 +342,19 @@ class GradientBoostedTreesLearner(GenericLearner):
             num_iters = int(np.argmin(valid_losses)) + 1
         else:
             num_iters = len(train_losses)
-        trees = grower.TreeArrays(*(f[:num_iters] for f in out.trees))
+        T = num_iters * K
+        trees = grower.TreeArrays(*(f[:T] for f in out.trees))
         kwargs = {}
         if vs is not None:
             trees = trees._replace(feature=vs_feature_ids(
                 trees.feature, binner.num_numerical, binner.num_features,
                 out.vs_out[0].shape[1]))
-            kwargs = forest_vs_kwargs(vs, *(a[:num_iters]
-                                            for a in out.vs_out))
+            # One anchor set an iteration, shared by its K trees.
+            kwargs = forest_vs_kwargs(vs, *(
+                a[:num_iters].repeat_interleave(K, dim=0)
+                for a in out.vs_out))
         forest = forest_from_stacked_trees(
-            trees, out.leaf_values[:num_iters], binner.boundaries, **kwargs)
+            trees, out.leaf_values[:T], binner.boundaries, **kwargs)
         t2 = time.perf_counter()
         self.last_timings["boost_s"] = t2 - t1
         model = GradientBoostedTreesModel(
@@ -303,7 +363,7 @@ class GradientBoostedTreesLearner(GenericLearner):
             dataspec=prep["dataset"].dataspec, binner=binner, forest=forest,
             max_depth=self.max_depth,
             initial_predictions=out.init_pred.cpu().numpy(),
-            num_trees_per_iter=1, loss_name=loss_obj.name,
+            num_trees_per_iter=K, loss_name=loss_obj.name,
             apply_link_function=self.apply_link_function,
             training_logs={
                 "train_loss": train_losses[:num_iters].tolist(),
@@ -389,25 +449,57 @@ def vs_inputs(vs, num_closer: int, num_projected: int, device) -> VSInputs:
     return VSInputs(vals, lens, cums, num_closer, num_projected)
 
 
-def vs_draws(seed: int, num_trees: int, num_vs: int, num_draws: int,
-             device) -> Dict[str, torch.Tensor]:
-    """The random words of every tree's anchor draws, [T, Fv, A3] each
-    with A3 = num_draws = Ac + 2 Ap vector draws per feature: the key
-    chain of the module docstring, run on the CPU (a few hundred tiny
-    operations per tree) and copied to `device` once. "u" is choice's
-    uniform (f32), "hi" and "lo" randint's two words."""
+class IterationKeys(NamedTuple):
+    """The key chain's draws of every iteration (module docstring), on
+    the training device."""
+
+    sub: torch.Tensor            # [T, 2] k_sub: the row sample
+    vs: Optional[torch.Tensor]   # [T, 2] k_vs, or None without VS features
+    tree: torch.Tensor           # [T, K, 2] fold_in(key, k): tree k's key
+
+
+def iteration_keys(seed: int, num_iters: int, num_classes: int,
+                   with_vs: bool, device) -> IterationKeys:
+    """The JAX package's key chain for `num_iters` iterations, run on the
+    CPU (a few tiny hashes an iteration) and copied to `device` once:
+    key, k_sub = split(fold_in(key, it)); key, k_vs = split(key) with
+    VS features; tree keys fold_in(key, k)."""
     key = prng.prng_key(seed)
-    k_vs = []
-    for it in range(num_trees):
-        key = prng.split(prng.fold_in(key, it))[0]  # (key, k_sub)
-        key, k = prng.split(key)                    # (key, k_vs)
-        k_vs.append(k)
-    kf = prng.fold_in(torch.stack(k_vs)[:, None, :],
-                      torch.arange(num_vs)[None, :])      # [T, Fv, 2]
+    subs, vss, keys = [], [], []
+    for it in range(num_iters):
+        key, k_sub = prng.split(prng.fold_in(key, it))
+        subs.append(k_sub)
+        if with_vs:
+            key, k_vs = prng.split(key)
+            vss.append(k_vs)
+        keys.append(key)
+    tree = prng.fold_in(torch.stack(keys)[:, None, :],
+                        torch.arange(num_classes)[None, :])
+    return IterationKeys(torch.stack(subs).to(device),
+                         torch.stack(vss).to(device) if with_vs else None,
+                         tree.to(device))
+
+
+def vs_draws(seed: int, num_iters: int, num_vs: int, num_draws: int,
+             device) -> Dict[str, torch.Tensor]:
+    """The random words of every iteration's anchor draws, [T, Fv, A3]
+    each with A3 = num_draws = Ac + 2 Ap vector draws per feature, from
+    the key chain's k_vs (iteration_keys)."""
+    keys = iteration_keys(seed, num_iters, 1, True, device)
+    return vs_words(keys.vs, num_vs, num_draws)
+
+
+def vs_words(k_vs: torch.Tensor, num_vs: int,
+             num_draws: int) -> Dict[str, torch.Tensor]:
+    """vs_draws from the iterations' k_vs (keys [T, 2]): per feature
+    split(fold_in(k_vs, fv), A3), per draw k1, k2 = split(k); "u" is
+    choice's uniform (f32) from k1, "hi" and "lo" randint's two words
+    from k2."""
+    kf = prng.fold_in(k_vs[:, None, :],
+                      torch.arange(num_vs, device=k_vs.device)[None, :])
     pair = prng.split(prng.split(kf, num_draws))        # [T, Fv, A3, 2, 2]
     hi, lo = prng.randint_bits(pair[..., 1, :])
-    return {"u": prng.uniform(pair[..., 0, :]).to(device),
-            "hi": hi.to(device), "lo": lo.to(device)}
+    return {"u": prng.uniform(pair[..., 0, :]), "hi": hi, "lo": lo}
 
 
 def make_vs_projections(vs: VSInputs, draws: Dict[str, torch.Tensor],
@@ -485,17 +577,31 @@ class ValidSet(NamedTuple):
     vs: Optional[VSInputs]      # their vector sequences, or None
 
 
-class BoostResult(NamedTuple):
-    """boost()'s outputs, on the training device but `chunk_walls`."""
+class Sampling(NamedTuple):
+    """The row sample of an iteration (gbt.py:sample_mask)."""
 
-    trees: grower.TreeArrays    # stacked [T, ...]
-    leaf_values: torch.Tensor   # f32 [T, N, 1]
+    method: str = "RANDOM"      # "RANDOM" (subsample) or "GOSS"
+    subsample: float = 1.0
+    goss_alpha: float = 0.2
+    goss_beta: float = 0.1
+
+    @property
+    def draws(self) -> bool:
+        return self.method == "GOSS" or self.subsample < 1.0
+
+
+class BoostResult(NamedTuple):
+    """boost()'s outputs, on the training device but `chunk_walls`; T
+    iterations of K trees."""
+
+    trees: grower.TreeArrays    # stacked [T * K, ...], iteration-major
+    leaf_values: torch.Tensor   # f32 [T * K, N, 1]
     train_loss: torch.Tensor    # f32 [T]
-    init_pred: torch.Tensor     # f32 [1]
+    init_pred: torch.Tensor     # f32 [K]
     vs_out: Optional[tuple]     # (anchors [T, Pv, D], boundaries
                                 # [T, Pv, B-1]) or None
     valid_loss: Optional[torch.Tensor]  # f32 [T], None without `valid`
-    chunk_walls: List[tuple]    # (first tree, trees, host seconds)
+    chunk_walls: List[tuple]    # (first iteration, iterations, seconds)
 
 
 def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
@@ -504,34 +610,50 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
           vs: Optional[VSInputs] = None, hist_quant: str = "f32",
           num_numerical: Optional[int] = None,
           valid: Optional[ValidSet] = None,
-          lookahead: int = 0) -> BoostResult:
+          lookahead: int = 0, sampling: Sampling = Sampling(),
+          candidate_features: int = -1) -> BoostResult:
     """The boosting loop on the device of `bins_t` (u8 [F, n]; rows
     [0, num_numerical) numerical, the rest categorical; default all
-    numerical), T <= num_trees trees. With `valid`, every tree scores the
-    validation rows; with lookahead > 0 as well (and num_trees >
-    lookahead, as the JAX package), the loop runs in chunks of
-    min(lookahead, MAX_CHUNK_TREES) trees, reads each chunk's validation
-    losses back once (HOST_READS) and stops once early_stop_hit. On a
-    card each chunk runs under torch's sync debug mode "error": no other
-    host sync happens inside the loop."""
+    numerical), T <= num_trees iterations of loss_obj.num_dims trees.
+    With `valid`, every tree scores the validation rows; with lookahead >
+    0 as well (and num_trees > lookahead, as the JAX package), the loop
+    runs in chunks of min(lookahead, MAX_CHUNK_TREES) iterations, reads
+    each chunk's validation losses back once (HOST_READS) and stops once
+    early_stop_hit. On a card each chunk runs under torch's sync debug
+    mode "error": no other host sync happens inside the loop."""
     global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
-    draws = None
+    K = loss_obj.num_dims
+    dev = bins_t.device
+    F = bins_t.shape[0]
+    Pv = 0 if vs is None else len(vs.values) * vs.anchors_per_feature
+    sampled = 0 < candidate_features < F + Pv
+    keys = draws = columns = None
+    if sampling.draws or sampled or vs is not None:
+        keys = iteration_keys(seed, num_trees, K, vs is not None, dev)
     if vs is not None:
-        draws = vs_draws(seed, num_trees, len(vs.values),
-                         vs.num_closer + 2 * vs.num_projected,
-                         bins_t.device)
+        draws = vs_words(keys.vs, len(vs.values),
+                         vs.num_closer + 2 * vs.num_projected)
+    if sampled:
+        Fn = F if num_numerical is None else num_numerical
+        columns = grower.layer_columns(
+            keys.tree.reshape(-1, 2), max_depth=tree_cfg.max_depth,
+            frontier=tree_cfg.frontier, num_features=F + Pv,
+            num_numerical=Fn + Pv, orderings=rule.num_cat_orderings,
+            k=candidate_features)
+        HOST_READS += 1
     stopping = valid is not None and 0 < lookahead < num_trees
     clen = min(lookahead, MAX_CHUNK_TREES) if stopping else num_trees
     loop = _Loop(bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
                  tree_cfg=tree_cfg, shrinkage=shrinkage,
                  hist_quant=hist_quant, vs=vs, draws=draws,
-                 num_numerical=num_numerical, valid=valid)
-    on_card = bins_t.device.type == "cuda"
+                 num_numerical=num_numerical, valid=valid,
+                 sampling=sampling, keys=keys, columns=columns)
+    on_card = dev.type == "cuda"
     walls = []
-    while len(loop.trees) < num_trees:
-        start = len(loop.trees)
+    while loop.iterations < num_trees:
+        start = loop.iterations
         count = min(clen, num_trees - start)
         t0 = time.perf_counter()
         if on_card:
@@ -557,22 +679,25 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
 
 
 class _Loop:
-    """The boosting loop's state: predictions (training and validation)
-    and the per-tree outputs, as device tensors."""
+    """The boosting loop's state: predictions (training and validation,
+    [n] for K = 1, [n, K] otherwise) and the per-tree outputs, as device
+    tensors."""
 
     def __init__(self, bins_t, labels, weights, *, loss_obj, rule,
                  tree_cfg, shrinkage, hist_quant, vs, draws, num_numerical,
-                 valid):
+                 valid, sampling, keys, columns):
         self.bins_t, self.labels, self.weights = bins_t, labels, weights
         self.loss_obj, self.rule, self.cfg = loss_obj, rule, tree_cfg
         self.shrinkage, self.hist_quant = shrinkage, hist_quant
         self.vs, self.draws, self.valid = vs, draws, valid
+        self.sampling, self.keys, self.columns = sampling, keys, columns
+        self.K = loss_obj.num_dims
         self.Fn = bins_t.shape[0] if num_numerical is None else num_numerical
         self.init_pred = loss_obj.initial_predictions(labels, weights)
-        self.preds = self.init_pred.expand(bins_t.shape[1]).contiguous()
+        self.preds = self._broadcast(bins_t.shape[1])
         if valid is not None:
-            self.vpreds = self.init_pred.expand(
-                valid.bins_t.shape[1]).contiguous()
+            self.vpreds = self._broadcast(valid.bins_t.shape[1])
+        self.iterations = 0
         self.trees, self.leaf_values, self.losses = [], [], []
         self.valid_losses, self.vs_anchors, self.vs_bounds = [], [], []
         B = tree_cfg.num_bins
@@ -580,14 +705,46 @@ class _Loop:
             self.qs = prng.linspace_f32(1.0 / B, 1.0 - 1.0 / B, B - 1,
                                         device=bins_t.device)
 
+    def _broadcast(self, rows: int) -> torch.Tensor:
+        """The initial predictions on `rows` rows: [rows] or [rows, K]."""
+        if self.K == 1:
+            return self.init_pred.expand(rows).contiguous()
+        return self.init_pred[None, :].expand(rows, self.K).contiguous()
+
+    def _grad_hess(self):
+        """g, h f32 [n, K] at the current predictions."""
+        g, h = self.loss_obj.grad_hess(self.labels, self.preds)
+        if self.K == 1:
+            return g[:, None], h[:, None]
+        return g, h
+
+    def sample_mask(self, it: int, g: torch.Tensor) -> Optional[torch.Tensor]:
+        """The iteration's per-row weight multiplier f32 [n] (gbt.py:
+        sample_mask), or None when every row counts once."""
+        smp = self.sampling
+        n = g.shape[0]
+        key = self.keys.sub[it] if smp.draws else None
+        if smp.method == "GOSS":
+            alpha, beta = smp.goss_alpha, smp.goss_beta
+            gmag = sum_classes(g.abs())[:, 0]
+            thr = torch.topk(gmag, max(int(alpha * n), 1)).values[-1]
+            rest = min(beta / max(1.0 - alpha, 1e-6), 1.0)
+            keep = prng.bernoulli(key, rest, (n,))
+            upw = (1.0 - alpha) / max(beta, 1e-9)
+            return torch.where(gmag >= thr, 1.0,
+                               torch.where(keep, upw, 0.0))
+        if smp.subsample < 1.0:
+            return prng.bernoulli(key, smp.subsample, (n,)).float()
+        return None
+
     def step(self, it: int) -> None:
-        """Tree `it`: stats, grow, leaf values, prediction updates,
-        losses."""
-        cfg, loss_obj, valid = self.cfg, self.loss_obj, self.valid
-        g, h = loss_obj.grad_hess(self.labels, self.preds)
-        # w_eff = w * 1: sampling at subsample 1.0 keeps every row.
+        """Iteration `it`: gradients, the row sample, the K trees (grow,
+        leaf values), prediction updates, losses."""
+        cfg, loss_obj, valid, K = self.cfg, self.loss_obj, self.valid, self.K
+        g, h = self._grad_hess()
+        m = self.sample_mask(it, g)
         w = self.weights
-        stats = torch.stack([g * w, h * w, w], dim=1)
+        w_eff = w if m is None else w * m
         grow_bins = self.bins_t
         grow_va = None if valid is None else valid.bins_t
         Fn = self.Fn
@@ -604,26 +761,51 @@ class _Loop:
             Fn += cols.shape[0]
             self.vs_anchors.append(anchors)
             self.vs_bounds.append(bounds)
-        res = grower.grow_tree(
-            grow_bins, stats, rule=self.rule, max_depth=cfg.max_depth,
-            frontier=cfg.frontier, max_nodes=cfg.max_nodes,
-            num_bins=cfg.num_bins, num_numerical=Fn,
-            min_examples=cfg.min_examples, hist_quant=self.hist_quant,
-        )
-        lv_raw = self.rule.leaf_value(res.tree.leaf_stats)  # [N, 1]
-        self.preds = fma_update(self.preds, lv_raw[res.leaf_id.long(), 0],
-                                self.shrinkage)
-        self.trees.append(res.tree)
-        self.leaf_values.append(lv_raw * self.shrinkage)
+        contrib, vcontrib = [], []
+        for k in range(K):
+            t = it * K + k
+            stats = torch.stack([g[:, k] * w_eff, h[:, k] * w_eff, w_eff],
+                                dim=1)
+            res = grower.grow_tree(
+                grow_bins, stats, rule=self.rule, max_depth=cfg.max_depth,
+                frontier=cfg.frontier, max_nodes=cfg.max_nodes,
+                num_bins=cfg.num_bins, num_numerical=Fn,
+                min_examples=cfg.min_examples, hist_quant=self.hist_quant,
+                columns=None if self.columns is None else [
+                    (idx[t].long(), ok[t]) for idx, ok in self.columns],
+            )
+            lv_raw = self.rule.leaf_value(res.tree.leaf_stats)  # [N, 1]
+            lv = lv_raw * self.shrinkage
+            leaf = res.leaf_id.long()
+            if K == 1:
+                self.preds = fma_update(self.preds, lv_raw[leaf, 0],
+                                        self.shrinkage)
+            else:
+                contrib.append(lv[leaf, 0])
+            self.trees.append(res.tree)
+            self.leaf_values.append(lv)
+            if valid is not None:
+                timer = cuda_build.launch_timer("valid_route")
+                vleaf = route_tree_bins(res.tree, grow_va, cfg.max_depth)
+                if K == 1:
+                    self.vpreds = fma_update(self.vpreds, lv_raw[vleaf, 0],
+                                             self.shrinkage)
+                else:
+                    vcontrib.append(lv[vleaf, 0])
+                cuda_build.launch_done(timer)
+        if K > 1:
+            # preds + new_contrib: the stored values added (module
+            # docstring).
+            self.preds = self.preds + torch.stack(contrib, dim=1)
         self.losses.append(loss_obj.loss(self.labels, self.preds, w))
         if valid is not None:
             timer = cuda_build.launch_timer("valid_route")
-            vleaf = route_tree_bins(res.tree, grow_va, cfg.max_depth)
-            self.vpreds = fma_update(self.vpreds, lv_raw[vleaf, 0],
-                                     self.shrinkage)
+            if K > 1:
+                self.vpreds = self.vpreds + torch.stack(vcontrib, dim=1)
             self.valid_losses.append(
                 loss_obj.loss(valid.labels, self.vpreds, valid.weights))
             cuda_build.launch_done(timer)
+        self.iterations += 1
 
     def result(self, walls) -> BoostResult:
         stacked = grower.TreeArrays(*(torch.stack(field)

@@ -289,32 +289,6 @@ def bootstrap_counts(k_boot: torch.Tensor, n: int) -> torch.Tensor:
         steps *= 2
 
 
-def layer_columns(k_grow: torch.Tensor, *, max_depth: int, frontier: int,
-                  num_features: int, num_numerical: int, orderings: int,
-                  k: int) -> List[tuple]:
-    """Per layer, every tree's candidate columns (grower.
-    candidate_columns: i32 [T, Ld, K], bool [T, Ld, K]), K the most
-    columns a slot of that layer keeps in any tree (one host read for all
-    layers)."""
-    global HOST_READS
-    masks, widths = [], []
-    for d, k_feat in enumerate(grower.layer_feature_keys(k_grow,
-                                                         max_depth)):
-        Ld = min(2 ** d, frontier)
-        cm = grower.column_mask(
-            grower.candidate_masks(k_feat, Ld, num_features, k),
-            num_numerical, orderings)
-        masks.append(cm)
-        widths.append(cm.sum(-1).amax())
-    HOST_READS += 1
-    widths = torch.stack(widths).tolist()
-    out = []
-    for cm, K in zip(masks, widths):
-        idx, ok = grower.candidate_columns(cm, max(int(K), 1))
-        out.append((idx.to(torch.int32), ok))
-    return out
-
-
 def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
              basis: torch.Tensor, *, rule, tree_cfg: TreeConfig,
              max_nodes: int, num_trees: int, bootstrap: bool,
@@ -325,6 +299,7 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
     row weights w_base f32 [n] and the stat basis f32 [n, S] (module
     docstring). On a card the tree loop runs under torch's sync debug
     mode "error"."""
+    global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
     if compute_oob and not bootstrap:
@@ -338,10 +313,11 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
     O = rule.num_cat_orderings if F > num_numerical else 1
     columns = None
     if 0 < candidate_features < F:
-        columns = layer_columns(
+        columns = grower.layer_columns(
             keys[:, 1], max_depth=cfg.max_depth, frontier=cfg.frontier,
             num_features=F, num_numerical=num_numerical, orderings=O,
             k=candidate_features)
+        HOST_READS += 1
     V = rule.num_outputs
     oob_sum = oob_count = None
     if compute_oob:

@@ -59,8 +59,9 @@ class GradientBoostedTreesModel(GenericModel):
                 return np.exp(scores)  # log link
             return scores
         # Multi-dimensional output: each dimension's trees are served as
-        # their own forest. The sub-forests are kept, so repeated predicts
-        # reuse the same tensors (the engine cache keys on identity).
+        # their own forest, on the rows encoded and copied once. The
+        # sub-forests are kept, so repeated predicts reuse the same
+        # tensors (the engine cache keys on identity).
         subs = self._dim_forests
         if subs is None or len(subs) != K:
             fo = self.forest.to_numpy()
@@ -70,12 +71,13 @@ class GradientBoostedTreesModel(GenericModel):
                 ).to(self.device)
                 for k in range(K)
             ]
+        enc = self._encode(data)
         per_dim = []
         full = self.forest
         try:
             for k in range(K):
                 self.forest = subs[k]
-                s = self._raw_scores(data, combine="sum")[:, 0]
+                s = self._scores(enc, combine="sum")[:, 0]
                 per_dim.append(s + self.initial_predictions[k])
         finally:
             self.forest = full

@@ -139,25 +139,39 @@ class GenericModel:
             self._engine_cache[key] = (self.forest.feature, eng)
         return self._engine_cache[key][1]
 
-    def _raw_scores(self, data: InputData, combine: str) -> np.ndarray:
-        """Raw (margin) scores f32 [n, V] as numpy."""
+    def _encode(self, data: InputData) -> Dict[str, torch.Tensor]:
+        """The rows' features on the model's device: x_num f32 [n, Fn],
+        x_cat i32 [n, Fc] and, with vector-sequence features, their
+        values and lengths (and missing flags for a model that routes
+        missing values natively); host encode, one copy."""
         ds = Dataset.from_data(data, dataspec=self.dataspec)
         x_num, x_cat = self._encode_inputs(ds)
         vs = self.binner.transform_vs(ds)
         dev = self.device
-        xn = torch.from_numpy(x_num).to(dev)
-        xc = torch.from_numpy(x_cat).to(dev)
-        if combine == "sum" and not self.native_missing and vs is None:
+        enc = {"x_num": torch.from_numpy(x_num).to(dev),
+               "x_cat": torch.from_numpy(x_cat).to(dev)}
+        if vs is not None:
+            enc.update(x_vs_vals=torch.from_numpy(vs[0]).to(dev),
+                       x_vs_len=torch.from_numpy(vs[1]).to(dev))
+            if self.native_missing:
+                enc["vs_missing"] = torch.from_numpy(vs[2]).to(dev)
+        return enc
+
+    def _scores(self, enc: Dict[str, torch.Tensor],
+                combine: str) -> np.ndarray:
+        """Raw (margin) scores f32 [n, V] as numpy, of the current forest
+        on encoded rows (_encode)."""
+        xn, xc = enc["x_num"], enc["x_cat"]
+        vs = "x_vs_vals" in enc
+        if combine == "sum" and not self.native_missing and not vs:
             eng = self._fast_engine()
             if eng is not None:
                 return eng(xn, xc).cpu().numpy()[:, None]
         vs_kwargs = {}
-        if vs is not None:
+        if vs:
             vs_kwargs = dict(
-                x_vs_vals=torch.from_numpy(vs[0]).to(dev),
-                x_vs_len=torch.from_numpy(vs[1]).to(dev),
-                vs_missing=(torch.from_numpy(vs[2]).to(dev)
-                            if self.native_missing else None),
+                x_vs_vals=enc["x_vs_vals"], x_vs_len=enc["x_vs_len"],
+                vs_missing=enc.get("vs_missing"),
             )
         out = forest_predict_values(
             self.forest, xn, xc,
@@ -165,6 +179,10 @@ class GenericModel:
             max_depth=self.max_depth, combine=combine, **vs_kwargs,
         )
         return out.cpu().numpy()
+
+    def _raw_scores(self, data: InputData, combine: str) -> np.ndarray:
+        """Raw (margin) scores f32 [n, V] as numpy."""
+        return self._scores(self._encode(data), combine)
 
     # ------------------------------------------------------------------ #
     # Evaluation and persistence

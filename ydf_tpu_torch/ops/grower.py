@@ -36,10 +36,11 @@ the JAX package's layer_decide): every layer d draws key, k_gain, k_feat
 uniform(k_feat, [Ld, F]) and keeps, in each slot, the features whose
 score is at least the k-th largest (the value, so that a tie at the
 boundary lets every tied feature in). The scores depend on the seed
-alone, so the learner draws them for every tree before its loop
-(`candidate_masks`) and hands the grower each layer's candidate columns
-(`candidate_columns`: the kept columns in ascending order, padded to the
-most any slot keeps); the gains are computed on those columns only.
+alone, so a learner draws them for every tree before its loop
+(`layer_columns`, one host read of each layer's widest set) and hands
+the grower each layer's candidate columns (`candidate_columns`: the kept
+columns in ascending order, padded to the most any slot keeps); the
+gains are computed on those columns only.
 """
 
 from __future__ import annotations
@@ -210,6 +211,29 @@ def candidate_columns(cmask: torch.Tensor, width: int
     idx = torch.argsort((~cmask).to(torch.uint8), dim=-1,
                         stable=True)[..., :width]
     return idx, torch.gather(cmask, -1, idx)
+
+
+def layer_columns(tree_keys: torch.Tensor, *, max_depth: int,
+                  frontier: int, num_features: int, num_numerical: int,
+                  orderings: int, k: int) -> List[tuple]:
+    """Per layer, every tree's candidate columns from the trees' grow
+    keys [T, 2] (candidate_columns of column_mask of candidate_masks:
+    i32 [T, Ld, W], bool [T, Ld, W]), W the most columns a slot of that
+    layer keeps in any tree: one host read of the widths, for all
+    layers."""
+    masks, widths = [], []
+    for d, k_feat in enumerate(layer_feature_keys(tree_keys, max_depth)):
+        cm = column_mask(candidate_masks(k_feat, min(2 ** d, frontier),
+                                         num_features, k),
+                         num_numerical, orderings)
+        masks.append(cm)
+        widths.append(cm.sum(-1).amax())
+    widths = torch.stack(widths).tolist()
+    out = []
+    for cm, W in zip(masks, widths):
+        idx, ok = candidate_columns(cm, max(int(W), 1))
+        out.append((idx.to(torch.int32), ok))
+    return out
 
 
 def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,

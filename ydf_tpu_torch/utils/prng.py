@@ -1,7 +1,7 @@
 """JAX's threefry random numbers, bit for bit, on torch tensors
 (counterpart of the parts of jax.random the JAX package's learners use:
-PRNGKey, fold_in, split, random bits, uniform, randint, choice with
-probabilities and poisson at rate 1; jax 0.9.0, threefry2x32,
+PRNGKey, fold_in, split, random bits, uniform, bernoulli, randint, choice
+with probabilities and poisson at rate 1; jax 0.9.0, threefry2x32,
 jax_threefry_partitionable=True).
 
 A key is an int64 tensor [..., 2] holding two 32-bit words; leading
@@ -29,6 +29,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ydf_tpu_torch.utils.xla_cpu import log_f32
@@ -133,6 +134,13 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """jax.random.uniform(key, shape) in float32."""
     return uniform_from_bits(random_bits(key, shape))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int] = ()
+              ) -> torch.Tensor:
+    """jax.random.bernoulli(key, p, shape) for a Python float p (its
+    default mode "low"): uniform(key, shape) < float32(p), bool."""
+    return uniform(key, shape) < float(np.float32(p))
 
 
 def poisson1(keys: torch.Tensor, n: int, steps: int
