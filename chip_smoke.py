@@ -4,9 +4,11 @@ serves the committed fixture models through `load_model(...).predict`
 on the card, trains the bench GBT, a GBT on vector sequences and the
 library's default GBT (binary and three classes) on the card through
 `GradientBoostedTreesLearner(...).train` and the library's default
-random forest through `RandomForestLearner(...).train`, evaluates,
-saves and loads them, trains each ported GBT loss and sampling option,
-times each kernel, and prints one JSON summary.
+random forest through `RandomForestLearner(...).train`, a pruned CART
+tree and an isolation forest through `CartLearner(...).train` and
+`IsolationForestLearner().train`, evaluates, saves and loads them,
+trains each ported GBT loss and sampling option, times each kernel, and
+prints one JSON summary.
 
     python3 chip_smoke.py        # needs one CUDA card and nvcc
 
@@ -107,13 +109,32 @@ Phases (one line each; any failure is an uncaught exception):
               both) trained on the card against its JAX run; the root
               and routed kernels against plain on the path's own layers;
               a profiled train of 20 iterations; each kernel timed
+  11 cart_if  train_cart and train_if (ydf_tpu_torch/testdata/
+              train_cart, train_if: the JAX package's CartLearner(label=
+              "label") and IsolationForestLearner() with every default on
+              make_frame's 500,000 rows; CART prunes on a 10% holdout and
+              evaluates on 100,000 fresh rows, the isolation forest
+              (300 trees on 256-row subsamples) scores them, 1% made
+              anomalous): the frames' SHA-256; both main paths with their
+              launches, host reads and stage walls; against the JAX
+              runs: the holdout and bins, the grown and the pruned tree
+              node for node, the pruned count, the holdout and evaluate
+              metrics, probabilities, a 20,000-row regression CART;
+              every isolation tree and subsample by hash, tree 0 node
+              for node, the scores bitwise, the AUC; both JAX models on
+              the card and save -> load bitwise; the root and routed
+              kernels against plain on both paths' layers (S = 1 on 256
+              rows; Lh up to 512 on 450,032 rows); a profiled isolation
+              forest of 50 trees; each kernel timed at both paths'
+              shapes
 
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
 phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
 phase 8 the default train path (train, then evaluate), phase 9 the
 random forest's and phase 10 the multiclass GBT's (train, then
-evaluate).
+evaluate), phase 11 CART's (train, then evaluate) and the isolation
+forest's (train, then predict).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -248,6 +269,23 @@ MC_PROFILE_ITERS = 20
 # option (ydf_tpu_torch/testdata/train_gbt_options), each held against
 # the JAX run: every tree's hash, the kept count, predictions bitwise.
 TRAIN_GBT_OPTIONS = os.path.join(TESTDATA, "train_gbt_options")
+# train_cart and train_if (phase 11): the JAX package's CartLearner
+# (ydf_tpu_torch/testdata/train_cart: make_frame's 500,000 rows, 10% held
+# out for pruning, 100,000 to evaluate; a 20,000-row regression CART)
+# and IsolationForestLearner (testdata/train_if: the same rows' 32
+# feature columns, 300 trees on 256-row subsamples, scored on 100,000
+# fresh rows, IF_ANOMALY of them made anomalous). Held bitwise: the
+# holdout, the bins, the grown and the pruned trees, every IF tree and
+# subsample by hash, the scores.
+TRAIN_CART = os.path.join(TESTDATA, "train_cart")
+CART_ROWS = 500_000
+CART_TEST_ROWS = 100_000
+CART_HP = dict(label="label")
+TRAIN_IF = os.path.join(TESTDATA, "train_if")
+IF_ROWS = 500_000
+IF_TEST_ROWS = 100_000
+IF_ANOMALY = dict(fraction=0.01, scale=6.0, seed=11)
+IF_PROFILE_TREES = 50
 # Tolerances against the JAX package's run. The port's f32 histograms sum
 # rows in another order (shared-memory atomics) than the JAX package's
 # f64 block partials, so near-tie splits may flip in late trees; the
@@ -353,6 +391,28 @@ def make_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED, classes=2):
         col[rng.uniform(size=test_rows) < 0.03] = ""
         test[f"c{j}"] = col
     return train, test
+
+
+def if_test_frame(test, anomaly=None):
+    """train_if's scored rows: the test frame's feature columns, with a
+    seeded share of the rows (default_rng(seed).choice without
+    replacement) made anomalous, every numerical column times `scale`
+    (NaNs stay NaN). Returns (columns, anomalous int64 [n])."""
+    anomaly = anomaly or IF_ANOMALY
+    n = len(test["label"])
+    rows = np.random.default_rng(anomaly["seed"]).choice(
+        n, int(round(n * anomaly["fraction"])), replace=False)
+    anomalous = np.zeros(n, np.int64)
+    anomalous[rows] = 1
+    out = {}
+    for k, v in test.items():
+        if k == "label":
+            continue
+        if v.dtype == np.float32:
+            v = v.copy()
+            v[rows] *= np.float32(anomaly["scale"])
+        out[k] = v
+    return out, anomalous
 
 
 def frame_sha256(frame):
@@ -903,6 +963,8 @@ def main():
     torch.cuda.synchronize()
     kernels.extend(multiclass_path(smi, serving=counters))
     torch.cuda.synchronize()
+    kernels.extend(cart_if_path(smi, serving=counters))
+    torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -1329,12 +1391,19 @@ def profile_train(data, hp=TRAIN_HP, learner_cls=None, loop="boost_s"):
         learner.train(data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # The device records straight from the profiler's kineto results:
+    # key_averages() (and events()) first turn every record into a
+    # Python event, which took minutes over the half million kernels of
+    # an isolation forest's 50 trees.
     by_name, kernels = {}, 0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", 0.0)
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + dev_us / 1e3
-            kernels += e.count
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA") or getattr(
+                e, "is_user_annotation", lambda: False)():
+            continue
+        dev_ms = e.duration_ns() / 1e6
+        if dev_ms > 0:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + dev_ms
+            kernels += 1
     busy = sum(by_name.values())
     loop_ms = learner.last_timings[loop] * 1e3
     assert kernels > 0, "the profiler saw no device kernel"
@@ -3143,6 +3212,427 @@ def multiclass_path(smi, serving):
     log("10 multiclass", f"phase 10 wall {time.perf_counter() - t_phase:.1f} "
         "s")
     return out
+
+
+# --------------------------------------------------------------------- #
+# 11 cart_if: the CART and isolation forest learners on the card
+# --------------------------------------------------------------------- #
+
+
+def reset_counts(serving):
+    """Every kernel wrapper's launch count set to 0, the launch events
+    list started."""
+    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.utils import cuda_build
+
+    for k in histogram_kernels.LAUNCHES:
+        histogram_kernels.LAUNCHES[k] = 0
+    binning.KERNEL_LAUNCHES = 0
+    for c in serving:
+        c.KERNEL_LAUNCHES = 0
+        c.KERNEL_ROWS = 0
+    cuda_build.LAUNCH_EVENTS = []
+
+
+def read_counts(serving):
+    """(training kernels' launches, serving kernels' launches, the
+    launch events) since reset_counts; stops the events list."""
+    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.utils import cuda_build
+
+    events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
+    counted = dict(histogram_kernels.LAUNCHES)
+    counted["binning"] = binning.KERNEL_LAUNCHES
+    return counted, {c.__name__: c.KERNEL_LAUNCHES for c in serving}, events
+
+
+def same_tree(got, want, what, fields=TREE_HASH_FIELDS + (
+        "num_nodes", "threshold")):
+    """Tree 0 of two forests' numpy arrays equal field for field."""
+    for f in fields:
+        assert np.array_equal(np.asarray(got[f])[0], np.asarray(want[f])[0]), (
+            f"{what}: {f} != the JAX package's")
+
+
+def cart_train(learner, data):
+    """learner.train(data) with the grown tree (tree 0's numpy arrays)
+    recorded before the pruning: (model, grown arrays)."""
+    from ydf_tpu_torch.learners import cart
+
+    grown = []
+    original = cart.prune_single_tree
+
+    def prune(model, valid_data, **kwargs):
+        grown.append(model.forest.to_numpy())
+        return original(model, valid_data, **kwargs)
+
+    cart.prune_single_tree = prune
+    try:
+        model = learner.train(data)
+    finally:
+        cart.prune_single_tree = original
+    return model, grown[0]
+
+
+def cart_if_path(smi, serving):
+    """Phase 11: CartLearner(label="label") and IsolationForestLearner()
+    with every default trained on the card (CART: train, then evaluate;
+    the isolation forest: train, then predict), saved and loaded, against
+    the JAX package's runs (ydf_tpu_torch/testdata/train_cart, train_if).
+    Returns the `kernels` entries of both paths' three kernels."""
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.config import Task
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.learners import isolation_forest as port_if
+    from ydf_tpu_torch.learners import random_forest as port_rf
+    from ydf_tpu_torch.metrics.metrics import evaluate_predictions
+    from ydf_tpu_torch.ops import histogram_kernels
+    from ydf_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    walls, last = {}, [t_phase]
+
+    def lap(part):
+        """The wall seconds since the last lap, under `part`."""
+        now = time.perf_counter()
+        walls[part] = round(now - last[0], 2)
+        last[0] = now
+
+    with open(os.path.join(TRAIN_CART, "config.json")) as f:
+        cc = json.load(f)
+    with open(os.path.join(TRAIN_IF, "config.json")) as f:
+        ci = json.load(f)
+    gen = dict(features=TRAIN_FEATURES, cat_vocabs=list(DEFAULT_CAT_VOCABS),
+               missing_features=list(DEFAULT_MISSING))
+    assert (cc["rows"], cc["test_rows"], cc["cat_seed"], cc["learner"],
+            cc["generator"]) == (CART_ROWS, CART_TEST_ROWS,
+                                 DEFAULT_CAT_SEED, CART_HP, gen), cc
+    assert (ci["rows"], ci["test_rows"], ci["cat_seed"], ci["learner"],
+            ci["generator"]) == (IF_ROWS, IF_TEST_ROWS, DEFAULT_CAT_SEED, {},
+                                 dict(gen, anomaly=IF_ANOMALY)), ci
+    ec = np.load(os.path.join(TRAIN_CART, "expected.npz"))
+    ei = np.load(os.path.join(TRAIN_IF, "expected.npz"))
+    t0 = time.perf_counter()
+    train, test = make_frame(CART_ROWS, CART_TEST_ROWS)
+    feats = {k: v for k, v in train.items() if k != "label"}
+    test_x, anomalous = if_test_frame(test)
+    rc = cc["regression"]
+    rtrain, rtest = options_frame(rc["frame"], DEFAULT_CAT_SEED, rc["rows"],
+                                  rc["test_rows"])
+    rr = cc["regression_result"]
+    for frame, want, what in (
+            (train, cc["train_sha256"], "train"),
+            (test, cc["test_sha256"], "test"),
+            (feats, ci["train_sha256"], "IF train"),
+            (test_x, ci["test_sha256"], "IF test"),
+            (rtrain, rr["train_sha256"], "regression train"),
+            (rtest, rr["test_sha256"], "regression test")):
+        assert frame_sha256(frame) == want, f"{what} frame"
+    log("11 cart_if", f"frames {CART_ROWS} + {CART_TEST_ROWS} rows (IF: "
+        f"the 32 feature columns, {int(anomalous.sum())} test rows made "
+        f"anomalous) and {rc['rows']} + {rc['test_rows']} ({rc['frame']} "
+        f"regression) in {time.perf_counter() - t0:.2f} s, SHA-256 == the "
+        f"fixtures'; JAX fixtures: jax {cc['jax_version']}, CART in "
+        f"{cc['jax_train_s_cpu']:.1f} s and {ci['num_trees']} IF trees in "
+        f"{ci['jax_train_s_cpu']:.1f} s on the CPU that wrote them")
+
+    lap("setup")
+    # -- 11a CART: train with every default, evaluate ------------------ #
+    reset_counts(serving)
+    reads0 = port_rf.HOST_READS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner = ydf_tpu_torch.CartLearner(device=DEVICE, **CART_HP)
+    model, grown = cart_train(learner, train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = model.evaluate(test)
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    counted_c, others, events_c = read_counts(serving)
+    reads = port_rf.HOST_READS - reads0
+    depth = learner.max_depth
+    assert counted_c["histogram"] == 1, counted_c
+    assert counted_c["histogram_routed"] == depth - 1, counted_c
+    assert counted_c["binning"] == 1, counted_c
+    assert not any(others.values()), others
+    assert reads == 0, reads
+    kernel_ms_c, routed_lh_c = split_events(events_c)
+    log("11 launches", f"train_cart (train + evaluate): {counted_c} "
+        f"launches (routed by hist slots: {routed_lh_c}); serving kernels "
+        f"{others} (CART serves routed, a one-tree mean)")
+    log("11 cart", f"CartLearner(**{CART_HP}).train: wall {wall * 1e3:.1f} "
+        "ms (host clock, ends in synchronize; the grown tree copied to the "
+        "host once more for the check below); stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in learner.last_timings.items())
+        + f"; depth {depth}, {reads} host reads before or in the tree "
+        "loop; kernel time (CUDA events, train + evaluate) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms_c.items())
+        + f"; evaluate of {CART_TEST_ROWS} rows {eval_wall * 1e3:.1f} ms; "
+        f"{smi}")
+
+    lap("11a")
+    # -- 11b CART against the JAX package's run ------------------------ #
+    mask = np.random.RandomState(cc["seed"]).uniform(size=CART_ROWS) \
+        < cc["validation_ratio"]
+    assert array_sha256(mask) == cc["holdout_sha256"], "holdout"
+    bins = model.binner.transform(Dataset.from_data(
+        {k: v[~mask] for k, v in train.items()}, dataspec=model.dataspec),
+        model.device)
+    assert sha256(bins) == cc["bins_sha256"], "bins != the JAX package's"
+    jax_grown = {k.split("/", 1)[1]: ec[k] for k in ec.files
+                 if k.startswith("grown/")}
+    same_tree(grown, jax_grown, "CART's grown tree")
+    assert tree_sha256(grown, 0) == cc["grown_sha256"]
+    pf = model.forest.to_numpy()
+    jax_cart = dict(np.load(os.path.join(TRAIN_CART, "model", "forest.npz")))
+    same_tree(pf, jax_cart, "CART's pruned tree")
+    assert tree_sha256(pf, 0) == cc["pruned_sha256"]
+    pruned = model.extra_metadata["num_pruned_nodes"]
+    assert pruned == cc["num_pruned_nodes"], pruned
+    jo, po = cc["oob_evaluation"], model.self_evaluation()
+    assert (po["source"], po["num_examples"]) == (jo["source"],
+                                                  jo["num_examples"]), po
+    hold_err = max(abs(po["metrics"][k] - jo["metrics"][k])
+                   for k in jo["metrics"])
+    jev = cc["jax_evaluate"]
+    ev_err = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+    assert hold_err <= EVAL_SAME_ATOL and ev_err <= EVAL_SAME_ATOL, (
+        hold_err, ev_err)
+    head = {k: v[:cc["compare_rows"]] for k, v in test.items()}
+    proba = model.predict(head)
+    assert proba.tobytes() == ec["proba"].tobytes(), "CART probabilities"
+    rlearner = ydf_tpu_torch.CartLearner(device=DEVICE, task=Task.REGRESSION,
+                                         **CART_HP)
+    rmodel, rgrown = cart_train(rlearner, rtrain)
+    rf_np = rmodel.forest.to_numpy()
+    assert tree_sha256(rgrown, 0) == rr["grown_sha256"], "regression grown"
+    assert tree_sha256(rf_np, 0) == rr["pruned_sha256"], "regression pruned"
+    assert rmodel.extra_metadata["num_pruned_nodes"] == \
+        rr["num_pruned_nodes"]
+    rpred = rmodel.predict(rtest)
+    assert rpred.tobytes() == ec["regression_predictions"].tobytes()
+    log("11 cart vs JAX", f"holdout ({cc['holdout_rows']} rows) and bins "
+        f"bitwise; the grown tree ({cc['grown_num_nodes']} nodes) and the "
+        f"pruned one ({int(pf['num_nodes'][0])} nodes, {pruned} pruned) "
+        "node for node == JAX's; holdout evaluation " + " ".join(
+            f"{k} {po['metrics'][k]:.6f}" for k in jo["metrics"])
+        + f" and evaluate on {CART_TEST_ROWS} rows " + " ".join(
+            f"{k} {ev.metrics[k]:.6f}" for k in jev)
+        + f", each within {EVAL_SAME_ATOL} of JAX's (max "
+        f"{max(hold_err, ev_err):.3g}); "
+        f"P(class 1) on {cc['compare_rows']} rows bitwise; the "
+        f"{rc['rows']}-row regression CART: grown and pruned trees "
+        f"({rr['num_pruned_nodes']} pruned) and {rc['test_rows']} "
+        "predictions bitwise")
+
+    lap("11b")
+    # -- 11c the isolation forest: train with every default, predict --- #
+    reset_counts(serving)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ilearner = ydf_tpu_torch.IsolationForestLearner(device=DEVICE)
+    imodel = ilearner.train(feats)
+    torch.cuda.synchronize()
+    iwall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = imodel.predict(test_x)
+    torch.cuda.synchronize()
+    pred_wall = time.perf_counter() - t0
+    counted_i, others, events_i = read_counts(serving)
+    T = imodel.forest.num_trees
+    idepth = imodel.max_depth
+    assert (T, idepth) == (ci["num_trees"], ci["max_depth"]), (T, idepth)
+    assert counted_i["histogram"] == T, counted_i
+    assert counted_i["histogram_routed"] == T * (idepth - 1), counted_i
+    assert counted_i["binning"] == 1, counted_i
+    assert not any(others.values()), others
+    kernel_ms_i, routed_lh_i = split_events(events_i)
+    loop_ms = ilearner.last_timings["loop_s"] * 1e3
+    log("11 launches", f"train_if (train + predict): {counted_i} launches "
+        f"(routed by hist slots: {routed_lh_i}); serving kernels {others} "
+        "(an isolation forest serves routed, a mean)")
+    log("11 if", f"IsolationForestLearner().train: wall {iwall * 1e3:.1f} "
+        "ms (host clock, ends in synchronize); stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in ilearner.last_timings.items())
+        + f"; {T} trees of depth {idepth} on {imodel.num_examples_per_tree}"
+        f" rows, no host read in the tree loop (sync debug mode error); "
+        f"{loop_ms / T:.2f} ms a tree (loop wall / trees); kernel time "
+        "(CUDA events, train + predict) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms_i.items())
+        + f"; predict of {IF_TEST_ROWS} rows {pred_wall * 1e3:.1f} ms; "
+        f"{smi}")
+
+    lap("11c")
+    # -- 11d the isolation forest against the JAX package's run -------- #
+    ibins = imodel.binner.transform(
+        Dataset.from_data(feats, dataspec=imodel.dataspec), imodel.device)
+    assert sha256(ibins) == ci["bins_sha256"], "IF bins != the JAX package's"
+    keys = port_if.tree_keys(ci["seed"], T, imodel.device)[:, 0]
+    rows = np.sort(np.concatenate([prng.top_k(prng.uniform(
+        keys[t:t + 25], (IF_ROWS,)), ci["subsample"]).cpu().numpy()
+        for t in range(0, T, 25)]), axis=1)
+    sub_same = [array_sha256(r) == ei["subsample_sha256"][t].tobytes().hex()
+                for t, r in enumerate(rows)]
+    assert all(sub_same), [t for t, ok in enumerate(sub_same) if not ok][:10]
+    fi = imodel.forest.to_numpy()
+    differ = [t for t in range(T) if tree_sha256(fi, t)
+              != ei["tree_sha256"][t].tobytes().hex()]
+    assert not differ, f"IF trees differ from JAX's: {differ[:10]}"
+    assert np.array_equal(fi["num_nodes"], ei["num_nodes"])
+    same_tree(fi, {k.split("/", 1)[1]: ei[k] for k in ei.files
+                   if k.startswith("tree0/")}, "IF tree 0")
+    assert array_sha256(scores) == ci["scores_sha256"], "IF scores"
+    assert scores[:ci["compare_rows"]].tobytes() == ei["scores"].tobytes()
+    auc = evaluate_predictions(Task.ANOMALY_DETECTION, anomalous,
+                               scores).metrics["auc"]
+    assert auc == ci["auc"], (auc, ci["auc"])
+    nodes = fi["num_nodes"]
+    log("11 if vs JAX", f"bins bitwise; all {T} subsamples ({ci['subsample']}"
+        f" rows each) and all {T} trees == JAX's by SHA-256 (nodes a tree "
+        f"{int(nodes.min())}-{int(nodes.max())}, mean {nodes.mean():.1f}); "
+        f"tree 0 node for node; scores on {IF_TEST_ROWS} rows bitwise "
+        f"(SHA-256), AUC {auc:.6f} on the {int(anomalous.sum())} anomalous "
+        "rows == JAX's")
+
+    lap("11d")
+    # -- 11e save -> load, the JAX models on the card ------------------ #
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "cart"))
+        imodel.save(os.path.join(tmp, "if"))
+        back = ydf_tpu_torch.load_model(os.path.join(tmp, "cart"),
+                                        device=DEVICE)
+        iback = ydf_tpu_torch.load_model(os.path.join(tmp, "if"),
+                                         device=DEVICE)
+    assert back.predict(test).tobytes() == model.predict(test).tobytes()
+    assert back.self_evaluation() == model.self_evaluation()
+    assert back.extra_metadata == model.extra_metadata
+    assert iback.predict(test_x).tobytes() == scores.tobytes()
+    for b, m in ((back, model), (iback, imodel)):
+        bf, mf = b.forest.to_numpy(), m.forest.to_numpy()
+        assert all(np.array_equal(bf[k], mf[k]) for k in mf), "save -> load"
+    jc = ydf_tpu_torch.load_model(os.path.join(TRAIN_CART, "model"),
+                                  device=DEVICE)
+    assert jc.predict(head).tobytes() == ec["proba"].tobytes()
+    ji = ydf_tpu_torch.load_model(os.path.join(TRAIN_IF, "model"),
+                                  device=DEVICE)
+    ihead = {k: v[:ci["compare_rows"]] for k, v in test_x.items()}
+    assert ji.predict(ihead).tobytes() == ei["model_scores"].tobytes()
+    log("11 save", "model.save -> load_model of both: node arrays, the "
+        f"holdout evaluation, num_pruned_nodes and predictions on "
+        f"{CART_TEST_ROWS} rows bitwise; the JAX package's saved CART and "
+        f"{ci['model_trees']}-tree isolation forest on the card: "
+        f"probabilities and scores on {ci['compare_rows']} rows bitwise == "
+        "JAX's")
+
+    lap("11e")
+    # -- 11f each training kernel against its plain version ------------ #
+    layers = {
+        "train_cart": captured_layers(ydf_tpu_torch.CartLearner, CART_HP,
+                                      train),
+        "train_if": captured_layers(ydf_tpu_torch.IsolationForestLearner,
+                                    {}, feats),
+    }
+    checked = {}
+    for path, case in layers.items():
+        for args in case["routed"]:
+            got = histogram_kernels.histogram_routed(*args)
+            want = histogram_kernels.histogram_routed_plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (
+                    f"{path}: routed kernel != plain at Lh {args[5]}, "
+                    f"Sq {args[4].shape[1]}, n {args[0].shape[1]}")
+            checked.setdefault(path, []).append(args[5])
+        for args in case["root"]:
+            got = histogram_kernels.histogram(*args)
+            want = histogram_kernels.histogram_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{path}: root histogram != plain"
+    cart_routed = layers["train_cart"]["routed"]
+    widest = max(cart_routed, key=lambda a: a[5])
+    if_root = layers["train_if"]["root"][0]
+    log("11 kernels", "histogram_routed on every fused layer of each path's "
+        "tree 0 (new_slot, new_leaf, histogram) and the root histogram "
+        "torch.equal to plain: train_cart at Lh "
+        f"{checked['train_cart']} on {cart_routed[0][0].shape[1]} rows, "
+        f"Sq {cart_routed[0][4].shape[1]}; train_if at Lh "
+        f"{checked['train_if']} on {if_root[0].shape[1]} rows, Sq "
+        f"{if_root[2].shape[1]} (root launch {root_shape_text(if_root)}); "
+        f"the routed launch at train_cart's widest layer, Lh {widest[5]}: "
+        f"{routed_memory(widest)}")
+
+    lap("11f")
+    # -- 11g where the isolation forest's loop time goes --------------- #
+    prof = profile_train(feats, dict(num_trees=IF_PROFILE_TREES),
+                         ydf_tpu_torch.IsolationForestLearner, "loop_s")
+    log("11 profile", f"one more IF train, num_trees={IF_PROFILE_TREES}, "
+        "under torch.profiler (the profiler slows the host): wall "
+        f"{prof['wall_ms']:.1f} ms, tree loop {prof['loop_ms']:.1f} ms; "
+        f"{prof['kernels']} device kernels "
+        f"({prof['kernels'] / IF_PROFILE_TREES:.0f} a tree), "
+        f"{prof['busy_ms']:.3f} ms of device time over the whole train, so "
+        f"the device is idle at least {100 * prof['idle_share']:.1f}% of "
+        "the loop; largest: " + "; ".join(
+            f"{name[:60]} {ms:.3f} ms" for name, ms in prof["top"]))
+
+    lap("11g")
+    # -- 11h each kernel timed at the paths' shapes -------------------- #
+    out = []
+    inputs = {
+        "train_cart": dict(train_inputs(
+            {k: v[~mask] for k, v in train.items()}, model.binner),
+            root=layers["train_cart"]["root"][0]),
+        "train_if": dict(train_inputs(train, imodel.binner), root=if_root),
+    }
+    paths = {"train_cart": (counted_c, kernel_ms_c, events_c, routed_lh_c),
+             "train_if": (counted_i, kernel_ms_i, events_i, routed_lh_i)}
+    for path, inp in inputs.items():
+        counted, kernel_ms, events, routed_lh = paths[path]
+        for name, src, replaces in (
+            ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+            ("histogram", "histogram.cu",
+             "ydf_tpu/ops/histogram_pallas.py:81"),
+            ("histogram_routed", "histogram_routed.cu",
+             "ydf_tpu/ops/histogram_pallas.py:172"),
+        ):
+            if name == "histogram_routed":
+                inp["routed"] = max(layers[path]["routed"],
+                                    key=lambda a: a[5])
+            t = measure_train(name, inp, reps=RF_ROOT_REPS
+                              if name == "histogram" else 20)
+            log("11 timing", f"{path} {name} ({t['shape']}): "
+                f"{timing_text(t)}, {smi}")
+            out.append(train_entry(name, path, src, replaces, t,
+                                   counted[name], 0.0,
+                                   kernel_ms.get(name, 0.0)))
+            if name == "histogram_routed":
+                by_lh = routed_by_captured(name, layers[path]["routed"],
+                                           events, routed_lh)
+                out[-1].update(layer_fields(by_lh))
+                log("11 layers", f"{name} on {path} by hist slots: "
+                    f"{layer_text(by_lh)}, {smi}")
+    lap("11h")
+    log("11 cart_if", f"phase 11 wall {time.perf_counter() - t_phase:.1f} s "
+        f"(by part, s: {walls})")
+    return out
+
+
+def root_shape_text(args):
+    """The root histogram's launch shape at a captured call."""
+    from ydf_tpu_torch.ops import histogram_kernels as hk
+
+    bins_t, _, stats, L, B = args
+    shape = hk.root_launch_shape(bins_t.shape[1], bins_t.shape[0], L, B,
+                                 stats.shape[1], hk.root_cell_bytes(stats))
+    return (f"{shape.blocks} blocks (G {shape.G}, Fb {shape.Fb}, chunks "
+            f"{shape.chunks} of {shape.rows} rows), cell stride "
+            f"{hk.cell_stride(stats.shape[1])}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Writes the fixtures of the PyTorch/CUDA port: two serving models and
-the training run of the bench configuration.
+the JAX package's training runs the port is held against.
 
 The JAX package trains two GBT models and saves them with its own
 `model.save`; the port reads them with its own loader
@@ -89,10 +89,28 @@ Training fixture `train_gbt_options/`: one 20,000-row, 30-iteration
 configuration per ported option (TRAIN_GBT_OPTIONS), each with its tree
 hashes, kept count, losses and predictions on 1,024 rows.
 
+Training fixture `train_cart/`: the JAX `CartLearner(label="label")`
+with every default on make_frame's 500,000 rows (10% held out for
+pruning), evaluated on 100,000 fresh rows: config.json holds the
+holdout's and the bins' SHA-256, the grown and pruned trees' hashes,
+the pruned node count, the holdout and evaluate metrics and a 20,000-row
+regression CART's results; model/ the pruned JAX model; expected.npz the
+grown tree's arrays (captured by wrapping the JAX prune_single_tree),
+the probabilities on 1,024 rows and the regression predictions.
+
+Training fixture `train_if/`: the JAX `IsolationForestLearner()` with
+every default on the same rows' 32 feature columns, scoring 100,000
+fresh rows of which 1% are made anomalous (chip_smoke.if_test_frame):
+config.json holds the bins' and scores' SHA-256 and the AUC;
+expected.npz every tree's subsample (sorted rows) and node-array hashes,
+tree 0's arrays and the first 1,024 scores; model/ the JAX model (a
+3-tree one if the whole passes max_bytes).
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
 (~30 minutes on a CPU, train_rf most of it; `--only train_bench`,
 `--only train_vs`, `--only train_default`, `--only train_rf`,
-`--only train_multiclass`, `--only train_gbt_options` or
+`--only train_multiclass`, `--only train_gbt_options`,
+`--only train_cart` (~1 min), `--only train_if` (~1.5 min) or
 `--only serving` for one part).
 """
 
@@ -750,6 +768,218 @@ def write_train_gbt_options():
     np.savez_compressed(os.path.join(d, "expected.npz"), **arrays)
 
 
+TRAIN_CART = dict(
+    rows=500_000, test_rows=100_000, cat_seed=7, compare_rows=1024,
+    learner=dict(label="label"), seed=123456, validation_ratio=0.1,
+    regression=dict(frame="laplace", rows=20_000, test_rows=1024),
+)
+
+
+def capture_unpruned(cart_module, captured):
+    """Wraps cart_module.prune_single_tree so that each call records the
+    grown tree's arrays (forest fields, numpy) in `captured` before it
+    prunes; returns the original function."""
+    original = cart_module.prune_single_tree
+
+    def prune(model, valid_data, **kwargs):
+        captured.append({f: np.array(getattr(model.forest, f))
+                         for f in model.forest._fields})
+        return original(model, valid_data, **kwargs)
+
+    cart_module.prune_single_tree = prune
+    return original
+
+
+def write_train_cart():
+    """train_cart/: the JAX CartLearner(label="label") with every default
+    on make_frame (500,000 rows, 10% held out), its grown tree before
+    pruning and the pruned model, and a small regression CART."""
+    import json
+    import time
+
+    import jax
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.config import Task
+    from ydf_tpu.dataset.dataset import Dataset
+    from ydf_tpu.learners import cart
+
+    cfg = dict(TRAIN_CART)
+    cfg["generator"] = dict(features=28, cat_vocabs=list(CAT_VOCABS),
+                            missing_features=[0, 5, 11])
+    d = os.path.join(OUT, "train_cart")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    train, test = make_frame(cfg["cat_seed"], cfg["rows"], cfg["test_rows"],
+                             keep_label=True)
+    captured = []
+    original = capture_unpruned(cart, captured)
+    try:
+        t0 = time.perf_counter()
+        m = ydf.CartLearner(**cfg["learner"]).train(train)
+        train_s = time.perf_counter() - t0
+        rc = cfg["regression"]
+        rtrain, rtest = options_frame(rc["frame"], cfg["cat_seed"],
+                                      rc["rows"], rc["test_rows"])
+        mr = ydf.CartLearner(task=Task.REGRESSION,
+                             **cfg["learner"]).train(rtrain)
+    finally:
+        cart.prune_single_tree = original
+    grown, rgrown = captured
+    m.save(os.path.join(d, "model"))
+    # The learner's holdout (ydf_tpu/learners/cart.py:76-78).
+    mask = np.random.RandomState(cfg["seed"]).uniform(size=cfg["rows"]) \
+        < cfg["validation_ratio"]
+    bins = m.binner.transform(Dataset.from_data(
+        {k: v[~mask] for k, v in train.items()}, dataspec=m.dataspec))
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    fr = {f: np.asarray(getattr(mr.forest, f)) for f in mr.forest._fields}
+    ev = m.evaluate(test)
+    out = dict(cfg)
+    out["jax_version"] = jax.__version__
+    out["jax_train_s_cpu"] = train_s
+    out["classes"] = m.classes
+    out["train_sha256"] = chip_smoke.frame_sha256(train)
+    out["test_sha256"] = chip_smoke.frame_sha256(test)
+    out["holdout_sha256"] = chip_smoke.array_sha256(mask)
+    out["holdout_rows"] = int(mask.sum())
+    out["bins_sha256"] = chip_smoke.array_sha256(np.asarray(bins))
+    out["max_nodes"] = int(fo["feature"].shape[1])
+    out["num_pruned_nodes"] = m.extra_metadata["num_pruned_nodes"]
+    out["grown_sha256"] = chip_smoke.tree_sha256(grown, 0)
+    out["grown_num_nodes"] = int(grown["num_nodes"][0])
+    out["pruned_sha256"] = chip_smoke.tree_sha256(fo, 0)
+    out["oob_evaluation"] = m.oob_evaluation
+    out["jax_evaluate"] = dict(ev.metrics)
+    out["regression_result"] = {
+        "train_sha256": chip_smoke.frame_sha256(rtrain),
+        "test_sha256": chip_smoke.frame_sha256(rtest),
+        "num_pruned_nodes": mr.extra_metadata["num_pruned_nodes"],
+        "grown_sha256": chip_smoke.tree_sha256(rgrown, 0),
+        "pruned_sha256": chip_smoke.tree_sha256(fr, 0),
+        "oob_evaluation": mr.oob_evaluation,
+    }
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    np.savez_compressed(
+        os.path.join(d, "expected.npz"),
+        proba=np.asarray(m.predict(head), np.float32),
+        regression_predictions=np.asarray(mr.predict(rtest), np.float32),
+        **{f"grown/{k}": v for k, v in grown.items()},
+    )
+    size = sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+    print(f"train_cart: {out['grown_num_nodes']} nodes grown, "
+          f"{out['num_pruned_nodes']} pruned in {train_s:.1f} s, {size} "
+          f"bytes, holdout {m.oob_evaluation['metrics']}, evaluate "
+          f"{ev.metrics}; regression {out['regression_result']}")
+
+
+TRAIN_IF = dict(
+    rows=500_000, test_rows=100_000, cat_seed=7, compare_rows=1024,
+    learner={}, seed=123456, small_trees=3, max_bytes=1_000_000,
+)
+
+
+def write_train_if():
+    """train_if/: the JAX IsolationForestLearner() with every default on
+    make_frame's 32 feature columns (500,000 rows, the label dropped),
+    scored on 100,000 fresh rows, 1% of them made anomalous
+    (chip_smoke.if_test_frame)."""
+    import json
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.dataset.dataset import Dataset
+    from ydf_tpu.metrics.metrics import roc_auc
+
+    cfg = dict(TRAIN_IF)
+    cfg["generator"] = dict(features=28, cat_vocabs=list(CAT_VOCABS),
+                            missing_features=[0, 5, 11],
+                            anomaly=chip_smoke.IF_ANOMALY)
+    d = os.path.join(OUT, "train_if")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    train, test = make_frame(cfg["cat_seed"], cfg["rows"], cfg["test_rows"],
+                             keep_label=True)
+    feats = {k: v for k, v in train.items() if k != "label"}
+    test_x, anomalous = chip_smoke.if_test_frame(test)
+    t0 = time.perf_counter()
+    m = ydf.IsolationForestLearner(**cfg["learner"]).train(feats)
+    train_s = time.perf_counter() - t0
+    fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    T = fo["feature"].shape[0]
+    n, sub = cfg["rows"], m.num_examples_per_tree
+
+    # Each tree's rows (isolation_forest.py:253-258), as sorted sets.
+    @jax.jit
+    def rows(ts):
+        def one(t):
+            key = jax.random.fold_in(jax.random.PRNGKey(cfg["seed"]), t)
+            k_samp = jax.random.split(key, 3)[0]
+            return jax.lax.top_k(jax.random.uniform(k_samp, (n,)), sub)[1]
+        return jax.vmap(one)(ts)
+
+    idx = np.sort(np.concatenate([np.asarray(rows(jnp.arange(
+        t, min(t + 50, T)))) for t in range(0, T, 50)]), axis=1)
+    scores = np.asarray(m.predict(test_x))
+    head = {k: v[:cfg["compare_rows"]] for k, v in test_x.items()}
+    m.save(os.path.join(d, "model"))
+    served = m
+    if sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+           os.walk(d) for f in fs) > cfg["max_bytes"]:
+        shutil.rmtree(os.path.join(d, "model"))
+        served = ydf.IsolationForestLearner(
+            num_trees=cfg["small_trees"], **cfg["learner"]).train(feats)
+        served.save(os.path.join(d, "model"))
+    bins = m.binner.transform(Dataset.from_data(feats, dataspec=m.dataspec))
+    out = dict(cfg)
+    out["jax_version"] = jax.__version__
+    out["jax_train_s_cpu"] = train_s
+    out["num_trees"] = T
+    out["subsample"] = sub
+    out["max_depth"] = m.max_depth
+    out["max_nodes"] = int(fo["feature"].shape[1])
+    out["model_trees"] = int(served.forest.feature.shape[0])
+    out["train_sha256"] = chip_smoke.frame_sha256(feats)
+    out["test_sha256"] = chip_smoke.frame_sha256(test_x)
+    out["bins_sha256"] = chip_smoke.array_sha256(np.asarray(bins))
+    out["scores_sha256"] = chip_smoke.array_sha256(scores)
+    out["anomalies"] = int(anomalous.sum())
+    out["auc"] = roc_auc(anomalous, scores)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+
+    def digest(h):
+        return np.frombuffer(bytes.fromhex(h), np.uint8)
+
+    np.savez_compressed(
+        os.path.join(d, "expected.npz"),
+        subsample_sha256=np.stack([digest(chip_smoke.array_sha256(
+            r.astype(np.int64))) for r in idx]),
+        tree_sha256=np.stack([digest(chip_smoke.tree_sha256(fo, t))
+                              for t in range(T)]),
+        num_nodes=fo["num_nodes"].astype(np.int32),
+        scores=scores[:cfg["compare_rows"]],
+        model_scores=np.asarray(served.predict(head)),
+        **{f"tree0/{k}": v[:1] for k, v in fo.items()},
+    )
+    size = sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+    assert size < cfg["max_bytes"], size
+    print(f"train_if: {T} trees in {train_s:.1f} s, {size} bytes, model "
+          f"{out['model_trees']} trees, AUC {out['auc']:.6f} on "
+          f"{out['anomalies']} anomalies of {cfg['test_rows']}")
+
+
 #: Where main() asks XLA to dump the boosting programs (for
 #: write_train_multiclass's update_forms); removed afterwards.
 DUMP_DIR = None
@@ -786,6 +1016,10 @@ def main():
             shutil.rmtree(DUMP_DIR, ignore_errors=True)
     if only in (None, "train_gbt_options"):
         write_train_gbt_options()
+    if only in (None, "train_cart"):
+        write_train_cart()
+    if only in (None, "train_if"):
+        write_train_if()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

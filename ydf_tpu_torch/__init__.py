@@ -2,14 +2,17 @@
 
 Serving: load a model saved by the JAX package and score it on an NVIDIA
 H100 (sm_90a) through hand-written CUDA kernels. Training: grow a
-gradient boosted trees model or a random forest on the card, binning and
-histograms through hand-written CUDA kernels too.
+gradient boosted trees model, a random forest, a pruned CART tree or an
+isolation forest on the card, binning and histograms through
+hand-written CUDA kernels too.
 
     import ydf_tpu_torch as ydf
     model = ydf.load_model("path/to/model")      # device="cuda" by default
     model = ydf.GradientBoostedTreesLearner(label="y").train(data)
     model = ydf.RandomForestLearner(label="y").train(data)
-    model.self_evaluation()                      # the forest's out-of-bag
+    model = ydf.CartLearner(label="y").train(data)
+    model.self_evaluation()      # out-of-bag, or CART's holdout
+    model = ydf.IsolationForestLearner().train(data)   # anomaly scores
     model.predict(data)                          # numpy, like the JAX package
     model.evaluate(test)                         # metrics on the host
     model.save("path/to/dir")                    # loads in either package
@@ -26,7 +29,9 @@ from ydf_tpu_torch.dataset.dataspec import (
     DataSpecification,
     infer_dataspec,
 )
+from ydf_tpu_torch.learners.cart import CartLearner
 from ydf_tpu_torch.learners.gbt import GradientBoostedTreesLearner
+from ydf_tpu_torch.learners.isolation_forest import IsolationForestLearner
 from ydf_tpu_torch.learners.random_forest import RandomForestLearner
 from ydf_tpu_torch.models.io import (
     binner_from_jax,
@@ -34,14 +39,18 @@ from ydf_tpu_torch.models.io import (
     load_model,
     save_model,
 )
+from ydf_tpu_torch.models.if_model import IsolationForestModel
 from ydf_tpu_torch.models.rf_model import RandomForestModel
 
 __all__ = [
+    "CartLearner",
     "Column",
     "ColumnType",
     "DataSpecification",
     "Dataset",
     "GradientBoostedTreesLearner",
+    "IsolationForestLearner",
+    "IsolationForestModel",
     "RandomForestLearner",
     "RandomForestModel",
     "Task",

@@ -4,9 +4,12 @@ dataspec inference, feature selection, binning and label encoding.
 
 Scope of the training slices: in-memory data (a dict of arrays, a pandas
 DataFrame or a ydf_tpu_torch Dataset) and an optional validation set of
-the same kinds, no dataset cache. The one learner, gradient boosted
-trees, takes numerical, boolean, categorical and
-NUMERICAL_VECTOR_SEQUENCE features.
+the same kinds, no dataset cache. The learners take numerical, boolean
+and categorical features, gradient boosted trees also
+NUMERICAL_VECTOR_SEQUENCE ones. A learner that splits its input before
+training (CART's holdout) pins the full data's dataspec in
+`_forced_dataspec`; an unsupervised one (the isolation forest) has no
+label.
 """
 
 from __future__ import annotations
@@ -34,6 +37,12 @@ JAX_FEATURE_TYPES = (
 
 
 class GenericLearner:
+    #: Column types a learner trains on when `features=` is not given.
+    _feature_types = JAX_FEATURE_TYPES
+    #: A dataspec to key the training data under instead of inferring
+    #: one (set by a learner around an internal split; None infers).
+    _forced_dataspec = None
+
     def __init__(
         self,
         label: Optional[str],
@@ -62,24 +71,26 @@ class GenericLearner:
 
     def _infer_dataset(self, data: InputData) -> Dataset:
         """Dataset with this learner's type policy: classification labels
-        are always dictionary-encoded, user column_types apply."""
+        are always dictionary-encoded, user column_types apply; keyed
+        under `_forced_dataspec` when it is set."""
         column_types = dict(self.column_types)
         if self.label is not None and self.task == Task.CLASSIFICATION:
             column_types[self.label] = ColumnType.CATEGORICAL
         return Dataset.from_data(
-            data, label=self.label, max_vocab_count=self.max_vocab_count,
+            data, label=self.label, dataspec=self._forced_dataspec,
+            max_vocab_count=self.max_vocab_count,
             min_vocab_frequency=self.min_vocab_frequency,
             column_types=column_types,
         )
 
     def _select_feature_names(self, ds: Dataset) -> list:
-        """Explicit `features=` wins; otherwise every trainable column
-        but the label and weights."""
+        """Explicit `features=` wins; otherwise every column of one of
+        the learner's `_feature_types` but the label and weights."""
         if self.features is not None:
             return list(self.features)
         exclude = {self.label, self.weights} - {None}
         return [c.name for c in ds.dataspec.columns
-                if c.name not in exclude and c.type in JAX_FEATURE_TYPES]
+                if c.name not in exclude and c.type in self._feature_types]
 
     def _prepare(self, data: InputData,
                  valid: Optional[InputData] = None) -> Dict:

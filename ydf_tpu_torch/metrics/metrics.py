@@ -307,6 +307,13 @@ def evaluate_predictions(
             confidence_intervals=cis,
         )
 
+    if task == Task.ANOMALY_DETECTION:
+        # The ROC AUC of the scores when the labels take two values.
+        metrics = {}
+        if len(np.unique(labels)) == 2:
+            metrics["auc"] = roc_auc(labels, predictions.reshape(-1))
+        return Evaluation(task=task.value, num_examples=n, metrics=metrics)
+
     raise NotImplementedError(
         f"evaluation for task {task.value} is not ported yet (ROADMAP "
         "Queue 1 items 11 and 20)"

@@ -192,9 +192,11 @@ class GenericModel:
                  confidence_intervals: bool = False,
                  num_bootstrap: int = 2000) -> Evaluation:
         """Metrics of predict(data) against the label column of `data`
-        (classification and regression; metrics/metrics.py), each row
-        weighted by the column `weights` when given."""
-        if self.task not in (Task.CLASSIFICATION, Task.REGRESSION):
+        (classification, regression and anomaly detection;
+        metrics/metrics.py), each row weighted by the column `weights`
+        when given."""
+        if self.task not in (Task.CLASSIFICATION, Task.REGRESSION,
+                             Task.ANOMALY_DETECTION):
             raise NotImplementedError(
                 f"evaluating a {self.task.value} model is not ported yet "
                 "(ROADMAP Queue 1 items 11 and 20)"

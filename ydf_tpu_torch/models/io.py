@@ -3,7 +3,8 @@ load_model, save_model).
 
 The JAX package's model directory — `model.json` (task, label,
 dataspec, binner, model-specific fields) and `forest.npz` (node arrays)
-— of a gradient boosted trees or random forest model, read into the
+— of a gradient boosted trees, random forest (CART's too) or isolation
+forest model, read into the
 port's model on a torch device (the node arrays, each
 tree's vector-sequence anchors and the binner's vector-sequence fields
 included), and written from it in the same layout, so that each package
@@ -26,11 +27,13 @@ from ydf_tpu_torch.dataset.dataspec import DataSpecification
 from ydf_tpu_torch.models.forest import Forest
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
 from ydf_tpu_torch.models.generic_model import GenericModel
+from ydf_tpu_torch.models.if_model import IsolationForestModel
 from ydf_tpu_torch.models.rf_model import RandomForestModel
 
 #: The ported model types, by the JAX package's model_type name.
 MODEL_TYPES = {cls.model_type: cls for cls in (GradientBoostedTreesModel,
-                                               RandomForestModel)}
+                                               RandomForestModel,
+                                               IsolationForestModel)}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]

@@ -40,7 +40,10 @@ alone, so a learner draws them for every tree before its loop
 (`layer_columns`, one host read of each layer's widest set) and hands
 the grower each layer's candidate columns (`candidate_columns`: the kept
 columns in ascending order, padded to the most any slot keeps); the
-gains are computed on those columns only.
+gains are computed on those columns only. A rule that `takes_key` (the
+isolation forest's random splits) gets the same layer's k_gain and a
+rule context with the stats, and draws its noise on the device in the
+loop.
 """
 
 from __future__ import annotations
@@ -240,15 +243,17 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
                  L: int, B: int, N: int, num_numerical: int,
                  min_examples: int, min_split_gain: float,
                  children_in_frontier: bool,
-                 columns: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                 ) -> LayerDecision:
+                 columns: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 gain_args: tuple = ()) -> LayerDecision:
     """One layer's split search: gains -> validity -> best cut per slot
     -> frontier-overflow cap -> child allocation -> chosen stats and the
     per-bin routing masks (a prefix of bin ids for a numerical split,
     the bins ranked <= the cut for a categorical one; `ranks` from
     scalar_candidates). `columns` (candidate_columns: i64 [Ld, K] and
     its kept mask) restricts each slot to those columns; they are in
-    ascending order, so the first best cut is the JAX package's."""
+    ascending order, so the first best cut is the JAX package's.
+    `gain_args` follow the stats into rule.gain (a rule that
+    `takes_key`: the layer's gain key and the rule context)."""
     Ld, Fa = left_all.shape[0], left_all.shape[1]
     dev = left_all.device
     O = rule.num_cat_orderings
@@ -260,7 +265,7 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
             -1, -1, B, left_all.shape[3]))
     K = cand.shape[1]
     right_all = parent[:, None, None, :] - cand
-    gain = rule.gain(cand, right_all, parent[:, None, None, :])
+    gain = rule.gain(cand, right_all, parent[:, None, None, :], *gain_args)
     valid = (
         (cand[..., -1] >= min_examples)
         & (right_all[..., -1] >= min_examples)
@@ -373,13 +378,18 @@ def grow_tree(
     min_split_gain: float = 1e-9,
     hist_quant: str = "f32",
     columns: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+    key: Optional[torch.Tensor] = None,
+    rule_ctx=None,
 ) -> GrowResult:
     """Grows one tree (module docstring). Rows [0, num_numerical) of
     `bins_t` are numerical features, the rest categorical (default: all
     numerical). `hist_quant` is the stats operand's precision, as in
     ops/histogram.py. `columns` holds each layer's candidate columns
     (candidate_columns at Ld = min(2^d, frontier)); None lets every
-    column compete at every node."""
+    column compete at every node. A rule that `takes_key` gets each
+    layer's k_gain, drawn from the tree's `key` [2] as the JAX
+    package's grower draws it (key, k_gain, k_feat = split(fold_in(key,
+    d), 3)), and `rule_ctx`."""
     F, n = bins_t.shape
     Fn = F if num_numerical is None else num_numerical
     S = stats.shape[1]
@@ -415,7 +425,15 @@ def grow_tree(
     tables: Optional[RouteTables] = None  # previous layer's decisions
     no_set = torch.zeros(1, dtype=torch.uint8, device=dev)
 
+    takes_key = getattr(rule, "takes_key", False)
+    if takes_key and key is None:
+        raise ValueError(f"{type(rule).__name__} needs the tree's key")
     for depth in range(max_depth):
+        gain_args = ()
+        if takes_key:
+            ks = prng.split(prng.fold_in(key, depth), 3)
+            key = ks[0]
+            gain_args = (ks[1], rule_ctx)
         children_in_frontier = depth + 1 < max_depth
         Ld = min(2**depth, L)
         parent = node_stats[:Ld]
@@ -449,6 +467,7 @@ def grow_tree(
             min_split_gain=min_split_gain,
             children_in_frontier=children_in_frontier,
             columns=None if columns is None else columns[depth],
+            gain_args=gain_args,
         )
         do_split, split_rank = dec.do_split, dec.split_rank
         feature[dec.wid] = dec.best_f_scalar.to(i32)

@@ -7,7 +7,10 @@ stats[..., -1] is always the weighted example count.
   * `ClassificationRule`: RF classification (entropy, or gini),
     stats = [w 1[y=0], ..., w 1[y=C-1], w];
   * `RegressionRule`: RF regression (variance reduction),
-    stats = [w y, w y^2, w].
+    stats = [w y, w y^2, w];
+  * `RandomSplitRule`: the isolation forest's random splits (Gumbel-max
+    over the cuts), stats = [w]. Its gain also reads the layer's key and
+    a context (`takes_key`); the other rules' gains take the stats only.
 
 A gain is computed as XLA's CPU code computes the JAX package's
 expression inside its grower (the same operations, the multiply-adds
@@ -23,7 +26,9 @@ import dataclasses
 
 import torch
 
-from ydf_tpu_torch.utils.xla_cpu import fma_f32, log_f32
+from ydf_tpu_torch.ops.histogram import sum_rows_f32
+from ydf_tpu_torch.utils import prng
+from ydf_tpu_torch.utils.xla_cpu import exp_f32, fma_f32, log_f32
 
 _EPS = 1e-12
 
@@ -156,3 +161,53 @@ class RegressionRule:
 
     def cat_sort_key(self, hist: torch.Tensor) -> torch.Tensor:
         return hist[..., 0] / (hist[..., -1] + _EPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomSplitRule:
+    """Isolation-forest random splits by the Gumbel-max trick. The
+    context is log_gap f32 [F, B], the log of the value-space width of
+    each cut's bin gap (-inf where a feature has no such cut); the gain
+    of a cut whose children both hold rows is log_gap - logsumexp(the
+    slot's valid log_gaps of that feature) + gumbel(key), -inf
+    elsewhere, so the best cut of a slot is a uniform feature and a cut
+    drawn in proportion to its gap. The leaf value is the row count; a
+    categorical feature's bins are ordered by their counts."""
+
+    num_stats = 1
+    num_outputs = 1
+    num_cat_orderings = 1
+    #: The grower passes the layer's gain key and its rule context.
+    takes_key = True
+
+    def gain(self, left: torch.Tensor, right: torch.Tensor,
+             parent: torch.Tensor, key: torch.Tensor,
+             log_gap: torch.Tensor) -> torch.Tensor:
+        """[Ld, F, B] from the left and right stats [Ld, F, B, 1], as
+        XLA computes the JAX package's rule: the isfinite guard keeps a
+        feature with no valid cut at -inf (no -inf - -inf NaN)."""
+        valid = (left[..., -1] > 0) & (right[..., -1] > 0)
+        w = torch.where(valid, log_gap, float("-inf"))
+        norm = logsumexp_f32(w)
+        g = prng.gumbel(key, w.shape)
+        return torch.where(valid & torch.isfinite(w), w - norm + g,
+                           float("-inf"))
+
+    def leaf_value(self, stats: torch.Tensor) -> torch.Tensor:
+        return stats[..., 0:1]
+
+    def cat_sort_key(self, hist: torch.Tensor) -> torch.Tensor:
+        return hist[..., -1]
+
+
+def logsumexp_f32(w: torch.Tensor) -> torch.Tensor:
+    """jax.scipy.special.logsumexp(w, axis=-1, keepdims=True) of f32 `w`
+    as XLA computes it on the CPU: the max m (0 where it is not finite),
+    exp(w - m) with XLA's exp, the sum over the last axis in XLA's
+    reduce order (sum_rows_f32: windows of 32, then their partials), and
+    XLA's log of its magnitude plus m."""
+    m = w.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = exp_f32(w - m)
+    total = sum_rows_f32(e.reshape(-1, e.shape[-1]).t())
+    return log_f32(total.abs()).reshape(m.shape) + m

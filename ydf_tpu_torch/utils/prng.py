@@ -1,8 +1,8 @@
 """JAX's threefry random numbers, bit for bit, on torch tensors
 (counterpart of the parts of jax.random the JAX package's learners use:
 PRNGKey, fold_in, split, random bits, uniform, bernoulli, randint, choice
-with probabilities and poisson at rate 1; jax 0.9.0, threefry2x32,
-jax_threefry_partitionable=True).
+with probabilities, poisson at rate 1, gumbel and lax.top_k's indices;
+jax 0.9.0, threefry2x32, jax_threefry_partitionable=True).
 
 A key is an int64 tensor [..., 2] holding two 32-bit words; leading
 dimensions batch keys, as jax.vmap over keys does. Every 32-bit word is
@@ -40,6 +40,7 @@ _KS_PARITY = 0x1BD11BDA
 #: Block size of XLA's cumulative-sum rewrite on the CPU (see module
 #: docstring); other sizes do not reproduce jnp.cumsum.
 CUMSUM_BLOCK = 16
+_TINY = float(np.finfo(np.float32).tiny)
 
 IntLike = Union[int, torch.Tensor]
 
@@ -134,6 +135,25 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """jax.random.uniform(key, shape) in float32."""
     return uniform_from_bits(random_bits(key, shape))
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """jax.random.gumbel(key, shape) in float32, its default mode "low":
+    -log(-log(u)) with u = uniform(key, shape, minval=tiny, maxval=1),
+    whose scaling (f * (1 - tiny) + tiny, 1 - tiny rounding to 1) is
+    f + tiny, then max(tiny, .); the logs are XLA's."""
+    u = uniform(key, shape)
+    u = torch.clamp_min(u + _TINY, _TINY)
+    return -log_f32(-log_f32(u))
+
+
+def top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices (i64 [..., k]) of jax.lax.top_k(x, k) along the last
+    axis of x without NaN: the k largest values, the lower index first
+    among equal ones (a stable descending sort; torch.topk orders ties
+    arbitrarily)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True
+                      ).indices[..., :k]
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int] = ()
