@@ -127,6 +127,23 @@ Phases (one line each; any failure is an uncaught exception):
               rows; Lh up to 512 on 450,032 rows); a profiled isolation
               forest of 50 trees; each kernel timed at both paths'
               shapes
+  12 oblique  train_oblique_gbt, _rf, _cart and _if (ydf_tpu_torch/
+              testdata/train_oblique: the JAX package's four learners
+              with split_axis="SPARSE_OBLIQUE", 28 projections a tree,
+              on the frames of phases 8, 9 and 11): each main path with
+              its launches (binning once a tree for the projections, and
+              once more for the GBT's validation rows), host reads and
+              ms a tree; against the JAX runs: every kept tree (the
+              random forest: the fixture's first 50 of the card's 300)
+              by hash, its thresholds, projections and boundaries, the
+              kept count, predictions and scores (SHA-256 of all
+              100,000), evaluate and holdout metrics, CART's grown and
+              pruned trees; the JAX-saved oblique GBT on the card and
+              save -> load bitwise, with the predict wall; the binning,
+              root and routed kernels against plain on each path's own
+              calls (projection columns: 28 x 450,000 values); a
+              profiled train per path; each kernel timed at each path's
+              shapes
 
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
@@ -134,7 +151,8 @@ phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
 phase 8 the default train path (train, then evaluate), phase 9 the
 random forest's and phase 10 the multiclass GBT's (train, then
 evaluate), phase 11 CART's (train, then evaluate) and the isolation
-forest's (train, then predict).
+forest's (train, then predict), phase 12 the four oblique learners'
+(train, then evaluate or predict).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -286,6 +304,19 @@ IF_ROWS = 500_000
 IF_TEST_ROWS = 100_000
 IF_ANOMALY = dict(fraction=0.01, scale=6.0, seed=11)
 IF_PROFILE_TREES = 50
+# train_oblique (phase 12): the JAX package's learners with
+# split_axis="SPARSE_OBLIQUE" and every other default
+# (ydf_tpu_torch/testdata/train_oblique): the GBT and CART on the frame of
+# train_default and train_cart, the random forest on train_rf's (the
+# fixture holds its first OBLIQUE_RF_FIXTURE_TREES trees; the card grows
+# the default 300), the isolation forest on train_if's. Held bitwise:
+# every kept tree by hash, its thresholds, projections and boundaries,
+# the predictions and scores.
+TRAIN_OBLIQUE = os.path.join(TESTDATA, "train_oblique")
+OBLIQUE_HP = dict(label="label", split_axis="SPARSE_OBLIQUE")
+OBLIQUE_RF_FIXTURE_TREES = 50
+# Trees of phase 12's profiled trains, per path.
+OBLIQUE_PROFILE_TREES = dict(gbt=20, rf=10, cart=1, iforest=50)
 # Tolerances against the JAX package's run. The port's f32 histograms sum
 # rows in another order (shared-memory atomics) than the JAX package's
 # f64 block partials, so near-tie splits may flip in late trees; the
@@ -964,6 +995,8 @@ def main():
     kernels.extend(multiclass_path(smi, serving=counters))
     torch.cuda.synchronize()
     kernels.extend(cart_if_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(oblique_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2856,16 +2889,20 @@ def options_frame(kind, seed, rows, test_rows):
 def captured_layers(learner_cls, hp, train):
     """The training kernels' arguments, cloned as the kernels got them, in
     a one-iteration train of `learner_cls(**hp)` on `train` (the path's
-    own layers): "root", every root histogram's, and "routed", every
-    fused layer's (a forest's tree 0: Lh = 1 .. 512; a GBT's first K
-    trees)."""
+    own layers): "root", every root histogram's, "routed", every fused
+    layer's (a forest's tree 0: Lh = 1 .. 512; a GBT's first K trees),
+    and "binning", every call made through ops/binning.py's module name
+    (the projection columns of oblique splits; the binner holds the
+    function by its own name)."""
     import torch
 
     from ydf_tpu_torch.ops import histogram_kernels
 
-    captured = {"root": [], "routed": []}
+    from ydf_tpu_torch.ops import binning
+
+    captured = {"root": [], "routed": [], "binning": []}
     originals = (histogram_kernels.histogram,
-                 histogram_kernels.histogram_routed)
+                 histogram_kernels.histogram_routed, binning.bin_columns)
 
     def clone(args):
         return tuple(
@@ -2881,13 +2918,18 @@ def captured_layers(learner_cls, hp, train):
         captured["routed"].append(clone(args))
         return originals[1](*args)
 
+    def bins(*args):
+        captured["binning"].append(clone(args))
+        return originals[2](*args)
+
     histogram_kernels.histogram = root
     histogram_kernels.histogram_routed = routed
+    binning.bin_columns = bins
     try:
         learner_cls(device=DEVICE, **dict(hp, num_trees=1)).train(train)
     finally:
-        (histogram_kernels.histogram,
-         histogram_kernels.histogram_routed) = originals
+        (histogram_kernels.histogram, histogram_kernels.histogram_routed,
+         binning.bin_columns) = originals
     torch.cuda.synchronize()
     return captured
 
@@ -3621,6 +3663,522 @@ def cart_if_path(smi, serving):
     log("11 cart_if", f"phase 11 wall {time.perf_counter() - t_phase:.1f} s "
         f"(by part, s: {walls})")
     return out
+
+
+def capture_returns(module, name):
+    """Wraps module.name so that each call's return value is recorded:
+    (the records, a function restoring the original)."""
+    records = []
+    original = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = original(*args, **kwargs)
+        records.append(out)
+        return out
+
+    setattr(module, name, wrapped)
+    return records, lambda: setattr(module, name, original)
+
+
+def check_oblique_trees(exp, prefix, forest_np, W, bounds, T):
+    """Trees [0, T) of a port forest (Forest.to_numpy()) against the
+    fixture's: node arrays and thresholds by hash, projections bitwise,
+    each tree's boundaries by hash (tree 0's bitwise), node counts."""
+    W, bounds = W.cpu().numpy(), bounds.cpu().numpy()
+
+    def hexes(key):
+        return [d.tobytes().hex() for d in exp[f"{prefix}/{key}"][:T]]
+
+    for what, got in (
+            ("tree", [tree_sha256(forest_np, t) for t in range(T)]),
+            ("threshold", [array_sha256(forest_np["threshold"][t])
+                           for t in range(T)]),
+            ("bounds", [array_sha256(bounds[t]) for t in range(T)])):
+        differ = [t for t, (a, b) in enumerate(zip(got, hexes(
+            f"{what}_sha256"))) if a != b]
+        assert not differ, f"{prefix}: {what} of trees {differ[:10]} != JAX's"
+    assert W[:T].tobytes() == exp[f"{prefix}/oblique_weights"][:T].tobytes(), (
+        f"{prefix}: projections != JAX's")
+    assert bounds[0].tobytes() == exp[f"{prefix}/bounds0"].tobytes()
+    assert np.array_equal(forest_np["num_nodes"][:T],
+                          exp[f"{prefix}/num_nodes"][:T])
+
+
+def oblique_layers(name, captured, events, launches_by_lh):
+    """The routed kernel at each hist-slot count of an oblique path,
+    timed on the path's own captured layer of that count where the
+    captured tree reached it, else on routed_layer's seeded layer over
+    the same bins and stats: {Lh: {...}} as routed_by_captured."""
+    first = {}
+    for args in captured:
+        first.setdefault(args[5], args)
+    bins_t, _, _, _, stats, _, B = captured[0]
+    out = {}
+    for lh in sorted(launches_by_lh):
+        args = first.get(lh) or routed_layer(bins_t, stats, lh, B)
+        t = measure_train(name, {"routed": args}, timing_only=True)
+        out[lh] = {
+            "launches": launches_by_lh[lh], "device_ms": t["device_ms"],
+            "device_how": t["device_how"], "bound_ms": t["bound_ms"],
+            "captured": lh in first,
+            "path_ms": sum(s.elapsed_time(e) for k, s, e in events
+                           if k == f"histogram_routed/Lh={lh}"),
+        }
+    return out
+
+
+def oblique_path(smi, serving):
+    """Phase 12: the GBT, random forest, CART and isolation forest with
+    split_axis="SPARSE_OBLIQUE" and every other default trained on the
+    card (then evaluated, or the isolation forest's rows scored), saved
+    and loaded, against the JAX package's runs
+    (ydf_tpu_torch/testdata/train_oblique). Returns the `kernels` entries
+    of the four paths' three training kernels."""
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.config import Task
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.learners import isolation_forest as port_if
+    from ydf_tpu_torch.learners import random_forest as port_rf
+    from ydf_tpu_torch.metrics.metrics import evaluate_predictions
+    from ydf_tpu_torch.models.forest import Forest
+    from ydf_tpu_torch.ops import histogram_kernels
+
+    t_phase = time.perf_counter()
+    walls, last = {}, [t_phase]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = round(now - last[0], 2)
+        last[0] = now
+
+    with open(os.path.join(TRAIN_OBLIQUE, "config.json")) as f:
+        cfg = json.load(f)
+    exp = np.load(os.path.join(TRAIN_OBLIQUE, "expected.npz"))
+    cg, cr, cc, ci = (cfg[k] for k in ("gbt", "rf", "cart", "iforest"))
+    assert cfg["generator"] == dict(
+        features=TRAIN_FEATURES, cat_vocabs=list(DEFAULT_CAT_VOCABS),
+        missing_features=list(DEFAULT_MISSING)), cfg["generator"]
+    assert cfg["cat_seed"] == DEFAULT_CAT_SEED
+    assert (cg["rows"], cg["test_rows"], cg["learner"]) == (
+        DEFAULT_ROWS, DEFAULT_TEST_ROWS, OBLIQUE_HP), cg
+    assert (cr["rows"], cr["test_rows"], cr["learner"],
+            cr["fixture_trees"]) == (RF_ROWS, RF_TEST_ROWS, OBLIQUE_HP,
+                                     OBLIQUE_RF_FIXTURE_TREES), cr
+    assert (cc["rows"], cc["test_rows"], cc["learner"]) == (
+        CART_ROWS, CART_TEST_ROWS, OBLIQUE_HP), cc
+    assert (ci["rows"], ci["test_rows"], ci["learner"]) == (
+        IF_ROWS, IF_TEST_ROWS, {"split_axis": "SPARSE_OBLIQUE"}), ci
+    t0 = time.perf_counter()
+    train, test = make_frame(DEFAULT_ROWS, DEFAULT_TEST_ROWS)
+    rtrain, rtest = make_frame(RF_ROWS, RF_TEST_ROWS)
+    feats = {k: v for k, v in train.items() if k != "label"}
+    test_x, anomalous = if_test_frame(test)
+    for frame, want, what in (
+            (train, cg["train_sha256"], "train"),
+            (test, cg["test_sha256"], "test"),
+            (rtrain, cr["train_sha256"], "RF train"),
+            (rtest, cr["test_sha256"], "RF test"),
+            (feats, ci["train_sha256"], "IF train"),
+            (test_x, ci["test_sha256"], "IF test")):
+        assert frame_sha256(frame) == want, f"{what} frame"
+    log("12 oblique", f"frames {DEFAULT_ROWS} + {DEFAULT_TEST_ROWS} rows "
+        f"(GBT, CART, IF) and {RF_ROWS} + {RF_TEST_ROWS} (RF) in "
+        f"{time.perf_counter() - t0:.2f} s, SHA-256 == the fixture's; JAX "
+        f"fixture: jax {cfg['jax_version']}, impls {cfg['jax_impls']}; "
+        f"JAX on the CPU that wrote it: GBT {cg['jax_train_s_cpu']:.1f} s, "
+        f"RF ({cr['fixture_trees']} trees) {cr['jax_train_s_cpu']:.1f} s, "
+        f"CART {cc['jax_train_s_cpu']:.1f} s, IF {ci['jax_train_s_cpu']:.1f}"
+        " s")
+    lap("setup")
+    paths = {}  # path -> (launches, kernel ms, events, routed by Lh)
+
+    def main_run(path, fn, module, name):
+        """Counts at 0, fn() on the card, counts read: (fn's result, the
+        captured loop result, launches, serving launches, events)."""
+        records, restore = capture_returns(module, name)
+        reset_counts(serving)
+        torch.cuda.synchronize()
+        try:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        counted, others, events = read_counts(serving)
+        assert not any(others.values()), (path, others)
+        kernel_ms, routed_lh = split_events(events)
+        paths[path] = (counted, kernel_ms, events, routed_lh)
+        log("12 launches", f"{path}: {counted} launches (routed by hist "
+            f"slots: {routed_lh}); serving kernels {others} (an oblique "
+            "forest serves routed)")
+        return result, records[0], counted, wall, kernel_ms
+
+    # -- 12a the GBT: train with every default, evaluate --------------- #
+    reads0 = port_gbt.HOST_READS
+    learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                        **OBLIQUE_HP)
+
+    def gbt_main():
+        m = learner.train(train)
+        t0 = time.perf_counter()
+        ev = m.evaluate(test)
+        torch.cuda.synchronize()
+        return m, ev, time.perf_counter() - t0
+
+    (model, ev, eval_wall), out, counted, wall, kernel_ms = main_run(
+        "train_oblique_gbt", gbt_main, port_gbt, "boost")
+    logs = model.training_logs
+    trained, kept = logs["num_trees_trained"], logs["num_trees"]
+    depth = learner.max_depth
+    chunks = -(-trained // min(learner.early_stopping_num_trees_look_ahead,
+                               port_gbt.MAX_CHUNK_TREES))
+    reads = port_gbt.HOST_READS - reads0
+    assert counted["histogram"] == trained, counted
+    assert counted["histogram_routed"] == trained * (depth - 1), counted
+    # The binner's one call, then each iteration's training and
+    # validation projections.
+    assert counted["binning"] == 1 + 2 * trained, counted
+    assert reads == chunks, (reads, chunks)
+    boost_ms = learner.last_timings["boost_s"] * 1e3
+    P = model.forest.oblique_weights.shape[1]
+    log("12 gbt", f"GradientBoostedTreesLearner(**{OBLIQUE_HP}).train: "
+        f"wall {wall * 1e3 - eval_wall * 1e3:.1f} ms (host clock, ends in "
+        "synchronize); stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in learner.last_timings.items())
+        + f"; P = {P} projections an iteration; {trained} trees trained, "
+        f"{kept} kept; {reads} host reads ({chunks} chunks); "
+        f"{boost_ms / trained:.2f} ms a tree (loop wall / trees trained); "
+        "kernel time (CUDA events, train + evaluate) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; evaluate of {DEFAULT_TEST_ROWS} rows {eval_wall * 1e3:.1f} "
+        f"ms; {smi}")
+    assert (kept, trained) == (cg["num_trees"], cg["num_trees_trained"]), (
+        kept, trained)
+    pf = model.forest.to_numpy()
+    W, bounds = out.obl_out
+    check_oblique_trees(exp, "gbt", pf, W, bounds, kept)
+    preds = model.predict(test)
+    assert array_sha256(preds) == cg["predictions_sha256"], "GBT predictions"
+    jev = cg["jax_evaluate"]
+    ev_err = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+    assert ev_err <= EVAL_SAME_ATOL, ev_err
+    il = logs["iterations"]
+    vl = np.array([r["valid_loss"] for r in il], np.float32)
+    log("12 gbt vs JAX", f"{kept} of {trained} trees == JAX's ({kept} kept "
+        "by the same look-ahead stop): every kept tree by SHA-256 (node "
+        "arrays, thresholds), its 28 x 28 projections bitwise and its "
+        "28 x 255 boundaries by SHA-256 (iteration 0's bitwise); the "
+        f"{DEFAULT_TEST_ROWS} predictions bitwise (SHA-256) to JAX's Routed "
+        "engine; evaluate " + " ".join(
+            f"{k} {ev.metrics[k]:.6f}" for k in jev)
+        + f" within {EVAL_SAME_ATOL} of JAX's (max {ev_err:.3g}); "
+        f"validation loss at the kept count {vl[kept - 1]:.6f} (JAX "
+        f"{exp['gbt/valid_loss'][kept - 1]:.6f})")
+    lap("12a")
+
+    # -- 12b serving: the JAX-saved oblique GBT, save -> load ---------- #
+    jm = ydf_tpu_torch.load_model(os.path.join(TRAIN_OBLIQUE, "gbt_model"),
+                                  device=DEVICE)
+    assert jm.list_compatible_engines() == ["Routed"]
+    head = {k.split("/", 1)[1]: exp[k] for k in exp.files
+            if k.startswith("gbt_head/")}
+    assert jm.predict(head).tobytes() == exp["gbt/predictions"].tobytes()
+    reset_counts(serving)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jpreds = jm.predict(test)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    counted_s, others, _ = read_counts(serving)
+    assert not any(others.values()) and not any(counted_s.values()), (
+        counted_s, others)
+    assert array_sha256(jpreds) == cg["predictions_sha256"]
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "gbt"))
+        back = ydf_tpu_torch.load_model(os.path.join(tmp, "gbt"),
+                                        device=DEVICE)
+    bf = back.forest.to_numpy()
+    assert all(bf[k].tobytes() == pf[k].tobytes() for k in pf), (
+        "save -> load")
+    assert back.predict(test).tobytes() == preds.tobytes()
+    log("12 serving", f"the JAX-saved oblique GBT ({jm.forest.num_trees} "
+        f"trees, {P} projections each) on the card: registry "
+        f"{jm.list_compatible_engines()}; predictions on the fixture's "
+        f"{len(exp['gbt/predictions'])} rows and on all {DEFAULT_TEST_ROWS} "
+        "test rows (SHA-256) bitwise == JAX's Routed engine; predict of "
+        f"{DEFAULT_TEST_ROWS} rows {serve_wall * 1e3:.1f} ms wall (host "
+        "encode, copy, routed scan over the trees with each tree's "
+        "projections, copy back); no kernel launched; save -> load on "
+        f"the card bitwise; {smi}")
+    lap("12b")
+
+    # -- 12c the random forest: 300 trees on train_rf's frame ---------- #
+    rlearner = ydf_tpu_torch.RandomForestLearner(device=DEVICE, **OBLIQUE_HP)
+
+    def rf_main():
+        m = rlearner.train(rtrain)
+        t0 = time.perf_counter()
+        ev = m.evaluate(rtest)
+        torch.cuda.synchronize()
+        return m, ev, time.perf_counter() - t0
+
+    reads0 = port_rf.HOST_READS
+    (rmodel, rev, reval_wall), rout, counted, wall, kernel_ms = main_run(
+        "train_oblique_rf", rf_main, port_rf, "train_rf")
+    T = rmodel.forest.num_trees
+    rdepth = rlearner.max_depth
+    assert counted["histogram"] == T, counted
+    assert counted["binning"] == 1 + T, counted
+    assert 0 < counted["histogram_routed"] <= T * (rdepth - 1), counted
+    rreads = port_rf.HOST_READS - reads0
+    loop_ms = rlearner.last_timings["loop_s"] * 1e3
+    log("12 rf", f"RandomForestLearner(**{OBLIQUE_HP}).train: wall "
+        f"{(wall - reval_wall) * 1e3:.1f} ms (host clock, ends in "
+        "synchronize); stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in rlearner.last_timings.items())
+        + f"; {T} trees of depth {rdepth}, {rreads} host reads before the "
+        f"loop, none in it; {loop_ms / T:.2f} ms a tree (loop wall / "
+        "trees); kernel time (CUDA events, train + evaluate) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; evaluate of {RF_TEST_ROWS} rows {reval_wall * 1e3:.1f} ms; "
+        f"{smi}")
+    K = cr["fixture_trees"]
+    rf_np = rmodel.forest.to_numpy()
+    check_oblique_trees(exp, "rf", rf_np, *rout.obl_out, K)
+    # The fixture's forest: the first K trees of the card's.
+    sub = port_rf.RandomForestModel(
+        task=rmodel.task, label=rmodel.label, classes=rmodel.classes,
+        dataspec=rmodel.dataspec, binner=rmodel.binner,
+        forest=Forest(*(a[:K] for a in rmodel.forest)),
+        max_depth=rmodel.max_depth)
+    rhead = {k: v[:cfg["compare_rows"]] for k, v in rtest.items()}
+    assert sub.predict(rhead).tobytes() == exp["rf/proba"].tobytes(), (
+        "the first trees' probabilities")
+    sev = sub.evaluate(rtest)
+    jev = cr["jax_evaluate"]
+    rf_err = max(abs(sev.metrics[k] - jev[k]) for k in jev)
+    assert rf_err <= EVAL_SAME_ATOL, rf_err
+    oob = rmodel.self_evaluation()
+    log("12 rf vs JAX", f"the first {K} of {T} trees == the JAX fixture's "
+        "by SHA-256 (node arrays, thresholds, boundaries), projections "
+        f"bitwise; those {K} trees' probabilities on {cfg['compare_rows']} "
+        f"rows bitwise and evaluate on {RF_TEST_ROWS} rows " + " ".join(
+            f"{k} {sev.metrics[k]:.6f}" for k in jev)
+        + f" within {EVAL_SAME_ATOL} of JAX's (max {rf_err:.3g}); the "
+        f"{T}-tree forest: evaluate " + " ".join(
+            f"{k} {rev.metrics[k]:.6f}" for k in jev)
+        + ", out of bag " + " ".join(
+            f"{k} {v:.6f}" for k, v in oob["metrics"].items()))
+    lap("12c")
+
+    # -- 12d CART: train with every default, evaluate ------------------ #
+    clearner = ydf_tpu_torch.CartLearner(device=DEVICE, **OBLIQUE_HP)
+
+    def cart_main():
+        m, grown = cart_train(clearner, train)
+        t0 = time.perf_counter()
+        ev = m.evaluate(test)
+        torch.cuda.synchronize()
+        return m, grown, ev, time.perf_counter() - t0
+
+    (cmodel, grown, cev, ceval_wall), cout, counted, wall, kernel_ms = \
+        main_run("train_oblique_cart", cart_main, port_rf, "train_rf")
+    cdepth = clearner.max_depth
+    assert counted["histogram"] == 1, counted
+    assert counted["histogram_routed"] == cdepth - 1, counted
+    assert counted["binning"] == 2, counted
+    log("12 cart", f"CartLearner(**{OBLIQUE_HP}).train: wall "
+        f"{(wall - ceval_wall) * 1e3:.1f} ms (host clock, ends in "
+        "synchronize; the grown tree copied to the host once more for the "
+        "check below); stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in clearner.last_timings.items())
+        + "; kernel time (CUDA events, train + evaluate) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; evaluate of {CART_TEST_ROWS} rows {ceval_wall * 1e3:.1f} ms; "
+        f"{smi}")
+    assert tree_sha256(grown, 0) == cc["grown_sha256"], "CART grown tree"
+    assert array_sha256(grown["threshold"][0]) == \
+        cc["grown_threshold_sha256"], "CART grown thresholds"
+    cf = cmodel.forest.to_numpy()
+    check_oblique_trees(exp, "cart", cf, *cout.obl_out, 1)
+    assert tree_sha256(cf, 0) == cc["pruned_sha256"]
+    assert array_sha256(cf["threshold"][0]) == cc["pruned_threshold_sha256"]
+    pruned = cmodel.extra_metadata["num_pruned_nodes"]
+    assert pruned == cc["num_pruned_nodes"], pruned
+    jo, po = cc["oob_evaluation"], cmodel.self_evaluation()
+    assert (po["source"], po["num_examples"]) == (jo["source"],
+                                                  jo["num_examples"]), po
+    jev = cc["jax_evaluate"]
+    cart_err = max([abs(po["metrics"][k] - jo["metrics"][k])
+                    for k in jo["metrics"]]
+                   + [abs(cev.metrics[k] - jev[k]) for k in jev])
+    assert cart_err <= EVAL_SAME_ATOL, cart_err
+    chead = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    assert cmodel.predict(chead).tobytes() == exp["cart/proba"].tobytes()
+    log("12 cart vs JAX", f"the grown tree ({cc['grown_num_nodes']} nodes) "
+        f"and the pruned one ({int(cf['num_nodes'][0])} nodes, {pruned} "
+        "pruned) node for node == JAX's (SHA-256 of the node arrays and "
+        "thresholds), projections bitwise; the holdout evaluation "
+        "(pruning routes the holdout through the oblique nodes) and "
+        "evaluate " + " ".join(f"{k} {cev.metrics[k]:.6f}" for k in jev)
+        + f" within {EVAL_SAME_ATOL} of JAX's (max {cart_err:.3g}); "
+        f"probabilities on {cfg['compare_rows']} rows bitwise")
+    lap("12d")
+
+    # -- 12e the isolation forest: train, score ------------------------ #
+    ilearner = ydf_tpu_torch.IsolationForestLearner(
+        device=DEVICE, **ci["learner"])
+
+    def if_main():
+        m = ilearner.train(feats)
+        t0 = time.perf_counter()
+        sc = m.predict(test_x)
+        torch.cuda.synchronize()
+        return m, sc, time.perf_counter() - t0
+
+    (imodel, scores, pred_wall), iout, counted, wall, kernel_ms = main_run(
+        "train_oblique_if", if_main, port_if, "train_if")
+    T = imodel.forest.num_trees
+    idepth = imodel.max_depth
+    assert (T, idepth) == (ci["num_trees"], ci["max_depth"]), (T, idepth)
+    assert counted["histogram"] == T, counted
+    assert counted["histogram_routed"] == T * (idepth - 1), counted
+    assert counted["binning"] == 1 + T, counted
+    iloop_ms = ilearner.last_timings["loop_s"] * 1e3
+    log("12 if", f"IsolationForestLearner(split_axis='SPARSE_OBLIQUE')"
+        f".train: wall {(wall - pred_wall) * 1e3:.1f} ms (host clock, ends "
+        "in synchronize); stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in ilearner.last_timings.items())
+        + f"; {T} trees of depth {idepth}, no host read in the tree loop; "
+        f"{iloop_ms / T:.2f} ms a tree (loop wall / trees); kernel time "
+        "(CUDA events, train + predict) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; predict of {IF_TEST_ROWS} rows {pred_wall * 1e3:.1f} ms; "
+        f"{smi}")
+    fi = imodel.forest.to_numpy()
+    check_oblique_trees(exp, "iforest", fi, *iout.obl_out, T)
+    assert array_sha256(scores) == ci["scores_sha256"], "IF scores"
+    assert scores[:cfg["compare_rows"]].tobytes() == \
+        exp["iforest/scores"].tobytes()
+    auc = evaluate_predictions(Task.ANOMALY_DETECTION, anomalous,
+                               scores).metrics["auc"]
+    assert auc == ci["auc"], (auc, ci["auc"])
+    with tempfile.TemporaryDirectory() as tmp:
+        imodel.save(os.path.join(tmp, "if"))
+        iback = ydf_tpu_torch.load_model(os.path.join(tmp, "if"),
+                                         device=DEVICE)
+    assert iback.predict(test_x).tobytes() == scores.tobytes()
+    log("12 if vs JAX", f"all {T} trees == JAX's by SHA-256 (node arrays, "
+        "thresholds, the 28 x 255 uniform boundaries), projections "
+        f"bitwise; scores on {IF_TEST_ROWS} rows bitwise (SHA-256), AUC "
+        f"{auc:.6f} on the {int(anomalous.sum())} anomalous rows == JAX's; "
+        "save -> load on the card bitwise")
+    lap("12e")
+
+    # -- 12f each training kernel against its plain version ------------ #
+    layers = {
+        "train_oblique_gbt": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner, OBLIQUE_HP, train),
+        "train_oblique_rf": captured_layers(
+            ydf_tpu_torch.RandomForestLearner, OBLIQUE_HP, rtrain),
+        "train_oblique_cart": captured_layers(
+            ydf_tpu_torch.CartLearner, OBLIQUE_HP, train),
+        "train_oblique_if": captured_layers(
+            ydf_tpu_torch.IsolationForestLearner, ci["learner"], feats),
+    }
+    for path, case in layers.items():
+        assert case["binning"], f"{path}: no projection binning captured"
+        for args in case["binning"]:
+            binning_check(args)
+        for args in case["routed"]:
+            got = histogram_kernels.histogram_routed(*args)
+            want = histogram_kernels.histogram_routed_plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (
+                    f"{path}: routed kernel != plain at Lh {args[5]}")
+        for args in case["root"]:
+            got = histogram_kernels.histogram(*args)
+            want = histogram_kernels.histogram_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{path}: root histogram != plain"
+        log("12 kernels", f"{path}: the projection binning "
+            f"({len(case['binning'])} calls, values "
+            f"{tuple(case['binning'][0][0].shape)}), the root histogram "
+            f"(F {case['root'][0][0].shape[0]} columns, n "
+            f"{case['root'][0][0].shape[1]}) and histogram_routed at Lh "
+            f"{sorted({a[5] for a in case['routed']})} of a one-tree "
+            "train's own calls torch.equal to plain")
+    lap("12f")
+
+    # -- 12g where each loop's time goes ------------------------------- #
+    profiles = {}
+    for path, cls, hp, data, loop in (
+            ("train_oblique_gbt", ydf_tpu_torch.GradientBoostedTreesLearner,
+             dict(OBLIQUE_HP, num_trees=OBLIQUE_PROFILE_TREES["gbt"]),
+             train, "boost_s"),
+            ("train_oblique_rf", ydf_tpu_torch.RandomForestLearner,
+             dict(OBLIQUE_HP, num_trees=OBLIQUE_PROFILE_TREES["rf"]),
+             rtrain, "loop_s"),
+            ("train_oblique_cart", ydf_tpu_torch.CartLearner, OBLIQUE_HP,
+             train, "loop_s"),
+            ("train_oblique_if", ydf_tpu_torch.IsolationForestLearner,
+             dict(ci["learner"], num_trees=OBLIQUE_PROFILE_TREES["iforest"]),
+             feats, "loop_s")):
+        trees = hp.get("num_trees", 1)
+        prof = profiles[path] = dict(profile_train(data, hp, cls, loop),
+                                     trees=trees)
+        log("12 profile", f"{path}: one more train, num_trees={trees}, "
+            "under torch.profiler (the profiler slows the host): wall "
+            f"{prof['wall_ms']:.1f} ms, tree loop {prof['loop_ms']:.1f} ms "
+            f"({prof['loop_ms'] / trees:.2f} ms a tree); {prof['kernels']} "
+            f"device kernels ({prof['kernels'] / trees:.0f} a tree), "
+            f"{prof['busy_ms']:.3f} ms of device time over the whole "
+            "train, so the device is idle at least "
+            f"{100 * prof['idle_share']:.1f}% of the loop; largest: "
+            + "; ".join(f"{name[:60]} {ms:.3f} ms"
+                        for name, ms in prof["top"]))
+    lap("12g")
+
+    # -- 12h each kernel timed at each path's shapes ------------------- #
+    result = []
+    for path, case in layers.items():
+        counted, kernel_ms, events, routed_lh = paths[path]
+        inp = {"binning": max(case["binning"],
+                              key=lambda a: a[0].shape[1]),
+               "root": case["root"][0],
+               "routed": max(case["routed"], key=lambda a: a[5])}
+        for name, src, replaces in (
+            ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+            ("histogram", "histogram.cu",
+             "ydf_tpu/ops/histogram_pallas.py:81"),
+            ("histogram_routed", "histogram_routed.cu",
+             "ydf_tpu/ops/histogram_pallas.py:172"),
+        ):
+            t = measure_train(name, inp, reps=RF_ROOT_REPS
+                              if name == "histogram" else 20)
+            log("12 timing", f"{path} {name} ({t['shape']}): "
+                f"{timing_text(t)}, {smi}")
+            result.append(train_entry(name, path, src, replaces, t,
+                                      counted[name], 0.0,
+                                      kernel_ms.get(name, 0.0)))
+            result[-1]["loop_ms_a_tree"] = (profiles[path]["loop_ms"]
+                                            / profiles[path]["trees"])
+            if name == "histogram_routed":
+                by_lh = oblique_layers(name, case["routed"], events,
+                                       routed_lh)
+                result[-1].update(layer_fields(by_lh))
+                log("12 layers", f"{name} on {path} by hist slots: "
+                    f"{layer_text(by_lh)}, {smi}")
+    lap("12h")
+    log("12 oblique", f"phase 12 wall {time.perf_counter() - t_phase:.1f} s "
+        f"(by part, s: {walls})")
+    return result
 
 
 def root_shape_text(args):

@@ -106,12 +106,31 @@ expected.npz every tree's subsample (sorted rows) and node-array hashes,
 tree 0's arrays and the first 1,024 scores; model/ the JAX model (a
 3-tree one if the whole passes max_bytes).
 
+Training fixture `train_oblique/`: the JAX package's learners with
+split_axis="SPARSE_OBLIQUE" and every other default, on the frames of
+train_default (GBT, CART), train_rf (random forest) and train_if
+(isolation forest). config.json holds, per learner, the configuration,
+the frames' and bins' SHA-256, the projection count, the kept and
+trained tree counts and the evaluation; expected.npz every tree's
+node-array hash (chip_smoke.tree_sha256) and a hash of its thresholds,
+every tree's projections (W, small and sparse) and a hash of its
+boundaries (captured from the JAX training loop), tree 0's boundaries,
+and predictions or scores (the GBT's and the isolation forest's on
+every test row by SHA-256, the first 1,024 in full, with the GBT's
+first 1,024 test rows themselves); gbt_model/ the JAX GBT (the serving
+fixture). The random forest grows `fixture_trees`
+trees (trees are independent, so they are the first trees of any
+longer forest). JAX predictions come from its Routed engine
+(force_engine), the engine the port serves oblique forests with. The
+writer refuses to run under another jax than 0.9.0, the version whose
+XLA dot and reduce orders ydf_tpu_torch/ops/oblique.py replays.
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
 (~30 minutes on a CPU, train_rf most of it; `--only train_bench`,
 `--only train_vs`, `--only train_default`, `--only train_rf`,
 `--only train_multiclass`, `--only train_gbt_options`,
-`--only train_cart` (~1 min), `--only train_if` (~1.5 min) or
-`--only serving` for one part).
+`--only train_cart` (~1 min), `--only train_if` (~1.5 min),
+`--only train_oblique` (~15 min) or `--only serving` for one part).
 """
 
 import os
@@ -980,6 +999,227 @@ def write_train_if():
           f"{out['anomalies']} anomalies of {cfg['test_rows']}")
 
 
+TRAIN_OBLIQUE = dict(
+    jax_version="0.9.0", cat_seed=7, compare_rows=1024, seed=123456,
+    gbt=dict(rows=500_000, test_rows=100_000,
+             learner=dict(label="label", split_axis="SPARSE_OBLIQUE")),
+    rf=dict(rows=50_000, test_rows=10_000, fixture_trees=50,
+            learner=dict(label="label", split_axis="SPARSE_OBLIQUE")),
+    cart=dict(rows=500_000, test_rows=100_000, validation_ratio=0.1,
+              learner=dict(label="label", split_axis="SPARSE_OBLIQUE")),
+    iforest=dict(rows=500_000, test_rows=100_000,
+                 learner=dict(split_axis="SPARSE_OBLIQUE")),
+)
+
+
+def write_train_oblique():
+    """train_oblique/: the JAX GBT, random forest, CART and isolation
+    forest with sparse-oblique splits (module docstring)."""
+    import json
+    import time
+
+    import jax
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.dataset.dataset import Dataset
+    from ydf_tpu.learners import cart as jax_cart
+    from ydf_tpu.learners import gbt as jax_gbt
+    from ydf_tpu.learners import isolation_forest as jax_if
+    from ydf_tpu.learners import random_forest as jax_rf
+    from ydf_tpu.metrics.metrics import roc_auc
+    from ydf_tpu.ops.histogram import resolve_hist_impl, resolve_hist_quant
+    from ydf_tpu.ops.routing_native import resolve_route_impl
+
+    cfg = json.loads(json.dumps(TRAIN_OBLIQUE))
+    if jax.__version__ != cfg["jax_version"]:
+        raise SystemExit(
+            f"train_oblique needs jax {cfg['jax_version']} (the XLA dot and "
+            f"reduce orders ops/oblique.py replays), not {jax.__version__}")
+    gen = dict(features=28, cat_vocabs=list(CAT_VOCABS),
+               missing_features=[0, 5, 11])
+    d = os.path.join(OUT, "train_oblique")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    out = dict(cfg)
+    out["generator"] = gen
+    out["jax_impls"] = {
+        "hist_impl": resolve_hist_impl("auto"),
+        "hist_quant": resolve_hist_quant(None),
+        "route_impl": resolve_route_impl(None),
+    }
+    arrays = {}
+
+    def digest(h):
+        return np.frombuffer(bytes.fromhex(h), np.uint8)
+
+    def forest_np(m):
+        return {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+
+    def tree_digests(prefix, fo, W, bounds):
+        """Per tree: node arrays, thresholds, projections and boundaries;
+        the projections in full, tree 0's boundaries in full."""
+        T = fo["feature"].shape[0]
+        arrays[f"{prefix}/tree_sha256"] = np.stack(
+            [digest(chip_smoke.tree_sha256(fo, t)) for t in range(T)])
+        arrays[f"{prefix}/threshold_sha256"] = np.stack(
+            [digest(chip_smoke.array_sha256(fo["threshold"][t]))
+             for t in range(T)])
+        arrays[f"{prefix}/bounds_sha256"] = np.stack(
+            [digest(chip_smoke.array_sha256(b)) for b in bounds])
+        arrays[f"{prefix}/oblique_weights"] = np.asarray(W, np.float32)
+        arrays[f"{prefix}/bounds0"] = np.asarray(bounds[0], np.float32)
+        arrays[f"{prefix}/num_nodes"] = fo["num_nodes"].astype(np.int32)
+
+    def sized(frame_rows, test_rows):
+        train, test = make_frame(cfg["cat_seed"], frame_rows, test_rows,
+                                 keep_label=True)
+        return train, test
+
+    # -- GBT: train_default's frame, every default but the split axis -- #
+    c = out["gbt"]
+    train, test = sized(c["rows"], c["test_rows"])
+    logs, restore = chip_smoke.capture_returns(jax_gbt, "_train_gbt")
+    try:
+        t0 = time.perf_counter()
+        m = ydf.GradientBoostedTreesLearner(**c["learner"]).train(train)
+        c["jax_train_s_cpu"] = time.perf_counter() - t0
+    finally:
+        restore()
+    m.force_engine("Routed")
+    m.save(os.path.join(d, "gbt_model"))
+    fo = forest_np(m)
+    K, T = m.num_trees_per_iter, fo["feature"].shape[0]
+    run_logs = logs[0][2]
+    W = np.asarray(run_logs["oblique_w"])[:T // K]
+    bounds = np.asarray(run_logs["oblique_b"])[:T // K]
+    tree_digests("gbt", fo, W, bounds)
+    bins = m.binner.transform(Dataset.from_data(train, dataspec=m.dataspec))
+    preds = np.asarray(m.predict(test))
+    ev = m.evaluate(test)
+    c.update(
+        train_sha256=chip_smoke.frame_sha256(train),
+        test_sha256=chip_smoke.frame_sha256(test),
+        bins_sha256=chip_smoke.array_sha256(np.asarray(bins)),
+        num_projections=int(W.shape[1]), classes=m.classes,
+        num_trees=m.training_logs["num_trees"],
+        num_trees_trained=m.training_logs["num_trees_trained"],
+        predictions_sha256=chip_smoke.array_sha256(preds),
+        jax_evaluate=dict(ev.metrics),
+    )
+    il = m.training_logs["iterations"]
+    arrays["gbt/train_loss"] = np.array([r["train_loss"] for r in il],
+                                        np.float32)
+    arrays["gbt/valid_loss"] = np.array([r["valid_loss"] for r in il],
+                                        np.float32)
+    arrays["gbt/predictions"] = preds[:cfg["compare_rows"]]
+    # The serving fixture's requests: the first test rows, as they are.
+    arrays.update({f"gbt_head/{k}": v[:cfg["compare_rows"]]
+                   for k, v in test.items()})
+    print(f"train_oblique gbt: {c['num_trees']} of {c['num_trees_trained']}"
+          f" trees in {c['jax_train_s_cpu']:.1f} s, P {c['num_projections']}"
+          f", {ev.metrics}", flush=True)
+
+    # -- CART: the same frame, 10% held out for pruning ----------------- #
+    c = out["cart"]
+    grown = []
+    orig_prune = capture_unpruned(jax_cart, grown)
+    rf_runs, restore = chip_smoke.capture_returns(jax_rf, "_train_rf")
+    try:
+        t0 = time.perf_counter()
+        m = ydf.CartLearner(**c["learner"]).train(train)
+        c["jax_train_s_cpu"] = time.perf_counter() - t0
+    finally:
+        jax_cart.prune_single_tree = orig_prune
+        restore()
+    fo = forest_np(m)
+    (_, W, bounds), _, _, _ = rf_runs[0]
+    tree_digests("cart", fo, W, bounds)
+    mask = np.random.RandomState(cfg["seed"]).uniform(size=c["rows"]) \
+        < c["validation_ratio"]
+    ev = m.evaluate(test)
+    c.update(
+        holdout_sha256=chip_smoke.array_sha256(mask),
+        num_projections=int(np.asarray(W).shape[1]),
+        grown_sha256=chip_smoke.tree_sha256(grown[0], 0),
+        grown_threshold_sha256=chip_smoke.array_sha256(
+            grown[0]["threshold"][0]),
+        grown_num_nodes=int(grown[0]["num_nodes"][0]),
+        pruned_sha256=chip_smoke.tree_sha256(fo, 0),
+        pruned_threshold_sha256=chip_smoke.array_sha256(fo["threshold"][0]),
+        num_pruned_nodes=m.extra_metadata["num_pruned_nodes"],
+        oob_evaluation=m.oob_evaluation, jax_evaluate=dict(ev.metrics),
+    )
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    arrays["cart/proba"] = np.asarray(m.predict(head), np.float32)
+    print(f"train_oblique cart: {c['grown_num_nodes']} nodes grown, "
+          f"{c['num_pruned_nodes']} pruned in {c['jax_train_s_cpu']:.1f} s, "
+          f"{ev.metrics}", flush=True)
+
+    # -- isolation forest: the same rows' 32 feature columns ------------ #
+    c = out["iforest"]
+    feats = {k: v for k, v in train.items() if k != "label"}
+    test_x, anomalous = chip_smoke.if_test_frame(test)
+    if_runs, restore = chip_smoke.capture_returns(jax_if, "_train_if")
+    try:
+        t0 = time.perf_counter()
+        m = ydf.IsolationForestLearner(**c["learner"]).train(feats)
+        c["jax_train_s_cpu"] = time.perf_counter() - t0
+    finally:
+        restore()
+    fo = forest_np(m)
+    _, _, (W, bounds) = if_runs[0]
+    tree_digests("iforest", fo, W, bounds)
+    scores = np.asarray(m.predict(test_x))
+    c.update(
+        train_sha256=chip_smoke.frame_sha256(feats),
+        test_sha256=chip_smoke.frame_sha256(test_x),
+        num_trees=int(fo["feature"].shape[0]), max_depth=m.max_depth,
+        num_projections=int(np.asarray(W).shape[1]),
+        scores_sha256=chip_smoke.array_sha256(scores),
+        anomalies=int(anomalous.sum()), auc=roc_auc(anomalous, scores),
+    )
+    arrays["iforest/scores"] = scores[:cfg["compare_rows"]]
+    print(f"train_oblique if: {c['num_trees']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s, AUC {c['auc']:.6f}", flush=True)
+
+    # -- random forest: train_rf's frame, fixture_trees trees ----------- #
+    c = out["rf"]
+    train, test = sized(c["rows"], c["test_rows"])
+    rf_runs, restore = chip_smoke.capture_returns(jax_rf, "_train_rf")
+    try:
+        t0 = time.perf_counter()
+        m = ydf.RandomForestLearner(num_trees=c["fixture_trees"],
+                                    **c["learner"]).train(train)
+        c["jax_train_s_cpu"] = time.perf_counter() - t0
+    finally:
+        restore()
+    fo = forest_np(m)
+    (_, W, bounds), _, _, _ = rf_runs[0]
+    tree_digests("rf", fo, W, bounds)
+    bins = m.binner.transform(Dataset.from_data(train, dataspec=m.dataspec))
+    ev = m.evaluate(test)
+    c.update(
+        train_sha256=chip_smoke.frame_sha256(train),
+        test_sha256=chip_smoke.frame_sha256(test),
+        bins_sha256=chip_smoke.array_sha256(np.asarray(bins)),
+        num_projections=int(np.asarray(W).shape[1]),
+        oob_evaluation=m.oob_evaluation, jax_evaluate=dict(ev.metrics),
+    )
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    arrays["rf/proba"] = np.asarray(m.predict(head), np.float32)
+    print(f"train_oblique rf: {c['fixture_trees']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s, {ev.metrics}", flush=True)
+
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    np.savez_compressed(os.path.join(d, "expected.npz"), **arrays)
+    size = sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+    print(f"train_oblique: {size} bytes")
+
+
 #: Where main() asks XLA to dump the boosting programs (for
 #: write_train_multiclass's update_forms); removed afterwards.
 DUMP_DIR = None
@@ -1020,6 +1260,8 @@ def main():
         write_train_cart()
     if only in (None, "train_if"):
         write_train_if()
+    if only in (None, "train_oblique"):
+        write_train_oblique()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

@@ -270,7 +270,7 @@ def test_learner_surface_raises_for_what_is_not_ported():
     kw = dict(label="label", device="cpu")
     cases = [
         dict(validation_ratio=0.0, dart_dropout=0.1),
-        dict(validation_ratio=0.0, split_axis="SPARSE_OBLIQUE"),
+        dict(validation_ratio=0.0, split_axis="MHLD_OBLIQUE"),  # item 28
         dict(validation_ratio=0.0, monotonic_constraints={"f0": 1}),
         dict(validation_ratio=0.0, task=Task.RANKING),
         dict(validation_ratio=0.0, sampling_method="SELGB"),

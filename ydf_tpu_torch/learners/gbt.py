@@ -19,8 +19,9 @@ read back after the last iteration.
 
 Random draws follow the JAX package's key chain bit for bit
 (utils/prng.py): PRNGKey(seed); per iteration key, k_sub =
-split(fold_in(key, it)), then (with vector-sequence features) key, k_vs
-= split(key); class k's tree key is fold_in(key, k). The row sample
+split(fold_in(key, it)), then (with sparse-oblique splits) key, k_proj =
+split(key), then (with vector-sequence features) key, k_vs =
+split(key); class k's tree key is fold_in(key, k). The row sample
 (gbt.py:sample_mask) draws from k_sub: subsample < 1 keeps a row with
 bernoulli(k_sub, subsample); GOSS keeps the rows whose sum over the K
 columns of |g| is at least the goss_alpha * n-th largest (a value
@@ -65,6 +66,20 @@ before the loop (one copy to the device); the data-dependent steps (the
 row and vector from those words, the scores, quantiles and bins) run on
 the device inside it.
 
+Sparse-oblique splits (split_axis="SPARSE_OBLIQUE", the JAX package's
+make_projections, gbt.py:1255-1310): every iteration draws P =
+min(max(ceil(Fn ** exponent), 2), max_num_projections) sparse
+projections of the Fn imputed numerical features from k_proj
+(ops/oblique.py; they depend on the seed alone, so every iteration's are
+drawn before the loop), projects the rows (kept feature-major on the
+device) in XLA's dot order, bins each projection at its quantiles
+through the binning kernel and inserts the P columns after the
+numerical features; the K trees of the iteration share them, and the
+validation rows are projected and binned under the same cuts. The
+candidate columns are then [numericals, projections, anchors,
+categoricals]; the forest keeps both blocks after the real features,
+projections first (models/forest.py).
+
 Prediction update. K = 1: preds + raw * shrinkage as ONE rounding (a
 fused multiply-add), what the JAX package computes on an x86 host whose
 XLA contracts the multiply into the add (ydf_tpu/ops/routing_native.py:
@@ -98,7 +113,7 @@ from ydf_tpu_torch.learners.generic import GenericLearner
 from ydf_tpu_torch.learners.losses import CustomLoss, make_loss, sum_classes
 from ydf_tpu_torch.models.forest import forest_from_stacked_trees
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
-from ydf_tpu_torch.ops import grower
+from ydf_tpu_torch.ops import grower, oblique
 from ydf_tpu_torch.ops.routing import route_tree_bins
 from ydf_tpu_torch.ops.split_rules import HessianGainRule
 from ydf_tpu_torch.ops.vector_sequence import vs_scores
@@ -115,7 +130,7 @@ HOST_READS = 0
 MAX_CHUNK_TREES = 25
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
+def _unported(what: str, item) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
     )
@@ -184,6 +199,15 @@ class GradientBoostedTreesLearner(GenericLearner):
         apply_link_function: bool = True,
         dart_dropout: float = 0.0,
         split_axis: str = "AXIS_ALIGNED",
+        sparse_oblique_num_projections_exponent: float = 1.0,
+        sparse_oblique_projection_density_factor: float = 2.0,
+        sparse_oblique_weights: str = "BINARY",
+        sparse_oblique_weights_power_of_two_min_exponent: int = -3,
+        sparse_oblique_weights_power_of_two_max_exponent: int = 3,
+        sparse_oblique_weights_integer_minimum: int = -5,
+        sparse_oblique_weights_integer_maximum: int = 5,
+        sparse_oblique_max_num_projections: int = 64,
+        mhld_oblique_max_num_attributes: int = 4,
         numerical_vector_sequence_num_anchors: int = 16,
         numerical_vector_sequence_enable_closer_than: bool = True,
         numerical_vector_sequence_enable_projected_more_than: bool = True,
@@ -209,10 +233,14 @@ class GradientBoostedTreesLearner(GenericLearner):
             # Selective gradient boosting ranks query groups: it needs
             # the ranking task and its groups.
             raise _unported("sampling_method='SELGB'", 12)
-        if split_axis != "AXIS_ALIGNED":
-            raise _unported(f"split_axis={split_axis!r}", 14)
+        if split_axis not in ("AXIS_ALIGNED", "SPARSE_OBLIQUE",
+                              "MHLD_OBLIQUE"):
+            raise ValueError(f"Unknown split_axis {split_axis!r}")
+        if split_axis == "MHLD_OBLIQUE":
+            raise _unported("split_axis='MHLD_OBLIQUE'", 28)
+        oblique.check_weight_type(sparse_oblique_weights)
         if monotonic_constraints:
-            raise _unported("monotonic constraints", 14)
+            raise _unported("monotonic constraints", "14b")
         super().__init__(
             label=label, task=task, features=features, weights=weights,
             max_vocab_count=max_vocab_count,
@@ -238,6 +266,23 @@ class GradientBoostedTreesLearner(GenericLearner):
         self.goss_alpha = goss_alpha
         self.goss_beta = goss_beta
         self.apply_link_function = apply_link_function
+        self.split_axis = split_axis
+        self.sparse_oblique_num_projections_exponent = (
+            sparse_oblique_num_projections_exponent)
+        self.sparse_oblique_projection_density_factor = (
+            sparse_oblique_projection_density_factor)
+        self.sparse_oblique_weights = sparse_oblique_weights
+        self.sparse_oblique_weights_power_of_two_min_exponent = (
+            sparse_oblique_weights_power_of_two_min_exponent)
+        self.sparse_oblique_weights_power_of_two_max_exponent = (
+            sparse_oblique_weights_power_of_two_max_exponent)
+        self.sparse_oblique_weights_integer_minimum = (
+            sparse_oblique_weights_integer_minimum)
+        self.sparse_oblique_weights_integer_maximum = (
+            sparse_oblique_weights_integer_maximum)
+        self.sparse_oblique_max_num_projections = (
+            sparse_oblique_max_num_projections)
+        self.mhld_oblique_max_num_attributes = mhld_oblique_max_num_attributes
         # Anchors per kind per (iteration, VS feature) (reference
         # decision_tree.proto numerical_vector_sequence, :433-442).
         self.numerical_vector_sequence_num_anchors = (
@@ -254,6 +299,17 @@ class GradientBoostedTreesLearner(GenericLearner):
                 else 0,
                 k if self.numerical_vector_sequence_enable_projected_more_than
                 else 0)
+
+    def _oblique_weight_range(self):
+        """(min, max) of the POWER_OF_TWO exponents or INTEGER values,
+        None for the other weight types (gbt.py:835-848)."""
+        if self.sparse_oblique_weights == "POWER_OF_TWO":
+            return (self.sparse_oblique_weights_power_of_two_min_exponent,
+                    self.sparse_oblique_weights_power_of_two_max_exponent)
+        if self.sparse_oblique_weights == "INTEGER":
+            return (self.sparse_oblique_weights_integer_minimum,
+                    self.sparse_oblique_weights_integer_maximum)
+        return None
 
     def _candidate_features(self, num_features: int) -> int:
         """Candidate features a node, -1 for all (gbt.py:614-619)."""
@@ -281,10 +337,20 @@ class GradientBoostedTreesLearner(GenericLearner):
         bins_t = prep["bins_t"]  # one copy for every tree and layer
         labels, weights, vs_all = (prep["labels"], prep["sample_weights"],
                                    prep["vs"])
-        va = None  # (bins_t, labels, weights, vs) of the validation rows
+        x_raw = None  # imputed numerical features [n, Fn] (oblique)
+        P = 0
+        if self.split_axis == "SPARSE_OBLIQUE" and binner.num_numerical:
+            P = oblique.num_projections(
+                binner.num_numerical,
+                self.sparse_oblique_num_projections_exponent,
+                self.sparse_oblique_max_num_projections)
+            x_raw = oblique.raw_numerical(prep["dataset"], binner)
+        va = None  # (bins_t, labels, weights, vs, x_raw) of the validation
         if valid is not None:
             va = (prep["valid_bins_t"], prep["valid_labels"],
-                  prep["valid_sample_weights"], prep["valid_vs"])
+                  prep["valid_sample_weights"], prep["valid_vs"],
+                  None if x_raw is None else
+                  oblique.raw_numerical(prep["valid_dataset"], binner))
         elif self.validation_ratio > 0 and self.early_stopping != "NONE":
             tr_idx, va_idx = split_validation(
                 bins_t.shape[1], self.validation_ratio, self.random_seed)
@@ -294,10 +360,11 @@ class GradientBoostedTreesLearner(GenericLearner):
                                 1, torch.from_numpy(idx).to(dev)),
                             labels[idx], weights[idx],
                             None if vs_all is None else
-                            tuple(a[idx] for a in vs_all))
+                            tuple(a[idx] for a in vs_all),
+                            None if x_raw is None else x_raw[idx])
 
                 va = rows(va_idx)
-                bins_t, labels, weights, vs_all = rows(tr_idx)
+                bins_t, labels, weights, vs_all, x_raw = rows(tr_idx)
         n = bins_t.shape[1]
         tree_cfg = TreeConfig(
             max_depth=self.max_depth,
@@ -312,14 +379,24 @@ class GradientBoostedTreesLearner(GenericLearner):
             return (torch.from_numpy(y.astype(np.float32)).to(dev),
                     torch.from_numpy(w).to(dev))
 
+        def feature_major(x):
+            return torch.from_numpy(np.ascontiguousarray(x.T)).to(dev)
+
         Ac, Ap = self._vs_anchor_counts()
-        vs = valid_set = None
+        vs = valid_set = obl = None
         if vs_all is not None and Ac + Ap > 0:
             vs = vs_inputs(vs_all, Ac, Ap, dev)
+        if x_raw is not None:
+            obl = oblique.ObliqueInputs(
+                x_t=feature_major(x_raw), num_projections=P,
+                density=self.sparse_oblique_projection_density_factor,
+                weight_type=self.sparse_oblique_weights,
+                weight_range=self._oblique_weight_range())
         if va is not None and va[0].shape[1] > 0:
             valid_set = ValidSet(
                 va[0], *on_device(va[1], va[2]),
-                None if vs is None else vs_inputs(va[3], Ac, Ap, dev))
+                None if vs is None else vs_inputs(va[3], Ac, Ap, dev),
+                None if obl is None else feature_major(va[4]))
         lookahead = (self.early_stopping_num_trees_look_ahead
                      if self.early_stopping == "LOSS_INCREASE" else 0)
 
@@ -328,7 +405,7 @@ class GradientBoostedTreesLearner(GenericLearner):
             bins_t, *on_device(labels, weights), loss_obj=loss_obj,
             rule=rule, tree_cfg=tree_cfg, num_trees=self.num_trees,
             shrinkage=self.shrinkage, seed=self.random_seed, vs=vs,
-            num_numerical=binner.num_numerical, valid=valid_set,
+            obl=obl, num_numerical=binner.num_numerical, valid=valid_set,
             lookahead=lookahead,
             sampling=Sampling(self.sampling_method, self.subsample,
                               self.goss_alpha, self.goss_beta),
@@ -345,14 +422,23 @@ class GradientBoostedTreesLearner(GenericLearner):
         T = num_iters * K
         trees = grower.TreeArrays(*(f[:T] for f in out.trees))
         kwargs = {}
-        if vs is not None:
-            trees = trees._replace(feature=vs_feature_ids(
+
+        def per_tree(a):
+            # One projection or anchor set an iteration, shared by its K
+            # trees.
+            return a[:num_iters].repeat_interleave(K, dim=0)
+
+        if obl is not None or vs is not None:
+            blocks = (P + (0 if vs is None else out.vs_out[0].shape[1]))
+            trees = trees._replace(feature=oblique.feature_ids(
                 trees.feature, binner.num_numerical, binner.num_features,
-                out.vs_out[0].shape[1]))
-            # One anchor set an iteration, shared by its K trees.
-            kwargs = forest_vs_kwargs(vs, *(
-                a[:num_iters].repeat_interleave(K, dim=0)
-                for a in out.vs_out))
+                blocks))
+        if obl is not None:
+            kwargs["oblique_weights"], kwargs["oblique_boundaries"] = (
+                per_tree(a) for a in out.obl_out)
+        if vs is not None:
+            kwargs.update(forest_vs_kwargs(vs, *(
+                per_tree(a) for a in out.vs_out)))
         forest = forest_from_stacked_trees(
             trees, out.leaf_values[:T], binner.boundaries, **kwargs)
         t2 = time.perf_counter()
@@ -394,17 +480,6 @@ def iteration_records(train_losses, valid_losses, chunk_walls):
          "seconds": float(secs[i])}
         for i in range(len(train_losses))
     ]
-
-
-def vs_feature_ids(feature: torch.Tensor, Fn: int, F: int,
-                   Pv: int) -> torch.Tensor:
-    """Grown feature ids ([numericals, anchors, categoricals], the JAX
-    package's candidate layout) -> the forest's ([numericals,
-    categoricals, anchors]): anchors move after the F binned features."""
-    anchor = (feature >= Fn) & (feature < Fn + Pv)
-    return torch.where(anchor, feature - Fn + F,
-                       torch.where(feature >= Fn + Pv, feature - Pv,
-                                   feature))
 
 
 class VSInputs(NamedTuple):
@@ -456,28 +531,36 @@ class IterationKeys(NamedTuple):
     sub: torch.Tensor            # [T, 2] k_sub: the row sample
     vs: Optional[torch.Tensor]   # [T, 2] k_vs, or None without VS features
     tree: torch.Tensor           # [T, K, 2] fold_in(key, k): tree k's key
+    proj: Optional[torch.Tensor] = None  # [T, 2] k_proj, or None without
+                                         # oblique splits
 
 
 def iteration_keys(seed: int, num_iters: int, num_classes: int,
-                   with_vs: bool, device) -> IterationKeys:
+                   with_vs: bool, device,
+                   with_oblique: bool = False) -> IterationKeys:
     """The JAX package's key chain for `num_iters` iterations, run on the
     CPU (a few tiny hashes an iteration) and copied to `device` once:
-    key, k_sub = split(fold_in(key, it)); key, k_vs = split(key) with
-    VS features; tree keys fold_in(key, k)."""
+    key, k_sub = split(fold_in(key, it)); key, k_proj = split(key) with
+    oblique splits; key, k_vs = split(key) with VS features; tree keys
+    fold_in(key, k)."""
     key = prng.prng_key(seed)
-    subs, vss, keys = [], [], []
+    subs, projs, vss, keys = [], [], [], []
     for it in range(num_iters):
         key, k_sub = prng.split(prng.fold_in(key, it))
         subs.append(k_sub)
+        if with_oblique:
+            key, k_proj = prng.split(key)
+            projs.append(k_proj)
         if with_vs:
             key, k_vs = prng.split(key)
             vss.append(k_vs)
         keys.append(key)
     tree = prng.fold_in(torch.stack(keys)[:, None, :],
                         torch.arange(num_classes)[None, :])
-    return IterationKeys(torch.stack(subs).to(device),
-                         torch.stack(vss).to(device) if with_vs else None,
-                         tree.to(device))
+    return IterationKeys(
+        torch.stack(subs).to(device),
+        torch.stack(vss).to(device) if with_vs else None, tree.to(device),
+        torch.stack(projs).to(device) if with_oblique else None)
 
 
 def vs_draws(seed: int, num_iters: int, num_vs: int, num_draws: int,
@@ -575,6 +658,8 @@ class ValidSet(NamedTuple):
     labels: torch.Tensor        # f32 [nv]
     weights: torch.Tensor       # f32 [nv]
     vs: Optional[VSInputs]      # their vector sequences, or None
+    x_t: Optional[torch.Tensor] = None  # f32 [Fn, nv] imputed numerical
+                                        # features (oblique splits)
 
 
 class Sampling(NamedTuple):
@@ -602,19 +687,23 @@ class BoostResult(NamedTuple):
                                 # [T, Pv, B-1]) or None
     valid_loss: Optional[torch.Tensor]  # f32 [T], None without `valid`
     chunk_walls: List[tuple]    # (first iteration, iterations, seconds)
+    obl_out: Optional[tuple] = None  # (projections [T, P, Fn], boundaries
+                                     # [T, P, B-1]) or None
 
 
 def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
           *, loss_obj, rule, tree_cfg: TreeConfig, num_trees: int,
           shrinkage: float, seed: int = 123456,
-          vs: Optional[VSInputs] = None, hist_quant: str = "f32",
+          vs: Optional[VSInputs] = None,
+          obl: Optional[oblique.ObliqueInputs] = None, hist_quant: str = "f32",
           num_numerical: Optional[int] = None,
           valid: Optional[ValidSet] = None,
           lookahead: int = 0, sampling: Sampling = Sampling(),
           candidate_features: int = -1) -> BoostResult:
     """The boosting loop on the device of `bins_t` (u8 [F, n]; rows
     [0, num_numerical) numerical, the rest categorical; default all
-    numerical), T <= num_trees iterations of loss_obj.num_dims trees.
+    numerical), T <= num_trees iterations of loss_obj.num_dims trees,
+    with sparse-oblique splits when `obl` is given.
     With `valid`, every tree scores the validation rows; with lookahead >
     0 as well (and num_trees > lookahead, as the JAX package), the loop
     runs in chunks of min(lookahead, MAX_CHUNK_TREES) iterations, reads
@@ -628,19 +717,23 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
     dev = bins_t.device
     F = bins_t.shape[0]
     Pv = 0 if vs is None else len(vs.values) * vs.anchors_per_feature
-    sampled = 0 < candidate_features < F + Pv
-    keys = draws = columns = None
-    if sampling.draws or sampled or vs is not None:
-        keys = iteration_keys(seed, num_trees, K, vs is not None, dev)
+    P = 0 if obl is None else obl.num_projections
+    sampled = 0 < candidate_features < F + P + Pv
+    keys = draws = columns = obl_w = None
+    if sampling.draws or sampled or vs is not None or P:
+        keys = iteration_keys(seed, num_trees, K, vs is not None, dev,
+                              with_oblique=P > 0)
     if vs is not None:
         draws = vs_words(keys.vs, len(vs.values),
                          vs.num_closer + 2 * vs.num_projected)
+    if P:
+        obl_w = obl.weights(keys.proj)
     if sampled:
         Fn = F if num_numerical is None else num_numerical
         columns = grower.layer_columns(
             keys.tree.reshape(-1, 2), max_depth=tree_cfg.max_depth,
-            frontier=tree_cfg.frontier, num_features=F + Pv,
-            num_numerical=Fn + Pv, orderings=rule.num_cat_orderings,
+            frontier=tree_cfg.frontier, num_features=F + P + Pv,
+            num_numerical=Fn + P + Pv, orderings=rule.num_cat_orderings,
             k=candidate_features)
         HOST_READS += 1
     stopping = valid is not None and 0 < lookahead < num_trees
@@ -648,6 +741,7 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
     loop = _Loop(bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
                  tree_cfg=tree_cfg, shrinkage=shrinkage,
                  hist_quant=hist_quant, vs=vs, draws=draws,
+                 obl=obl, obl_w=obl_w, loop_of_one=clen == 1,
                  num_numerical=num_numerical, valid=valid,
                  sampling=sampling, keys=keys, columns=columns)
     on_card = dev.type == "cuda"
@@ -684,12 +778,16 @@ class _Loop:
     tensors."""
 
     def __init__(self, bins_t, labels, weights, *, loss_obj, rule,
-                 tree_cfg, shrinkage, hist_quant, vs, draws, num_numerical,
-                 valid, sampling, keys, columns):
+                 tree_cfg, shrinkage, hist_quant, vs, draws, obl, obl_w,
+                 loop_of_one, num_numerical, valid, sampling, keys,
+                 columns):
         self.bins_t, self.labels, self.weights = bins_t, labels, weights
         self.loss_obj, self.rule, self.cfg = loss_obj, rule, tree_cfg
         self.shrinkage, self.hist_quant = shrinkage, hist_quant
         self.vs, self.draws, self.valid = vs, draws, valid
+        # The JAX package runs the iterations in loops of `clen` steps; a
+        # loop of one rounds the projections' quantiles differently.
+        self.obl, self.obl_w, self.loop_of_one = obl, obl_w, loop_of_one
         self.sampling, self.keys, self.columns = sampling, keys, columns
         self.K = loss_obj.num_dims
         self.Fn = bins_t.shape[0] if num_numerical is None else num_numerical
@@ -700,8 +798,9 @@ class _Loop:
         self.iterations = 0
         self.trees, self.leaf_values, self.losses = [], [], []
         self.valid_losses, self.vs_anchors, self.vs_bounds = [], [], []
+        self.obl_bounds = []
         B = tree_cfg.num_bins
-        if vs is not None:
+        if vs is not None or obl is not None:
             self.qs = prng.linspace_f32(1.0 / B, 1.0 - 1.0 / B, B - 1,
                                         device=bins_t.device)
 
@@ -748,6 +847,19 @@ class _Loop:
         grow_bins = self.bins_t
         grow_va = None if valid is None else valid.bins_t
         Fn = self.Fn
+        if self.obl is not None:
+            # The projection columns go after the numerical features,
+            # the JAX package's [num, obl, vs, cat].
+            cols, bounds = oblique.projection_columns(
+                self.obl.x_t, self.obl_w[it], qs=self.qs,
+                loop_of_one=self.loop_of_one)
+            grow_bins = torch.cat([grow_bins[:Fn], cols, grow_bins[Fn:]])
+            if valid is not None:
+                cols_va, _ = oblique.projection_columns(
+                    valid.x_t, self.obl_w[it], bounds=bounds)
+                grow_va = torch.cat([grow_va[:Fn], cols_va, grow_va[Fn:]])
+            Fn += cols.shape[0]
+            self.obl_bounds.append(bounds)
         if self.vs is not None:
             # The anchor columns go between the numerical and the
             # categorical features, the JAX package's [num, vs, cat].
@@ -810,15 +922,18 @@ class _Loop:
     def result(self, walls) -> BoostResult:
         stacked = grower.TreeArrays(*(torch.stack(field)
                                       for field in zip(*self.trees)))
-        vs_out = None
+        vs_out = obl_out = None
         if self.vs is not None:
             vs_out = (torch.stack(self.vs_anchors),
                       torch.stack(self.vs_bounds))
+        if self.obl is not None:
+            T = len(self.obl_bounds)
+            obl_out = (self.obl_w[:T], torch.stack(self.obl_bounds))
         return BoostResult(
             trees=stacked, leaf_values=torch.stack(self.leaf_values),
             train_loss=torch.stack(self.losses), init_pred=self.init_pred,
             vs_out=vs_out,
             valid_loss=(torch.stack(self.valid_losses)
                         if self.valid is not None else None),
-            chunk_walls=walls,
+            chunk_walls=walls, obl_out=obl_out,
         )

@@ -12,8 +12,8 @@ Poisson(1) bootstrap of the rows, sqrt(F) candidate features per node for
 classification and F/3 for regression, winner-take-all votes, out-of-bag
 evaluation, max_frontier="auto" (1024 slots from 10,240 rows up).
 
-Tree t draws from key = fold_in(PRNGKey(seed), t): k_boot, k_grow, _, _ =
-split(key, 4). Its rows weigh w = w_base * poisson(k_boot, 1.0, (n,)),
+Tree t draws from key = fold_in(PRNGKey(seed), t): k_boot, k_grow, _,
+k_obl = split(key, 4). Its rows weigh w = w_base * poisson(k_boot, 1.0, (n,)),
 its stats are basis * w (classification: [one-hot label..., 1], so the
 stats are class counts; regression: [y, y^2, 1]), the grower draws each
 layer's candidate features from k_grow (ops/grower.py), and the leaves
@@ -22,16 +22,28 @@ bootstrap left out (count 0, base weight > 0) vote on the tree for the
 out-of-bag evaluation: one-hot of the leaf's top class (winner take all)
 or the leaf value, summed in tree order in f32, as the JAX package does.
 
-The bootstrap counts and the candidate features depend on the seed
+Sparse-oblique splits (split_axis="SPARSE_OBLIQUE", _rf_run_chunk's
+projection step): tree t draws P = min(max(ceil(Fn ** exponent), 2),
+max_num_projections) sparse projections of the Fn imputed numerical
+features from k_obl (ops/oblique.py), projects every row in XLA's dot
+order, bins each projection at its quantiles through the binning kernel
+and grows on [numericals, projections, categoricals]; the candidate
+features are drawn over all F + P columns while their count still
+counts the F real features, as in the JAX package. The forest keeps the
+projections after the real features (models/forest.py).
+
+The bootstrap counts, the candidate features and the projections depend
+on the seed
 alone, so they are drawn for every tree before the loop (utils/prng.py:
-poisson1; grower.candidate_masks) and read on the host once there: the
+poisson1; grower.candidate_masks; oblique.sample_projection_coefficients)
+and read on the host once there: the
 count of Knuth steps that sufficed and the widest candidate set of each
 layer (HOST_READS). The loop itself reads nothing back (it runs under
 torch.cuda.set_sync_debug_mode("error") on a card); the trees, leaf
 values and out-of-bag sums are read after the last tree.
 
 What the JAX package's learner offers and this port does not (honest
-trees, sparse-oblique splits, uplift tasks, out-of-bag permutation
+trees, uplift tasks, out-of-bag permutation
 importances, a mesh, maximum_training_duration) raises
 NotImplementedError naming the ROADMAP item. bootstrap_size_ratio is
 stored and unused, as in the JAX package.
@@ -55,7 +67,7 @@ from ydf_tpu_torch.models.forest import (
     forest_from_stacked_trees,
 )
 from ydf_tpu_torch.models.rf_model import RandomForestModel
-from ydf_tpu_torch.ops import grower
+from ydf_tpu_torch.ops import grower, oblique
 from ydf_tpu_torch.ops.split_rules import ClassificationRule, RegressionRule
 from ydf_tpu_torch.utils import prng
 
@@ -94,6 +106,10 @@ class RandomForestLearner(GenericLearner):
         num_candidate_attributes: int = 0,
         num_candidate_attributes_ratio: float = -1.0,
         split_axis: str = "AXIS_ALIGNED",
+        sparse_oblique_num_projections_exponent: float = 1.0,
+        sparse_oblique_projection_density_factor: float = 2.0,
+        sparse_oblique_weights: str = "BINARY",
+        sparse_oblique_max_num_projections: int = 64,
         winner_take_all: bool = True,
         compute_oob_performances: bool = True,
         compute_oob_variable_importances: bool = False,
@@ -114,8 +130,9 @@ class RandomForestLearner(GenericLearner):
     ):
         if task not in (Task.CLASSIFICATION, Task.REGRESSION):
             raise _unported(f"random forest task {task.value}", 15)
-        if split_axis != "AXIS_ALIGNED":
-            raise _unported(f"split_axis={split_axis!r}", 14)
+        if split_axis not in ("AXIS_ALIGNED", "SPARSE_OBLIQUE"):
+            raise ValueError(f"Unknown split_axis {split_axis!r}")
+        oblique.check_weight_type(sparse_oblique_weights)
         if uplift_treatment:
             raise _unported("uplift_treatment", 15)
         if honest:
@@ -140,6 +157,14 @@ class RandomForestLearner(GenericLearner):
         self.bootstrap_size_ratio = bootstrap_size_ratio
         self.num_candidate_attributes = num_candidate_attributes
         self.num_candidate_attributes_ratio = num_candidate_attributes_ratio
+        self.split_axis = split_axis
+        self.sparse_oblique_num_projections_exponent = (
+            sparse_oblique_num_projections_exponent)
+        self.sparse_oblique_projection_density_factor = (
+            sparse_oblique_projection_density_factor)
+        self.sparse_oblique_weights = sparse_oblique_weights
+        self.sparse_oblique_max_num_projections = (
+            sparse_oblique_max_num_projections)
         self.winner_take_all = winner_take_all
         self.compute_oob_performances = compute_oob_performances
         self.max_frontier = max_frontier
@@ -194,6 +219,7 @@ class RandomForestLearner(GenericLearner):
         )
         oob_enabled = (self.compute_oob_performances
                        and self.bootstrap_training_dataset)
+        obl = oblique_inputs(self, prep)
         t1 = time.perf_counter()
         out = train_rf(
             bins_t, w_base, basis, rule=rule, tree_cfg=tree_cfg,
@@ -205,11 +231,10 @@ class RandomForestLearner(GenericLearner):
             num_numerical=binner.num_numerical, seed=self.random_seed,
             winner_take_all=(self.winner_take_all
                              and self.task == Task.CLASSIFICATION),
-            compute_oob=oob_enabled,
+            compute_oob=oob_enabled, obl=obl,
         )
         t2 = time.perf_counter()
-        forest = forest_from_stacked_trees(out.trees, out.leaf_values,
-                                           binner.boundaries)
+        forest = oblique_forest(out, binner)
         model = RandomForestModel(
             task=self.task, label=self.label, classes=classes,
             dataspec=prep["dataset"].dataspec, binner=binner, forest=forest,
@@ -226,6 +251,40 @@ class RandomForestLearner(GenericLearner):
                                   "finalize_s": t3 - t2,
                                   "train_s": t3 - t0})
         return model
+
+
+def oblique_inputs(learner, prep) -> Optional[oblique.ObliqueInputs]:
+    """The projections' inputs of a random or isolation forest learner on
+    its device, None without sparse-oblique splits (or numerical
+    features). These learners pass no weight range: the sampler's
+    defaults apply."""
+    binner = prep["binner"]
+    Fn = binner.num_numerical
+    if learner.split_axis != "SPARSE_OBLIQUE" or Fn == 0:
+        return None
+    x = oblique.raw_numerical(prep["dataset"], binner)
+    return oblique.ObliqueInputs(
+        x_t=torch.from_numpy(np.ascontiguousarray(x.T)).to(learner.device),
+        num_projections=oblique.num_projections(
+            Fn, learner.sparse_oblique_num_projections_exponent,
+            learner.sparse_oblique_max_num_projections),
+        density=learner.sparse_oblique_projection_density_factor,
+        weight_type=learner.sparse_oblique_weights)
+
+
+def oblique_forest(out, binner):
+    """The Forest of a tree loop's result (RFResult, IFResult): grown
+    feature ids remapped and each tree's projections attached when the
+    trees have them."""
+    trees, kwargs = out.trees, {}
+    if out.obl_out is not None:
+        W, bounds = out.obl_out
+        trees = trees._replace(feature=oblique.feature_ids(
+            trees.feature, binner.num_numerical, binner.num_features,
+            W.shape[1]))
+        kwargs = dict(oblique_weights=W, oblique_boundaries=bounds)
+    return forest_from_stacked_trees(trees, out.leaf_values,
+                                     binner.boundaries, **kwargs)
 
 
 def oob_evaluation(task: Task, labels: np.ndarray, weights: np.ndarray,
@@ -260,6 +319,8 @@ class RFResult(NamedTuple):
     oob_sum: Optional[torch.Tensor]    # f32 [n, V]
     oob_count: Optional[torch.Tensor]  # f32 [n]
     timings: Dict[str, float]
+    obl_out: Optional[tuple] = None  # (projections [T, P, Fn], boundaries
+                                     # [T, P, B-1]) or None
 
 
 def tree_keys(seed: int, num_trees: int, device) -> torch.Tensor:
@@ -293,12 +354,14 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
              basis: torch.Tensor, *, rule, tree_cfg: TreeConfig,
              max_nodes: int, num_trees: int, bootstrap: bool,
              candidate_features: int, num_numerical: int, seed: int,
-             winner_take_all: bool, compute_oob: bool) -> RFResult:
+             winner_take_all: bool, compute_oob: bool,
+             obl=None) -> RFResult:
     """Grows `num_trees` trees on the device of `bins_t` (u8 [F, n];
     rows [0, num_numerical) numerical, the rest categorical) from the
     row weights w_base f32 [n] and the stat basis f32 [n, S] (module
-    docstring). On a card the tree loop runs under torch's sync debug
-    mode "error"."""
+    docstring), with sparse-oblique splits when `obl`
+    (ops/oblique.py:ObliqueInputs) is given. On a card the tree loop
+    runs under torch's sync debug mode "error"."""
     global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
@@ -311,12 +374,17 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
     keys = tree_keys(seed, num_trees, dev)
     counts = bootstrap_counts(keys[:, 0], n) if bootstrap else None
     O = rule.num_cat_orderings if F > num_numerical else 1
-    columns = None
-    if 0 < candidate_features < F:
+    P = 0 if obl is None else obl.num_projections
+    columns = obl_w = qs = None
+    if P:
+        obl_w = obl.weights(keys[:, 3])
+        B = cfg.num_bins
+        qs = prng.linspace_f32(1.0 / B, 1.0 - 1.0 / B, B - 1, device=dev)
+    if 0 < candidate_features < F + P:
         columns = grower.layer_columns(
             keys[:, 1], max_depth=cfg.max_depth, frontier=cfg.frontier,
-            num_features=F, num_numerical=num_numerical, orderings=O,
-            k=candidate_features)
+            num_features=F + P, num_numerical=num_numerical + P,
+            orderings=O, k=candidate_features)
         HOST_READS += 1
     V = rule.num_outputs
     oob_sum = oob_count = None
@@ -330,7 +398,7 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
     if on_card:
         prev_mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
-    trees, leaf_values = [], []
+    trees, leaf_values, obl_bounds = [], [], []
     try:
         for t in range(num_trees):
             if bootstrap:
@@ -338,11 +406,19 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
                 w = w_base * draws.to(torch.float32)
             else:
                 w = w_base
+            grow_bins = bins_t
+            if P:
+                # One tree: the JAX package's chunk is a loop of one step.
+                cols, bounds = oblique.projection_columns(
+                    obl.x_t, obl_w[t], qs=qs, loop_of_one=num_trees == 1)
+                grow_bins = torch.cat([bins_t[:num_numerical], cols,
+                                       bins_t[num_numerical:]])
+                obl_bounds.append(bounds)
             res = grower.grow_tree(
-                bins_t, basis * w[:, None], rule=rule,
+                grow_bins, basis * w[:, None], rule=rule,
                 max_depth=cfg.max_depth, frontier=cfg.frontier,
                 max_nodes=max_nodes, num_bins=cfg.num_bins,
-                num_numerical=num_numerical,
+                num_numerical=num_numerical + P,
                 min_examples=cfg.min_examples,
                 columns=None if columns is None else [
                     (idx[t].long(), ok[t]) for idx, ok in columns],
@@ -365,6 +441,8 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
     return RFResult(
-        trees=stacked, leaf_values=torch.stack(leaf_values), oob_sum=oob_sum, oob_count=oob_count,
+        trees=stacked, leaf_values=torch.stack(leaf_values), oob_sum=oob_sum,
+        oob_count=oob_count,
         timings={"draws_s": t1 - t0, "loop_s": t2 - t1},
+        obl_out=(obl_w, torch.stack(obl_bounds)) if P else None,
     )

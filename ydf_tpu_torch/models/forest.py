@@ -115,18 +115,21 @@ def bake_winner_take_all(leaf_value: torch.Tensor) -> torch.Tensor:
 
 
 def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
-                              boundaries: np.ndarray, vs_anchors=None,
+                              boundaries: np.ndarray, oblique_weights=None,
+                              oblique_boundaries=None, vs_anchors=None,
                               vs_boundaries=None, vs_feat=None,
                               vs_is_closer=None) -> Forest:
     """Stacked tree arrays (ops/grower.py:TreeArrays with a leading tree
     axis) + leaf values [T, N, V] -> Forest, on the trees' device
-    (counterpart of ydf_tpu/models/forest.py:forest_from_stacked_trees
-    without oblique projections). Value thresholds are
-    boundaries[feature, threshold_bin]: "bin <= t" is
-    "v < boundaries[t]"; cover is the weighted example count.
-    Vector-sequence anchors occupy the feature block [F, F + Pv) after
-    the F binned features: `vs_anchors` [T, Pv, D], `vs_boundaries`
-    [T, Pv, B-1] (those nodes' thresholds), `vs_feat` [T, Pv] and
+    (counterpart of ydf_tpu/models/forest.py:forest_from_stacked_trees).
+    Value thresholds are boundaries[feature, threshold_bin]: "bin <= t"
+    is "v < boundaries[t]"; cover is the weighted example count.
+    Sparse-oblique projections occupy the feature block [F, F + P) after
+    the F binned features: `oblique_weights` [T, P, Fn] and
+    `oblique_boundaries` [T, P, B-1] (those nodes' thresholds, from their
+    own tree's cuts); no missing-value replacement (NaN). Vector-sequence
+    anchors occupy the next block [F + P, F + P + Pv): `vs_anchors`
+    [T, Pv, D], `vs_boundaries` [T, Pv, B-1], `vs_feat` [T, Pv] and
     `vs_is_closer` [T, Pv]. V = leaf_value.shape[-1] outputs a leaf
     (a random forest's class distributions: V = C)."""
     feature = stacked.feature
@@ -142,15 +145,26 @@ def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
         t_safe = tbin.long().clamp(0, bnd.shape[1] - 1)
         threshold = bnd[f_safe, t_safe]
     empty = torch.zeros((T, 0, 0), dtype=torch.float32, device=dev)
+    F = bnd.shape[0]
+    if oblique_weights is None:
+        oblique_weights = empty
+    else:
+        P = oblique_weights.shape[1]
+        threshold = torch.where(
+            (feature >= F) & (feature < F + P),
+            _per_tree_block_thresholds(feature, tbin, oblique_boundaries,
+                                       F),
+            threshold)
+    P = oblique_weights.shape[1]
     if vs_anchors is None:
         vs_anchors = empty
         vs_feat = torch.zeros((T, 0), dtype=torch.int32, device=dev)
         vs_is_closer = torch.zeros((T, 0), dtype=torch.bool, device=dev)
     else:
-        F = bnd.shape[0]
         threshold = torch.where(
-            feature >= F,
-            _per_tree_block_thresholds(feature, tbin, vs_boundaries, F),
+            feature >= F + P,
+            _per_tree_block_thresholds(feature, tbin, vs_boundaries,
+                                       F + P),
             threshold)
         vs_feat = vs_feat.to(torch.int32)
         vs_is_closer = vs_is_closer.to(torch.bool)
@@ -161,7 +175,8 @@ def forest_from_stacked_trees(stacked, leaf_value: torch.Tensor,
         is_leaf=stacked.is_leaf,
         na_left=torch.zeros((T, N), dtype=torch.bool, device=dev),
         leaf_value=leaf_value, cover=stacked.leaf_stats[..., -1],
-        oblique_weights=empty, oblique_na_repl=empty,
+        oblique_weights=oblique_weights.contiguous(),
+        oblique_na_repl=torch.full_like(oblique_weights, float("nan")),
         vs_anchor=vs_anchors.contiguous(), vs_feat=vs_feat.contiguous(),
         vs_is_closer=vs_is_closer.contiguous(), num_nodes=stacked.num_nodes,
     )

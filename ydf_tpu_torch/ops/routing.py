@@ -15,10 +15,20 @@ tree; each step reads the current node's condition and steps to a child;
 leaves self-loop. Trees are accumulated in order, one f32 add each, the
 order of the JAX package's `lax.scan`, so the sums are bit-identical.
 
-Numerical, categorical and vector-sequence nodes: a tree's anchors are
-scored once per tree (ops/vector_sequence.py, csrc/vector_sequence.cu on
-a card) before its depth loop reads them. Categorical-set and oblique
-nodes raise NotImplementedError (ROADMAP Queue 1 item 9).
+Numerical, categorical, sparse-oblique and vector-sequence nodes: a
+tree's projections and anchors are computed once per tree, before its
+depth loop reads them. A projection is the JAX package's
+sum(x_eff * w) over the numerical features (x_eff: x, a missing value
+replaced by the tree's oblique_na_repl where that is not NaN, 0 where
+w is 0) in the order XLA gives that reduce in the JAX package's routing
+(not the order of the learners' dot, ops/oblique.py): fused
+multiply-adds in increasing feature order, in one chain up to 21
+features; from 24 to 31 features (train_default's 28), the first 24 in
+8 lanes (feature k on lane k mod 8), the lanes summed by halves (lane i
++ lane i + 4, then i + 2, then i + 1), the rest chained on after. A NaN
+projection takes the node's na_left. Anchors are scored by ops/vector_sequence.py
+(csrc/vector_sequence.cu on a card). Categorical-set nodes raise
+NotImplementedError (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from ydf_tpu_torch.ops import histogram_kernels
 from ydf_tpu_torch.ops.histogram import finish
 from ydf_tpu_torch.ops.histogram_kernels import RouteTables
 from ydf_tpu_torch.ops.vector_sequence import vs_scores
+from ydf_tpu_torch.utils.xla_cpu import fma_f32
 
 
 def _check_supported(forest: Forest) -> None:
@@ -40,10 +51,6 @@ def _check_supported(forest: Forest) -> None:
         raise NotImplementedError(
             "categorical-set routing is not ported yet "
             "(ROADMAP Queue 1 item 9)"
-        )
-    if forest.oblique_weights.numel() > 0:
-        raise NotImplementedError(
-            "oblique routing is not ported yet (ROADMAP Queue 1 item 9)"
         )
 
 
@@ -58,6 +65,47 @@ def mask_bit_filled(words: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
         return torch.ones_like(inside)
     word = torch.gather(words, 1, w.clamp(0, W - 1).long()[:, None])[:, 0]
     return torch.where(inside, ((word >> (bit & 31)) & 1) == 1, True)
+
+
+def reduce_lanes(num_features: int) -> int:
+    """Lanes of XLA's CPU reduce sum(x_eff * w) over `num_features` in
+    the JAX package's routing (jax 0.9.0): one chain up to 21 features,
+    8 lanes from 24 to 31 (module docstring). Other widths are not
+    identified and take one chain (ROADMAP Queue 3)."""
+    return 8 if 24 <= num_features <= 31 else 1
+
+
+def oblique_tree_projections(forest: Forest, t: int,
+                             x_num: torch.Tensor) -> torch.Tensor:
+    """Projections f32 [n, P] of the rows x_num f32 [n, Fn] on tree t's
+    oblique weights (counterpart of the projection in the JAX package's
+    route_tree_values; module docstring)."""
+    w = forest.oblique_weights[t]   # [P, Fn]
+    repl = forest.oblique_na_repl[t]
+    n, Fn = x_num.shape[0], w.shape[1]
+
+    def term(k):
+        """(x_eff, w) of feature k, [n, P] and [1, P]."""
+        x = x_num[:, k, None]
+        r = repl[None, :, k]
+        x_eff = torch.where(torch.isnan(x) & ~torch.isnan(r), r, x)
+        w_k = w[None, :, k]
+        return torch.where(w_k != 0, x_eff, 0.0), w_k
+
+    lanes = reduce_lanes(Fn)
+    main = Fn - Fn % lanes
+    acc = [torch.zeros((n, w.shape[0]), dtype=torch.float32,
+                       device=x_num.device) for _ in range(lanes)]
+    for k in range(main):
+        acc[k % lanes] = fma_f32(*term(k), acc[k % lanes])
+    # The lanes' horizontal sum: halves added lane by lane.
+    while len(acc) > 1:
+        h = len(acc) // 2
+        acc = [acc[i] + acc[i + h] for i in range(h)]
+    total = acc[0]
+    for k in range(main, Fn):
+        total = fma_f32(*term(k), total)
+    return total
 
 
 def vs_tree_projections(forest: Forest, t: int,
@@ -89,17 +137,24 @@ def route_tree_values(
     max_depth: int,
     vs_proj: Optional[torch.Tensor] = None,     # f32 [n, Pv] tree t's
     vs_missing: Optional[torch.Tensor] = None,  # bool [n, Fv]
+    obl_proj: Optional[torch.Tensor] = None,    # f32 [n, P] tree t's
 ) -> torch.Tensor:
     """Leaf node id (int64 [n]) of every example in tree `t`. Feature
     index space: [0, Fn) numerical, [Fn, Fn+Fc) categorical,
-    [Fn+Fc, Fn+Fc+Pv) vector-sequence anchors, whose values are
-    `vs_proj` (vs_tree_projections). A VS score is never NaN (an empty
-    sequence scores -FLT_MAX), so a VS node takes its na_left direction
-    only where `vs_missing` flags the cell (models that route missing
-    values natively); without it missing cells route as empty ones."""
+    [F_total, F_total+P) oblique projections, whose values are
+    `obl_proj` (oblique_tree_projections; computed here when the tree
+    has projections and none is given), [F_total+P, F_total+P+Pv)
+    vector-sequence anchors, whose values are `vs_proj`
+    (vs_tree_projections). A VS score is never NaN (an empty sequence
+    scores -FLT_MAX), so a VS node takes its na_left direction only where
+    `vs_missing` flags the cell (models that route missing values
+    natively); without it missing cells route as empty ones."""
     n = x_num.shape[0] if x_num.numel() else x_cat.shape[0]
     Fn, Fc = x_num.shape[1], x_cat.shape[1]
     F_total = Fn + Fc
+    P = forest.oblique_weights.shape[1]
+    if P > 0 and obl_proj is None:
+        obl_proj = oblique_tree_projections(forest, t, x_num)
     feature = forest.feature[t].long()
     threshold = forest.threshold[t]
     is_cat = forest.is_cat[t]
@@ -120,9 +175,14 @@ def route_tree_values(
             c = torch.gather(x_cat, 1, fc[:, None])[:, 0]
         else:
             c = torch.zeros(n, dtype=torch.int32, device=node.device)
+        if P > 0:
+            is_obl = (f >= F_total) & (f < F_total + P)
+            p = (f - F_total).clamp(0, P - 1)
+            v = torch.where(is_obl,
+                            torch.gather(obl_proj, 1, p[:, None])[:, 0], v)
         if vs_proj is not None:
-            is_vs = f >= F_total
-            q = (f - F_total).clamp(0, vs_proj.shape[1] - 1)
+            is_vs = f >= F_total + P
+            q = (f - F_total - P).clamp(0, vs_proj.shape[1] - 1)
             v = torch.where(is_vs,
                             torch.gather(vs_proj, 1, q[:, None])[:, 0], v)
         node_cat = is_cat[node]

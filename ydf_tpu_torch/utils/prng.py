@@ -339,15 +339,17 @@ def linspace_f32(start: float, stop: float, num: int,
     return torch.cat([out, e.reshape(1)])
 
 
-def quantile_linear(a: torch.Tensor, q: torch.Tensor, dim: int = 0
-                    ) -> torch.Tensor:
+def quantile_linear(a: torch.Tensor, q: torch.Tensor, dim: int = 0,
+                    contract_high: bool = False) -> torch.Tensor:
     """jnp.quantile(a, q, axis=dim) with method "linear" for float32 `a`
     without NaN and float32 q [Q], as XLA computes it on the CPU in the
     learner's program (the quantiles feed the binning searchsorted):
     [Q, ...rest] with h = q * (n - 1), low = floor(h), high = ceil(h),
     and fma(lo, 1 - (h - low), hi * (h - low)): XLA contracts the first
-    product into the add. (The contraction follows the fusion: with no
-    consumer but a transpose, XLA contracts the second product instead.)
+    product into the add. The contraction follows the fusion: with no
+    consumer but a transpose, or in a learner's loop of one step (which
+    XLA inlines), it contracts the second product instead,
+    fma(hi, h - low, lo * (1 - (h - low))): `contract_high`.
     """
     a = torch.movedim(a, dim, 0)
     n = a.shape[0]
@@ -364,4 +366,6 @@ def quantile_linear(a: torch.Tensor, q: torch.Tensor, dim: int = 0
     hi_v = srt[high_i]
     lw = lw.reshape((-1,) + extra)
     hw = hw.reshape((-1,) + extra)
+    if contract_high:
+        return fma_f32(hi_v, hw, lo_v * lw)
     return fma_f32(lo_v, lw, hi_v * hw)
