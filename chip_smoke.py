@@ -312,6 +312,23 @@ IF_PROFILE_TREES = 50
 # the default 300), the isolation forest on train_if's. Held bitwise:
 # every kept tree by hash, its thresholds, projections and boundaries,
 # the predictions and scores.
+TRAIN_MONOTONE = os.path.join(TESTDATA, "train_monotone")
+TRAIN_DART = os.path.join(TESTDATA, "train_dart")
+TRAIN_SETS = os.path.join(TESTDATA, "train_sets")
+MONOTONE_CONSTRAINTS = {"f0": 1, "f1": -1, "f2": 1}
+DART_ROWS = 100_000
+DART_TEST_ROWS = 20_000
+DART_HP = dict(label="label", dart_dropout=0.1)
+SETS_GBT_ROWS = 200_000
+SETS_GBT_TEST_ROWS = 20_000
+SETS_RF_ROWS = 20_000
+SETS_RF_TEST_ROWS = 5_000
+SETS_RF_FIXTURE_TREES = 50
+SETS_CART_ROWS = 100_000
+SETS_CART_TEST_ROWS = 20_000
+SETS_VOCABS = (60, 500)
+SETS_ITEM_A = "t2"
+SETS_ITEM_B = "w5"
 TRAIN_OBLIQUE = os.path.join(TESTDATA, "train_oblique")
 OBLIQUE_HP = dict(label="label", split_axis="SPARSE_OBLIQUE")
 OBLIQUE_RF_FIXTURE_TREES = 50
@@ -424,6 +441,57 @@ def make_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED, classes=2):
     return train, test
 
 
+def set_cells(rng, n, vocab, max_items, prefix):
+    """n item-set cells: 0..max_items draws a row from a Zipf-like law
+    over `vocab` items (p_k ~ 1 / k^1.1), kept once each, sorted."""
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    k = rng.integers(0, max_items + 1, n)
+    flat = rng.choice(vocab, size=int(k.sum()), p=p / p.sum())
+    ends = np.cumsum(k)
+    cells = np.empty(n, dtype=object)
+    for i, (a, b) in enumerate(zip(ends - k, ends)):
+        cells[i] = [f"{prefix}{c}" for c in sorted(set(flat[a:b].tolist()))]
+    return cells
+
+
+def make_set_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED):
+    """train_sets' frame: make_frame's columns plus two CATEGORICAL_SET
+    columns, "tags" (SETS_VOCABS[0] items, 0-6 a row) and "words"
+    (SETS_VOCABS[1] items, 0-20 a row), with a label redrawn from the
+    generator's logit plus 1.5 if the row's tags hold SETS_ITEM_A and
+    -1.0 if its words hold SETS_ITEM_B and f0 > 0 (after
+    tests/test_categorical_set.py:_toy_set_data). 1% of the training
+    cells and 3% of the test cells are missing (None); 5% of the test
+    cells gain an unseen item."""
+    train, test = make_frame(train_rows, test_rows, seed)
+    n = train_rows + test_rows
+    rng = np.random.default_rng([seed, 13])
+    tags = set_cells(rng, n, SETS_VOCABS[0], 6, "t")
+    words = set_cells(rng, n, SETS_VOCABS[1], 20, "w")
+    x = make_data(n, TRAIN_FEATURES)  # the frame's values, before NaNs
+    xd = np.stack([x[f"f{i}"] for i in range(5)], 1).astype(np.float64)
+    logit = (xd[:, 0] - 0.5 * xd[:, 1] + np.sin(2 * xd[:, 2])
+             + xd[:, 3] * xd[:, 4]
+             + 1.5 * np.array([SETS_ITEM_A in c for c in tags])
+             - 1.0 * (np.array([SETS_ITEM_B in c for c in words])
+                      & (xd[:, 0] > 0)))
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(np.int64)
+    for cells, frac in ((tags, 0.01), (words, 0.01)):
+        miss = rng.uniform(size=n) < np.where(np.arange(n) < train_rows,
+                                              frac, 0.03)
+        cells[miss] = None
+    unseen = rng.uniform(size=(2, n)) < 0.05
+    for j, cells in enumerate((tags, words)):
+        for i in np.flatnonzero(unseen[j, train_rows:]) + train_rows:
+            if cells[i] is not None:
+                cells[i] = cells[i] + ["unseen"]
+    train.update(tags=tags[:train_rows], words=words[:train_rows],
+                 label=y[:train_rows])
+    test.update(tags=tags[train_rows:], words=words[train_rows:],
+                label=y[train_rows:])
+    return train, test
+
+
 def if_test_frame(test, anomaly=None):
     """train_if's scored rows: the test frame's feature columns, with a
     seeded share of the rows (default_rng(seed).choice without
@@ -455,7 +523,12 @@ def frame_sha256(frame):
     for name in sorted(frame):
         a = np.ascontiguousarray(frame[name])
         h.update(f"{name}|{a.dtype.str}|{a.shape}|".encode())
-        h.update(a.tobytes())
+        if a.dtype == object:
+            # Item-set cells: their items, a missing cell as None.
+            h.update(repr([None if c is None else list(c)
+                           for c in a.tolist()]).encode())
+        else:
+            h.update(a.tobytes())
     return h.hexdigest()
 
 
@@ -463,15 +536,17 @@ def frame_sha256(frame):
 #: either package as Forest.to_numpy() holds it).
 TREE_HASH_FIELDS = ("feature", "threshold_bin", "is_cat", "cat_mask",
                     "left", "right", "is_leaf", "leaf_value", "cover")
+#: The node arrays a set forest's tree hash covers.
+SET_TREE_HASH_FIELDS = TREE_HASH_FIELDS + ("is_set",)
 
 
-def tree_sha256(forest_np, t, nodes=None):
-    """SHA-256 of tree t's node arrays (TREE_HASH_FIELDS of
-    Forest.to_numpy()), of the nodes `nodes` (a bool mask) or all."""
+def tree_sha256(forest_np, t, nodes=None, fields=TREE_HASH_FIELDS):
+    """SHA-256 of tree t's node arrays (`fields` of Forest.to_numpy()),
+    of the nodes `nodes` (a bool mask) or all."""
     import hashlib
 
     h = hashlib.sha256()
-    for f in TREE_HASH_FIELDS:
+    for f in fields:
         a = np.asarray(forest_np[f][t])
         if nodes is not None:
             a = a[nodes]
@@ -705,6 +780,7 @@ KERNELS_OF = {
     "histogram_routed": ("routed_kernel", "reduce_partials"),
     "binning": ("bin_feature_major",),
     "vector_sequence": ("vs_kernel",),
+    "segment_sum": ("run_sums",),
 }
 
 
@@ -852,7 +928,7 @@ def main():
 
     # -- 2 build ------------------------------------------------------- #
     sources = ["quickscorer", "bank_scorer", "histogram", "histogram_routed",
-               "binning", "vector_sequence"]
+               "binning", "vector_sequence", "segment_sum"]
     secs = cuda_build.build_all(sources, force=True)
     # ptxas's registers, shared memory and spills of each entry function,
     # after the (mangled) name ptxas prints before them.
@@ -997,6 +1073,8 @@ def main():
     kernels.extend(cart_if_path(smi, serving=counters))
     torch.cuda.synchronize()
     kernels.extend(oblique_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(set_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1608,7 +1686,7 @@ def measure_train(name, inp, reps=20, timing_only=False):
     the plain version and the library call."""
     import torch
 
-    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.ops import binning, histogram_kernels, segment_sum
 
     if name == "binning":
         args = inp["binning"]
@@ -1638,6 +1716,20 @@ def measure_train(name, inp, reps=20, timing_only=False):
         nbytes = bins_t.numel() + n * 4 + stats.numel() * 4 + L * F * B * S * 4
         ops = live * F * S
         shape = f"n={n}, F={F}, B={B}, L={L}, S={S}"
+    elif name == "segment_sum":
+        key, vals = args = inp["segment"]
+        kernel = lambda: segment_sum.segment_sums(*args)  # noqa: E731
+        plain = lambda: segment_sum.segment_sums_plain(*args)  # noqa
+        head = segment_sum.run_heads(key)
+        run_of = torch.cumsum(head.long(), 0) - 1
+        heads = torch.nonzero(head)[:, 0][run_of]
+        library = lambda: torch.zeros_like(vals).index_add_(  # noqa: E731
+            0, heads, vals)
+        library_kernels = ("index",)
+        E, S = vals.shape
+        nbytes = E * 8 + 2 * E * S * 4  # keys and values in, sums out
+        ops = E * S  # one add a value
+        shape = f"E={E}, S={S}, runs {int(head.sum())}"
     else:
         args = inp["routed"]
         bins_t, slot, leaf, tables, stats, Lh, B = args
@@ -2891,18 +2983,20 @@ def captured_layers(learner_cls, hp, train):
     a one-iteration train of `learner_cls(**hp)` on `train` (the path's
     own layers): "root", every root histogram's, "routed", every fused
     layer's (a forest's tree 0: Lh = 1 .. 512; a GBT's first K trees),
-    and "binning", every call made through ops/binning.py's module name
+    "binning", every call made through ops/binning.py's module name
     (the projection columns of oblique splits; the binner holds the
-    function by its own name)."""
+    function by its own name), and "segment", every run sum of the set
+    candidates (ops/segment_sum.py)."""
     import torch
 
     from ydf_tpu_torch.ops import histogram_kernels
 
-    from ydf_tpu_torch.ops import binning
+    from ydf_tpu_torch.ops import binning, segment_sum
 
-    captured = {"root": [], "routed": [], "binning": []}
+    captured = {"root": [], "routed": [], "binning": [], "segment": []}
     originals = (histogram_kernels.histogram,
-                 histogram_kernels.histogram_routed, binning.bin_columns)
+                 histogram_kernels.histogram_routed, binning.bin_columns,
+                 segment_sum.segment_sums)
 
     def clone(args):
         return tuple(
@@ -2922,14 +3016,19 @@ def captured_layers(learner_cls, hp, train):
         captured["binning"].append(clone(args))
         return originals[2](*args)
 
+    def segment(*args):
+        captured["segment"].append(clone(args))
+        return originals[3](*args)
+
     histogram_kernels.histogram = root
     histogram_kernels.histogram_routed = routed
     binning.bin_columns = bins
+    segment_sum.segment_sums = segment
     try:
         learner_cls(device=DEVICE, **dict(hp, num_trees=1)).train(train)
     finally:
         (histogram_kernels.histogram, histogram_kernels.histogram_routed,
-         binning.bin_columns) = originals
+         binning.bin_columns, segment_sum.segment_sums) = originals
     torch.cuda.synchronize()
     return captured
 
@@ -3264,12 +3363,13 @@ def multiclass_path(smi, serving):
 def reset_counts(serving):
     """Every kernel wrapper's launch count set to 0, the launch events
     list started."""
-    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.ops import binning, histogram_kernels, segment_sum
     from ydf_tpu_torch.utils import cuda_build
 
     for k in histogram_kernels.LAUNCHES:
         histogram_kernels.LAUNCHES[k] = 0
     binning.KERNEL_LAUNCHES = 0
+    segment_sum.KERNEL_LAUNCHES = 0
     for c in serving:
         c.KERNEL_LAUNCHES = 0
         c.KERNEL_ROWS = 0
@@ -3279,12 +3379,13 @@ def reset_counts(serving):
 def read_counts(serving):
     """(training kernels' launches, serving kernels' launches, the
     launch events) since reset_counts; stops the events list."""
-    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.ops import binning, histogram_kernels, segment_sum
     from ydf_tpu_torch.utils import cuda_build
 
     events, cuda_build.LAUNCH_EVENTS = cuda_build.LAUNCH_EVENTS, None
     counted = dict(histogram_kernels.LAUNCHES)
     counted["binning"] = binning.KERNEL_LAUNCHES
+    counted["segment_sum"] = segment_sum.KERNEL_LAUNCHES
     return counted, {c.__name__: c.KERNEL_LAUNCHES for c in serving}, events
 
 
@@ -4177,6 +4278,484 @@ def oblique_path(smi, serving):
                     f"{layer_text(by_lh)}, {smi}")
     lap("12h")
     log("12 oblique", f"phase 12 wall {time.perf_counter() - t_phase:.1f} s "
+        f"(by part, s: {walls})")
+    return result
+
+
+def check_tree_hashes(exp, prefix, forest_np, T, fields):
+    """Trees [0, T) of a port forest (Forest.to_numpy()) against the
+    fixture's per-tree SHA-256 of `fields`, and the node counts."""
+    got = [tree_sha256(forest_np, t, fields=fields) for t in range(T)]
+    want = [d.tobytes().hex() for d in exp[f"{prefix}/tree_sha256"][:T]]
+    bad = [t for t in range(T) if got[t] != want[t]]
+    assert not bad, f"{prefix}: trees {bad[:10]} != the JAX package's"
+    assert np.array_equal(forest_np["num_nodes"][:T],
+                          exp[f"{prefix}/num_nodes"][:T]), prefix
+
+
+def monotone_grid_check(model, base_rows, constraints, points=41):
+    """Along a grid of each constrained feature over [-3, 3] (the other
+    columns of `base_rows` fixed) the predictions never move against the
+    constraint: the largest step against it (0 when monotone)."""
+    worst = 0.0
+    grid = np.linspace(-3, 3, points, dtype=np.float32)
+    n = len(base_rows["label"])
+    for name, d in constraints.items():
+        preds = []
+        for g in grid:
+            rows = dict(base_rows)
+            rows[name] = np.full(n, g, np.float32)
+            preds.append(np.asarray(model.predict(rows), np.float64))
+        steps = np.diff(np.stack(preds), axis=0) * d
+        worst = max(worst, float(-steps.min()))
+    return worst
+
+
+def set_path(smi, serving):
+    """Phase 13: monotone constraints, DART and categorical-set columns
+    (ROADMAP items 14b and 14c) trained on the card through the
+    learners' entry points with every other default, evaluated, saved
+    and loaded, against the JAX package's runs
+    (ydf_tpu_torch/testdata/train_monotone, train_dart, train_sets).
+    Returns the `kernels` entries of the five paths' training kernels
+    and of the set prefix histograms."""
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.learners import random_forest as port_rf
+    from ydf_tpu_torch.models.forest import Forest
+    from ydf_tpu_torch.ops import histogram_kernels, segment_sum
+
+    t_phase = time.perf_counter()
+    walls, last = {}, [t_phase]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = round(now - last[0], 2)
+        last[0] = now
+
+    fixtures = {}
+    for name, d in (("monotone", TRAIN_MONOTONE), ("dart", TRAIN_DART),
+                    ("sets", TRAIN_SETS)):
+        with open(os.path.join(d, "config.json")) as f:
+            cfg = json.load(f)
+        fixtures[name] = (cfg, np.load(os.path.join(d, "expected.npz")))
+    mcfg, mexp = fixtures["monotone"]
+    dcfg, dexp = fixtures["dart"]
+    scfg, sexp = fixtures["sets"]
+    assert mcfg["constraints"] == MONOTONE_CONSTRAINTS
+    assert (mcfg["gbt"]["rows"], mcfg["gbt"]["test_rows"]) == (
+        DEFAULT_ROWS, DEFAULT_TEST_ROWS)
+    assert (dcfg["gbt"]["rows"], dcfg["gbt"]["test_rows"],
+            dcfg["gbt"]["learner"]) == (DART_ROWS, DART_TEST_ROWS, DART_HP)
+    sg, sr, sc = scfg["gbt"], scfg["rf"], scfg["cart"]
+    assert (sg["rows"], sg["test_rows"], sr["rows"], sr["test_rows"],
+            sr["fixture_trees"], sc["rows"], sc["test_rows"]) == (
+        SETS_GBT_ROWS, SETS_GBT_TEST_ROWS, SETS_RF_ROWS, SETS_RF_TEST_ROWS,
+        SETS_RF_FIXTURE_TREES, SETS_CART_ROWS, SETS_CART_TEST_ROWS)
+    assert scfg["generator"] == dict(vocabs=list(SETS_VOCABS),
+                                     item_a=SETS_ITEM_A, item_b=SETS_ITEM_B)
+    t0 = time.perf_counter()
+    train, test = make_frame(DEFAULT_ROWS, DEFAULT_TEST_ROWS)
+    dtrain, dtest = make_frame(DART_ROWS, DART_TEST_ROWS)
+    strain, stest = make_set_frame(SETS_GBT_ROWS, SETS_GBT_TEST_ROWS)
+    rtrain, rtest = make_set_frame(SETS_RF_ROWS, SETS_RF_TEST_ROWS)
+    ctrain, ctest = make_set_frame(SETS_CART_ROWS, SETS_CART_TEST_ROWS)
+    for frame, want, what in (
+            (train, mcfg["gbt"]["train_sha256"], "monotone train"),
+            (test, mcfg["gbt"]["test_sha256"], "monotone test"),
+            (dtrain, dcfg["gbt"]["train_sha256"], "DART train"),
+            (dtest, dcfg["gbt"]["test_sha256"], "DART test"),
+            (strain, sg["train_sha256"], "sets GBT train"),
+            (stest, sg["test_sha256"], "sets GBT test"),
+            (rtrain, sr["train_sha256"], "sets RF train"),
+            (rtest, sr["test_sha256"], "sets RF test"),
+            (ctrain, sc["train_sha256"], "sets CART train"),
+            (ctest, sc["test_sha256"], "sets CART test")):
+        assert frame_sha256(frame) == want, f"{what} frame"
+    log("13 sets", f"frames (monotone {DEFAULT_ROWS} + {DEFAULT_TEST_ROWS},"
+        f" DART {DART_ROWS} + {DART_TEST_ROWS}, sets GBT {SETS_GBT_ROWS} + "
+        f"{SETS_GBT_TEST_ROWS}, RF {SETS_RF_ROWS} + {SETS_RF_TEST_ROWS}, "
+        f"CART {SETS_CART_ROWS} + {SETS_CART_TEST_ROWS}) in "
+        f"{time.perf_counter() - t0:.2f} s, SHA-256 == the fixtures'; JAX "
+        f"on the CPU that wrote them: monotone GBT "
+        f"{mcfg['gbt']['jax_train_s_cpu']:.1f} s, DART "
+        f"{dcfg['gbt']['jax_train_s_cpu']:.1f} s, sets GBT "
+        f"{sg['jax_train_s_cpu']:.1f} s, RF ({sr['fixture_trees']} trees) "
+        f"{sr['jax_train_s_cpu']:.1f} s, CART {sc['jax_train_s_cpu']:.1f} s")
+    lap("setup")
+    paths = {}  # path -> (launches, kernel ms, events, routed by Lh)
+
+    def main_run(path, fn):
+        """Counts at 0, fn() on the card, counts read: (fn's result,
+        launches, wall, kernel ms, routed launches with set tables)."""
+        reset_counts(serving)
+        histogram_kernels.SET_TABLE_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted, others, events = read_counts(serving)
+        kernel_ms, routed_lh = split_events(events)
+        set_launches = histogram_kernels.SET_TABLE_LAUNCHES
+        paths[path] = (counted, kernel_ms, events, routed_lh)
+        log("13 launches", f"{path}: {counted} launches, "
+            f"{set_launches} of the routed ones with set tables (routed by "
+            f"hist slots: {routed_lh}); serving kernels {others}")
+        return result, counted, wall, kernel_ms, others, set_launches
+
+    def gbt_run(path, hp, data, tst, cfg, exp, prefix, fields):
+        learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                            **hp)
+        reads0 = port_gbt.HOST_READS
+
+        def fn():
+            m = learner.train(data)
+            t0 = time.perf_counter()
+            ev = m.evaluate(tst)
+            torch.cuda.synchronize()
+            return m, ev, time.perf_counter() - t0
+
+        (m, ev, eval_wall), counted, wall, kernel_ms, others, sets_n = \
+            main_run(path, fn)
+        logs = m.training_logs
+        trained, kept = logs["num_trees_trained"], logs["num_trees"]
+        K = m.num_trees_per_iter
+        assert (kept, trained) == (cfg["num_trees"],
+                                   cfg["num_trees_trained"]), (kept, trained)
+        assert counted["histogram_routed"] == \
+            trained * K * (learner.max_depth - 1), counted
+        # Two run sums a layer with set features (set_item_stats).
+        assert counted["segment_sum"] == (
+            2 * trained * K * learner.max_depth if m.binner.num_set
+            else 0), counted
+        pf = m.forest.to_numpy()
+        check_tree_hashes(exp, prefix, pf, kept * K, fields)
+        preds = m.predict(tst)
+        assert array_sha256(preds) == cfg["predictions_sha256"], (
+            f"{path} predictions")
+        jev = cfg["jax_evaluate"]
+        err = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+        assert err <= EVAL_SAME_ATOL, (path, err)
+        boost_ms = learner.last_timings["boost_s"] * 1e3
+        log("13 " + path, f"GradientBoostedTreesLearner(**{hp}).train: wall "
+            f"{(wall - eval_wall) * 1e3:.1f} ms (host clock, ends in "
+            "synchronize); stages " + " ".join(
+                f"{k}={v * 1e3:.1f}ms"
+                for k, v in learner.last_timings.items())
+            + f"; {trained} iterations trained, {kept} kept (== JAX's), "
+            f"{port_gbt.HOST_READS - reads0} host reads; "
+            f"{boost_ms / (trained * K):.2f} ms a tree (loop wall / trees); "
+            "kernel time (CUDA events, train + evaluate) " + " ".join(
+                f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+            + f"; every kept tree by SHA-256 == JAX's, the {len(preds)} "
+            f"predictions bitwise (SHA-256), evaluate within "
+            f"{EVAL_SAME_ATOL} (max {err:.3g}); evaluate "
+            f"{eval_wall * 1e3:.1f} ms; {smi}")
+        return learner, m, preds, trained * K, sets_n, others
+
+    # -- 13a monotone constraints -------------------------------------- #
+    mono_hp = dict(DEFAULT_HP, monotonic_constraints=MONOTONE_CONSTRAINTS)
+    mlearner, mmodel, mpreds, mtrees, _, others = gbt_run(
+        "train_monotone", mono_hp, train, test, mcfg["gbt"], mexp, "gbt",
+        TREE_HASH_FIELDS)
+    assert sum(others.values()) > 0, others  # served by a kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        mmodel.save(os.path.join(tmp, "m"))
+        back = ydf_tpu_torch.load_model(os.path.join(tmp, "m"),
+                                        device=DEVICE)
+    assert back.predict(test).tobytes() == mpreds.tobytes()
+    base = {k: v[:64] for k, v in test.items()}
+    worst = monotone_grid_check(back, base, MONOTONE_CONSTRAINTS)
+    assert worst == 0.0, worst
+    for run in ("three_class", "oblique"):
+        c = mcfg[run]
+        kind = "three_class" if run == "three_class" else "binary"
+        otrain, otest = options_frame(kind, DEFAULT_CAT_SEED, c["rows"],
+                                      c["test_rows"])
+        m = ydf_tpu_torch.GradientBoostedTreesLearner(
+            device=DEVICE, monotonic_constraints=MONOTONE_CONSTRAINTS,
+            **c["learner"]).train(otrain)
+        K = m.num_trees_per_iter
+        assert m.training_logs["num_trees"] == c["num_trees"], run
+        check_tree_hashes(mexp, run, m.forest.to_numpy(),
+                          c["num_trees"] * K, TREE_HASH_FIELDS)
+        assert array_sha256(m.predict(otest)) == c["predictions_sha256"], run
+    log("13 monotone", "save -> load on the card bitwise; the loaded model "
+        f"monotone along a 41-point grid of each of "
+        f"{sorted(MONOTONE_CONSTRAINTS)} on 64 test rows (largest step "
+        f"against a constraint {worst}); the 3-class and SPARSE_OBLIQUE "
+        f"monotone runs at {mcfg['oblique']['rows']} rows: every kept tree "
+        "(clamped leaves) by "
+        "SHA-256 and the predictions bitwise == JAX's")
+    lap("13a")
+
+    # -- 13b DART ------------------------------------------------------ #
+    dlearner, dmodel, _, dtrees, _, _ = gbt_run(
+        "train_dart", DART_HP, dtrain, dtest, dcfg["gbt"], dexp, "gbt",
+        TREE_HASH_FIELDS)
+    T = dlearner.num_trees
+    carry_mb = 4 * T * DART_ROWS / 2 ** 20
+    log("13 dart", f"the DART carry (each of the {T} iterations' "
+        f"contributions at the {DART_ROWS} training and validation rows, "
+        f"f32) {carry_mb:.1f} MiB on the card")
+    lap("13b")
+
+    # -- 13c the GBT on set columns ------------------------------------ #
+    fields = SET_TREE_HASH_FIELDS
+    slearner, smodel, spreds, strees, sets_n, others = gbt_run(
+        "train_sets_gbt", DEFAULT_HP, strain, stest, sg, sexp, "gbt", fields)
+    assert not any(others.values()), others  # set models serve routed
+    assert sets_n >= 1 and sets_n == strees * (slearner.max_depth - 1), (
+        sets_n, strees)
+    assert paths["train_sets_gbt"][0]["histogram"] == strees * (
+        1 + 2 * 2 * slearner.max_depth), paths["train_sets_gbt"][0]
+    assert smodel.list_compatible_engines() == ["Routed"]
+    with tempfile.TemporaryDirectory() as tmp:
+        smodel.save(os.path.join(tmp, "s"))
+        sback = ydf_tpu_torch.load_model(os.path.join(tmp, "s"),
+                                         device=DEVICE)
+    assert sback.predict(stest).tobytes() == spreds.tobytes()
+    log("13 sets gbt", f"{sets_n} routed launches with set tables (every "
+        "layer below the root); save -> load -> predict on the card "
+        "bitwise; the set model serves on the routed engine")
+    lap("13c")
+
+    # -- 13d the random forest on set columns: 300 trees --------------- #
+    rlearner = ydf_tpu_torch.RandomForestLearner(device=DEVICE, **RF_HP)
+
+    def rf_main():
+        m = rlearner.train(rtrain)
+        t0 = time.perf_counter()
+        ev = m.evaluate(rtest)
+        torch.cuda.synchronize()
+        return m, ev, time.perf_counter() - t0
+
+    (rmodel, rev, reval_wall), counted, wall, kernel_ms, _, rsets = \
+        main_run("train_sets_rf", rf_main)
+    T = rmodel.forest.num_trees
+    # A tree's root histogram, then each layer's two prefix histograms
+    # per set feature (F = 1, Tc bins).
+    Fs = rmodel.binner.num_set
+    assert counted["histogram"] == T * (1 + 2 * Fs * rlearner.max_depth), (
+        counted, Fs)
+    assert rsets == counted["histogram_routed"] > 0, (counted, rsets)
+    assert counted["segment_sum"] == 2 * T * rlearner.max_depth, counted
+    K = sr["fixture_trees"]
+    rf_np = rmodel.forest.to_numpy()
+    check_tree_hashes(sexp, "rf", rf_np, K, fields)
+    sub = port_rf.RandomForestModel(
+        task=rmodel.task, label=rmodel.label, classes=rmodel.classes,
+        dataspec=rmodel.dataspec, binner=rmodel.binner,
+        forest=Forest(*(a[:K] for a in rmodel.forest)),
+        max_depth=rmodel.max_depth)
+    rhead = {k: v[:scfg["compare_rows"]] for k, v in rtest.items()}
+    assert sub.predict(rhead).tobytes() == sexp["rf/proba"].tobytes()
+    sev = sub.evaluate(rtest)
+    jev = sr["jax_evaluate"]
+    rf_err = max(abs(sev.metrics[k] - jev[k]) for k in jev)
+    assert rf_err <= EVAL_SAME_ATOL, rf_err
+    loop_ms = rlearner.last_timings["loop_s"] * 1e3
+    log("13 sets rf", f"RandomForestLearner(**{RF_HP}).train: wall "
+        f"{(wall - reval_wall) * 1e3:.1f} ms; stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in rlearner.last_timings.items())
+        + f"; {T} trees, {loop_ms / T:.2f} ms a tree; kernel time (CUDA "
+        "events) " + " ".join(f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; the first {K} trees == JAX's by SHA-256, their probabilities "
+        f"bitwise, evaluate within {EVAL_SAME_ATOL} (max {rf_err:.3g}); the "
+        f"{T}-tree forest: " + " ".join(
+            f"{k} {rev.metrics[k]:.6f}" for k in jev) + f"; {smi}")
+    lap("13d")
+
+    # -- 13e CART on set columns --------------------------------------- #
+    clearner = ydf_tpu_torch.CartLearner(device=DEVICE, **CART_HP)
+
+    def cart_main():
+        m, grown = cart_train(clearner, ctrain)
+        t0 = time.perf_counter()
+        ev = m.evaluate(ctest)
+        torch.cuda.synchronize()
+        return m, grown, ev, time.perf_counter() - t0
+
+    (cmodel, grown, cev, ceval_wall), counted, wall, kernel_ms, _, csets = \
+        main_run("train_sets_cart", cart_main)
+    assert counted["histogram"] == 1 + 2 * 2 * clearner.max_depth, counted
+    assert csets == counted["histogram_routed"] > 0, (counted, csets)
+    assert counted["segment_sum"] == 2 * clearner.max_depth, counted
+    assert tree_sha256(grown, 0, fields=fields) == sc["grown_sha256"]
+    cf = cmodel.forest.to_numpy()
+    assert tree_sha256(cf, 0, fields=fields) == sc["pruned_sha256"]
+    pruned = cmodel.extra_metadata["num_pruned_nodes"]
+    assert pruned == sc["num_pruned_nodes"], pruned
+    jo, po = sc["oob_evaluation"], cmodel.self_evaluation()
+    jev = sc["jax_evaluate"]
+    cart_err = max([abs(po["metrics"][k] - jo["metrics"][k])
+                    for k in jo["metrics"]]
+                   + [abs(cev.metrics[k] - jev[k]) for k in jev])
+    assert cart_err <= EVAL_SAME_ATOL, cart_err
+    chead = {k: v[:scfg["compare_rows"]] for k, v in ctest.items()}
+    assert cmodel.predict(chead).tobytes() == sexp["cart/proba"].tobytes()
+    log("13 sets cart", f"CartLearner(**{CART_HP}).train: wall "
+        f"{(wall - ceval_wall) * 1e3:.1f} ms; stages " + " ".join(
+            f"{k}={v * 1e3:.1f}ms" for k, v in clearner.last_timings.items())
+        + "; kernel time (CUDA events) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; grown ({sc['grown_num_nodes']} nodes) and pruned ({pruned} "
+        "pruned) trees == JAX's by SHA-256; holdout evaluation and "
+        f"evaluate within {EVAL_SAME_ATOL} (max {cart_err:.3g}); "
+        f"probabilities bitwise; {smi}")
+    lap("13e")
+
+    # -- 13f the kernels against their plain versions ------------------ #
+    layers = {
+        "train_monotone": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner, mono_hp, train),
+        "train_dart": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner, DART_HP, dtrain),
+        "train_sets_gbt": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner, DEFAULT_HP, strain),
+        "train_sets_rf": captured_layers(
+            ydf_tpu_torch.RandomForestLearner, RF_HP, rtrain),
+        "train_sets_cart": captured_layers(
+            ydf_tpu_torch.CartLearner, CART_HP, ctrain),
+    }
+    binned = {"train_monotone": (mmodel.binner, train),
+              "train_dart": (dmodel.binner, dtrain),
+              "train_sets_gbt": (smodel.binner, strain),
+              "train_sets_rf": (rmodel.binner, rtrain),
+              "train_sets_cart": (cmodel.binner, ctrain)}
+    prefix_calls = []
+    for path, case in layers.items():
+        # The binner's one call (it holds the function under its own
+        # name, so the capture does not see it): its arguments again.
+        binner, data = binned[path]
+        Fn = binner.num_numerical
+        case["binning"].append(tuple(torch.from_numpy(a).to(DEVICE) for a in (
+            np.stack([data[k] for k in binner.feature_names[:Fn]]),
+            binner.boundaries[:Fn], binner.feature_num_bins[:Fn] - 1,
+            binner.impute_values[:Fn])))
+        binning_check(case["binning"][-1])
+        with_sets = 0
+        for args in case["routed"]:
+            got = histogram_kernels.histogram_routed(*args)
+            want = histogram_kernels.histogram_routed_plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (
+                    f"{path}: routed kernel != plain at Lh {args[5]}")
+            with_sets += bool(args[3].is_set.any())
+        for args in case["root"]:
+            got = histogram_kernels.histogram(*args)
+            want = histogram_kernels.histogram_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{path}: histogram != plain"
+            if args[0].shape[0] == 1 and path.startswith("train_sets"):
+                prefix_calls.append((path, args))
+        for args in case["segment"]:
+            got = segment_sum.segment_sums(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, segment_sum.segment_sums_plain(*args)), (
+                f"{path}: segment sums != plain")
+        if path.startswith("train_sets"):
+            assert with_sets >= 1, f"{path}: no routed launch with is_set"
+            assert case["segment"], f"{path}: no run sums captured"
+        log("13 kernels", f"{path}: the binning of the training values, "
+            f"{len(case['root'])} histogram calls (the root and, with "
+            "sets, the set prefix histograms at F = 1), "
+            f"{len(case['routed'])} routed calls ({with_sets} with an "
+            f"is_set row true) and {len(case['segment'])} run sums of a "
+            "one-tree train torch.equal to plain")
+    assert prefix_calls, "no set prefix histogram captured"
+    lap("13f")
+
+    # -- 13g where each loop's time goes ------------------------------- #
+    profiles = {}
+    for path, cls, hp, data, loop, trees in (
+            ("train_monotone", ydf_tpu_torch.GradientBoostedTreesLearner,
+             mono_hp, train, "boost_s", 10),
+            ("train_dart", ydf_tpu_torch.GradientBoostedTreesLearner,
+             DART_HP, dtrain, "boost_s", 10),
+            ("train_sets_gbt", ydf_tpu_torch.GradientBoostedTreesLearner,
+             DEFAULT_HP, strain, "boost_s", 3),
+            ("train_sets_rf", ydf_tpu_torch.RandomForestLearner, RF_HP,
+             rtrain, "loop_s", 3),
+            ("train_sets_cart", ydf_tpu_torch.CartLearner, CART_HP, ctrain,
+             "loop_s", 1)):
+        hp = dict(hp, num_trees=trees) if cls is not \
+            ydf_tpu_torch.CartLearner else hp
+        prof = profiles[path] = dict(profile_train(data, hp, cls, loop),
+                                     trees=trees)
+        log("13 profile", f"{path}: num_trees={trees} under torch.profiler: "
+            f"wall {prof['wall_ms']:.1f} ms, tree loop "
+            f"{prof['loop_ms']:.1f} ms ({prof['loop_ms'] / trees:.2f} ms a "
+            f"tree); {prof['kernels']} device kernels "
+            f"({prof['kernels'] / trees:.0f} a tree), device idle at least "
+            f"{100 * prof['idle_share']:.1f}% of the loop; largest: "
+            + "; ".join(f"{name[:50]} {ms:.3f} ms"
+                        for name, ms in prof["top"][:4]))
+    lap("13g")
+
+    # -- 13h each kernel timed at each path's shapes ------------------- #
+    result = []
+    for path, case in layers.items():
+        counted, kernel_ms, events, routed_lh = paths[path]
+        inp = {"binning": max(case["binning"],
+                              key=lambda a: a[0].shape[1]),
+               "root": case["root"][0],
+               "routed": max(case["routed"], key=lambda a: a[5])}
+        for name, src, replaces in (
+            ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+            ("histogram", "histogram.cu",
+             "ydf_tpu/ops/histogram_pallas.py:81"),
+            ("histogram_routed", "histogram_routed.cu",
+             "ydf_tpu/ops/histogram_pallas.py:172"),
+        ):
+            t = measure_train(name, inp, reps=20)
+            log("13 timing", f"{path} {name} ({t['shape']}): "
+                f"{timing_text(t)}, {smi}")
+            result.append(train_entry(name, path, src, replaces, t,
+                                      counted[name], 0.0,
+                                      kernel_ms.get(name, 0.0)))
+            result[-1]["loop_ms_a_tree"] = (profiles[path]["loop_ms"]
+                                            / profiles[path]["trees"])
+            result[-1]["idle_share"] = profiles[path]["idle_share"]
+            if name == "histogram_routed":
+                by_lh = oblique_layers(name, case["routed"], events,
+                                       routed_lh)
+                result[-1].update(layer_fields(by_lh))
+                log("13 layers", f"{name} on {path} by hist slots: "
+                    f"{layer_text(by_lh)}, {smi}")
+    for path, case in layers.items():
+        if not case["segment"]:
+            continue
+        counted, kernel_ms = paths[path][:2]
+        inp = {"segment": max(case["segment"], key=lambda a: a[0].shape[0])}
+        t = measure_train("segment_sum", inp, reps=20)
+        log("13 timing", f"{path} segment_sum ({t['shape']}): "
+            f"{timing_text(t)}, {smi}")
+        result.append(train_entry(
+            "segment_sum", path, "segment_sum.cu",
+            "ydf_tpu/ops/grower.py:836 (an XLA einsum; no Pallas kernel)",
+            t, counted["segment_sum"], 0.0, kernel_ms.get("segment_sum",
+                                                          0.0)))
+        result[-1]["loop_ms_a_tree"] = (profiles[path]["loop_ms"]
+                                        / profiles[path]["trees"])
+        result[-1]["idle_share"] = profiles[path]["idle_share"]
+    path, args = max(prefix_calls, key=lambda pa: pa[1][0].shape[1])
+    t = measure_train("histogram", {"root": args}, reps=20)
+    log("13 timing", f"{path} set prefix histogram ({t['shape']}): "
+        f"{timing_text(t)}, {smi}")
+    result.append(train_entry("histogram", f"{path}/set_prefix",
+                              "histogram.cu",
+                              "ydf_tpu/ops/histogram_pallas.py:81", t,
+                              paths[path][0]["histogram"], 0.0,
+                              paths[path][1].get("histogram", 0.0)))
+    lap("13h")
+    log("13 sets", f"phase 13 wall {time.perf_counter() - t_phase:.1f} s "
         f"(by part, s: {walls})")
     return result
 

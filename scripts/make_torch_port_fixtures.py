@@ -125,12 +125,28 @@ longer forest). JAX predictions come from its Routed engine
 writer refuses to run under another jax than 0.9.0, the version whose
 XLA dot and reduce orders ydf_tpu_torch/ops/oblique.py replays.
 
+Training fixtures `train_monotone/`, `train_dart/` and `train_sets/`
+(config.json and expected.npz: per-tree SHA-256 of the node arrays and
+leaf values (with is_set for sets), node counts, losses, the kept and
+trained counts, the first 1,024 predictions in full and all of them by
+SHA-256, the evaluation): the default GBT with monotonic_constraints
+{f0: +1, f1: -1, f2: +1} on train_default's frame, plus a 3-class and a
+SPARSE_OBLIQUE monotone run at 20,000 rows and 30 iterations; the
+default GBT with dart_dropout=0.1 on 100,000 rows; and
+chip_smoke.make_set_frame (two CATEGORICAL_SET columns) under the
+default GBT (200,000 rows), random forest (20,000 rows, its first 50
+trees) and CART (100,000 rows; grown and pruned tree hashes). These
+refuse to run under another jax than 0.9.0 too (the per-item einsum's
+and DART's dot orders).
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
-(~30 minutes on a CPU, train_rf most of it; `--only train_bench`,
-`--only train_vs`, `--only train_default`, `--only train_rf`,
-`--only train_multiclass`, `--only train_gbt_options`,
-`--only train_cart` (~1 min), `--only train_if` (~1.5 min),
-`--only train_oblique` (~15 min) or `--only serving` for one part).
+(~45 minutes on a CPU, train_rf and train_sets most of it;
+`--only train_bench`, `--only train_vs`, `--only train_default`,
+`--only train_rf`, `--only train_multiclass`, `--only
+train_gbt_options`, `--only train_cart` (~1 min), `--only train_if`
+(~1.5 min), `--only train_oblique` (~15 min), `--only train_monotone`
+(~1.5 min), `--only train_dart` (~15 s), `--only train_sets` (~12 min)
+or `--only serving` for one part).
 """
 
 import os
@@ -1220,6 +1236,253 @@ def write_train_oblique():
     print(f"train_oblique: {size} bytes")
 
 
+def _gbt_run(m, test, compare_rows, fields):
+    """(config entries, arrays) of a trained JAX GBT on its test frame:
+    per-tree hashes of `fields`, the kept and trained counts, the losses,
+    the predictions (all hashed, the first compare_rows in full) and
+    the evaluation."""
+    import chip_smoke
+
+    fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    T = fo["feature"].shape[0]
+    preds = np.asarray(m.predict(test))
+    ev = m.evaluate(test)
+    il = m.training_logs["iterations"]
+    cfg = dict(
+        num_trees=m.training_logs["num_trees"],
+        num_trees_trained=m.training_logs["num_trees_trained"],
+        predictions_sha256=chip_smoke.array_sha256(preds),
+        jax_evaluate=dict(ev.metrics), classes=m.classes,
+        train_sha256=None, test_sha256=chip_smoke.frame_sha256(test),
+    )
+    arrays = dict(
+        tree_sha256=np.stack([np.frombuffer(bytes.fromhex(
+            chip_smoke.tree_sha256(fo, t, fields=fields)), np.uint8)
+            for t in range(T)]),
+        num_nodes=fo["num_nodes"].astype(np.int32),
+        train_loss=np.array([r["train_loss"] for r in il], np.float32),
+        valid_loss=np.array([r["valid_loss"] for r in il], np.float32),
+        predictions=preds[:compare_rows],
+        initial_predictions=np.asarray(m.initial_predictions, np.float32),
+    )
+    return cfg, arrays
+
+
+def _write_runs(name, out, runs):
+    """Writes <name>/config.json and expected.npz (each run's arrays
+    under "<run>/<array>")."""
+    import json
+
+    d = os.path.join(OUT, name)
+    os.makedirs(d, exist_ok=True)
+    arrays = {f"{run}/{k}": v for run, a in runs.items() for k, v in a.items()}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    np.savez_compressed(os.path.join(d, "expected.npz"), **arrays)
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"{name}: {size} bytes", flush=True)
+
+
+def _jax_header(cfg):
+    """The JAX version check and the implementations the runs used."""
+    import jax
+
+    from ydf_tpu.ops.histogram import resolve_hist_impl, resolve_hist_quant
+    from ydf_tpu.ops.routing_native import resolve_route_impl
+
+    if jax.__version__ != cfg["jax_version"]:
+        raise SystemExit(
+            f"this fixture needs jax {cfg['jax_version']} (the XLA orders "
+            f"the port replays), not {jax.__version__}")
+    return {"hist_impl": resolve_hist_impl("auto"),
+            "hist_quant": resolve_hist_quant(None),
+            "route_impl": resolve_route_impl(None)}
+
+
+TRAIN_MONOTONE = dict(
+    jax_version="0.9.0", cat_seed=7, compare_rows=1024,
+    constraints={"f0": 1, "f1": -1, "f2": 1},
+    gbt=dict(rows=500_000, test_rows=100_000, learner=dict(label="label")),
+    three_class=dict(frame="three_class", rows=20_000, test_rows=1024,
+                     learner=dict(label="label", num_trees=30)),
+    oblique=dict(frame="binary", rows=20_000, test_rows=1024,
+                 learner=dict(label="label", num_trees=30,
+                              split_axis="SPARSE_OBLIQUE")),
+)
+
+
+def write_train_monotone():
+    """train_monotone/: the JAX GBT with monotonic_constraints on
+    train_default's frame with every other default, a three-class run
+    and a SPARSE_OBLIQUE run at 20,000 rows and 30 iterations."""
+    import json
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+
+    cfg = json.loads(json.dumps(TRAIN_MONOTONE))
+    cfg["jax_impls"] = _jax_header(cfg)
+    runs = {}
+    for run in ("gbt", "three_class", "oblique"):
+        c = cfg[run]
+        if run == "gbt":
+            train, test = make_frame(cfg["cat_seed"], c["rows"],
+                                     c["test_rows"], keep_label=True)
+        else:
+            train, test = options_frame(c["frame"], cfg["cat_seed"],
+                                        c["rows"], c["test_rows"])
+        t0 = time.perf_counter()
+        m = ydf.GradientBoostedTreesLearner(
+            monotonic_constraints=cfg["constraints"],
+            **c["learner"]).train(train)
+        c["jax_train_s_cpu"] = time.perf_counter() - t0
+        if run == "oblique":
+            m.force_engine("Routed")
+        got, runs[run] = _gbt_run(m, test, cfg["compare_rows"],
+                                  chip_smoke.TREE_HASH_FIELDS)
+        got["train_sha256"] = chip_smoke.frame_sha256(train)
+        c.update(got)
+        print(f"train_monotone {run}: {c['num_trees']} of "
+              f"{c['num_trees_trained']} in {c['jax_train_s_cpu']:.1f} s",
+              flush=True)
+    _write_runs("train_monotone", cfg, runs)
+
+
+TRAIN_DART = dict(
+    jax_version="0.9.0", cat_seed=7, compare_rows=1024,
+    gbt=dict(rows=100_000, test_rows=20_000,
+             learner=dict(label="label", dart_dropout=0.1)),
+)
+
+
+def write_train_dart():
+    """train_dart/: the JAX GBT with dart_dropout=0.1 and every other
+    default (300 trees, the validation split, the look-ahead stop) on
+    100,000 rows of train_default's frame."""
+    import json
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+
+    cfg = json.loads(json.dumps(TRAIN_DART))
+    cfg["jax_impls"] = _jax_header(cfg)
+    c = cfg["gbt"]
+    train, test = make_frame(cfg["cat_seed"], c["rows"], c["test_rows"],
+                             keep_label=True)
+    t0 = time.perf_counter()
+    m = ydf.GradientBoostedTreesLearner(**c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, arrays = _gbt_run(m, test, cfg["compare_rows"],
+                           chip_smoke.TREE_HASH_FIELDS)
+    got["train_sha256"] = chip_smoke.frame_sha256(train)
+    c.update(got)
+    print(f"train_dart: {c['num_trees']} of {c['num_trees_trained']} in "
+          f"{c['jax_train_s_cpu']:.1f} s", flush=True)
+    _write_runs("train_dart", cfg, {"gbt": arrays})
+
+
+TRAIN_SETS = dict(
+    jax_version="0.9.0", cat_seed=7, compare_rows=1024,
+    gbt=dict(rows=200_000, test_rows=20_000, learner=dict(label="label")),
+    rf=dict(rows=20_000, test_rows=5_000, fixture_trees=50,
+            learner=dict(label="label")),
+    cart=dict(rows=100_000, test_rows=20_000, validation_ratio=0.1,
+              seed=123456, learner=dict(label="label")),
+)
+
+
+def write_train_sets():
+    """train_sets/: the JAX GBT, random forest (its first fixture_trees
+    trees) and CART with every default on chip_smoke.make_set_frame
+    (make_frame plus two CATEGORICAL_SET columns)."""
+    import json
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.learners import cart as jax_cart
+
+    cfg = json.loads(json.dumps(TRAIN_SETS))
+    cfg["jax_impls"] = _jax_header(cfg)
+    cfg["generator"] = dict(vocabs=list(chip_smoke.SETS_VOCABS),
+                            item_a=chip_smoke.SETS_ITEM_A,
+                            item_b=chip_smoke.SETS_ITEM_B)
+    fields = chip_smoke.SET_TREE_HASH_FIELDS
+    runs = {}
+    c = cfg["gbt"]
+    train, test = chip_smoke.make_set_frame(c["rows"], c["test_rows"],
+                                            cfg["cat_seed"])
+    t0 = time.perf_counter()
+    m = ydf.GradientBoostedTreesLearner(**c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, runs["gbt"] = _gbt_run(m, test, cfg["compare_rows"], fields)
+    got["train_sha256"] = chip_smoke.frame_sha256(train)
+    got["set_vocab_sizes"] = [
+        len(m.dataspec.column_by_name(k).vocabulary)
+        for k in ("tags", "words")]
+    c.update(got)
+    print(f"train_sets gbt: {c['num_trees']} of {c['num_trees_trained']} "
+          f"in {c['jax_train_s_cpu']:.1f} s, {c['jax_evaluate']}", flush=True)
+
+    def forest_np(m):
+        return {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+
+    c = cfg["rf"]
+    train, test = chip_smoke.make_set_frame(c["rows"], c["test_rows"],
+                                            cfg["cat_seed"])
+    t0 = time.perf_counter()
+    m = ydf.RandomForestLearner(num_trees=c["fixture_trees"],
+                                **c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    fo = forest_np(m)
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    c.update(train_sha256=chip_smoke.frame_sha256(train),
+             test_sha256=chip_smoke.frame_sha256(test),
+             oob_evaluation=m.oob_evaluation,
+             jax_evaluate=dict(m.evaluate(test).metrics))
+    runs["rf"] = dict(
+        tree_sha256=np.stack([np.frombuffer(bytes.fromhex(
+            chip_smoke.tree_sha256(fo, t, fields=fields)), np.uint8)
+            for t in range(fo["feature"].shape[0])]),
+        num_nodes=fo["num_nodes"].astype(np.int32),
+        proba=np.asarray(m.predict(head), np.float32))
+    print(f"train_sets rf: {c['fixture_trees']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s", flush=True)
+
+    c = cfg["cart"]
+    train, test = chip_smoke.make_set_frame(c["rows"], c["test_rows"],
+                                            cfg["cat_seed"])
+    grown = []
+    orig_prune = capture_unpruned(jax_cart, grown)
+    try:
+        t0 = time.perf_counter()
+        m = ydf.CartLearner(**c["learner"]).train(train)
+        c["jax_train_s_cpu"] = time.perf_counter() - t0
+    finally:
+        jax_cart.prune_single_tree = orig_prune
+    fo = forest_np(m)
+    mask = np.random.RandomState(c["seed"]).uniform(size=c["rows"]) \
+        < c["validation_ratio"]
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    c.update(
+        train_sha256=chip_smoke.frame_sha256(train),
+        test_sha256=chip_smoke.frame_sha256(test),
+        holdout_sha256=chip_smoke.array_sha256(mask),
+        grown_sha256=chip_smoke.tree_sha256(grown[0], 0, fields=fields),
+        grown_num_nodes=int(grown[0]["num_nodes"][0]),
+        pruned_sha256=chip_smoke.tree_sha256(fo, 0, fields=fields),
+        num_pruned_nodes=m.extra_metadata["num_pruned_nodes"],
+        oob_evaluation=m.oob_evaluation,
+        jax_evaluate=dict(m.evaluate(test).metrics))
+    runs["cart"] = dict(proba=np.asarray(m.predict(head), np.float32))
+    print(f"train_sets cart: {c['grown_num_nodes']} nodes grown, "
+          f"{c['num_pruned_nodes']} pruned in {c['jax_train_s_cpu']:.1f} s",
+          flush=True)
+    _write_runs("train_sets", cfg, runs)
+
+
 #: Where main() asks XLA to dump the boosting programs (for
 #: write_train_multiclass's update_forms); removed afterwards.
 DUMP_DIR = None
@@ -1262,6 +1525,12 @@ def main():
         write_train_if()
     if only in (None, "train_oblique"):
         write_train_oblique()
+    if only in (None, "train_monotone"):
+        write_train_monotone()
+    if only in (None, "train_dart"):
+        write_train_dart()
+    if only in (None, "train_sets"):
+        write_train_sets()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

@@ -253,15 +253,27 @@ def test_routed_missing_values_follow_na_left(models):
 
 
 def test_routed_rejects_unported_node_kinds(models):
-    _, pm = models["mix_d6"]
+    """Set nodes, the last node kind the routed engine lacked, route as
+    the JAX package's since ROADMAP item 14c: every split of a model
+    turned into a set node, random packed sets, the same sums."""
+    jm, pm = models["mix_d6"]
     f = pm.forest.to_numpy()
     f["is_set"] = ~f["is_leaf"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forest_predict_values(
-            ydf_tpu_torch.forest_from_jax(f), torch.zeros(4, 3),
-            torch.zeros(4, 2, dtype=torch.int32), num_numerical=3,
-            max_depth=6,
-        )
+    rng = np.random.default_rng(2)
+    W = f["cat_mask"].shape[-1]
+    x_set = rng.integers(0, 2**32, (64, 1, W), dtype=np.uint32)
+    x_set[::3] = 0  # empty sets: every set node sends them left
+    x_num = rng.normal(size=(64, 3)).astype(np.float32)
+    x_cat = rng.integers(0, 4, (64, 2)).astype(np.int32)
+    got = forest_predict_values(
+        ydf_tpu_torch.forest_from_jax(f), torch.from_numpy(x_num),
+        torch.from_numpy(x_cat), num_numerical=3, max_depth=6,
+        x_set=torch.from_numpy(x_set.view(np.int32))).numpy()
+    jf = jm.forest._replace(is_set=jnp.asarray(f["is_set"]))
+    want = np.asarray(jax_routed(jf, jnp.asarray(x_num), jnp.asarray(x_cat),
+                                 num_numerical=3, max_depth=6,
+                                 x_set=jnp.asarray(x_set)))
+    assert np.array_equal(got, want)
 
 
 def test_wrappers_check_their_input(models):

@@ -469,18 +469,25 @@ def test_routing_projection_matches_jax_reduce(Fn):
 
 
 def test_mhld_and_monotone_constraints_still_raise():
-    """MHLD_OBLIQUE names ROADMAP item 28 on the GBT; monotone
-    constraints name 14b (with or without oblique splits); the RF, CART
-    and isolation forest reject MHLD as the JAX package does; unknown
-    weight types raise."""
+    """MHLD_OBLIQUE names ROADMAP item 28 on the GBT; a monotone
+    constraint with oblique splits (ported since item 14b) raises, as
+    the JAX package's, only on an unknown or a non-numerical feature;
+    the RF, CART and isolation forest reject MHLD as the JAX package
+    does; unknown weight types raise."""
     kw = dict(label="label", device="cpu")
     with pytest.raises(NotImplementedError, match="item 28"):
         ydf_tpu_torch.GradientBoostedTreesLearner(split_axis="MHLD_OBLIQUE",
                                                   **kw)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        ydf_tpu_torch.GradientBoostedTreesLearner(
-            split_axis="SPARSE_OBLIQUE", monotonic_constraints={"f0": 1},
-            **kw)
+    rng = np.random.default_rng(0)
+    data = {"f0": rng.normal(size=200).astype(np.float32),
+            "c": np.array(["a", "b"] * 100),
+            "label": rng.integers(0, 2, 200)}
+    for bad, match in (({"nope": 1}, "Unknown monotonic"),
+                       ({"c": 1}, "non-numerical")):
+        with pytest.raises(ValueError, match=match):
+            ydf_tpu_torch.GradientBoostedTreesLearner(
+                split_axis="SPARSE_OBLIQUE", monotonic_constraints=bad,
+                validation_ratio=0.0, num_trees=1, **kw).train(data)
     for cls in (ydf_tpu_torch.RandomForestLearner, ydf_tpu_torch.CartLearner):
         with pytest.raises(ValueError, match="split_axis"):
             cls(split_axis="MHLD_OBLIQUE", **kw)

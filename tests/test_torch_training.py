@@ -269,9 +269,7 @@ def test_sibling_reconstruction_matches_direct_histograms():
 def test_learner_surface_raises_for_what_is_not_ported():
     kw = dict(label="label", device="cpu")
     cases = [
-        dict(validation_ratio=0.0, dart_dropout=0.1),
         dict(validation_ratio=0.0, split_axis="MHLD_OBLIQUE"),  # item 28
-        dict(validation_ratio=0.0, monotonic_constraints={"f0": 1}),
         dict(validation_ratio=0.0, task=Task.RANKING),
         dict(validation_ratio=0.0, sampling_method="SELGB"),
     ]
@@ -286,7 +284,8 @@ def test_learner_surface_raises_for_what_is_not_ported():
     data = make_data(300, 6, seed=1)
     # Ported since: the validation split with early stopping (the
     # defaults), categorical input columns, row sampling, candidate
-    # features, more than two classes and the pointwise losses all train.
+    # features, DART, monotone constraints, more than two classes and the
+    # pointwise losses all train.
     split = ydf_tpu_torch.GradientBoostedTreesLearner(
         validation_ratio=0.1, num_trees=2, **kw).train(data)
     assert split.training_logs["valid_loss"] is not None
@@ -295,7 +294,10 @@ def test_learner_surface_raises_for_what_is_not_ported():
     cat = learner.train({**data, "c": np.array(["a", "b", "c"] * 100)})
     assert "c" in cat.binner.feature_names[cat.binner.num_numerical:]
     for extra in (dict(subsample=0.5), dict(sampling_method="GOSS"),
-                  dict(num_candidate_attributes=3)):
+                  dict(num_candidate_attributes=3),
+                  # DART and monotone constraints (ROADMAP item 14b).
+                  dict(dart_dropout=0.1),
+                  dict(monotonic_constraints={"f0": 1})):
         m = ydf_tpu_torch.GradientBoostedTreesLearner(
             validation_ratio=0.0, num_trees=2, **kw, **extra).train(data)
         assert m.forest.num_trees == 2

@@ -160,14 +160,17 @@ def test_dataspec_inference_matches_jax():
 
 
 def test_set_column_is_not_a_vector_sequence():
-    """Flat item lists infer as CATEGORICAL_SET (not ported: raises and
-    names the type), as in the JAX package."""
+    """Flat item lists infer as CATEGORICAL_SET, with the JAX package's
+    item dictionary (ported since ROADMAP item 14c)."""
     require_jax()
     data = {"tags": [["a", "b"], ["b"], [], ["a", "c", "b"]] * 10}
     jspec = ydf.infer_dataspec(data, min_vocab_frequency=1)
-    assert jspec.column_by_name("tags").type.value == "CATEGORICAL_SET"
-    with pytest.raises(NotImplementedError, match="CATEGORICAL_SET"):
-        infer_dataspec(data, min_vocab_frequency=1)
+    jcol = jspec.column_by_name("tags")
+    assert jcol.type.value == "CATEGORICAL_SET"
+    col = infer_dataspec(data, min_vocab_frequency=1).column_by_name("tags")
+    assert col.type == ColumnType.CATEGORICAL_SET
+    assert col.vocabulary == jcol.vocabulary
+    assert col.vocab_counts == jcol.vocab_counts
 
 
 def test_single_vectors_and_arrays_are_sequences():

@@ -9,11 +9,13 @@ between them as boundaries (exact split search); otherwise deduplicated
 quantiles of a fixed-seed 200k-row sample. CATEGORICAL columns: bin =
 dictionary index (0 = out of vocabulary); indices >= num_bins collapse
 to 0, and the dictionary is frequency-sorted, so only the rarest
-categories collapse. NUMERICAL_VECTOR_SEQUENCE columns are not binned:
-the binner records their names, vector lengths and longest sequence,
-and `transform_vs` pads them densely. Fitting a categorical-set column
-raises NotImplementedError (ROADMAP Queue 1 item 14); serving reads any
-saved Binner.
+categories collapse. CATEGORICAL_SET columns are not binned either:
+`transform_sets` packs each row's items as multi-hot u32 words, one
+width (set_width_words) for every set feature, and a set feature's
+feature_num_bins is its whole dictionary, not capped at num_bins.
+NUMERICAL_VECTOR_SEQUENCE columns are not binned: the binner records
+their names, vector lengths and longest sequence, and `transform_vs`
+pads them densely.
 
 Fitting runs on the host in numpy with the JAX package's expressions, so
 boundaries are bitwise equal to its own. `transform` bins the numerical
@@ -112,6 +114,14 @@ class Binner:
     def num_categorical(self) -> int:
         return self.num_features - self.num_numerical - self.num_set
 
+    @property
+    def set_width_words(self) -> int:
+        """u32 words a set feature takes in the packed encoding."""
+        if self.num_set == 0:
+            return 0
+        vmax = int(self.feature_num_bins[self.num_scalar:].max())
+        return (vmax + 31) // 32
+
     @staticmethod
     def fit(dataset, features: Sequence[str],
             num_bins: int = 256) -> "Binner":
@@ -168,16 +178,17 @@ class Binner:
 
         numericals = of_type(*_NUMERICAL_LIKE)
         categoricals = of_type(ColumnType.CATEGORICAL)
+        sets = of_type(ColumnType.CATEGORICAL_SET)
         vs = of_type(ColumnType.NUMERICAL_VECTOR_SEQUENCE)
         unported = [f for f in features
-                    if f not in numericals + categoricals + vs]
+                    if f not in numericals + categoricals + sets + vs]
         if unported:
             raise NotImplementedError(
-                f"feature columns {unported}: categorical-set and other "
-                "input features are not ported yet (ROADMAP Queue 1 item "
-                "14)"
+                f"feature columns {unported}: discretized-numerical, hash "
+                "and other input features are not ported yet (ROADMAP "
+                "Queue 1 item 16)"
             )
-        ordered = numericals + categoricals
+        ordered = numericals + categoricals + sets
         F = len(ordered)
         boundaries = np.full((F, num_bins - 1), np.inf, dtype=np.float32)
         impute = np.zeros((F,), dtype=np.float32)
@@ -190,10 +201,15 @@ class Binner:
         for j, name in enumerate(categoricals):
             fnb[len(numericals) + j] = min(
                 spec.column_by_name(name).vocab_size, num_bins)
+        for j, name in enumerate(sets):
+            # The whole dictionary: a node's set mask widens to it, only
+            # the cut positions stop at num_bins.
+            fnb[len(numericals) + len(categoricals) + j] = max(
+                spec.column_by_name(name).vocab_size, 1)
         return Binner(
             feature_names=ordered, num_numerical=len(numericals),
             num_bins=num_bins, boundaries=boundaries, impute_values=impute,
-            feature_num_bins=fnb, vs_names=vs,
+            feature_num_bins=fnb, num_set=len(sets), vs_names=vs,
             vs_dims=[spec.column_by_name(f).vector_length for f in vs],
             vs_max_len=max(
                 (max(spec.column_by_name(f).max_num_vectors, 1) for f in vs),
@@ -207,12 +223,7 @@ class Binner:
         training layout): the numerical values f32 [Fn, n] are copied to
         the device once and binned by the binning kernel (ops/binning.py);
         the categorical codes are looked up on the host and fill the rows
-        after them."""
-        if self.num_set:
-            raise NotImplementedError(
-                "binning categorical-set features is not ported yet "
-                "(ROADMAP Queue 1 item 14)"
-            )
+        after them. Set features are packed apart (transform_sets)."""
         Fn, n = self.num_numerical, dataset.num_rows
         values = np.empty((Fn, n), np.float32)
         for i, name in enumerate(self.feature_names[:Fn]):
@@ -226,10 +237,24 @@ class Binner:
         if self.num_categorical == 0:
             return bins
         codes = np.empty((self.num_categorical, n), np.uint8)
-        for j, name in enumerate(self.feature_names[Fn:]):
+        for j, name in enumerate(self.feature_names[Fn:self.num_scalar]):
             idx = dataset.encoded_categorical(name)
             codes[j] = np.where(idx >= self.num_bins, 0, idx)
         return torch.cat([bins.t(), torch.from_numpy(codes).to(device)]).t()
+
+    def transform_sets(self, dataset) -> Optional[np.ndarray]:
+        """Packed multi-hot set features u32 [n, num_set, W] numpy, W =
+        set_width_words (the JAX package's transform_sets), or None
+        without set features; a column absent from `dataset` is all
+        empty."""
+        if self.num_set == 0:
+            return None
+        W = self.set_width_words
+        out = np.zeros((dataset.num_rows, self.num_set, W), np.uint32)
+        for j, name in enumerate(self.feature_names[self.num_scalar:]):
+            if dataset.dataspec.has_column(name) and name in dataset.data:
+                out[:, j, :] = dataset.encoded_categorical_set(name, W)
+        return out
 
     def transform_vs(self, dataset):
         """Dense padded vector sequences, or None without VS features

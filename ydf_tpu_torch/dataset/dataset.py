@@ -18,6 +18,7 @@ from ydf_tpu_torch.dataset.dataspec import (
     column_array,
     infer_dataspec,
     is_missing_item,
+    tokenize_set_value,
     vector_sequence_cell,
 )
 
@@ -152,6 +153,46 @@ class Dataset:
             codes = np.array([code(v) for v in uniq.tolist()], np.int32)
             return codes[inv.reshape(raw.shape)]
         return np.array([code(v) for v in raw.tolist()], dtype=np.int32)
+
+    def encoded_categorical_set(self, name: str,
+                                width_words: int) -> np.ndarray:
+        """Packed multi-hot membership u32 [n, width_words] (the JAX
+        package's encoded_categorical_set): bit v of row e is set when
+        the row's set holds dictionary item v; unknown items and items
+        past 32 * width_words set bit 0 (OOV); a missing cell encodes as
+        the empty set (categorical_set_missing_mask tells them apart)."""
+        col = self.dataspec.column_by_name(name)
+        if col.vocabulary is None:
+            raise ValueError(f"Column {name!r} has no vocabulary")
+        n = len(self.data[name])
+        rows: List[int] = []
+        tokens: List[str] = []
+        for e, v in enumerate(self.data[name].tolist()):
+            items = tokenize_set_value(v)
+            if items:
+                rows.extend([e] * len(items))
+                tokens.extend(items)
+        out = np.zeros((n, width_words), np.uint32)
+        if not tokens:
+            return out
+        vocab = np.asarray(col.vocabulary, dtype=object).astype(str)
+        order = np.argsort(vocab)
+        svocab = vocab[order]
+        tok = np.asarray(tokens, dtype=object).astype(str)
+        pos = np.minimum(np.searchsorted(svocab, tok), len(svocab) - 1)
+        idx = np.where(svocab[pos] == tok, order[pos], 0)
+        idx = np.where(idx >= width_words * 32, 0, idx)
+        np.bitwise_or.at(
+            out.reshape(-1),
+            np.asarray(rows, np.int64) * width_words + (idx >> 5),
+            np.uint32(1) << (idx & 31).astype(np.uint32),
+        )
+        return out
+
+    def categorical_set_missing_mask(self, name: str) -> np.ndarray:
+        """bool [n]: the set cell is missing (not merely empty)."""
+        return np.array([tokenize_set_value(v) is None
+                         for v in self.data[name].tolist()], dtype=bool)
 
     def vector_sequence_cells(self, name: str) -> List[Optional[np.ndarray]]:
         """The column's cells as float32 [L, D] arrays, None if missing."""

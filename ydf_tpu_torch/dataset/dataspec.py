@@ -1,9 +1,12 @@
 """Column schema ("dataspec") and its inference for numerical, boolean,
-categorical and numerical-vector-sequence columns (counterpart of
-ydf_tpu/dataset/dataspec.py).
+categorical, categorical-set and numerical-vector-sequence columns
+(counterpart of ydf_tpu/dataset/dataspec.py).
 
-Categorical dictionaries reserve index 0 for out-of-vocabulary items;
-missing numericals are imputed with the column mean. A
+Categorical and categorical-set dictionaries reserve index 0 for
+out-of-vocabulary items; missing numericals are imputed with the column
+mean. A CATEGORICAL_SET cell is a list, tuple, set or array of items, or
+a string split on " ;," (tokenize_set_value); None, NaN or a missing
+string is missing, and an empty set is a value. A
 NUMERICAL_VECTOR_SEQUENCE cell is a [num_vectors, dim] array (a list of
 numeric vectors, or one vector); None or NaN is missing, and an empty
 sequence is a value, distinct from missing.
@@ -14,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+import re
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -123,9 +127,10 @@ def infer_column(
     """One column's type and statistics (counterpart of
     ydf_tpu/dataset/dataspec.py:infer_column) for the types the port
     takes: NUMERICAL and BOOLEAN columns (mean, min, max, counts),
-    CATEGORICAL ones (frequency-sorted dictionary, OOV at index 0) and
-    NUMERICAL_VECTOR_SEQUENCE ones (vector length, min and max sequence
-    length, value and missing counts). An object column of nested cells
+    CATEGORICAL and CATEGORICAL_SET ones (frequency-sorted dictionary of
+    values or items, OOV at index 0) and NUMERICAL_VECTOR_SEQUENCE ones
+    (vector length, min and max sequence length, value and missing
+    counts). An object column of nested cells
     is a NUMERICAL_VECTOR_SEQUENCE when one of its first 100 cells is a
     sequence of numeric vectors, else a CATEGORICAL_SET. Other types
     raise NotImplementedError."""
@@ -227,10 +232,62 @@ def infer_column(
             min_num_vectors=int(min_nv or 0), max_num_vectors=int(max_nv),
             num_values=count_values, num_missing=num_missing,
         )
+    if ctype == ColumnType.CATEGORICAL_SET:
+        # The dictionary counts item occurrences, with the categorical
+        # rules: frequency order, lexicographic ties, OOV at index 0.
+        tokens: List[str] = []
+        num_missing = 0
+        for v in values.tolist():
+            items = tokenize_set_value(v)
+            if items is None:
+                num_missing += 1
+            else:
+                tokens.extend(items)
+        if tokens:
+            uniq, counts = np.unique(
+                np.array(tokens, dtype=object).astype(str),
+                return_counts=True)
+            order = np.lexsort((uniq, -counts))
+            uniq, counts = uniq[order], counts[order]
+        else:
+            uniq = np.array([], dtype=str)
+            counts = np.array([], dtype=np.int64)
+        keep = counts >= max(min_vocab_frequency, 1)
+        kept, kept_counts = uniq[keep], counts[keep]
+        if max_vocab_count > 0 and len(kept) > max_vocab_count:
+            kept = kept[:max_vocab_count]
+            kept_counts = kept_counts[:max_vocab_count]
+        return Column(
+            name=name, type=ctype,
+            vocabulary=[OOV_ITEM] + [str(x) for x in kept],
+            vocab_counts=[int(counts.sum() - kept_counts.sum())]
+            + [int(c) for c in kept_counts],
+            num_values=int(len(values) - num_missing),
+            num_missing=num_missing,
+        )
     raise NotImplementedError(
         f"column {name!r}: type {ctype.value} is not ported yet "
-        "(ROADMAP Queue 1 item 14)"
+        "(ROADMAP Queue 1 item 16)"
     )
+
+
+def tokenize_set_value(v: Any) -> Optional[List[str]]:
+    """One raw CATEGORICAL_SET cell -> its items as strings, None if
+    missing (the JAX package's tokenize_set_value): a list, tuple, set
+    or array gives its elements; a string is split on the reference's
+    default separators " ;," (a missing string is missing); an empty set
+    is a value."""
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return None
+    if isinstance(v, (list, tuple, set, frozenset)):
+        return [str(x) for x in v]
+    if isinstance(v, np.ndarray):
+        return [str(x) for x in v.tolist()]
+    if isinstance(v, str):
+        if v in MISSING_STRINGS:
+            return None
+        return [t for t in re.split(r"[ ;,]", v) if t]
+    return [str(v)]
 
 
 def _is_vector_sequence_cell(v: Any) -> bool:

@@ -17,7 +17,8 @@ only in the holdout stays in the dictionaries.
 
 Pruning runs on the host in numpy over the tree's node arrays, as the JAX
 package's does: the holdout rows are routed to their leaves in one pass
-on the model's device (ops/routing.py:route_tree_values), their weighted
+on the model's device (ops/routing.py:route_tree_values, set nodes
+through the rows' packed sets), their weighted
 class counts (classification) or [w, w y, w y^2] sums (regression) are
 added up from the leaves in one reverse sweep over the node ids
 (children have larger ids than their parent), and a split becomes a leaf
@@ -115,11 +116,14 @@ def _route_validation(model, valid_data, weights_col):
     [nv] numpy, weights f64 [nv])."""
     ds = Dataset.from_data(valid_data, dataspec=model.dataspec)
     x_num, x_cat = model._encode_inputs(ds)
+    x_set = model._encode_sets(ds)
     dev = model.device
     leaves = route_tree_values(
         model.forest, 0, torch.from_numpy(x_num).to(dev),
         torch.from_numpy(x_cat).to(dev), model.binner.num_numerical,
         model.max_depth,
+        x_set=None if x_set is None else torch.from_numpy(
+            x_set.view(np.int32)).to(dev),
     ).cpu().numpy()
     w = (np.asarray(ds.data[weights_col], np.float64) if weights_col
          else np.ones((leaves.shape[0],), np.float64))

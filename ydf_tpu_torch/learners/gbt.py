@@ -93,6 +93,30 @@ machine code of its boosting programs at K = 3 and 5, with and without
 validation, chunked or not; the fixture train_multiclass records it).
 The model stores round(raw * shrinkage), as the reference does.
 
+CATEGORICAL_SET features (packed multi-hot rows on the device, i32
+[n, Fs, W]; the validation split gathers their rows too) are candidates
+of every tree (ops/grower.py's set candidates); the validation rows
+route through set nodes (ops/routing.py:route_tree_bins with x_set).
+
+Monotone constraints (monotonic_constraints={feature: +1 / -1}, on
+numerical features only): the grower rejects a cut whose leaf values
+move against a feature's direction (per tree over [numericals,
+projections, anchors] when there are projection or anchor columns: a
+projection touching a constrained feature counts as +1, its
+coefficients sign-forced by the sampler); the boosting loop uses the
+unclamped leaf values, and the leaves are clamped once after training
+on the host (clamp_monotone_leaves).
+
+DART (dart_dropout > 0): the key chain splits three ways, key, k_sub,
+k_drop = split(fold_in(key, it), 3); iteration it drops each earlier
+iteration with probability dart_dropout (the masks depend on the seed
+alone and are drawn before the loop), takes their weighted
+contributions out of the predictions (dart_dot, XLA's dot order) for
+its gradients, then enters at weight 1 / (nd + 1) while the nd dropped
+ones shrink by nd / (nd + 1); each iteration's contributions stay on
+the device ([T, n] plus [T, nv] f32). The final weights are baked into
+the stored leaf values, so they depend on how many iterations ran.
+
 What this slice does not port raises NotImplementedError naming the
 ROADMAP item; nothing falls back to a default the JAX package would not
 take.
@@ -118,6 +142,7 @@ from ydf_tpu_torch.ops.routing import route_tree_bins
 from ydf_tpu_torch.ops.split_rules import HessianGainRule
 from ydf_tpu_torch.ops.vector_sequence import vs_scores
 from ydf_tpu_torch.utils import cuda_build, prng
+from ydf_tpu_torch.utils.xla_cpu import fma_f32
 
 
 #: Reads of device values on the host by boost() in this process: the
@@ -141,6 +166,125 @@ def fma_update(preds: torch.Tensor, raw: torch.Tensor,
     """preds + raw * scale rounded once to f32 (module docstring)."""
     s = float(np.float32(scale))
     return (preds.double() + raw.double() * s).float()
+
+
+def monotone_directions(constraints: Optional[dict], binner
+                        ) -> Optional[tuple]:
+    """The grower's per-feature monotone directions (the JAX package's
+    `monotone` tuple over binner.feature_names: sign(d) on constrained
+    numerical features, 0 elsewhere), or None without constraints. An
+    unknown or non-numerical feature raises ValueError."""
+    if not constraints:
+        return None
+    dirs = [0] * binner.num_features
+    for name, d in constraints.items():
+        if name not in binner.feature_names:
+            raise ValueError(f"Unknown monotonic feature {name!r}")
+        idx = binner.feature_names.index(name)
+        if idx >= binner.num_numerical:
+            raise ValueError(
+                f"Monotonic constraint on non-numerical {name!r}")
+        dirs[idx] = int(np.sign(d))
+    return tuple(dirs)
+
+
+def clamp_monotone_leaves(forest, binner, constraints: dict):
+    """The JAX package's _clamp_monotone_leaves, once after training on
+    the host (numpy): bounds propagate down each tree (reference
+    ApplyConstraintOnNode, training.h:160-168): at a split on a feature
+    of direction d the midpoint of the two children's values, clipped
+    to the node's bounds, bounds the left child above (d > 0) or below
+    (d < 0) and the right child on the other side; a projection touching
+    a constrained feature counts as increasing. Leaf values are clipped
+    to their bounds. Returns the forest on its device."""
+    f = forest.to_numpy()
+    nfeat = binner.num_features
+    dirs = np.zeros((nfeat,), np.int8)
+    for name, d in constraints.items():
+        dirs[binner.feature_names.index(name)] = np.sign(d)
+    ow = f["oblique_weights"]
+    P = ow.shape[1]
+    lv = f["leaf_value"].copy()  # [T, N, 1]
+    for t in range(lv.shape[0]):
+        if P > 0:
+            touch = np.abs(ow[t][:, : len(dirs)]) @ np.abs(
+                dirs[: ow.shape[2]].astype(np.float32))
+            proj_dirs = (touch > 0).astype(np.int8)
+        stack = [(0, -np.inf, np.inf)]
+        while stack:
+            nid, lo, hi = stack.pop()
+            if f["is_leaf"][t, nid]:
+                lv[t, nid, 0] = np.clip(lv[t, nid, 0], lo, hi)
+                continue
+            left, right = int(f["left"][t, nid]), int(f["right"][t, nid])
+            feat = int(f["feature"][t, nid])
+            if 0 <= feat < nfeat:
+                d = dirs[feat]
+            elif P > 0 and nfeat <= feat < nfeat + P:
+                d = proj_dirs[feat - nfeat]
+            else:
+                d = 0
+            if d == 0:
+                stack.append((left, lo, hi))
+                stack.append((right, lo, hi))
+            else:
+                mid = 0.5 * (lv[t, left, 0] + lv[t, right, 0])
+                mid = float(np.clip(mid, lo, hi))
+                if d > 0:
+                    stack.append((left, lo, mid))
+                    stack.append((right, mid, hi))
+                else:
+                    stack.append((left, mid, hi))
+                    stack.append((right, lo, mid))
+    return forest._replace(
+        leaf_value=torch.from_numpy(lv).to(forest.device))
+
+
+def dart_dot(weights: torch.Tensor, contrib: torch.Tensor,
+             upto: int) -> torch.Tensor:
+    """einsum("t,tnk->nk", weights [T], contrib [T, n, K]) in the order
+    XLA's CPU gives it in the JAX package's DART loop (jax 0.9.0, read by
+    probing the einsum): fused multiply-adds over t in 4 x 8 lanes (t =
+    32 i + 8 j + l on accumulator j, lane l) up to the last whole 32,
+    the accumulators added in order and their 8 lanes by halves; then
+    the rest in 4 lanes (the first holding the sum so far), added by
+    halves; then one chain. Below 32 terms, one chain. Terms from t =
+    `upto` on have weight 0 and change no sum, so they are skipped.
+    Identified at T = 10-30, 150 and 300 (the default); at T = 50, 64
+    and 100 XLA's order differs (ROADMAP Queue 3)."""
+    T = weights.shape[0]
+    out_shape = contrib.shape[1:]
+    main = T // 32 * 32
+    res = torch.zeros(out_shape, dtype=torch.float32,
+                      device=contrib.device)
+    if main:
+        acc = torch.zeros((4, 8) + out_shape, dtype=torch.float32,
+                          device=contrib.device)
+        for a in range(0, min(main, upto), 32):
+            w = weights[a:a + 32].reshape((4, 8) + (1,) * len(out_shape))
+            acc = fma_f32(w, contrib[a:a + 32].reshape(acc.shape), acc)
+        v = acc[0] + acc[1]
+        v = v + acc[2]
+        v = v + acc[3]
+        while v.shape[0] > 1:
+            h = v.shape[0] // 2
+            v = v[:h] + v[h:]
+        res = v[0]
+        ep = (T - main) // 4 * 4
+        if ep and upto > main:
+            lanes = torch.zeros((4,) + out_shape, dtype=torch.float32,
+                                device=contrib.device)
+            lanes[0] = res
+            for a in range(main, min(main + ep, upto), 4):
+                w = weights[a:a + 4].reshape((4,) + (1,) * len(out_shape))
+                lanes = fma_f32(w, contrib[a:a + 4], lanes)
+            res = (lanes[0] + lanes[2]) + (lanes[1] + lanes[3])
+        start = main + ep
+    else:
+        start = 0
+    for t in range(start, min(T, upto)):
+        res = fma_f32(weights[t], contrib[t], res)
+    return res
 
 
 def split_validation(n: int, ratio: float, seed: int):
@@ -170,9 +314,10 @@ class GradientBoostedTreesLearner(GenericLearner):
     classification (binomial loss for two classes, multinomial for more)
     and regression (squared error) by default, the Poisson, mean
     absolute error, binary focal and custom losses, on numerical,
-    boolean, categorical and numerical-vector-sequence features, with
-    its validation split, look-ahead early stopping, row sampling
-    (subsample, GOSS) and candidate features. `train(data, valid=None)`:
+    boolean, categorical, categorical-set and numerical-vector-sequence
+    features, with its validation split, look-ahead early stopping, row
+    sampling (subsample, GOSS), candidate features, monotone
+    constraints and DART. `train(data, valid=None)`:
     an explicit validation set replaces the split. `loss` is a loss name
     or a learners/losses.py:CustomLoss."""
 
@@ -223,8 +368,9 @@ class GradientBoostedTreesLearner(GenericLearner):
     ):
         if task not in (Task.CLASSIFICATION, Task.REGRESSION):
             raise _unported(f"task {task.value}", 15)
-        if dart_dropout > 0.0:
-            raise _unported("DART (dart_dropout > 0)", 13)
+        if not 0.0 <= dart_dropout < 1.0:
+            raise ValueError(
+                f"dart_dropout must be in [0, 1), got {dart_dropout}")
         if sampling_method not in ("RANDOM", "GOSS", "SELGB"):
             raise ValueError(
                 f"Unknown sampling_method {sampling_method!r}; expected "
@@ -239,8 +385,6 @@ class GradientBoostedTreesLearner(GenericLearner):
         if split_axis == "MHLD_OBLIQUE":
             raise _unported("split_axis='MHLD_OBLIQUE'", 28)
         oblique.check_weight_type(sparse_oblique_weights)
-        if monotonic_constraints:
-            raise _unported("monotonic constraints", "14b")
         super().__init__(
             label=label, task=task, features=features, weights=weights,
             max_vocab_count=max_vocab_count,
@@ -266,6 +410,9 @@ class GradientBoostedTreesLearner(GenericLearner):
         self.goss_alpha = goss_alpha
         self.goss_beta = goss_beta
         self.apply_link_function = apply_link_function
+        self.dart_dropout = dart_dropout
+        self.monotonic_constraints = (dict(monotonic_constraints)
+                                      if monotonic_constraints else None)
         self.split_axis = split_axis
         self.sparse_oblique_num_projections_exponent = (
             sparse_oblique_num_projections_exponent)
@@ -337,6 +484,7 @@ class GradientBoostedTreesLearner(GenericLearner):
         bins_t = prep["bins_t"]  # one copy for every tree and layer
         labels, weights, vs_all = (prep["labels"], prep["sample_weights"],
                                    prep["vs"])
+        sets = prep["set_bits"]  # i32 [n, Fs, W] on the device, or None
         x_raw = None  # imputed numerical features [n, Fn] (oblique)
         P = 0
         if self.split_axis == "SPARSE_OBLIQUE" and binner.num_numerical:
@@ -345,26 +493,31 @@ class GradientBoostedTreesLearner(GenericLearner):
                 self.sparse_oblique_num_projections_exponent,
                 self.sparse_oblique_max_num_projections)
             x_raw = oblique.raw_numerical(prep["dataset"], binner)
-        va = None  # (bins_t, labels, weights, vs, x_raw) of the validation
+        monotone = monotone_directions(self.monotonic_constraints, binner)
+        va = None  # (bins_t, labels, weights, vs, x_raw, sets) of the
+                   # validation rows
         if valid is not None:
             va = (prep["valid_bins_t"], prep["valid_labels"],
                   prep["valid_sample_weights"], prep["valid_vs"],
                   None if x_raw is None else
-                  oblique.raw_numerical(prep["valid_dataset"], binner))
+                  oblique.raw_numerical(prep["valid_dataset"], binner),
+                  prep["valid_set_bits"])
         elif self.validation_ratio > 0 and self.early_stopping != "NONE":
             tr_idx, va_idx = split_validation(
                 bins_t.shape[1], self.validation_ratio, self.random_seed)
             if len(va_idx):
                 def rows(idx):
-                    return (bins_t.index_select(
-                                1, torch.from_numpy(idx).to(dev)),
+                    on_dev = torch.from_numpy(idx).to(dev)
+                    return (bins_t.index_select(1, on_dev),
                             labels[idx], weights[idx],
                             None if vs_all is None else
                             tuple(a[idx] for a in vs_all),
-                            None if x_raw is None else x_raw[idx])
+                            None if x_raw is None else x_raw[idx],
+                            None if sets is None else
+                            sets.index_select(0, on_dev))
 
                 va = rows(va_idx)
-                bins_t, labels, weights, vs_all, x_raw = rows(tr_idx)
+                bins_t, labels, weights, vs_all, x_raw, sets = rows(tr_idx)
         n = bins_t.shape[1]
         tree_cfg = TreeConfig(
             max_depth=self.max_depth,
@@ -387,16 +540,22 @@ class GradientBoostedTreesLearner(GenericLearner):
         if vs_all is not None and Ac + Ap > 0:
             vs = vs_inputs(vs_all, Ac, Ap, dev)
         if x_raw is not None:
+            mono_vec = None
+            if monotone is not None and any(monotone[:binner.num_numerical]):
+                # Sign-forced coefficients on the constrained features.
+                mono_vec = torch.tensor(monotone[:binner.num_numerical],
+                                        dtype=torch.float32, device=dev)
             obl = oblique.ObliqueInputs(
                 x_t=feature_major(x_raw), num_projections=P,
                 density=self.sparse_oblique_projection_density_factor,
                 weight_type=self.sparse_oblique_weights,
-                weight_range=self._oblique_weight_range())
+                weight_range=self._oblique_weight_range(),
+                monotone_vec=mono_vec)
         if va is not None and va[0].shape[1] > 0:
             valid_set = ValidSet(
                 va[0], *on_device(va[1], va[2]),
                 None if vs is None else vs_inputs(va[3], Ac, Ap, dev),
-                None if obl is None else feature_major(va[4]))
+                None if obl is None else feature_major(va[4]), va[5])
         lookahead = (self.early_stopping_num_trees_look_ahead
                      if self.early_stopping == "LOSS_INCREASE" else 0)
 
@@ -411,6 +570,8 @@ class GradientBoostedTreesLearner(GenericLearner):
                               self.goss_alpha, self.goss_beta),
             candidate_features=self._candidate_features(
                 binner.num_features),
+            set_bits=sets, monotone=monotone,
+            dart_dropout=self.dart_dropout,
         )
         train_losses = out.train_loss.cpu().numpy()
         valid_losses = (None if out.valid_loss is None
@@ -441,6 +602,9 @@ class GradientBoostedTreesLearner(GenericLearner):
                 per_tree(a) for a in out.vs_out)))
         forest = forest_from_stacked_trees(
             trees, out.leaf_values[:T], binner.boundaries, **kwargs)
+        if self.monotonic_constraints:
+            forest = clamp_monotone_leaves(
+                forest, binner, self.monotonic_constraints)
         t2 = time.perf_counter()
         self.last_timings["boost_s"] = t2 - t1
         model = GradientBoostedTreesModel(
@@ -533,20 +697,29 @@ class IterationKeys(NamedTuple):
     tree: torch.Tensor           # [T, K, 2] fold_in(key, k): tree k's key
     proj: Optional[torch.Tensor] = None  # [T, 2] k_proj, or None without
                                          # oblique splits
+    drop: Optional[torch.Tensor] = None  # [T, 2] k_drop, or None
+                                         # without DART
 
 
 def iteration_keys(seed: int, num_iters: int, num_classes: int,
                    with_vs: bool, device,
-                   with_oblique: bool = False) -> IterationKeys:
+                   with_oblique: bool = False,
+                   with_dart: bool = False) -> IterationKeys:
     """The JAX package's key chain for `num_iters` iterations, run on the
     CPU (a few tiny hashes an iteration) and copied to `device` once:
-    key, k_sub = split(fold_in(key, it)); key, k_proj = split(key) with
-    oblique splits; key, k_vs = split(key) with VS features; tree keys
+    key, k_sub = split(fold_in(key, it)) (with DART key, k_sub, k_drop =
+    split(fold_in(key, it), 3)); key, k_proj = split(key) with oblique
+    splits; key, k_vs = split(key) with VS features; tree keys
     fold_in(key, k)."""
     key = prng.prng_key(seed)
-    subs, projs, vss, keys = [], [], [], []
+    subs, projs, vss, keys, drops = [], [], [], [], []
     for it in range(num_iters):
-        key, k_sub = prng.split(prng.fold_in(key, it))
+        if with_dart:
+            ks = prng.split(prng.fold_in(key, it), 3)
+            key, k_sub = ks[0], ks[1]
+            drops.append(ks[2])
+        else:
+            key, k_sub = prng.split(prng.fold_in(key, it))
         subs.append(k_sub)
         if with_oblique:
             key, k_proj = prng.split(key)
@@ -560,7 +733,17 @@ def iteration_keys(seed: int, num_iters: int, num_classes: int,
     return IterationKeys(
         torch.stack(subs).to(device),
         torch.stack(vss).to(device) if with_vs else None, tree.to(device),
-        torch.stack(projs).to(device) if with_oblique else None)
+        torch.stack(projs).to(device) if with_oblique else None,
+        torch.stack(drops).to(device) if with_dart else None)
+
+
+def dart_drops(k_drop: torch.Tensor, dropout: float) -> torch.Tensor:
+    """bool [T, T]: row `it` marks the earlier iterations that iteration
+    `it` drops, bernoulli(k_drop, dropout, (T,)) & (arange(T) < it),
+    from every iteration's k_drop [T, 2]."""
+    T = k_drop.shape[0]
+    t = torch.arange(T, device=k_drop.device)
+    return prng.bernoulli(k_drop, dropout, (T,)) & (t[None, :] < t[:, None])
 
 
 def vs_draws(seed: int, num_iters: int, num_vs: int, num_draws: int,
@@ -660,6 +843,7 @@ class ValidSet(NamedTuple):
     vs: Optional[VSInputs]      # their vector sequences, or None
     x_t: Optional[torch.Tensor] = None  # f32 [Fn, nv] imputed numerical
                                         # features (oblique splits)
+    sets: Optional[torch.Tensor] = None  # i32 [nv, Fs, W] packed sets
 
 
 class Sampling(NamedTuple):
@@ -699,11 +883,17 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
           num_numerical: Optional[int] = None,
           valid: Optional[ValidSet] = None,
           lookahead: int = 0, sampling: Sampling = Sampling(),
-          candidate_features: int = -1) -> BoostResult:
+          candidate_features: int = -1,
+          set_bits: Optional[torch.Tensor] = None,
+          monotone: Optional[tuple] = None,
+          dart_dropout: float = 0.0) -> BoostResult:
     """The boosting loop on the device of `bins_t` (u8 [F, n]; rows
     [0, num_numerical) numerical, the rest categorical; default all
     numerical), T <= num_trees iterations of loss_obj.num_dims trees,
-    with sparse-oblique splits when `obl` is given.
+    with sparse-oblique splits when `obl` is given, categorical-set
+    candidates when `set_bits` (i32 [n, Fs, W]) is, monotone directions
+    per feature (`monotone`, monotone_directions) and DART when
+    dart_dropout > 0 (module docstring).
     With `valid`, every tree scores the validation rows; with lookahead >
     0 as well (and num_trees > lookahead, as the JAX package), the loop
     runs in chunks of min(lookahead, MAX_CHUNK_TREES) iterations, reads
@@ -716,25 +906,32 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
     K = loss_obj.num_dims
     dev = bins_t.device
     F = bins_t.shape[0]
+    Fs = 0 if set_bits is None else set_bits.shape[1]
     Pv = 0 if vs is None else len(vs.values) * vs.anchors_per_feature
     P = 0 if obl is None else obl.num_projections
-    sampled = 0 < candidate_features < F + P + Pv
-    keys = draws = columns = obl_w = None
-    if sampling.draws or sampled or vs is not None or P:
+    sampled = 0 < candidate_features < F + P + Pv + Fs
+    dart = dart_dropout > 0.0
+    keys = draws = columns = obl_w = drops = members = None
+    if sampling.draws or sampled or vs is not None or P or dart:
         keys = iteration_keys(seed, num_trees, K, vs is not None, dev,
-                              with_oblique=P > 0)
+                              with_oblique=P > 0, with_dart=dart)
     if vs is not None:
         draws = vs_words(keys.vs, len(vs.values),
                          vs.num_closer + 2 * vs.num_projected)
     if P:
         obl_w = obl.weights(keys.proj)
+    if dart:
+        drops = dart_drops(keys.drop, dart_dropout)
     if sampled:
         Fn = F if num_numerical is None else num_numerical
         columns = grower.layer_columns(
             keys.tree.reshape(-1, 2), max_depth=tree_cfg.max_depth,
             frontier=tree_cfg.frontier, num_features=F + P + Pv,
             num_numerical=Fn + P + Pv, orderings=rule.num_cat_orderings,
-            k=candidate_features)
+            k=candidate_features, num_set=Fs)
+        HOST_READS += 1
+    if Fs:
+        members = grower.set_members(set_bits)
         HOST_READS += 1
     stopping = valid is not None and 0 < lookahead < num_trees
     clen = min(lookahead, MAX_CHUNK_TREES) if stopping else num_trees
@@ -743,7 +940,9 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
                  hist_quant=hist_quant, vs=vs, draws=draws,
                  obl=obl, obl_w=obl_w, loop_of_one=clen == 1,
                  num_numerical=num_numerical, valid=valid,
-                 sampling=sampling, keys=keys, columns=columns)
+                 sampling=sampling, keys=keys, columns=columns,
+                 members=members, monotone=monotone, drops=drops,
+                 num_trees=num_trees)
     on_card = dev.type == "cuda"
     walls = []
     while loop.iterations < num_trees:
@@ -775,12 +974,15 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
 class _Loop:
     """The boosting loop's state: predictions (training and validation,
     [n] for K = 1, [n, K] otherwise) and the per-tree outputs, as device
-    tensors."""
+    tensors; with DART, every iteration's contributions (its stored leaf
+    values at each row, [T, n] or [T, n, K], and the same for the
+    validation rows) and weights."""
 
     def __init__(self, bins_t, labels, weights, *, loss_obj, rule,
                  tree_cfg, shrinkage, hist_quant, vs, draws, obl, obl_w,
                  loop_of_one, num_numerical, valid, sampling, keys,
-                 columns):
+                 columns, members=None, monotone=None, drops=None,
+                 num_trees=0):
         self.bins_t, self.labels, self.weights = bins_t, labels, weights
         self.loss_obj, self.rule, self.cfg = loss_obj, rule, tree_cfg
         self.shrinkage, self.hist_quant = shrinkage, hist_quant
@@ -789,12 +991,31 @@ class _Loop:
         # loop of one rounds the projections' quantiles differently.
         self.obl, self.obl_w, self.loop_of_one = obl, obl_w, loop_of_one
         self.sampling, self.keys, self.columns = sampling, keys, columns
+        self.members, self.drops = members, drops
         self.K = loss_obj.num_dims
         self.Fn = bins_t.shape[0] if num_numerical is None else num_numerical
+        dev = bins_t.device
+        # Monotone directions: over the features when the candidate
+        # columns are the binned ones, else (projection or anchor blocks
+        # after the numericals) made per tree from the numericals'.
+        self.mono = self.mono_num = None
+        if monotone is not None and any(monotone):
+            self.mono = torch.tensor(monotone, dtype=torch.float32,
+                                     device=dev)
+            self.mono_num = self.mono[:self.Fn]
         self.init_pred = loss_obj.initial_predictions(labels, weights)
         self.preds = self._broadcast(bins_t.shape[1])
         if valid is not None:
             self.vpreds = self._broadcast(valid.bins_t.shape[1])
+        if drops is not None:
+            self.contrib = torch.zeros((num_trees,) + self.preds.shape,
+                                       dtype=torch.float32, device=dev)
+            self.tree_scale = torch.zeros(num_trees, dtype=torch.float32,
+                                          device=dev)
+            if valid is not None:
+                self.vcontrib = torch.zeros(
+                    (num_trees,) + self.vpreds.shape, dtype=torch.float32,
+                    device=dev)
         self.iterations = 0
         self.trees, self.leaf_values, self.losses = [], [], []
         self.valid_losses, self.vs_anchors, self.vs_bounds = [], [], []
@@ -810,9 +1031,9 @@ class _Loop:
             return self.init_pred.expand(rows).contiguous()
         return self.init_pred[None, :].expand(rows, self.K).contiguous()
 
-    def _grad_hess(self):
-        """g, h f32 [n, K] at the current predictions."""
-        g, h = self.loss_obj.grad_hess(self.labels, self.preds)
+    def _grad_hess(self, preds: torch.Tensor):
+        """g, h f32 [n, K] at `preds`."""
+        g, h = self.loss_obj.grad_hess(self.labels, preds)
         if self.K == 1:
             return g[:, None], h[:, None]
         return g, h
@@ -837,16 +1058,25 @@ class _Loop:
         return None
 
     def step(self, it: int) -> None:
-        """Iteration `it`: gradients, the row sample, the K trees (grow,
+        """Iteration `it`: (DART: the dropped iterations' sum taken out of
+        the predictions) gradients, the row sample, the K trees (grow,
         leaf values), prediction updates, losses."""
         cfg, loss_obj, valid, K = self.cfg, self.loss_obj, self.valid, self.K
-        g, h = self._grad_hess()
+        dart = self.drops is not None
+        preds_used = self.preds
+        if dart:
+            drop = self.drops[it]
+            nd = drop.float().sum()
+            dropped = dart_dot(drop * self.tree_scale, self.contrib, it)
+            preds_used = self.preds - dropped
+        g, h = self._grad_hess(preds_used)
         m = self.sample_mask(it, g)
         w = self.weights
         w_eff = w if m is None else w * m
         grow_bins = self.bins_t
         grow_va = None if valid is None else valid.bins_t
         Fn = self.Fn
+        mono = self.mono
         if self.obl is not None:
             # The projection columns go after the numerical features,
             # the JAX package's [num, obl, vs, cat].
@@ -860,6 +1090,12 @@ class _Loop:
                 grow_va = torch.cat([grow_va[:Fn], cols_va, grow_va[Fn:]])
             Fn += cols.shape[0]
             self.obl_bounds.append(bounds)
+            if mono is not None:
+                # A projection touching a constrained feature increases
+                # with it (its coefficients are sign-forced).
+                touch = (self.obl_w[it].abs()
+                         * self.mono_num.abs()).sum(dim=1) > 0
+                mono = torch.cat([self.mono_num, touch.float()])
         if self.vs is not None:
             # The anchor columns go between the numerical and the
             # categorical features, the JAX package's [num, vs, cat].
@@ -870,6 +1106,10 @@ class _Loop:
             if valid is not None:
                 cols_va = vs_valid_columns(valid.vs, anchors, bounds)
                 grow_va = torch.cat([grow_va[:Fn], cols_va, grow_va[Fn:]])
+            if mono is not None:
+                if self.obl is None:
+                    mono = self.mono_num
+                mono = torch.cat([mono, mono.new_zeros(cols.shape[0])])
             Fn += cols.shape[0]
             self.vs_anchors.append(anchors)
             self.vs_bounds.append(bounds)
@@ -885,11 +1125,12 @@ class _Loop:
                 min_examples=cfg.min_examples, hist_quant=self.hist_quant,
                 columns=None if self.columns is None else [
                     (idx[t].long(), ok[t]) for idx, ok in self.columns],
+                set_members=self.members, mono_dirs=mono,
             )
             lv_raw = self.rule.leaf_value(res.tree.leaf_stats)  # [N, 1]
             lv = lv_raw * self.shrinkage
             leaf = res.leaf_id.long()
-            if K == 1:
+            if K == 1 and not dart:
                 self.preds = fma_update(self.preds, lv_raw[leaf, 0],
                                         self.shrinkage)
             else:
@@ -898,30 +1139,65 @@ class _Loop:
             self.leaf_values.append(lv)
             if valid is not None:
                 timer = cuda_build.launch_timer("valid_route")
-                vleaf = route_tree_bins(res.tree, grow_va, cfg.max_depth)
-                if K == 1:
+                vleaf = route_tree_bins(res.tree, grow_va, cfg.max_depth,
+                                        x_set=valid.sets)
+                if K == 1 and not dart:
                     self.vpreds = fma_update(self.vpreds, lv_raw[vleaf, 0],
                                              self.shrinkage)
                 else:
                     vcontrib.append(lv[vleaf, 0])
                 cuda_build.launch_done(timer)
-        if K > 1:
+        if dart:
+            self._dart_update(it, drop, nd, dropped, preds_used, contrib,
+                              vcontrib)
+        elif K > 1:
             # preds + new_contrib: the stored values added (module
             # docstring).
             self.preds = self.preds + torch.stack(contrib, dim=1)
         self.losses.append(loss_obj.loss(self.labels, self.preds, w))
         if valid is not None:
             timer = cuda_build.launch_timer("valid_route")
-            if K > 1:
+            if K > 1 and not dart:
                 self.vpreds = self.vpreds + torch.stack(vcontrib, dim=1)
             self.valid_losses.append(
                 loss_obj.loss(valid.labels, self.vpreds, valid.weights))
             cuda_build.launch_done(timer)
         self.iterations += 1
 
+    def _dart_update(self, it, drop, nd, dropped, preds_used, contrib,
+                     vcontrib) -> None:
+        """DART's step (the JAX package's boost_step): the new iteration
+        enters at weight 1 / (nd + 1), the dropped ones shrink by nd /
+        (nd + 1); preds = preds_used + dropped * nd * factor + new *
+        factor with both products fused into the adds, as XLA's CPU
+        compiles it; the validation rows the same way."""
+        stack = (lambda c: c[0]) if self.K == 1 else (
+            lambda c: torch.stack(c, dim=1))
+        new = stack(contrib)
+        factor = 1.0 / (nd + 1.0)
+        scale_old = self.tree_scale
+        self.tree_scale = torch.where(drop, scale_old * nd * factor,
+                                      scale_old)
+        self.tree_scale[it:it + 1] = factor
+        self.contrib[it] = new
+        self.preds = fma_f32(new, factor,
+                             fma_f32(dropped * nd, factor, preds_used))
+        if self.valid is not None:
+            vnew = stack(vcontrib)
+            vdropped = dart_dot(drop * scale_old, self.vcontrib, it)
+            self.vcontrib[it] = vnew
+            self.vpreds = fma_f32(vnew, factor, fma_f32(
+                vdropped * nd, factor, self.vpreds - vdropped))
+
     def result(self, walls) -> BoostResult:
         stacked = grower.TreeArrays(*(torch.stack(field)
                                       for field in zip(*self.trees)))
+        leaf_values = torch.stack(self.leaf_values)
+        if self.drops is not None:
+            # Each iteration's final weight baked into its leaf values.
+            T = len(self.losses)
+            leaf_values = leaf_values * self.tree_scale[:T].repeat_interleave(
+                self.K)[:, None, None]
         vs_out = obl_out = None
         if self.vs is not None:
             vs_out = (torch.stack(self.vs_anchors),
@@ -930,7 +1206,7 @@ class _Loop:
             T = len(self.obl_bounds)
             obl_out = (self.obl_w[:T], torch.stack(self.obl_bounds))
         return BoostResult(
-            trees=stacked, leaf_values=torch.stack(self.leaf_values),
+            trees=stacked, leaf_values=leaf_values,
             train_loss=torch.stack(self.losses), init_pred=self.init_pred,
             vs_out=vs_out,
             valid_loss=(torch.stack(self.valid_losses)

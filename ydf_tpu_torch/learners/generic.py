@@ -4,12 +4,12 @@ dataspec inference, feature selection, binning and label encoding.
 
 Scope of the training slices: in-memory data (a dict of arrays, a pandas
 DataFrame or a ydf_tpu_torch Dataset) and an optional validation set of
-the same kinds, no dataset cache. The learners take numerical, boolean
-and categorical features, gradient boosted trees also
-NUMERICAL_VECTOR_SEQUENCE ones. A learner that splits its input before
-training (CART's holdout) pins the full data's dataspec in
-`_forced_dataspec`; an unsupervised one (the isolation forest) has no
-label.
+the same kinds, no dataset cache. The learners take numerical, boolean,
+categorical and categorical-set features (the isolation forest no sets),
+gradient boosted trees also NUMERICAL_VECTOR_SEQUENCE ones. A learner
+that splits its input before training (CART's holdout) pins the full
+data's dataspec in `_forced_dataspec`; an unsupervised one (the
+isolation forest) has no label.
 """
 
 from __future__ import annotations
@@ -95,7 +95,9 @@ class GenericLearner:
     def _prepare(self, data: InputData,
                  valid: Optional[InputData] = None) -> Dict:
         """Dataset, fitted binner, feature-major bins u8 [F, n]
-        ("bins_t") on the learner's device,
+        ("bins_t") on the learner's device, the packed set features
+        ("set_bits": u32 bit patterns as i32 [n, Fs, W] on the device,
+        None without set features; Binner.transform_sets),
         the padded vector sequences (Binner.transform_vs, numpy; None
         without such features), encoded labels and weights (numpy).
         With `valid`, the same for it under the training dataspec and
@@ -123,7 +125,7 @@ class GenericLearner:
         vs = binner.transform_vs(ds)
         t4 = time.perf_counter()
         out = {"dataset": ds, "binner": binner, "bins_t": bins_t,
-               "vs": vs}
+               "vs": vs, "set_bits": self._set_bits(binner, ds)}
         out.update(self._encode_targets(ds))
         if self.task == Task.CLASSIFICATION and self.label is not None:
             out["classes"] = ds.label_classes(self.label)
@@ -133,6 +135,7 @@ class GenericLearner:
             out["valid_dataset"] = vds
             out["valid_bins_t"] = binner.transform(vds, self.device).t()
             out["valid_vs"] = binner.transform_vs(vds)
+            out["valid_set_bits"] = self._set_bits(binner, vds)
             out.update({f"valid_{k}": v
                         for k, v in self._encode_targets(vds).items()})
         self.last_timings = {
@@ -143,6 +146,15 @@ class GenericLearner:
             "valid_encode_s": time.perf_counter() - t5,
         }
         return out
+
+    def _set_bits(self, binner: Binner, ds: Dataset
+                  ) -> Optional[torch.Tensor]:
+        """binner.transform_sets(ds) on the learner's device, the u32
+        words as i32 bit patterns (one copy), or None."""
+        sets = binner.transform_sets(ds)
+        if sets is None:
+            return None
+        return torch.from_numpy(sets.view(np.int32)).to(self.device)
 
     def _encode_targets(self, ds: Dataset) -> Dict[str, np.ndarray]:
         """Encoded labels (when the learner has one) and sample weights

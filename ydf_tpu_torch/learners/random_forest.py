@@ -32,6 +32,10 @@ features are drawn over all F + P columns while their count still
 counts the F real features, as in the JAX package. The forest keeps the
 projections after the real features (models/forest.py).
 
+CATEGORICAL_SET features are candidates of every node (ops/grower.py's
+set candidates, over the rows' packed sets on the device); the
+out-of-bag votes follow the grown leaves, set splits included.
+
 The bootstrap counts, the candidate features and the projections depend
 on the seed
 alone, so they are drawn for every tree before the loop (utils/prng.py:
@@ -231,7 +235,7 @@ class RandomForestLearner(GenericLearner):
             num_numerical=binner.num_numerical, seed=self.random_seed,
             winner_take_all=(self.winner_take_all
                              and self.task == Task.CLASSIFICATION),
-            compute_oob=oob_enabled, obl=obl,
+            compute_oob=oob_enabled, obl=obl, set_bits=prep["set_bits"],
         )
         t2 = time.perf_counter()
         forest = oblique_forest(out, binner)
@@ -355,13 +359,14 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
              max_nodes: int, num_trees: int, bootstrap: bool,
              candidate_features: int, num_numerical: int, seed: int,
              winner_take_all: bool, compute_oob: bool,
-             obl=None) -> RFResult:
+             obl=None, set_bits: Optional[torch.Tensor] = None) -> RFResult:
     """Grows `num_trees` trees on the device of `bins_t` (u8 [F, n];
     rows [0, num_numerical) numerical, the rest categorical) from the
     row weights w_base f32 [n] and the stat basis f32 [n, S] (module
     docstring), with sparse-oblique splits when `obl`
-    (ops/oblique.py:ObliqueInputs) is given. On a card the tree loop
-    runs under torch's sync debug mode "error"."""
+    (ops/oblique.py:ObliqueInputs) is given and categorical-set
+    candidates when `set_bits` (i32 [n, Fs, W]) is. On a card the tree
+    loop runs under torch's sync debug mode "error"."""
     global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
@@ -380,11 +385,16 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
         obl_w = obl.weights(keys[:, 3])
         B = cfg.num_bins
         qs = prng.linspace_f32(1.0 / B, 1.0 - 1.0 / B, B - 1, device=dev)
-    if 0 < candidate_features < F + P:
+    Fs = 0 if set_bits is None else set_bits.shape[1]
+    members = None
+    if Fs:
+        members = grower.set_members(set_bits)
+        HOST_READS += 1
+    if 0 < candidate_features < F + P + Fs:
         columns = grower.layer_columns(
             keys[:, 1], max_depth=cfg.max_depth, frontier=cfg.frontier,
             num_features=F + P, num_numerical=num_numerical + P,
-            orderings=O, k=candidate_features)
+            orderings=O, k=candidate_features, num_set=Fs)
         HOST_READS += 1
     V = rule.num_outputs
     oob_sum = oob_count = None
@@ -422,6 +432,7 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
                 min_examples=cfg.min_examples,
                 columns=None if columns is None else [
                     (idx[t].long(), ok[t]) for idx, ok in columns],
+                set_members=members,
             )
             lv = rule.leaf_value(res.tree.leaf_stats)  # [N, V]
             if compute_oob:

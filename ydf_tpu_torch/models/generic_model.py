@@ -5,11 +5,12 @@ evaluate and save).
 
 Raw columns are encoded on the host in numpy, exactly as the JAX package
 encodes them, then moved to the model's device; the engines take and
-return tensors there. A model with NUMERICAL_VECTOR_SEQUENCE features is
-served by the routed engine (ops/routing.py), which scores each tree's
-anchors through csrc/vector_sequence.cu; the QuickScorer and bank
-engines refuse it, as the JAX package's do. Telemetry spans are not ported (ROADMAP Queue 1
-item 17).
+return tensors there. A model with NUMERICAL_VECTOR_SEQUENCE or
+CATEGORICAL_SET features is served by the routed engine
+(ops/routing.py), which scores each tree's anchors through
+csrc/vector_sequence.cu and intersects the packed sets with the nodes'
+masks; the QuickScorer and bank engines refuse such models, as the JAX
+package's do. Telemetry spans are not ported (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -71,14 +72,9 @@ class GenericModel:
 
     def _encode_inputs(self, ds: Dataset):
         """Raw features → (x_num f32 [n, Fn] imputed, x_cat i32 [n, Fc])
-        numpy arrays. Vector sequences are encoded apart
-        (Binner.transform_vs)."""
+        numpy arrays. Set features (_encode_sets) and vector sequences
+        (Binner.transform_vs) are encoded apart."""
         b = self.binner
-        if b.num_set > 0:
-            raise NotImplementedError(
-                "categorical-set features are not ported yet "
-                "(ROADMAP Queue 1 item 9)"
-            )
         n = ds.num_rows
         x_num = np.zeros((n, b.num_numerical), np.float32)
         x_cat = np.zeros((n, b.num_categorical), np.int32)
@@ -104,6 +100,32 @@ class GenericModel:
                 elif self.native_missing:
                     x_cat[:, j] = -1
         return x_num, x_cat
+
+    def _encode_sets(self, ds: Dataset) -> Optional[np.ndarray]:
+        """Packed set features u32 [n, Fs, W] numpy, W the forest's mask
+        width (the JAX package's x_set of _encode_inputs), or None
+        without set features."""
+        b = self.binner
+        if b.num_set == 0:
+            return None
+        W = int(self.forest.cat_mask.shape[-1])
+        x_set = np.zeros((ds.num_rows, b.num_set, W), np.uint32)
+        for j, name in enumerate(b.feature_names[b.num_scalar:]):
+            if ds.dataspec.has_column(name) and name in ds.data:
+                x_set[:, j, :] = ds.encoded_categorical_set(name, W)
+        return x_set
+
+    def _encode_set_missing(self, ds: Dataset) -> Optional[np.ndarray]:
+        """bool [n, Fs]: missing set cells (an absent column is missing),
+        or None without set features."""
+        b = self.binner
+        if b.num_set == 0:
+            return None
+        out = np.ones((ds.num_rows, b.num_set), bool)
+        for j, name in enumerate(b.feature_names[b.num_scalar:]):
+            if ds.dataspec.has_column(name) and name in ds.data:
+                out[:, j] = ds.categorical_set_missing_mask(name)
+        return out
 
     def list_compatible_engines(self) -> List[str]:
         """Names of the compatible serving engines, highest rank first."""
@@ -142,14 +164,21 @@ class GenericModel:
     def _encode(self, data: InputData) -> Dict[str, torch.Tensor]:
         """The rows' features on the model's device: x_num f32 [n, Fn],
         x_cat i32 [n, Fc] and, with vector-sequence features, their
-        values and lengths (and missing flags for a model that routes
-        missing values natively); host encode, one copy."""
+        values and lengths, with set features their packed rows x_set
+        (and missing flags for a model that routes missing values
+        natively); host encode, one copy."""
         ds = Dataset.from_data(data, dataspec=self.dataspec)
         x_num, x_cat = self._encode_inputs(ds)
+        x_set = self._encode_sets(ds)
         vs = self.binner.transform_vs(ds)
         dev = self.device
         enc = {"x_num": torch.from_numpy(x_num).to(dev),
                "x_cat": torch.from_numpy(x_cat).to(dev)}
+        if x_set is not None:
+            enc["x_set"] = torch.from_numpy(x_set.view(np.int32)).to(dev)
+            if self.native_missing:
+                enc["set_missing"] = torch.from_numpy(
+                    self._encode_set_missing(ds)).to(dev)
         if vs is not None:
             enc.update(x_vs_vals=torch.from_numpy(vs[0]).to(dev),
                        x_vs_len=torch.from_numpy(vs[1]).to(dev))
@@ -163,7 +192,9 @@ class GenericModel:
         on encoded rows (_encode)."""
         xn, xc = enc["x_num"], enc["x_cat"]
         vs = "x_vs_vals" in enc
-        if combine == "sum" and not self.native_missing and not vs:
+        # Set models serve on the routed engine, as in the JAX package.
+        if (combine == "sum" and not self.native_missing and not vs
+                and "x_set" not in enc):
             eng = self._fast_engine()
             if eng is not None:
                 return eng(xn, xc).cpu().numpy()[:, None]
@@ -176,7 +207,9 @@ class GenericModel:
         out = forest_predict_values(
             self.forest, xn, xc,
             num_numerical=self.binner.num_numerical,
-            max_depth=self.max_depth, combine=combine, **vs_kwargs,
+            max_depth=self.max_depth, combine=combine,
+            x_set=enc.get("x_set"), set_missing=enc.get("set_missing"),
+            **vs_kwargs,
         )
         return out.cpu().numpy()
 

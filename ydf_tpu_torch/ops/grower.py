@@ -27,8 +27,32 @@ so the routing table of a categorical split is any per-bin mask. A rule
 may scan O orders per categorical feature (`num_cat_orderings`: one per
 class for multiclass classification); each order is a candidate column,
 so the candidate columns are [Fn numericals, Fc x O categorical
-orders]. No monotone constraints. Ties pick the first best cut, as
-jnp.argmax does.
+orders]. Ties pick the first best cut, as jnp.argmax does.
+
+Categorical-set features (packed multi-hot rows, `set_bits` [n, Fs, W]
+as i32 bit patterns) are candidates of their own, after the scalar
+columns: Fs columns that sort a slot's items ascending by the rule's
+key, then Fs that sort them descending (items absent from the slot
+last in both). Per layer: the per-(slot, feature, item) stats (the JAX
+package's einsum "nfv,nl,ns->lfvs", summed in XLA's CPU dot order:
+blocks of dot_block_rows rows in row order, the blocks' sums in block
+order; set_item_stats, its run sums through csrc/segment_sum.cu), each
+item's rank in both orders (stable argsorts), each row's least rank
+over its items, and one prefix
+histogram a set feature and order over the rows whose least rank lies
+in the first Tc = min(Vs, B) cuts (ops/histogram.py, csrc/histogram.cu
+at Ld slots and Tc bins). Cut t selects the items ranked <= t; a row
+holding one of them goes RIGHT, so the left stats are parent - prefix.
+The node stores the selected items as its mask (32 * W bits, W the
+wider of B / 32 and the sets' words) and the feature id F + f; each
+row's direction (least rank > t: left) goes into the routed kernel's
+`is_set` / `set_go_left` tables.
+
+Monotone constraints (the JAX package's `monotone` / `monotone_dirs`):
+`mono_dirs` f32 holds a direction (+1, -1, 0) for the leading candidate
+columns; a cut on a column with direction d is valid only when d *
+(leaf_value(right) - leaf_value(left)) >= 0. The leaves are clamped
+after training (learners/gbt.py:clamp_monotone_leaves).
 
 Per-node candidate features (a random forest's attribute sampling,
 the JAX package's layer_decide): every layer d draws key, k_gain, k_feat
@@ -54,9 +78,19 @@ import torch
 
 from ydf_tpu_torch.ops.histogram import histogram, prepare_stats_for_hist
 from ydf_tpu_torch.ops.histogram_kernels import RouteTables, route_plain
+from ydf_tpu_torch.ops import segment_sum
 from ydf_tpu_torch.ops.routing import route_histogram_fused
 from ydf_tpu_torch.utils import prng
 
+
+def dot_block_rows(items: int) -> int:
+    """Rows of one block of XLA's CPU dot over the rows in the set
+    candidates' per-item sums (set_item_stats), for `items` = Fs * Vs
+    columns (jax 0.9.0, read by probing the einsum): 512 from 64 items
+    on (64 to 1024 probed, at 1 to 32 slots), 1024 at 32 items (probed
+    at 1, 2 and 8 slots; at 32 slots the order is another, ROADMAP
+    Queue 3)."""
+    return 512 if items >= 64 else 1024
 
 #: When a list, layer_decide appends each layer's two best gains per slot
 #: (f32 [Ld, 2]): a diagnostic of near ties; None (the default) records
@@ -99,6 +133,10 @@ class LayerDecision(NamedTuple):
     left_stats: torch.Tensor    # f32 [Ld, S]
     right_stats: torch.Tensor
     num_nodes: torch.Tensor     # i32 [] updated node count
+    is_set_split: Optional[torch.Tensor] = None  # bool [Ld] (set features)
+    fset: Optional[torch.Tensor] = None      # i64 [Ld] chosen set feature
+    set_dir: Optional[torch.Tensor] = None   # bool [Ld]: descending order
+    store_mask: Optional[torch.Tensor] = None  # bool [Ld, 32 W] node mask
 
 
 def pack_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -197,13 +235,15 @@ def kept_by_score(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def column_mask(mask: torch.Tensor, num_numerical: int,
-                orderings: int) -> torch.Tensor:
-    """Feature mask [..., F] -> candidate-column mask [..., Fn + Fc * O]:
-    a categorical feature's O order columns share its score."""
+                orderings: int, num_set: int = 0) -> torch.Tensor:
+    """Feature mask [..., F + Fs] -> candidate-column mask [..., Fn + Fc *
+    O + 2 Fs]: a categorical feature's O order columns share its score,
+    and a set feature's two direction columns share its."""
     Fn = num_numerical
+    F = mask.shape[-1] - num_set
     return torch.cat([mask[..., :Fn],
-                      mask[..., Fn:].repeat_interleave(orderings, dim=-1)],
-                     dim=-1)
+                      mask[..., Fn:F].repeat_interleave(orderings, dim=-1),
+                      mask[..., F:], mask[..., F:]], dim=-1)
 
 
 def candidate_columns(cmask: torch.Tensor, width: int
@@ -218,17 +258,18 @@ def candidate_columns(cmask: torch.Tensor, width: int
 
 def layer_columns(tree_keys: torch.Tensor, *, max_depth: int,
                   frontier: int, num_features: int, num_numerical: int,
-                  orderings: int, k: int) -> List[tuple]:
+                  orderings: int, k: int, num_set: int = 0) -> List[tuple]:
     """Per layer, every tree's candidate columns from the trees' grow
     keys [T, 2] (candidate_columns of column_mask of candidate_masks:
     i32 [T, Ld, W], bool [T, Ld, W]), W the most columns a slot of that
     layer keeps in any tree: one host read of the widths, for all
-    layers."""
+    layers. `num_features` counts the scalar features; the scores cover
+    them and the `num_set` set features after them."""
     masks, widths = [], []
     for d, k_feat in enumerate(layer_feature_keys(tree_keys, max_depth)):
         cm = column_mask(candidate_masks(k_feat, min(2 ** d, frontier),
-                                         num_features, k),
-                         num_numerical, orderings)
+                                         num_features + num_set, k),
+                         num_numerical, orderings, num_set)
         masks.append(cm)
         widths.append(cm.sum(-1).amax())
     widths = torch.stack(widths).tolist()
@@ -244,7 +285,10 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
                  min_examples: int, min_split_gain: float,
                  children_in_frontier: bool,
                  columns: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 gain_args: tuple = ()) -> LayerDecision:
+                 gain_args: tuple = (), num_set: int = 0,
+                 set_ranks: Optional[Sequence[torch.Tensor]] = None,
+                 mask_words: int = 0,
+                 mono_dirs: Optional[torch.Tensor] = None) -> LayerDecision:
     """One layer's split search: gains -> validity -> best cut per slot
     -> frontier-overflow cap -> child allocation -> chosen stats and the
     per-bin routing masks (a prefix of bin ids for a numerical split,
@@ -253,10 +297,18 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
     its kept mask) restricts each slot to those columns; they are in
     ascending order, so the first best cut is the JAX package's.
     `gain_args` follow the stats into rule.gain (a rule that
-    `takes_key`: the layer's gain key and the rule context)."""
+    `takes_key`: the layer's gain key and the rule context). The last
+    2 * num_set columns are set candidates (ascending, then descending;
+    `set_ranks` the items' ranks in both orders, [Ld, Fs, Vs] each):
+    a set split stores the items ranked <= its cut as a mask of
+    32 * mask_words bits. `mono_dirs` f32 [<= columns] are the leading
+    columns' monotone directions (module docstring)."""
     Ld, Fa = left_all.shape[0], left_all.shape[1]
     dev = left_all.device
     O = rule.num_cat_orderings
+    Fn = num_numerical
+    Fcand = Fa - 2 * num_set
+    F = Fn + (Fcand - Fn) // O  # scalar features
     if columns is None:
         cand = left_all
     else:
@@ -273,6 +325,14 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
     )
     if columns is not None:
         valid &= col_ok[:, :, None]
+    if mono_dirs is not None:
+        dirs = torch.zeros(Fa, dtype=torch.float32, device=dev)
+        dirs[:mono_dirs.shape[0]] = mono_dirs.float()
+        d = (dirs[None, :] if columns is None
+             else dirs[col_idx])[:, :, None]  # [1 or Ld, K, 1]
+        leaf_l = rule.leaf_value(cand)[..., 0]
+        leaf_r = rule.leaf_value(right_all)[..., 0]
+        valid &= (d == 0) | (d * (leaf_r - leaf_l) >= 0)
     gain = torch.where(valid, gain, float("-inf"))
 
     flat = gain.reshape(Ld, K * B)
@@ -313,18 +373,37 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
     right_stats = parent - left_stats
     cut_ids = torch.arange(B, device=dev)
     go_left_bins = cut_ids[None, :] <= best_t[:, None]
-    is_cat_split = best_f >= num_numerical
+    is_set_split = best_f >= Fcand
+    is_cat_split = (best_f >= Fn) & ~is_set_split
     # The order columns collapse back onto their categorical feature.
-    best_f_scalar = torch.where(
-        is_cat_split, num_numerical + (best_f - num_numerical) // O, best_f)
+    best_f_scalar = torch.where(is_cat_split, Fn + (best_f - Fn) // O,
+                                best_f)
     if ranks is not None:
         chosen_rank = torch.gather(
             ranks, 1,
-            (best_f - num_numerical).clamp(0, ranks.shape[1] - 1)[
+            (best_f - Fn).clamp(0, ranks.shape[1] - 1)[
                 :, None, None].expand(Ld, 1, B))[:, 0]  # [Ld, B]
         go_left_bins = torch.where(is_cat_split[:, None],
                                    chosen_rank <= best_t[:, None],
                                    go_left_bins)
+    set_fields = {}
+    if num_set:
+        set_dir = (best_f - Fcand) >= num_set
+        fset = torch.where(set_dir, best_f - Fcand - num_set,
+                           best_f - Fcand)
+        Vs = set_ranks[0].shape[-1]
+        fclip = fset.clamp(0, num_set - 1)[:, None, None].expand(Ld, 1, Vs)
+        chosen_srank = torch.where(
+            set_dir[:, None], torch.gather(set_ranks[1], 1, fclip)[:, 0],
+            torch.gather(set_ranks[0], 1, fclip)[:, 0])  # [Ld, Vs]
+        Wb = 32 * mask_words
+        sel = _pad_last(chosen_srank <= best_t[:, None], Wb)
+        store = torch.where(is_set_split[:, None], sel,
+                            _pad_last(go_left_bins, Wb))
+        # A set split's stored id is the scalar count plus its feature.
+        best_f_scalar = torch.where(is_set_split, F + fset, best_f_scalar)
+        set_fields = dict(is_set_split=is_set_split, fset=fset,
+                          set_dir=set_dir, store_mask=store)
     num_nodes_new = (num_nodes + 2 * do_split.sum()).to(torch.int32)
     return LayerDecision(
         do_split=do_split, is_cat_split=is_cat_split,
@@ -332,8 +411,16 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
         split_rank=split_rank, wid=wid, left_id=left_id,
         right_id=right_id, best_t=best_t, best_f=best_f,
         go_left_bins=go_left_bins, left_stats=left_stats,
-        right_stats=right_stats, num_nodes=num_nodes_new,
+        right_stats=right_stats, num_nodes=num_nodes_new, **set_fields,
     )
+
+
+def _pad_last(a: torch.Tensor, size: int) -> torch.Tensor:
+    """bool [..., k] padded with False up to [..., size]."""
+    if a.shape[-1] >= size:
+        return a
+    return torch.cat([a, a.new_zeros(a.shape[:-1] + (size - a.shape[-1],))],
+                     dim=-1)
 
 
 def sibling_next_state(hist, do_split, split_rank, left_stats, right_stats,
@@ -358,6 +445,142 @@ def sibling_next_state(hist, do_split, split_rank, left_stats, right_stats,
     return parent_next[:Lh], small_is_left[:Lh], Lh, hmap.to(torch.int32)
 
 
+class SetMembers(NamedTuple):
+    """The set features' memberships for set_item_stats: one entry per
+    (row, set feature, item) a row holds, in (row block, item, row)
+    order; `item` is f * Vs + v."""
+
+    bits: torch.Tensor   # i32 [n, Fs, Ws] packed rows (u32 bit patterns)
+    row: torch.Tensor    # i64 [E]
+    item: torch.Tensor   # i64 [E]
+    block: torch.Tensor  # i64 [E] row // dot_block_rows(Fs * Vs)
+
+    @property
+    def num_set(self) -> int:
+        return self.bits.shape[1]
+
+    @property
+    def vocab(self) -> int:
+        return 32 * self.bits.shape[2]
+
+
+def set_members(set_bits: torch.Tensor) -> SetMembers:
+    """SetMembers of packed set rows i32 [n, Fs, Ws] (one host read, the
+    entry count; a learner makes them once, before its tree loop)."""
+    n, Fs, Ws = set_bits.shape
+    dev = set_bits.device
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    multi = ((set_bits[..., None] >> shifts) & 1).bool().reshape(n, -1)
+    row, item = torch.nonzero(multi, as_tuple=True)  # row-major order
+    block = row // dot_block_rows(multi.shape[1])
+    # Stable: rows stay ascending within one (block, item).
+    order = torch.sort(block * multi.shape[1] + item, stable=True).indices
+    return SetMembers(set_bits, row[order], item[order], block[order])
+
+
+def set_item_stats(members: SetMembers, slot: torch.Tensor,
+                   stats: torch.Tensor, Ld: int) -> torch.Tensor:
+    """Per-(slot, set feature, item) stats f32 [Ld, Fs, Vs, S]: the JAX
+    package's einsum("nfv,nl,ns->lfvs", multi-hot, one-hot slots,
+    stats), which XLA's CPU runs as one dot over the rows, summed in
+    blocks of dot_block_rows rows: each block's terms added in row order
+    from 0, then the blocks' sums in block order, one f32 rounding an
+    add. Terms of rows without the item or off the layer's slots are
+    zeros and change no sum, so only the memberships are added: the
+    (block, slot, item) runs of rows, then each (slot, item)'s run of
+    blocks (ops/segment_sum.py, csrc/segment_sum.cu on a card)."""
+    S = stats.shape[1]
+    FV = members.num_set * members.vocab
+    dev = stats.device
+    slot_e = slot[members.row].long().clamp(max=Ld)  # Ld: off the layer
+    key = (members.block * FV + members.item) * (Ld + 1) + slot_e
+    # Stable: each (block, slot, item) run keeps its rows ascending.
+    key, perm = torch.sort(key, stable=True)
+    slot_p = slot_e[perm]
+    live = slot_p < Ld
+    vals = torch.where(live[:, None], stats[members.row[perm]], 0.0)
+    head = segment_sum.run_heads(key) & live
+    acc = segment_sum.segment_sums(key, vals)
+    # The block sums of each (slot, item), in block order (the sort is
+    # stable and the entries are in block order); the other entries get
+    # keys past Ld * FV of their own, runs of one.
+    trash = Ld * FV
+    cell = torch.where(head, slot_p * FV + members.item[perm],
+                       trash + torch.arange(key.shape[0], device=dev))
+    cell, perm2 = torch.sort(cell, stable=True)
+    total = segment_sum.segment_sums(cell, acc[perm2])
+    out = torch.zeros((trash + 1, S), dtype=torch.float32, device=dev)
+    keep = segment_sum.run_heads(cell) & (cell < trash)
+    out[torch.where(keep, cell, trash)] = total
+    return out[:-1].reshape(Ld, members.num_set, members.vocab, S)
+
+
+def set_candidates(members: SetMembers, slot: torch.Tensor,
+                   stats: torch.Tensor, parent: torch.Tensor, *, rule,
+                   Ld: int, L: int, B: int):
+    """The set features' candidate columns of one layer (the JAX
+    package's grower, the categorical-set block): (left stats f32 [Ld,
+    2 Fs, B, S], ascending columns then descending; the items' ranks in
+    both orders, i64 [Ld, Fs, Vs] each; each row's least rank over its
+    items in both orders, i64 [n, Fs] each). Absent items sort last in
+    both orders; the prefix histograms run over the rows whose least
+    rank is below Tc = min(Vs, B), cut t's left stats are parent minus
+    the prefix up to t, and cuts t >= Tc have count -1 (never valid)."""
+    Fs, Vs = members.num_set, members.vocab
+    Tc = min(Vs, B)
+    n = slot.shape[0]
+    dev = stats.device
+    per_item = set_item_stats(members, slot, stats, Ld)
+    skey = rule.cat_sort_key(per_item)  # [Ld, Fs, Vs]
+    present = per_item[..., -1] > 0
+    f_e = members.item // Vs
+    v_e = members.item % Vs
+    slot_e = slot[members.row].long()
+    ranks_dirs, rank_min_dirs, blocks = [], [], []
+    for dkey in (torch.where(present, skey, float("inf")),
+                 torch.where(present, -skey, float("inf"))):
+        sranks = torch.argsort(torch.argsort(dkey, dim=-1, stable=True),
+                               dim=-1, stable=True)
+        ranks_pad = torch.cat([sranks, sranks.new_full(
+            (L + 1 - Ld, Fs, Vs), Vs)])
+        rm = torch.full((n * Fs,), Vs, dtype=torch.long, device=dev)
+        rm.scatter_reduce_(0, members.row * Fs + f_e,
+                           ranks_pad[slot_e, f_e, v_e], reduce="amin")
+        rm = rm.reshape(n, Fs)
+        hists = []
+        for f in range(Fs):
+            in_cut = (rm[:, f] < Tc).float()
+            bins_t = torch.clamp(rm[:, f], max=Tc - 1).to(torch.uint8)
+            hists.append(histogram(bins_t[None, :], slot,
+                                   stats * in_cut[:, None], num_slots=Ld,
+                                   num_bins=Tc, quant="f32")[:, 0])
+        prefix = prng.cumsum_f32(torch.stack(hists, 1), 2)  # [Ld, Fs, Tc, S]
+        left = parent[:, None, None, :] - prefix
+        if Tc < B:
+            left = torch.cat([left, left.new_full(
+                (Ld, Fs, B - Tc, left.shape[3]), -1.0)], dim=2)
+        ranks_dirs.append(sranks)
+        rank_min_dirs.append(rm)
+        blocks.append(left)
+    return torch.cat(blocks, dim=1), ranks_dirs, rank_min_dirs
+
+
+def set_go_left(dec: LayerDecision, rank_min_dirs, slot: torch.Tensor,
+                L: int) -> torch.Tensor:
+    """u8 [n]: each row's direction at its slot's set split (1 = left:
+    its least rank in the split's order lies beyond the cut), for the
+    routed kernel's set table."""
+    s = slot.long()
+    fset = _pad(dec.fset, L + 1, 0)[s]
+    desc = _pad(dec.set_dir, L + 1, False)[s]
+    t = _pad(dec.best_t, L + 1, 0)[s]
+    Fs = rank_min_dirs[0].shape[1]
+    f = fset.clamp(0, Fs - 1)[:, None]
+    rm = torch.where(desc, torch.gather(rank_min_dirs[1], 1, f)[:, 0],
+                     torch.gather(rank_min_dirs[0], 1, f)[:, 0])
+    return (rm > t).to(torch.uint8)
+
+
 def _pad(a: torch.Tensor, size: int, fill) -> torch.Tensor:
     """a [Ld, ...] padded with `fill` up to [size, ...]."""
     extra = a.new_full((size - a.shape[0],) + tuple(a.shape[1:]), fill)
@@ -380,6 +603,8 @@ def grow_tree(
     columns: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
     key: Optional[torch.Tensor] = None,
     rule_ctx=None,
+    set_members: Optional[SetMembers] = None,
+    mono_dirs: Optional[torch.Tensor] = None,
 ) -> GrowResult:
     """Grows one tree (module docstring). Rows [0, num_numerical) of
     `bins_t` are numerical features, the rest categorical (default: all
@@ -389,12 +614,21 @@ def grow_tree(
     column compete at every node. A rule that `takes_key` gets each
     layer's k_gain, drawn from the tree's `key` [2] as the JAX
     package's grower draws it (key, k_gain, k_feat = split(fold_in(key,
-    d), 3)), and `rule_ctx`."""
+    d), 3)), and `rule_ctx`. `set_members` (set_members of the rows'
+    packed set features) adds the set candidates; `mono_dirs` (f32, on
+    the stats' device) the leading candidate columns' monotone
+    directions (module docstring)."""
     F, n = bins_t.shape
+    if F == 0:
+        raise NotImplementedError(
+            "growing on categorical-set features alone (no scalar column) "
+            "is not ported yet (ROADMAP Queue 1 item 29)")
     Fn = F if num_numerical is None else num_numerical
     S = stats.shape[1]
     L, B, N = frontier, num_bins, max_nodes
-    W = (B + 31) // 32
+    Fs = 0 if set_members is None else set_members.num_set
+    Vs = 0 if set_members is None else set_members.vocab
+    W = (max(B, Vs) + 31) // 32
     dev = stats.device
     i32 = torch.int32
     # Writes of Python numbers into device tensors go through fill_ /
@@ -403,6 +637,7 @@ def grow_tree(
     feature = torch.full((N + 1,), -1, dtype=i32, device=dev)
     threshold_bin = torch.zeros(N + 1, dtype=i32, device=dev)
     is_cat = torch.zeros(N + 1, dtype=torch.bool, device=dev)
+    is_set = torch.zeros(N + 1, dtype=torch.bool, device=dev)
     cat_mask = torch.zeros((N + 1, W), dtype=i32, device=dev)
     left = torch.zeros(N + 1, dtype=i32, device=dev)
     right = torch.zeros(N + 1, dtype=i32, device=dev)
@@ -413,6 +648,16 @@ def grow_tree(
     # quantized grid (the JAX package's per-tree-scale design note).
     hist_stats, qscale, total = prepare_stats_for_hist(stats, hist_quant)
     leaf_stats[0] = total
+    if Fs:
+        # The set candidates sum the same per-row values as the
+        # histograms (the dequantized grid under int8, the folded halves
+        # under bf16x2).
+        if hist_quant == "int8":
+            stats_set = hist_stats.float() * qscale
+        elif hist_quant == "bf16x2":
+            stats_set = hist_stats[:, :S].float() + hist_stats[:, S:].float()
+        else:
+            stats_set = stats
 
     frontier_id = torch.full((L + 1,), N, dtype=torch.int64, device=dev)
     frontier_id[:1].fill_(0)
@@ -459,6 +704,12 @@ def grow_tree(
             )
         left_all, ranks = scalar_candidates(hist, num_numerical=Fn,
                                             rule=rule)
+        set_ranks = rank_min = None
+        if Fs:
+            left_set, set_ranks, rank_min = set_candidates(
+                set_members, slot, stats_set, parent, rule=rule, Ld=Ld,
+                L=L, B=B)
+            left_all = torch.cat([left_all, left_set], dim=1)
 
         dec = layer_decide(
             left_all, ranks, parent, active, frontier_id[:Ld], num_nodes,
@@ -467,13 +718,18 @@ def grow_tree(
             min_split_gain=min_split_gain,
             children_in_frontier=children_in_frontier,
             columns=None if columns is None else columns[depth],
-            gain_args=gain_args,
+            gain_args=gain_args, num_set=Fs, set_ranks=set_ranks,
+            mask_words=W, mono_dirs=mono_dirs,
         )
         do_split, split_rank = dec.do_split, dec.split_rank
         feature[dec.wid] = dec.best_f_scalar.to(i32)
         threshold_bin[dec.wid] = dec.best_t.to(i32)
         is_cat[dec.wid] = dec.is_cat_split
-        cat_mask[dec.wid] = pack_mask(dec.go_left_bins)
+        if Fs:
+            is_set[dec.wid] = dec.is_set_split
+            cat_mask[dec.wid] = pack_mask(dec.store_mask)
+        else:
+            cat_mask[dec.wid] = pack_mask(dec.go_left_bins)
         left[dec.wid] = dec.left_id.to(i32)
         right[dec.wid] = dec.right_id.to(i32)
         is_leaf.index_fill_(0, dec.wid, False)
@@ -493,16 +749,24 @@ def grow_tree(
             sub_state = None
         if hmap is None:
             hmap = torch.arange(L + 1, dtype=i32, device=dev)
+        if Fs:
+            # A set split's row directions, from this layer's slots.
+            set_tables = dict(
+                is_set=_pad(dec.is_set_split, L + 1, False),
+                set_go_left=set_go_left(dec, rank_min, slot, L))
+        else:
+            set_tables = dict(
+                is_set=torch.zeros(L + 1, dtype=torch.bool, device=dev),
+                set_go_left=no_set)
         tables = RouteTables(
             do_split=_pad(do_split, L + 1, False),
-            route_f=_pad(dec.best_f_scalar.to(i32), L + 1, 0),
+            route_f=_pad(dec.best_f_scalar.clamp(0, max(F - 1, 0)).to(i32),
+                         L + 1, 0),
             go_left=_pad(dec.go_left_bins, L + 1, False),
             left_id=_pad(dec.left_id.to(i32), L + 1, N),
             right_id=_pad(dec.right_id.to(i32), L + 1, N),
             split_rank=_pad(split_rank.to(i32), L + 1, 0),
-            hmap=hmap,
-            is_set=torch.zeros(L + 1, dtype=torch.bool, device=dev),
-            set_go_left=no_set,
+            hmap=hmap, **set_tables,
         )
 
         if children_in_frontier:
@@ -526,8 +790,7 @@ def grow_tree(
 
     tree = TreeArrays(
         feature=feature[:N], threshold_bin=threshold_bin[:N],
-        is_cat=is_cat[:N],
-        is_set=torch.zeros(N, dtype=torch.bool, device=dev),
+        is_cat=is_cat[:N], is_set=is_set[:N],
         cat_mask=cat_mask[:N], left=left[:N], right=right[:N],
         is_leaf=is_leaf[:N], leaf_stats=leaf_stats[:N], num_nodes=num_nodes,
     )

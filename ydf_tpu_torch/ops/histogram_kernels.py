@@ -29,6 +29,9 @@ from ydf_tpu_torch.utils import cuda_build
 #: Launches of each CUDA kernel in this process (the wrappers add one per
 #: launch; plain-version calls do not count).
 LAUNCHES = {"histogram": 0, "histogram_routed": 0}
+#: Of LAUNCHES["histogram_routed"], the launches given a row-direction
+#: table (set_go_left of n rows: the grower has set features).
+SET_TABLE_LAUNCHES = 0
 # The routed kernel's launch shape (`routed_launch_shape`,
 # histogram_routed.cu): a block of ROUTED_THREADS threads routes a tile of
 # as many rows, a warp for each of at most ROUTED_MAX_PAIRS (feature, hist
@@ -371,6 +374,7 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused routing + histogram: (accumulator [num_slots, F, B, Sq],
     new_slot i32 [n], new_leaf i32 [n])."""
+    global SET_TABLE_LAUNCHES
     n = bins_t.shape[1]
     _check(bins_t, slot, stats, num_bins)
     _check_tables(tables, n, num_bins)
@@ -419,5 +423,7 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
         cuda_build.launch_done(timer)
     cuda_build.check_status(status, "routed histogram kernel")
     LAUNCHES["histogram_routed"] += 1
+    if set_gl is not None:
+        SET_TABLE_LAUNCHES += 1
     return out, new_slot, new_leaf
 

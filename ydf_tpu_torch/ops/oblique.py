@@ -72,10 +72,15 @@ def sample_projection_coefficients(
     key: torch.Tensor, P: int, Fn: int, density: float = 2.0,
     weight_type: str = "BINARY",
     weight_range: Optional[Tuple[int, int]] = None,
+    monotone_vec: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """W f32 [..., P, Fn] from keys [..., 2] (module docstring).
     weight_range: (min, max) exponent for POWER_OF_TWO, (min, max) value
-    for INTEGER; the reference's defaults when None."""
+    for INTEGER; the reference's defaults when None. monotone_vec: f32
+    [Fn] monotone directions (+1, -1, 0) on the keys' device: a
+    coefficient on a constrained feature takes the constraint's sign
+    (|w| * d), so the projection increases with every constrained
+    input."""
     check_weight_type(weight_type)
     ks = prng.split(key)
     k_m, k_s = ks[..., 0, :], ks[..., 1, :]
@@ -97,6 +102,8 @@ def sample_projection_coefficients(
         wts = prng.randint(k_s, (P, Fn), lo, hi + 1).to(torch.float32)
     else:  # CONTINUOUS: 2 u - 1 is exact, contracted or not
         wts = prng.uniform(k_s, (P, Fn)) * 2.0 - 1.0
+    if monotone_vec is not None:
+        wts = torch.where(monotone_vec != 0, wts.abs() * monotone_vec, wts)
     return torch.where(mask, wts, 0.0).to(torch.float32)
 
 
@@ -110,13 +117,14 @@ class ObliqueInputs(NamedTuple):
     density: float = 2.0
     weight_type: str = "BINARY"
     weight_range: Optional[tuple] = None
+    monotone_vec: Optional[torch.Tensor] = None  # f32 [Fn] on the device
 
     def weights(self, keys: torch.Tensor) -> torch.Tensor:
         """W f32 [T, P, Fn] of every iteration from its k_proj [T, 2]."""
         return sample_projection_coefficients(
             keys, self.num_projections, self.x_t.shape[0],
             density=self.density, weight_type=self.weight_type,
-            weight_range=self.weight_range)
+            weight_range=self.weight_range, monotone_vec=self.monotone_vec)
 
 
 def dot_lanes(Fn: int, P: int) -> int:

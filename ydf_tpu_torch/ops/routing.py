@@ -27,8 +27,11 @@ features; from 24 to 31 features (train_default's 28), the first 24 in
 8 lanes (feature k on lane k mod 8), the lanes summed by halves (lane i
 + lane i + 4, then i + 2, then i + 1), the rest chained on after. A NaN
 projection takes the node's na_left. Anchors are scored by ops/vector_sequence.py
-(csrc/vector_sequence.cu on a card). Categorical-set nodes raise
-NotImplementedError (ROADMAP Queue 1 item 9).
+(csrc/vector_sequence.cu on a card). A categorical-set node holds its
+selected items as its mask; a row whose packed set (x_set, u32 words as
+i32 [n, Fs, W]) intersects it goes RIGHT (set_intersects); a missing set
+takes na_left only where `set_missing` flags it (models that route
+missing values natively), else it routes as the empty set.
 """
 
 from __future__ import annotations
@@ -45,13 +48,17 @@ from ydf_tpu_torch.ops.vector_sequence import vs_scores
 from ydf_tpu_torch.utils.xla_cpu import fma_f32
 
 
-def _check_supported(forest: Forest) -> None:
-    internal = ~forest.is_leaf
-    if bool((forest.is_set & internal).any()):
-        raise NotImplementedError(
-            "categorical-set routing is not ported yet "
-            "(ROADMAP Queue 1 item 9)"
-        )
+def set_intersects(cat_mask: torch.Tensor, x_set: torch.Tensor,
+                   fs: torch.Tensor) -> torch.Tensor:
+    """bool [n]: does each row's packed set of feature fs [n] (clamped
+    into [0, Fs)) share an item with its node's mask cat_mask [n, Wn]
+    (the JAX package's _set_intersects: the first min(W, Wn) words)?"""
+    Fs = x_set.shape[1]
+    Wm = min(x_set.shape[2], cat_mask.shape[-1])
+    f = fs.clamp(0, Fs - 1).long()
+    words = torch.gather(
+        x_set, 1, f[:, None, None].expand(-1, 1, x_set.shape[2]))[:, 0, :Wm]
+    return ((words & cat_mask[:, :Wm]) != 0).any(dim=1)
 
 
 def mask_bit_filled(words: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
@@ -138,9 +145,12 @@ def route_tree_values(
     vs_proj: Optional[torch.Tensor] = None,     # f32 [n, Pv] tree t's
     vs_missing: Optional[torch.Tensor] = None,  # bool [n, Fv]
     obl_proj: Optional[torch.Tensor] = None,    # f32 [n, P] tree t's
+    x_set: Optional[torch.Tensor] = None,       # i32 [n, Fs, W] packed sets
+    set_missing: Optional[torch.Tensor] = None,  # bool [n, Fs]
 ) -> torch.Tensor:
     """Leaf node id (int64 [n]) of every example in tree `t`. Feature
     index space: [0, Fn) numerical, [Fn, Fn+Fc) categorical,
+    [Fn+Fc, F_total) categorical sets (`x_set`, module docstring),
     [F_total, F_total+P) oblique projections, whose values are
     `obl_proj` (oblique_tree_projections; computed here when the tree
     has projections and none is given), [F_total+P, F_total+P+Pv)
@@ -151,13 +161,16 @@ def route_tree_values(
     natively); without it missing cells route as empty ones."""
     n = x_num.shape[0] if x_num.numel() else x_cat.shape[0]
     Fn, Fc = x_num.shape[1], x_cat.shape[1]
-    F_total = Fn + Fc
+    Fs = 0 if x_set is None else x_set.shape[1]
+    num_scalar = Fn + Fc
+    F_total = num_scalar + Fs
     P = forest.oblique_weights.shape[1]
     if P > 0 and obl_proj is None:
         obl_proj = oblique_tree_projections(forest, t, x_num)
     feature = forest.feature[t].long()
     threshold = forest.threshold[t]
     is_cat = forest.is_cat[t]
+    is_set = forest.is_set[t]
     is_leaf = forest.is_leaf[t]
     na_left = forest.na_left[t]
     left = forest.left[t].long()
@@ -194,6 +207,17 @@ def route_tree_values(
         # Missing values (NaN numerical / negative categorical code) take
         # the node's stored direction.
         missing = torch.where(node_cat, c < 0, torch.isnan(v))
+        if Fs:
+            node_set = is_set[node]
+            go_left = torch.where(
+                node_set,
+                ~set_intersects(cat_mask[node], x_set, f - num_scalar),
+                go_left)
+            sm = torch.zeros_like(missing)
+            if set_missing is not None:
+                sm = torch.gather(set_missing, 1, (f - num_scalar).clamp(
+                    0, Fs - 1)[:, None])[:, 0]
+            missing = torch.where(node_set, sm, missing)
         if vs_proj is not None:
             vm = torch.zeros_like(missing)
             if vs_missing is not None:
@@ -207,15 +231,17 @@ def route_tree_values(
     return node
 
 
-def route_tree_bins(tree, bins_t: torch.Tensor,
-                    max_depth: int) -> torch.Tensor:
+def route_tree_bins(tree, bins_t: torch.Tensor, max_depth: int,
+                    x_set: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Leaf node id (int64 [n]) of every row of the feature-major bins
     u8 [F, n] in one grown tree (ops/grower.py:TreeArrays; counterpart of
     ydf_tpu/ops/routing.py:route_tree_bins, impl="xla"): `max_depth`
     steps, each reading the node's feature bin; a categorical node sends
     bin b left when bit b of its mask is set, a numerical one when
-    b <= threshold_bin; leaves self-loop. No host sync: every step is a
-    gather on the tree's device."""
+    b <= threshold_bin; a set node (feature F + f) sends a row whose
+    packed set x_set[:, f] (i32 [n, Fs, W]) misses its mask left; leaves
+    self-loop. No host sync: every step is a gather on the tree's
+    device."""
     F, n = bins_t.shape
     flat = bins_t.reshape(-1)
     rows = torch.arange(n, device=bins_t.device)
@@ -230,6 +256,12 @@ def route_tree_bins(tree, bins_t: torch.Tensor,
             mask_bit_filled(tree.cat_mask[node], b),
             b <= tree.threshold_bin[node],
         )
+        if x_set is not None:
+            go_left = torch.where(
+                tree.is_set[node],
+                ~set_intersects(tree.cat_mask[node], x_set,
+                                feature[node] - F),
+                go_left)
         nxt = torch.where(go_left, left[node], right[node])
         node = torch.where(tree.is_leaf[node], node, nxt)
     return node
@@ -271,11 +303,13 @@ def forest_predict_values(
     x_vs_vals: Optional[torch.Tensor] = None,   # f32 [n, Fv, L, D]
     x_vs_len: Optional[torch.Tensor] = None,    # i32 [n, Fv]
     vs_missing: Optional[torch.Tensor] = None,  # bool [n, Fv]
+    x_set: Optional[torch.Tensor] = None,       # i32 [n, Fs, W]
+    set_missing: Optional[torch.Tensor] = None,  # bool [n, Fs]
 ) -> torch.Tensor:
     """Σ (or mean) over trees of routed leaf values: f32 [n, V]. A forest
     with vector-sequence anchors needs the padded sequences
-    (Binner.transform_vs on the forest's device)."""
-    _check_supported(forest)
+    (Binner.transform_vs on the forest's device), one with set features
+    their packed rows."""
     has_vs = forest.vs_anchor.numel() > 0
     if has_vs and x_vs_vals is None:
         raise ValueError("this forest has vector-sequence conditions; pass "
@@ -297,7 +331,8 @@ def forest_predict_values(
         proj = vs_tree_projections(forest, t, vals, lens) if has_vs else None
         leaves = route_tree_values(
             forest, t, x_num, x_cat, num_numerical, max_depth,
-            vs_proj=proj, vs_missing=vs_missing,
+            vs_proj=proj, vs_missing=vs_missing, x_set=x_set,
+            set_missing=set_missing,
         )
         acc = acc + forest.leaf_value[t][leaves]
     if combine == "mean":
