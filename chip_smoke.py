@@ -532,6 +532,80 @@ def frame_sha256(frame):
     return h.hexdigest()
 
 
+#: Where a tiled run-sum kernel (csrc/segment_sum.cu) goes wrong: runs
+#: ending on a tile's edge and one past it, a run carried past its tile
+#: to the end of the kernel's continuation chunk, a run longer than three
+#: tiles, runs of one, one entry, fewer entries than a tile, an exact
+#: multiple of the tile, and runs holding +-0, NaN, +-inf and subnormals.
+SEGMENT_EDGE_SHAPES = ("tile_edge", "past_edge", "chunk_edge", "long_run",
+                       "ones", "one", "small", "tile_multiple", "specials")
+#: Stats a run: 1, 3 (every path), 4, 5, 9 (past the 8 the kernel
+#: unrolls) and 40 (a smaller tile).
+SEGMENT_EDGE_STATS = (1, 3, 4, 5, 9, 40)
+
+
+def segment_edge_case(shape, S, T, seed=0):
+    """(key i64 [E], vals f32 [E, S]) numpy for ops/segment_sum.py at
+    tile T: sorted 64-bit keys (negative and huge ones, gaps of 1 to
+    2^40), one key a run, the runs laid out as `shape` says
+    (SEGMENT_EDGE_SHAPES); values of magnitudes 2^-24 to 2^24, so that
+    the order of the adds shows."""
+    from ydf_tpu_torch.ops.segment_sum import CONT
+
+    rng = np.random.default_rng(
+        [seed, S, T, SEGMENT_EDGE_SHAPES.index(shape)])
+
+    def runs(total, longest=64):
+        """Run lengths of 1 to `longest` summing to `total`."""
+        out = []
+        while total > 0:
+            out.append(min(total, int(rng.integers(1, longest + 1))))
+            total -= out[-1]
+        return out
+
+    lengths = {
+        "tile_edge": lambda: [T] + runs(T) + [T] + runs(17),
+        "past_edge": lambda: [T + 1] + runs(T - 1) + [T + 1] + runs(19),
+        "chunk_edge": lambda: runs(T - 7) + [7 + min(CONT, T)] + runs(13),
+        "long_run": lambda: runs(37, 8) + [3 * T + 11] + runs(40, 8),
+        "ones": lambda: [1] * (2 * T + 5),
+        "one": lambda: [1],
+        "small": lambda: runs(T // 2 + 3),
+        "tile_multiple": lambda: runs(2 * T, longest=300),
+        "specials": lambda: [5] + runs(T + 72),
+    }[shape]()
+    gaps = np.where(rng.uniform(size=len(lengths)) < 0.5,
+                    rng.integers(1, 4, len(lengths)),
+                    rng.integers(1, 2 ** 40, len(lengths)))
+    run_keys = int(rng.integers(-2 ** 62, -2 ** 61)) + np.cumsum(gaps)
+    key = np.repeat(run_keys, lengths).astype(np.int64)
+    E = key.shape[0]
+    vals = (rng.normal(size=(E, S))
+            * np.exp2(rng.integers(-24, 25, (E, S)))).astype(np.float32)
+    if shape == "specials":
+        pool = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1e-45, -3e-39,
+                         1e-38, 3.4e38, -3.4e38], np.float32)
+        special = rng.uniform(size=(E, S)) < 0.3
+        vals[special] = rng.choice(pool, size=int(special.sum()))
+        vals[:5] = -0.0  # a run of -0 sums to +0
+    return key, vals
+
+
+def same_bits(got, want):
+    """Two f32 tensors (or arrays) equal bit for bit, any NaN equal to any
+    NaN: the run sums' contract leaves a NaN's payload open (x86 and
+    the card make different ones)."""
+    import torch
+
+    got, want = (torch.as_tensor(np.asarray(x) if not isinstance(
+        x, torch.Tensor) else x).cpu() for x in (got, want))
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return bool(((got.view(torch.int32) == want.view(torch.int32))
+                 | both_nan).all())
+
+
 #: The node arrays a forest's tree hash covers, in order (a tree of
 #: either package as Forest.to_numpy() holds it).
 TREE_HASH_FIELDS = ("feature", "threshold_bin", "is_cat", "cat_mask",
@@ -1688,6 +1762,7 @@ def measure_train(name, inp, reps=20, timing_only=False):
 
     from ydf_tpu_torch.ops import binning, histogram_kernels, segment_sum
 
+    extra = {}
     if name == "binning":
         args = inp["binning"]
         kernel = lambda: binning.bin_columns(*args)  # noqa: E731
@@ -1729,7 +1804,11 @@ def measure_train(name, inp, reps=20, timing_only=False):
         E, S = vals.shape
         nbytes = E * 8 + 2 * E * S * 4  # keys and values in, sums out
         ops = E * S  # one add a value
-        shape = f"E={E}, S={S}, runs {int(head.sum())}"
+        extra = {"runs": int(head.sum()),
+                 "longest_run": int(torch.bincount(run_of).max())}
+        shape = (f"E={E}, S={S}, runs {extra['runs']}, longest run "
+                 f"{extra['longest_run']}, tile "
+                 f"{segment_sum.tile_entries(S)}")
     else:
         args = inp["routed"]
         bins_t, slot, leaf, tables, stats, Lh, B = args
@@ -1774,7 +1853,7 @@ def measure_train(name, inp, reps=20, timing_only=False):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "detail": f"{nbytes} bytes -> {bytes_ms:.4f} ms, {ops} ops -> "
-                  f"{ops_ms:.4f} ms", "shape": shape,
+                  f"{ops_ms:.4f} ms", "shape": shape, **extra,
     }
 
 
@@ -4670,6 +4749,22 @@ def set_path(smi, serving):
             f"is_set row true) and {len(case['segment'])} run sums of a "
             "one-tree train torch.equal to plain")
     assert prefix_calls, "no set prefix histogram captured"
+    # The run-sum kernel at the shapes a tiled kernel gets wrong.
+    t_edge, edges = time.perf_counter(), 0
+    for S in SEGMENT_EDGE_STATS:
+        T = segment_sum.tile_entries(S)
+        for shape in SEGMENT_EDGE_SHAPES:
+            key, vals = (torch.from_numpy(a).to(DEVICE)
+                         for a in segment_edge_case(shape, S, T))
+            got = segment_sum.segment_sums(key, vals)
+            torch.cuda.synchronize()
+            assert same_bits(got, segment_sum.segment_sums_plain(key, vals)), (
+                f"segment sums != plain at {shape}, S={S}, tile {T}")
+            edges += 1
+    log("13 kernels", f"segment_sum: {edges} edge shapes "
+        f"({', '.join(SEGMENT_EDGE_SHAPES)} at S = "
+        f"{', '.join(map(str, SEGMENT_EDGE_STATS))}) bitwise to plain (a "
+        f"NaN as any NaN) in {time.perf_counter() - t_edge:.2f} s")
     lap("13f")
 
     # -- 13g where each loop's time goes ------------------------------- #
@@ -4739,9 +4834,10 @@ def set_path(smi, serving):
             f"{timing_text(t)}, {smi}")
         result.append(train_entry(
             "segment_sum", path, "segment_sum.cu",
-            "ydf_tpu/ops/grower.py:836 (an XLA einsum; no Pallas kernel)",
+            "ydf_tpu/ops/grower.py:810 (an XLA einsum; no Pallas kernel)",
             t, counted["segment_sum"], 0.0, kernel_ms.get("segment_sum",
                                                           0.0)))
+        result[-1].update(runs=t["runs"], longest_run=t["longest_run"])
         result[-1]["loop_ms_a_tree"] = (profiles[path]["loop_ms"]
                                         / profiles[path]["trees"])
         result[-1]["idle_share"] = profiles[path]["idle_share"]

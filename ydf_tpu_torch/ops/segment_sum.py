@@ -11,6 +11,10 @@ f32 [E, S] in each run's order -> f32 [E, S]: at a run's first entry
 (its head) the run's sum, added in order from 0 with one f32 rounding
 an add; zeros elsewhere. A CPU tensor runs the plain version; a CUDA
 tensor launches the kernel or raises.
+
+The kernel stages tiles of `tile_entries(S)` entries in a block's shared
+memory; TILE is the one place the tile is set (the tests and chip_smoke.py
+put runs on its edges).
 """
 
 from __future__ import annotations
@@ -22,6 +26,35 @@ from ydf_tpu_torch.utils import cuda_build
 #: Launches of the CUDA kernel in this process (the wrapper adds one per
 #: launch; plain-version calls do not count).
 KERNEL_LAUNCHES = 0
+
+#: Entries a block of csrc/segment_sum.cu stages at most (its tile).
+TILE = 1024
+#: Entries a block stages at a time for a run that crosses its tile's end
+#: (csrc/segment_sum.cu:kCont).
+CONT = 512
+#: Dynamic shared memory a block may take (csrc/segment_sum.cu:kSmemLimit).
+SHARED_LIMIT = 232448 - 1024
+#: The largest tile the kernel takes (csrc/segment_sum.cu:kMaxTile).
+MAX_TILE = 4096
+
+
+def shared_bytes(T: int, S: int) -> int:
+    """A block's dynamic shared memory at a tile of T entries and S stats
+    (csrc/segment_sum.cu:smem_bytes): keys, values, a continuation
+    chunk's keys and values, the heads, the head flags."""
+    C = min(CONT, T)
+    return 8 * T + 4 * T * S + 8 * C + 4 * C * S + 4 * (T + 1) + T
+
+
+def tile_entries(S: int) -> int:
+    """The kernel's tile at S stats: TILE (at most MAX_TILE), halved (to a
+    multiple of 4) while a block's shared memory would not fit."""
+    T = min(TILE, MAX_TILE)
+    while T > 4 and shared_bytes(T, S) > SHARED_LIMIT:
+        T = max(4, T // 8 * 4)
+    if shared_bytes(T, S) > SHARED_LIMIT:
+        raise ValueError(f"{S} stats do not fit the kernel's shared memory")
+    return T
 
 
 def run_heads(key: torch.Tensor) -> torch.Tensor:
@@ -88,10 +121,11 @@ def segment_sums(key: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, S), dtype=torch.float32, device=dev)
     if E == 0 or S == 0:
         return out.zero_()
-    fn = cuda_build.entry_point("segment_sum", "ydf_segment_sums", 3, 2)
+    T = tile_entries(S)
+    fn = cuda_build.entry_point("segment_sum", "ydf_segment_sums", 3, 3)
     with cuda_build.on_device(dev):
         timer = cuda_build.launch_timer("segment_sum")
-        status = fn(key.data_ptr(), vals.data_ptr(), out.data_ptr(), E, S,
+        status = fn(key.data_ptr(), vals.data_ptr(), out.data_ptr(), E, S, T,
                     torch.cuda.current_stream().cuda_stream)
         cuda_build.launch_done(timer)
     cuda_build.check_status(status, "segment sum kernel")
