@@ -329,6 +329,23 @@ SETS_CART_TEST_ROWS = 20_000
 SETS_VOCABS = (60, 500)
 SETS_ITEM_A = "t2"
 SETS_ITEM_B = "w5"
+TRAIN_RANKING = os.path.join(TESTDATA, "train_ranking")
+TRAIN_SURVIVAL = os.path.join(TESTDATA, "train_survival")
+TRAIN_RANK_OPTIONS = os.path.join(TESTDATA, "train_rank_options")
+RANK_QUERIES = 2_000
+RANK_TEST_QUERIES = 500
+RANK_DOCS = (20, 200)
+RANK_FEATURES = 136
+RANK_MISSING = (0, 7, 42, 99)
+RANK_SKEW = (0.52, 0.32, 0.13, 0.02, 0.01)
+RANK_SEED = 21
+RANK_TEST_SEED = 22
+RANK_HP = dict(label="relevance", task="RANKING", ranking_group="query")
+SURV_ROWS = 200_000
+SURV_TEST_ROWS = 50_000
+SURV_CENSOR_SCALE = 2.5
+SURV_HP = dict(label="time", task="SURVIVAL_ANALYSIS",
+               label_event_observed="event")
 TRAIN_OBLIQUE = os.path.join(TESTDATA, "train_oblique")
 OBLIQUE_HP = dict(label="label", split_axis="SPARSE_OBLIQUE")
 OBLIQUE_RF_FIXTURE_TREES = 50
@@ -492,6 +509,86 @@ def make_set_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED):
     return train, test
 
 
+def make_rank_frame(queries, seed=RANK_SEED, docs=RANK_DOCS,
+                    features=RANK_FEATURES, first_query=0):
+    """A frame shaped like MSLR-WEB10K/30K (the ranking cells): `queries`
+    query groups ("query", int64 ids from first_query) of uniform
+    docs[0]..docs[1] documents, `features` numerical f32 columns f0..
+    (standard normal, plus a per-query offset on the first 16; 3% NaN in
+    the RANK_MISSING columns) and an int64 "relevance" 0-4 cut at the quantiles of
+    a latent score (a non-linear function of f0-f9 plus noise) that give
+    MSLR's skew RANK_SKEW. Draws from default_rng([seed, 14])."""
+    rng = np.random.default_rng([seed, 14])
+    sizes = rng.integers(docs[0], docs[1] + 1, queries)
+    n = int(sizes.sum())
+    qid = np.repeat(np.arange(first_query, first_query + queries), sizes)
+    x = rng.standard_normal((n, features), dtype=np.float32)
+    shifted = min(16, features)
+    x[:, :shifted] += np.repeat(
+        rng.standard_normal((queries, shifted), dtype=np.float32), sizes, 0)
+    xd = np.pad(x[:, :10].astype(np.float64),
+                ((0, 0), (0, max(0, 10 - features))))
+    latent = (xd[:, 0] + 0.7 * xd[:, 1] - 0.5 * xd[:, 2]
+              + np.sin(2 * xd[:, 3]) + 0.5 * xd[:, 4] * xd[:, 5]
+              + 0.3 * np.abs(xd[:, 6]) - 0.3 * xd[:, 7] ** 2 / 2
+              + 0.2 * xd[:, 8] + rng.standard_normal(n))
+    cuts = np.quantile(latent, np.cumsum(RANK_SKEW)[:-1])
+    data = {"query": qid, "relevance": np.digitize(latent, cuts)}
+    for i in range(features):
+        col = x[:, i]
+        if i in RANK_MISSING:
+            col = np.where(rng.uniform(size=n) < 0.03, np.nan, col).astype(
+                np.float32)
+        data[f"f{i}"] = np.ascontiguousarray(col)
+    return data
+
+
+def rank_frames(queries, docs=RANK_DOCS, features=RANK_FEATURES,
+                test_queries=None, seed=RANK_SEED, test_seed=RANK_TEST_SEED):
+    """(train, test) of a ranking cell: make_rank_frame's `queries` and,
+    from `test_seed`, `test_queries` (default max(queries // 4, 20))
+    fresh queries numbered after them."""
+    if test_queries is None:
+        test_queries = max(queries // 4, 20)
+    return (make_rank_frame(queries, seed, docs, features),
+            make_rank_frame(test_queries, test_seed, docs, features,
+                            first_query=queries))
+
+
+def make_surv_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED,
+                    entry=False, weights=False):
+    """The survival cells' frame: make_frame's 32 feature columns (its
+    label dropped), a departure age "time" (f32) and an event flag
+    "event" (bool). Departures are exponential with the log hazard
+    0.6 f0 - 0.4 f1 + 0.3 sin(2 f2) + 0.3 f3 f4 (missing values as 0),
+    censored by an independent exponential of scale SURV_CENSOR_SCALE
+    (about 30% censored). With `entry`, an entry age "entry" (a uniform
+    share up to half of each time); with `weights`, example weights "w"
+    (uniform 0.5-1.5). Draws from default_rng([seed, 15])."""
+    train, test = make_frame(train_rows, test_rows, seed)
+    n = train_rows + test_rows
+    rng = np.random.default_rng([seed, 15])
+    x = np.stack([np.concatenate([train[f"f{i}"], test[f"f{i}"]])
+                  for i in range(5)], 1).astype(np.float64)
+    x = np.nan_to_num(x)
+    loghaz = (0.6 * x[:, 0] - 0.4 * x[:, 1] + 0.3 * np.sin(2 * x[:, 2])
+              + 0.3 * x[:, 3] * x[:, 4])
+    departure = rng.exponential(np.exp(-loghaz))
+    censor = rng.exponential(SURV_CENSOR_SCALE, n)
+    cols = {"time": np.minimum(departure, censor).astype(np.float32),
+            "event": departure <= censor}
+    if entry:
+        cols["entry"] = (cols["time"] * rng.uniform(0, 0.5, n)).astype(
+            np.float32)
+    if weights:
+        cols["w"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    for frame, rows in ((train, slice(0, train_rows)),
+                        (test, slice(train_rows, n))):
+        del frame["label"]
+        frame.update({k: v[rows] for k, v in cols.items()})
+    return train, test
+
+
 def if_test_frame(test, anomaly=None):
     """train_if's scored rows: the test frame's feature columns, with a
     seeded share of the rows (default_rng(seed).choice without
@@ -626,6 +723,19 @@ def tree_sha256(forest_np, t, nodes=None, fields=TREE_HASH_FIELDS):
             a = a[nodes]
         h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
+
+
+def canonical_nan(forest_np):
+    """Forest.to_numpy() arrays with every NaN of a float field written
+    as the one quiet NaN 0x7FC00000: a NaN a computation makes has
+    another payload on x86 (0xFFC00000) than on the card (0x7FFFFFFF)."""
+    out = {}
+    for k, a in forest_np.items():
+        a = np.asarray(a)
+        if a.dtype.kind == "f" and np.isnan(a).any():
+            a = np.where(np.isnan(a), np.float32(np.nan), a).astype(a.dtype)
+        out[k] = a
+    return out
 
 
 def node_depths(forest_np, t):
@@ -1149,6 +1259,8 @@ def main():
     kernels.extend(oblique_path(smi, serving=counters))
     torch.cuda.synchronize()
     kernels.extend(set_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(rank_surv_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4853,6 +4965,412 @@ def set_path(smi, serving):
     lap("13h")
     log("13 sets", f"phase 13 wall {time.perf_counter() - t_phase:.1f} s "
         f"(by part, s: {walls})")
+    return result
+
+
+def plain_ops_profile(fn, reps=3):
+    """A plain PyTorch step on the card (the ranking and survival
+    losses, which run no kernel of the port's own): per call, its
+    device kernels and their device time under torch.profiler, and its
+    time between CUDA events, after one warm call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels, busy = 0, 0.0
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0:
+            kernels += 1
+            busy += e.duration_ns() / 1e6
+    return {"kernels": kernels / reps, "device_ms": busy / reps,
+            "ms": time_ms(fn, reps)}
+
+
+def rank_surv_path(smi, serving):
+    """Phase 14: the RANKING and SURVIVAL_ANALYSIS tasks (ROADMAP items
+    11, 12 and 15's tasks) trained on the card through the GBT learner's
+    entry point with every other default (LambdaMART-NDCG on a frame
+    shaped like MSLR, F = 136; Cox on make_frame's 32 columns), evaluated
+    (NDCG@5, MRR, MAP@5; concordance), saved and loaded, the JAX-saved
+    models served on the card, and the rank-options runs (XE-NDCG, SELGB,
+    truncated groups, Cox with entry ages, with weights), against the
+    JAX package's runs (ydf_tpu_torch/testdata/train_ranking,
+    train_survival, train_rank_options). Returns the `kernels` entries of
+    the two paths' training kernels and of the bank on their models."""
+    import tempfile
+    import warnings
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.config import Task
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.learners import ranking_loss, survival_loss
+    from ydf_tpu_torch.ops import histogram_kernels
+    from ydf_tpu_torch.serving import bank_scorer
+
+    t_phase = time.perf_counter()
+    walls, last = {}, [t_phase]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = round(now - last[0], 2)
+        last[0] = now
+
+    fixtures = {}
+    for name, d in (("ranking", TRAIN_RANKING), ("survival", TRAIN_SURVIVAL),
+                    ("options", TRAIN_RANK_OPTIONS)):
+        with open(os.path.join(d, "config.json")) as f:
+            cfg = json.load(f)
+        fixtures[name] = (cfg, np.load(os.path.join(d, "expected.npz")))
+    rcfg, rexp = fixtures["ranking"]
+    scfg, sexp = fixtures["survival"]
+    ocfg, oexp = fixtures["options"]
+    assert (rcfg["queries"], rcfg["test_queries"], tuple(rcfg["docs"]),
+            rcfg["features"], rcfg["seed"], rcfg["test_seed"]) == (
+        RANK_QUERIES, RANK_TEST_QUERIES, RANK_DOCS, RANK_FEATURES,
+        RANK_SEED, RANK_TEST_SEED)
+    assert (scfg["rows"], scfg["test_rows"], scfg["cat_seed"]) == (
+        SURV_ROWS, SURV_TEST_ROWS, DEFAULT_CAT_SEED)
+    rank_hp = dict(RANK_HP, task=Task[RANK_HP["task"]])
+    surv_hp = dict(SURV_HP, task=Task[SURV_HP["task"]])
+    t0 = time.perf_counter()
+    rtrain, rtest = rank_frames(RANK_QUERIES, test_queries=RANK_TEST_QUERIES)
+    strain, stest = make_surv_frame(SURV_ROWS, SURV_TEST_ROWS)
+    for frame, want, what in (
+            (rtrain, rcfg["train_sha256"], "ranking train"),
+            (rtest, rcfg["test_sha256"], "ranking test"),
+            (strain, scfg["train_sha256"], "survival train"),
+            (stest, scfg["test_sha256"], "survival test")):
+        assert frame_sha256(frame) == want, f"{what} frame"
+    log("14 rank_surv", f"frames (ranking {len(rtrain['query'])} rows in "
+        f"{RANK_QUERIES} queries x {RANK_FEATURES} features + "
+        f"{len(rtest['query'])} rows in {RANK_TEST_QUERIES} test queries, "
+        f"survival {SURV_ROWS} + {SURV_TEST_ROWS}, "
+        f"{100 * (1 - strain['event'].mean()):.1f}% censored) in "
+        f"{time.perf_counter() - t0:.2f} s, SHA-256 == the fixtures'; JAX "
+        f"on the CPU that wrote them: ranking "
+        f"{rcfg['jax_train_s_cpu']:.1f} s, survival "
+        f"{scfg['jax_train_s_cpu']:.1f} s")
+    lap("setup")
+    paths = {}  # path -> (launches, kernel ms, events, routed by Lh)
+
+    def main_run(path, fn):
+        """Counts at 0, fn() on the card, counts read."""
+        reset_counts(serving)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted, others, events = read_counts(serving)
+        kernel_ms, routed_lh = split_events(events)
+        paths[path] = (counted, kernel_ms, events, routed_lh, others)
+        log("14 launches", f"{path}: {counted} launches (routed by hist "
+            f"slots: {routed_lh}); serving kernels {others}")
+        return result, counted, wall, kernel_ms, others
+
+    def task_run(path, hp, data, tst, cfg, exp, prefix):
+        """One training through the learner's entry point, its
+        evaluation, and every check against the fixture."""
+        learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                            **hp)
+        reads0 = port_gbt.HOST_READS
+
+        def fn():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                m = learner.train(data)
+            t0 = time.perf_counter()
+            ev = m.evaluate(tst)
+            torch.cuda.synchronize()
+            return m, ev, time.perf_counter() - t0, caught
+
+        (m, ev, eval_wall, caught), counted, wall, kernel_ms, others = \
+            main_run(path, fn)
+        logs = m.training_logs
+        trained, kept = logs["num_trees_trained"], logs["num_trees"]
+        assert (kept, trained) == (cfg["num_trees"],
+                                   cfg["num_trees_trained"]), (kept, trained)
+        assert counted["histogram_routed"] == \
+            trained * (learner.max_depth - 1), counted
+        assert counted["histogram"] == trained, counted
+        assert counted["binning"] >= 1, counted
+        assert sum(others.values()) > 0, others  # served by a kernel
+        check_tree_hashes(exp, prefix, canonical_nan(m.forest.to_numpy()),
+                          kept, TREE_HASH_FIELDS)
+        for key in ("train_loss", "valid_loss"):
+            got = np.float32([r[key] for r in logs["iterations"]])
+            assert same_bits(got, exp[f"{prefix}/{key}"]), f"{path} {key}"
+        preds = m.predict(tst)
+        assert same_bits(preds[:len(exp[f"{prefix}/predictions"])],
+                         exp[f"{prefix}/predictions"]), f"{path} predictions"
+        if "predictions_sha256" in cfg and not np.isnan(preds).any():
+            assert array_sha256(preds) == cfg["predictions_sha256"], path
+        jev = cfg["jax_evaluate"]
+        err = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+        assert err <= EVAL_SAME_ATOL, (path, err)
+        assert m.extra_metadata == cfg["extra_metadata"], path
+        warned = [str(w.message) for w in caught
+                  if "max_group_size" in str(w.message)]
+        assert warned == cfg.get("warnings", []), (path, warned)
+        boost_ms = learner.last_timings["boost_s"] * 1e3
+        log("14 " + path, f"GradientBoostedTreesLearner(**{hp}).train: "
+            f"wall {(wall - eval_wall) * 1e3:.1f} ms (host clock, ends in "
+            "synchronize); stages " + " ".join(
+                f"{k}={v * 1e3:.1f}ms"
+                for k, v in learner.last_timings.items())
+            + f"; {trained} iterations trained, {kept} kept (== JAX's), "
+            f"{port_gbt.HOST_READS - reads0} host reads (one a chunk of the "
+            f"look-ahead stop; the loop runs under sync debug mode "
+            f"\"error\"); {boost_ms / trained:.2f} ms a tree (loop wall / "
+            "trees); kernel time (CUDA events, train + evaluate) " + " ".join(
+                f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+            + f"; every kept tree by SHA-256, the {trained} train and "
+            "validation losses bitwise == JAX's, the predictions bitwise "
+            f"(a NaN as any NaN), evaluate " + " ".join(
+                f"{k} {ev.metrics[k]:.12f}" for k in jev)
+            + f" within {EVAL_SAME_ATOL} of JAX's (max {err:.3g}); "
+            f"evaluate {eval_wall * 1e3:.1f} ms; {smi}")
+        return m
+
+    def jax_model_check(path, d, model, tst, cfg, exp):
+        """save -> load on the card bitwise; the JAX-saved model served
+        on the card: its raw scores and predictions bitwise to JAX's,
+        its evaluation equal."""
+        with tempfile.TemporaryDirectory() as tmp:
+            model.save(os.path.join(tmp, "m"))
+            back = ydf_tpu_torch.load_model(os.path.join(tmp, "m"),
+                                            device=DEVICE)
+        assert back.predict(tst).tobytes() == model.predict(tst).tobytes()
+        assert back.extra_metadata == model.extra_metadata
+        jm = ydf_tpu_torch.load_model(os.path.join(d, "model"),
+                                      device=DEVICE)
+        head = {k: v[:len(exp["gbt/raw"])] for k, v in tst.items()}
+        raw = jm._raw_scores(head, combine="sum")[:, 0]
+        assert raw.tobytes() == exp["gbt/raw"].tobytes(), path
+        assert array_sha256(jm.predict(tst)) == cfg["predictions_sha256"]
+        jev = jm.evaluate(tst).metrics
+        err = max(abs(jev[k] - cfg["jax_evaluate"][k]) for k in jev)
+        assert err <= EVAL_SAME_ATOL, (path, err)
+        log("14 " + path, "save -> load on the card: predictions and "
+            "extra_metadata equal; the JAX-saved model on the card: raw "
+            f"scores on {len(raw)} rows bitwise, all {len(tst[model.label])} "
+            f"predictions by SHA-256, evaluate within {EVAL_SAME_ATOL}")
+
+    # -- 14a ranking ---------------------------------------------------- #
+    rmodel = task_run(
+        "train_ranking", rank_hp, rtrain, rtest, rcfg, rexp, "gbt")
+    jax_model_check("train_ranking", TRAIN_RANKING, rmodel, rtest, rcfg,
+                    rexp)
+    lap("14a")
+
+    # -- 14b survival --------------------------------------------------- #
+    smodel = task_run(
+        "train_survival", surv_hp, strain, stest, scfg, sexp, "gbt")
+    jax_model_check("train_survival", TRAIN_SURVIVAL, smodel, stest, scfg,
+                    sexp)
+    lap("14b")
+
+    # -- 14c the rank-options runs -------------------------------------- #
+    for name, c in ocfg["configs"].items():
+        if c["frame"] == "rank":
+            otrain, otest = rank_frames(c["queries"], tuple(c["docs"]), 24)
+            task = Task.RANKING
+        else:
+            otrain, otest = make_surv_frame(
+                c["rows"], ocfg["compare_rows"], entry=c.get("entry", False),
+                weights=c.get("weights", False))
+            task = Task.SURVIVAL_ANALYSIS
+        assert frame_sha256(otrain) == c["train_sha256"], name
+        assert frame_sha256(otest) == c["test_sha256"], name
+        task_run(f"rank_options/{name}", dict(c["learner"], task=task),
+                 otrain, otest, c, oexp, name)
+    lap("14c")
+
+    # -- 14d the kernels against their plain versions, at F = 136 ------- #
+    layers = {
+        "train_ranking": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner, rank_hp, rtrain),
+        "train_survival": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner, surv_hp, strain),
+    }
+    binned = {"train_ranking": (rmodel.binner, rtrain),
+              "train_survival": (smodel.binner, strain)}
+    for path, case in layers.items():
+        binner, data = binned[path]
+        Fn = binner.num_numerical
+        case["binning"].append(tuple(torch.from_numpy(a).to(DEVICE) for a in (
+            np.stack([data[k] for k in binner.feature_names[:Fn]]),
+            binner.boundaries[:Fn], binner.feature_num_bins[:Fn] - 1,
+            binner.impute_values[:Fn])))
+        binning_check(case["binning"][-1])
+        shapes = []
+        for args in case["routed"]:
+            got = histogram_kernels.histogram_routed(*args)
+            want = histogram_kernels.histogram_routed_plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (
+                    f"{path}: routed kernel != plain at Lh {args[5]}")
+            bins_t, _, _, tables, stats, Lh, B = args
+            shape = histogram_kernels.routed_launch_shape(
+                bins_t.shape[1], bins_t.shape[0], Lh, B, stats.shape[1],
+                tables.do_split.shape[0] - 1,
+                4 if stats.dtype == torch.int8 else 8)
+            assert shape.smem <= histogram_kernels.ROUTED_SMEM_LIMIT
+            shapes.append(f"Lh={Lh}: G {shape.G} x Fb {shape.Fb}, Lb "
+                          f"{shape.Lb}, {shape.blocks} blocks of "
+                          f"{shape.rows} rows, {shape.smem} B shared")
+        for args in case["root"]:
+            got = histogram_kernels.histogram(*args)
+            want = histogram_kernels.histogram_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{path}: histogram != plain"
+        log("14 kernels", f"{path} at F = {binner.num_features}: the binning "
+            f"of the {data[binner.feature_names[0]].shape[0]} training "
+            f"values, {len(case['root'])} root histograms ("
+            f"{root_shape_text(case['root'][0])}) and "
+            f"{len(case['routed'])} routed layers of a one-tree train "
+            "torch.equal to plain; routed launch shapes " + "; ".join(shapes))
+    bank_inputs_of = {}
+    for path, model, tst in (("train_ranking", rmodel, rtest),
+                             ("train_survival", smodel, stest)):
+        bank = bank_scorer.build_bank_scorer(model)
+        assert bank is not None, path
+        xT = encoded_xT(model, tst)
+        got = bank_scorer.score(bank.tables, xT)
+        want = bank_scorer.score_plain(bank.tables, xT)
+        for walk, g in zip(("split", "per-thread"), both_walks(
+                lambda: bank_scorer.score(bank.tables, xT))):
+            assert torch.equal(g, want), f"{path} bank {walk} != plain"
+        assert torch.equal(got, want), f"{path} bank != plain"
+        bank_inputs_of[path] = (bank, xT)
+        log("14 kernels", f"bank_scorer on the {path} model "
+            f"({model.forest.num_trees} trees): {xT.shape[1]} rows x "
+            f"{xT.shape[0]} features torch.equal to plain in both walks")
+    lap("14d")
+
+    # -- 14e where the loops' time goes; the losses' own device work ---- #
+    profiles = {}
+    for path, hp, data in (("train_ranking", rank_hp, rtrain),
+                           ("train_survival", surv_hp, strain)):
+        trees = 5
+        prof = profiles[path] = dict(profile_train(
+            data, dict(hp, num_trees=trees)), trees=trees)
+        log("14 profile", f"{path}: num_trees={trees} under torch.profiler: "
+            f"wall {prof['wall_ms']:.1f} ms, tree loop "
+            f"{prof['loop_ms']:.1f} ms ({prof['loop_ms'] / trees:.2f} ms a "
+            f"tree); {prof['kernels']} device kernels "
+            f"({prof['kernels'] / trees:.0f} a tree), device idle at least "
+            f"{100 * prof['idle_share']:.1f}% of the loop; largest: "
+            + "; ".join(f"{name[:50]} {ms:.3f} ms"
+                        for name, ms in prof["top"][:4]))
+    # The losses at the paths' shapes: the training rows after the split.
+    groups = rtrain["query"]
+    tr_idx, _ = port_gbt.split_validation_groups(groups, 0.1, 123456)
+    rows, G = ranking_loss.build_group_rows(groups[tr_idx])
+    n = len(tr_idx)
+    y = torch.from_numpy(rtrain["relevance"][tr_idx].astype(np.float32)).to(
+        DEVICE)
+    p = torch.from_numpy(np.random.default_rng(3).normal(
+        size=n).astype(np.float32)).to(DEVICE)
+    lam = ranking_loss.LambdaMartNdcg()
+    lam.register_groups("train", n, rows, DEVICE)
+    rows_t = torch.from_numpy(np.where(rows < 0, n, rows)).to(DEVICE)
+    str_idx, _ = port_gbt.split_validation(SURV_ROWS, 0.1, 123456)
+    cox = survival_loss.CoxProportionalHazardLoss()
+    cox.register_survival("train", strain["time"][str_idx],
+                          strain["event"][str_idx], device=DEVICE)
+    sy = torch.from_numpy(strain["time"][str_idx]).to(DEVICE)
+    sp = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 0.3, len(str_idx)).astype(np.float32)).to(DEVICE)
+    steps = {
+        "train_ranking lambdas (grad_hess)": lambda: lam.grad_hess(y, p),
+        "train_ranking -NDCG (loss)": lambda: lam.loss(y, p, None),
+        "train_ranking SELGB mask": lambda: port_gbt.selgb_mask(
+            rows_t, y, p, 0.01),
+        "train_survival Cox sweep (grad_hess)": lambda: cox.grad_hess(sy, sp),
+        "train_survival Cox loss": lambda: cox.loss(sy, sp, None),
+    }
+    loss_steps = {}
+    for what, fn in steps.items():
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        st = loss_steps[what] = plain_ops_profile(fn)
+        log("14 losses", f"{what} at {n if 'rank' in what else len(str_idx)}"
+            f" rows{f' ({rows.shape[0]} groups, G = {G})' if 'rank' in what else ''}: "
+            f"{st['kernels']:.0f} device kernels a call, "
+            f"{st['device_ms']:.3f} ms on the card (torch.profiler), "
+            f"{st['ms']:.3f} ms a call (CUDA events); plain PyTorch, no "
+            f"kernel of the port's own (the JAX package computes it in XLA, "
+            f"no Pallas kernel); no host sync; {smi}")
+    lap("14e")
+
+    # -- 14f each kernel timed at each path's shapes -------------------- #
+    result = []
+    for path, case in layers.items():
+        counted, kernel_ms, events, routed_lh, others = paths[path]
+        inp = {"binning": case["binning"][-1], "root": case["root"][0],
+               "routed": max(case["routed"], key=lambda a: a[5])}
+        for name, src, replaces in (
+            ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+            ("histogram", "histogram.cu",
+             "ydf_tpu/ops/histogram_pallas.py:81"),
+            ("histogram_routed", "histogram_routed.cu",
+             "ydf_tpu/ops/histogram_pallas.py:172"),
+        ):
+            t = measure_train(name, inp, reps=20)
+            log("14 timing", f"{path} {name} ({t['shape']}): "
+                f"{timing_text(t)}, {smi}")
+            result.append(train_entry(name, path, src, replaces, t,
+                                      counted[name], 0.0,
+                                      kernel_ms.get(name, 0.0)))
+            result[-1]["loop_ms_a_tree"] = (profiles[path]["loop_ms"]
+                                            / profiles[path]["trees"])
+            result[-1]["idle_share"] = profiles[path]["idle_share"]
+            if name == "histogram_routed":
+                by_lh = oblique_layers(name, case["routed"], events,
+                                       routed_lh)
+                result[-1].update(layer_fields(by_lh))
+                log("14 layers", f"{name} on {path} by hist slots: "
+                    f"{layer_text(by_lh)}, {smi}")
+        bank, xT = bank_inputs_of[path]
+        t = measure(bank_scorer, bank.tables, bank.tables, xT)
+        log("14 timing", f"bank_scorer/{path} at {xT.shape[1]} rows x "
+            f"{xT.shape[0]} features: kernel {t['ms']:.4f} ms a call back "
+            f"to back, {t['device_ms']:.4f} ms on the card "
+            f"({t['device_how']}), plain {t['plain_ms']:.2f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']}), {smi}")
+        result.append({
+            "name": f"bank_scorer/{path}", "route": "cuda",
+            "source": "ydf_tpu_torch/csrc/bank_scorer.cu",
+            "replaces": "ydf_tpu/serving/pallas_scorer.py:118",
+            "launches": others[bank_scorer.__name__],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "device_how": t["device_how"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "library_device_ms": None,
+            "path_ms": kernel_ms.get("bank_scorer", 0.0),
+            "path_how": "CUDA events around each launch",
+        })
+    for entry in result:
+        path = entry["name"].split("/", 1)[1]
+        entry["loss_steps"] = {k: v for k, v in loss_steps.items()
+                               if k.startswith(path)}
+    lap("14f")
+    log("14 rank_surv", f"phase 14 wall {time.perf_counter() - t_phase:.1f} "
+        f"s (by part, s: {walls})")
     return result
 
 

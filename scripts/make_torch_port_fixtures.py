@@ -1236,14 +1236,17 @@ def write_train_oblique():
     print(f"train_oblique: {size} bytes")
 
 
-def _gbt_run(m, test, compare_rows, fields):
+def _gbt_run(m, test, compare_rows, fields, nan_canonical=False):
     """(config entries, arrays) of a trained JAX GBT on its test frame:
-    per-tree hashes of `fields`, the kept and trained counts, the losses,
-    the predictions (all hashed, the first compare_rows in full) and
-    the evaluation."""
+    per-tree hashes of `fields` (with nan_canonical, every NaN hashed as
+    chip_smoke.canonical_nan writes it), the kept and trained counts,
+    the losses, the predictions (all hashed, the first compare_rows in
+    full) and the evaluation."""
     import chip_smoke
 
     fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    if nan_canonical:
+        fo = chip_smoke.canonical_nan(fo)
     T = fo["feature"].shape[0]
     preds = np.asarray(m.predict(test))
     ev = m.evaluate(test)
@@ -1483,6 +1486,154 @@ def write_train_sets():
     _write_runs("train_sets", cfg, runs)
 
 
+TRAIN_RANKING = dict(
+    jax_version="0.9.0", compare_rows=1024, queries=2_000,
+    test_queries=500, docs=[20, 200], features=136, seed=21, test_seed=22,
+    learner=dict(label="relevance", ranking_group="query"),
+)
+TRAIN_SURVIVAL = dict(
+    jax_version="0.9.0", compare_rows=1024, rows=200_000, test_rows=50_000,
+    cat_seed=7, learner=dict(label="time", label_event_observed="event"),
+)
+#: train_rank_options/: 20,000-row, 30-iteration ranking and survival
+#: configurations ("rank": make_rank_frame with `queries` of `docs`
+#: documents and 24 features; "surv": make_surv_frame).
+TRAIN_RANK_OPTIONS = dict(
+    jax_version="0.9.0", compare_rows=1024, num_trees=30,
+    configs={
+        "xe_ndcg": dict(frame="rank", queries=180, docs=[20, 200],
+                        learner=dict(loss="XE_NDCG_MART")),
+        "selgb": dict(frame="rank", queries=180, docs=[20, 200],
+                      learner=dict(sampling_method="SELGB")),
+        "max_group_64": dict(frame="rank", queries=285, docs=[20, 120],
+                             learner=dict(ranking_max_group_size=64)),
+        "cox_entry": dict(frame="surv", rows=20_000, entry=True,
+                          learner=dict(label_entry_age="entry")),
+        "cox_weights": dict(frame="surv", rows=20_000, weights=True,
+                            learner=dict(weights="w")),
+    },
+)
+
+
+def _task_run(name, cfg, c, train, test, task):
+    """Trains the JAX GBT of one ranking or survival configuration and
+    returns (config entries, arrays): _gbt_run's plus the frames' and
+    the bins' SHA-256, the training seconds and the raw scores."""
+    import hashlib
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.config import Task
+    from ydf_tpu.dataset.dataset import Dataset
+
+    t0 = time.perf_counter()
+    m = ydf.GradientBoostedTreesLearner(
+        task=Task[task], **c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, arrays = _gbt_run(m, test, cfg["compare_rows"],
+                           chip_smoke.TREE_HASH_FIELDS, nan_canonical=True)
+    got["train_sha256"] = chip_smoke.frame_sha256(train)
+    bins = m.binner.transform(Dataset.from_data(train, dataspec=m.dataspec))
+    got["bins_sha256"] = hashlib.sha256(
+        np.ascontiguousarray(bins).tobytes()).hexdigest()
+    got["extra_metadata"] = m.extra_metadata
+    c.update(got)
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    arrays["raw"] = m._raw_scores(head, combine="sum")[:, 0]
+    print(f"{name}: {c['num_trees']} of {c['num_trees_trained']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s, {got['jax_evaluate']}", flush=True)
+    return m, arrays
+
+
+def write_train_ranking():
+    """train_ranking/: the JAX GBT with task=RANKING, ranking_group=
+    "query" and every other default on chip_smoke.make_rank_frame (2,000
+    queries of 20-200 documents, 136 features: ~218,000 rows), evaluated
+    on 500 fresh queries; config.json adds the validation rows' SHA-256
+    (whole query groups) and model/ holds the JAX model."""
+    import hashlib
+    import json
+
+    import chip_smoke
+
+    cfg = json.loads(json.dumps(TRAIN_RANKING))
+    cfg["jax_impls"] = _jax_header(cfg)
+    train, test = chip_smoke.rank_frames(
+        cfg["queries"], tuple(cfg["docs"]), cfg["features"],
+        cfg["test_queries"], cfg["seed"], cfg["test_seed"])
+    m, arrays = _task_run("train_ranking", cfg, cfg, train, test, "RANKING")
+    groups = train["query"]
+    uniq = np.unique(groups)
+    nvg = min(max(int(len(uniq) * 0.1), 1), len(uniq) - 1)
+    gperm = np.random.RandomState(123456).permutation(len(uniq))
+    va_idx = np.flatnonzero(np.isin(groups, uniq[gperm[:nvg]]))
+    cfg["valid_idx_sha256"] = hashlib.sha256(
+        np.ascontiguousarray(va_idx, np.int64).tobytes()).hexdigest()
+    _write_runs("train_ranking", cfg, {"gbt": arrays})
+    m.save(os.path.join(OUT, "train_ranking", "model"))
+
+
+def write_train_survival():
+    """train_survival/: the JAX GBT with task=SURVIVAL_ANALYSIS,
+    label_event_observed="event" and every other default on
+    chip_smoke.make_surv_frame (200,000 rows of make_frame's 32 columns,
+    ~31% censored), evaluated on 50,000 fresh rows; model/ holds the JAX
+    model."""
+    import hashlib
+    import json
+
+    import chip_smoke
+
+    cfg = json.loads(json.dumps(TRAIN_SURVIVAL))
+    cfg["jax_impls"] = _jax_header(cfg)
+    train, test = chip_smoke.make_surv_frame(cfg["rows"], cfg["test_rows"],
+                                             cfg["cat_seed"])
+    m, arrays = _task_run("train_survival", cfg, cfg, train, test,
+                          "SURVIVAL_ANALYSIS")
+    perm = np.random.RandomState(123456).permutation(cfg["rows"])
+    va_idx = perm[:min(max(int(cfg["rows"] * 0.1), 1), cfg["rows"] - 1)]
+    cfg["valid_idx_sha256"] = hashlib.sha256(
+        np.ascontiguousarray(va_idx, np.int64).tobytes()).hexdigest()
+    _write_runs("train_survival", cfg, {"gbt": arrays})
+    m.save(os.path.join(OUT, "train_survival", "model"))
+
+
+def write_train_rank_options():
+    """train_rank_options/: TRAIN_RANK_OPTIONS's configurations, each
+    with its tree hashes, kept count, losses, raw scores and
+    evaluation."""
+    import json
+    import warnings
+
+    import chip_smoke
+
+    cfg = json.loads(json.dumps(TRAIN_RANK_OPTIONS))
+    cfg["jax_impls"] = _jax_header(cfg)
+    runs = {}
+    for name, c in cfg["configs"].items():
+        if c["frame"] == "rank":
+            train, test = chip_smoke.rank_frames(c["queries"],
+                                                 tuple(c["docs"]), 24)
+            c["learner"].update(label="relevance", ranking_group="query",
+                                num_trees=cfg["num_trees"])
+            task = "RANKING"
+        else:
+            train, test = chip_smoke.make_surv_frame(
+                c["rows"], cfg["compare_rows"], entry=c.get("entry", False),
+                weights=c.get("weights", False))
+            c["learner"].update(label="time", label_event_observed="event",
+                                num_trees=cfg["num_trees"])
+            task = "SURVIVAL_ANALYSIS"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, runs[name] = _task_run(f"train_rank_options/{name}", cfg, c,
+                                      train, test, task)
+        c["warnings"] = [str(w.message) for w in caught
+                         if "max_group_size" in str(w.message)]
+    _write_runs("train_rank_options", cfg, runs)
+
+
 #: Where main() asks XLA to dump the boosting programs (for
 #: write_train_multiclass's update_forms); removed afterwards.
 DUMP_DIR = None
@@ -1531,6 +1682,12 @@ def main():
         write_train_dart()
     if only in (None, "train_sets"):
         write_train_sets()
+    if only in (None, "train_ranking"):
+        write_train_ranking()
+    if only in (None, "train_survival"):
+        write_train_survival()
+    if only in (None, "train_rank_options"):
+        write_train_rank_options()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

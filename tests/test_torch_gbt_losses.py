@@ -127,10 +127,20 @@ def test_make_loss_maps_every_name():
     assert multi.num_dims == 4
     assert isinstance(losses.make_loss("DEFAULT", Task.CLASSIFICATION, 2),
                       losses.BinomialLogLikelihood)
-    for name in ("LAMBDA_MART_NDCG", "XE_NDCG_MART",
-                 "COX_PROPORTIONAL_HAZARD"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            losses.make_loss(name, Task.REGRESSION, 1)
+    # The ranking and survival losses (ported since ROADMAP item 11):
+    # the tasks' defaults, XE_NDCG_MART by name.
+    from ydf_tpu_torch.learners import ranking_loss, survival_loss
+
+    for name, task, cls in (
+            ("DEFAULT", Task.RANKING, ranking_loss.LambdaMartNdcg),
+            ("XE_NDCG_MART", Task.RANKING, ranking_loss.XeNdcg),
+            ("DEFAULT", Task.SURVIVAL_ANALYSIS,
+             survival_loss.CoxProportionalHazardLoss),
+            ("COX_PROPORTIONAL_HAZARD", Task.REGRESSION,
+             survival_loss.CoxProportionalHazardLoss)):
+        assert type(losses.make_loss(name, task, 1)) is cls
+    with pytest.raises(ValueError, match="No default GBT loss"):
+        losses.make_loss("DEFAULT", Task.NUMERICAL_UPLIFT, 1)
     with pytest.raises(ValueError, match="Unknown loss"):
         losses.make_loss("NOPE", Task.REGRESSION, 1)
 

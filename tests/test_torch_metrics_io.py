@@ -93,8 +93,16 @@ def test_evaluate_predictions_matches_jax(kind, intervals, weighted):
 
 
 def test_unported_tasks_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Ranking and survival evaluate since ROADMAP item 11 (their inputs
+    # are required); the uplift tasks and the HTML report do not.
+    with pytest.raises(NotImplementedError, match="item 15"):
+        metrics.evaluate_predictions(Task.NUMERICAL_UPLIFT, np.zeros(3),
+                                     np.zeros(3))
+    with pytest.raises(AssertionError, match="group ids"):
         metrics.evaluate_predictions(Task.RANKING, np.zeros(3), np.zeros(3))
+    with pytest.raises(ValueError, match="requires events"):
+        metrics.evaluate_predictions(Task.SURVIVAL_ANALYSIS, np.zeros(3),
+                                     np.zeros(3))
     ev = metrics.evaluate_predictions(Task.REGRESSION, np.ones(3),
                                       np.ones(3))
     with pytest.raises(NotImplementedError, match="item 20"):

@@ -270,17 +270,18 @@ def test_learner_surface_raises_for_what_is_not_ported():
     kw = dict(label="label", device="cpu")
     cases = [
         dict(validation_ratio=0.0, split_axis="MHLD_OBLIQUE"),  # item 28
-        dict(validation_ratio=0.0, task=Task.RANKING),
-        dict(validation_ratio=0.0, sampling_method="SELGB"),
+        dict(validation_ratio=0.0, task=Task.CATEGORICAL_UPLIFT),  # 15
+        dict(validation_ratio=0.0, task=Task.NUMERICAL_UPLIFT),
     ]
     for extra in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ydf_tpu_torch.GradientBoostedTreesLearner(**{**kw, **extra})
-    # SELGB's ratio is not taken at all, so setting it cannot pass
-    # silently.
-    with pytest.raises(TypeError, match="selective_gradient_boosting"):
+    # SELGB ranks query groups (ported since ROADMAP item 12): it needs
+    # the ranking task, as in the JAX package.
+    with pytest.raises(ValueError, match="SELGB requires task=RANKING"):
         ydf_tpu_torch.GradientBoostedTreesLearner(
-            selective_gradient_boosting_ratio=0.2, **kw)
+            sampling_method="SELGB", selective_gradient_boosting_ratio=0.2,
+            **kw)
     data = make_data(300, 6, seed=1)
     # Ported since: the validation split with early stopping (the
     # defaults), categorical input columns, row sampling, candidate
@@ -307,7 +308,9 @@ def test_learner_surface_raises_for_what_is_not_ported():
         loss="POISSON", validation_ratio=0.0, num_trees=2,
         task=Task.REGRESSION, **kw).train(data)
     assert poisson.loss_name == "POISSON"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The ranking loss is ported, and needs the ranking task, as in the
+    # JAX package.
+    with pytest.raises(ValueError, match="requires task=Task.RANKING"):
         ydf_tpu_torch.GradientBoostedTreesLearner(
             loss="LAMBDA_MART_NDCG", validation_ratio=0.0, **kw).train(data)
 

@@ -1,5 +1,5 @@
 """Column schema ("dataspec") and its inference for numerical, boolean,
-categorical, categorical-set and numerical-vector-sequence columns
+categorical, categorical-set, numerical-vector-sequence and hash columns
 (counterpart of ydf_tpu/dataset/dataspec.py).
 
 Categorical and categorical-set dictionaries reserve index 0 for
@@ -9,7 +9,9 @@ a string split on " ;," (tokenize_set_value); None, NaN or a missing
 string is missing, and an empty set is a value. A
 NUMERICAL_VECTOR_SEQUENCE cell is a [num_vectors, dim] array (a list of
 numeric vectors, or one vector); None or NaN is missing, and an empty
-sequence is a value, distinct from missing.
+sequence is a value, distinct from missing. A HASH column (a ranking
+task's query-group key by default) keeps no dictionary, only its value
+and missing counts, and is never a feature.
 """
 
 from __future__ import annotations
@@ -130,7 +132,8 @@ def infer_column(
     CATEGORICAL and CATEGORICAL_SET ones (frequency-sorted dictionary of
     values or items, OOV at index 0) and NUMERICAL_VECTOR_SEQUENCE ones
     (vector length, min and max sequence length, value and missing
-    counts). An object column of nested cells
+    counts) and HASH ones (value and missing counts; only when forced).
+    An object column of nested cells
     is a NUMERICAL_VECTOR_SEQUENCE when one of its first 100 cells is a
     sequence of numeric vectors, else a CATEGORICAL_SET. Other types
     raise NotImplementedError."""
@@ -207,6 +210,17 @@ def infer_column(
             + [int(c) for c in kept_counts],
             num_values=int(counts.sum()), num_missing=int(missing.sum()),
         )
+    if ctype == ColumnType.HASH:
+        # No dictionary and no statistics beyond counts: a HASH column
+        # only keys groups (a ranking task's queries).
+        if _is_numeric_dtype(values):
+            missing = np.isnan(values.astype(np.float64))
+        else:
+            missing = np.array([is_missing_item(v) for v in values.tolist()],
+                               dtype=bool)
+        return Column(name=name, type=ctype,
+                      num_values=int(len(values) - missing.sum()),
+                      num_missing=int(missing.sum()))
     if ctype == ColumnType.NUMERICAL_VECTOR_SEQUENCE:
         vector_length = num_missing = count_values = max_nv = 0
         min_nv = None

@@ -107,6 +107,21 @@ coefficients sign-forced by the sampler); the boosting loop uses the
 unclamped leaf values, and the leaves are clamped once after training
 on the host (clamp_monotone_leaves).
 
+Ranking (task=RANKING, ranking_group=): the losses of
+learners/ranking_loss.py (LambdaMART-NDCG by default, XE_NDCG_MART by
+name) read each query group's rows, registered before the loop for the
+training and validation rows; the validation split takes whole groups
+(split_validation_groups) and the look-ahead stop watches -NDCG.
+Selective gradient boosting (sampling_method="SELGB", ranking only)
+keeps, per group, every relevant row (label > 0) and the
+ceil(ratio * #negatives) negatives the current predictions score
+highest, ranked by a stable sort. Survival analysis
+(task=SURVIVAL_ANALYSIS, label_event_observed=, optionally
+label_entry_age=) trains the Cox loss (learners/survival_loss.py) on
+departure ages; its schedules are registered the same way. The model's
+extra_metadata names the group, truncation and event columns, which
+evaluate() reads.
+
 DART (dart_dropout > 0): the key chain splits three ways, key, k_sub,
 k_drop = split(fold_in(key, it), 3); iteration it drops each earlier
 iteration with probability dart_dropout (the masks depend on the seed
@@ -135,6 +150,9 @@ from ydf_tpu_torch.dataset.dataset import InputData
 from ydf_tpu_torch.dataset.dataspec import ColumnType
 from ydf_tpu_torch.learners.generic import GenericLearner
 from ydf_tpu_torch.learners.losses import CustomLoss, make_loss, sum_classes
+from ydf_tpu_torch.learners.ranking_loss import (
+    LambdaMartNdcg, argsort_f32, build_group_rows, inverse_permutation)
+from ydf_tpu_torch.learners.survival_loss import CoxProportionalHazardLoss
 from ydf_tpu_torch.models.forest import forest_from_stacked_trees
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
 from ydf_tpu_torch.ops import grower, oblique
@@ -142,7 +160,7 @@ from ydf_tpu_torch.ops.routing import route_tree_bins
 from ydf_tpu_torch.ops.split_rules import HessianGainRule
 from ydf_tpu_torch.ops.vector_sequence import vs_scores
 from ydf_tpu_torch.utils import cuda_build, prng
-from ydf_tpu_torch.utils.xla_cpu import fma_f32
+from ydf_tpu_torch.utils.xla_cpu import f32, fma_f32
 
 
 #: Reads of device values on the host by boost() in this process: the
@@ -153,6 +171,29 @@ HOST_READS = 0
 #: Most iterations a chunk of the look-ahead stop runs (the JAX
 #: package's in-memory early-stop loop, gbt.py:1918-1920).
 MAX_CHUNK_TREES = 25
+
+
+def bool_column(values: np.ndarray) -> np.ndarray:
+    """The event-observed flags of a raw column (the JAX package's
+    _bool_column): booleans, numbers, or the strings 1/true/t/yes/y and
+    0/false/f/no/n in any case. A missing (NaN) or unknown value raises
+    ValueError rather than count as an event."""
+    v = np.asarray(values)
+    if v.dtype.kind in ("O", "U", "S"):
+        low = np.char.lower(v.astype(str))
+        truthy = np.isin(low, ("1", "true", "t", "yes", "y"))
+        falsy = np.isin(low, ("0", "false", "f", "no", "n"))
+        if not (truthy | falsy).all():
+            bad = v[~(truthy | falsy)][:3]
+            raise ValueError(
+                "event-observed column contains missing or unrecognized "
+                f"values (e.g. {bad.tolist()!r}); expected true/false "
+                "indicators")
+        return truthy
+    if v.dtype.kind == "f" and np.isnan(v).any():
+        raise ValueError(
+            "event-observed column contains missing values (NaN)")
+    return v.astype(bool)
 
 
 def _unported(what: str, item) -> NotImplementedError:
@@ -299,6 +340,18 @@ def split_validation(n: int, ratio: float, seed: int):
     return perm[nv:], perm[:nv]
 
 
+def split_validation_groups(groups: np.ndarray, ratio: float, seed: int):
+    """(train rows, validation rows) of a ranking task, whole query
+    groups (the JAX package's split): RandomState(seed).permutation of
+    the sorted distinct groups, the first min(max(int(#groups * ratio),
+    1), #groups - 1) validating; no validation rows with one group."""
+    uniq = np.unique(groups)
+    nvg = min(max(int(len(uniq) * ratio), 1), len(uniq) - 1)
+    gperm = np.random.RandomState(seed).permutation(len(uniq))
+    va_mask = np.isin(groups, uniq[gperm[:nvg]])
+    return np.flatnonzero(~va_mask), np.flatnonzero(va_mask)
+
+
 def early_stop_hit(valid_losses: np.ndarray, lookahead: int) -> bool:
     """Look-ahead early stopping (the JAX package's _early_stop_hit,
     reference early_stopping.h:29-66): the loss of the trees trained so
@@ -311,15 +364,17 @@ def early_stop_hit(valid_losses: np.ndarray, lookahead: int) -> bool:
 
 class GradientBoostedTreesLearner(GenericLearner):
     """The JAX package's learner surface for the training slices:
-    classification (binomial loss for two classes, multinomial for more)
-    and regression (squared error) by default, the Poisson, mean
-    absolute error, binary focal and custom losses, on numerical,
-    boolean, categorical, categorical-set and numerical-vector-sequence
-    features, with its validation split, look-ahead early stopping, row
-    sampling (subsample, GOSS), candidate features, monotone
-    constraints and DART. `train(data, valid=None)`:
-    an explicit validation set replaces the split. `loss` is a loss name
-    or a learners/losses.py:CustomLoss."""
+    classification (binomial loss for two classes, multinomial for more),
+    regression (squared error), ranking (LambdaMART-NDCG) and survival
+    analysis (Cox) by default, the Poisson, mean absolute error, binary
+    focal, XE-NDCG and custom losses, on numerical, boolean,
+    categorical, categorical-set and numerical-vector-sequence features,
+    with its validation split, look-ahead early stopping, row sampling
+    (subsample, GOSS, SELGB), candidate features, monotone constraints
+    and DART. `train(data, valid=None)`: an explicit validation set
+    replaces the split. `loss` is a loss name or a
+    learners/losses.py:CustomLoss. The uplift tasks and MHLD splits
+    raise NotImplementedError."""
 
     def __init__(
         self,
@@ -337,10 +392,16 @@ class GradientBoostedTreesLearner(GenericLearner):
         num_candidate_attributes: int = -1,
         num_candidate_attributes_ratio: float = -1.0,
         loss="DEFAULT",
+        ranking_group: Optional[str] = None,
+        ndcg_truncation: int = 5,
+        ranking_max_group_size: int = 2048,
+        label_event_observed: Optional[str] = None,
+        label_entry_age: Optional[str] = None,
         max_frontier="auto",
         sampling_method: str = "RANDOM",
         goss_alpha: float = 0.2,
         goss_beta: float = 0.1,
+        selective_gradient_boosting_ratio: float = 0.01,
         apply_link_function: bool = True,
         dart_dropout: float = 0.0,
         split_axis: str = "AXIS_ALIGNED",
@@ -366,7 +427,8 @@ class GradientBoostedTreesLearner(GenericLearner):
         random_seed: int = 123456,
         device=None,
     ):
-        if task not in (Task.CLASSIFICATION, Task.REGRESSION):
+        if task not in (Task.CLASSIFICATION, Task.REGRESSION, Task.RANKING,
+                        Task.SURVIVAL_ANALYSIS):
             raise _unported(f"task {task.value}", 15)
         if not 0.0 <= dart_dropout < 1.0:
             raise ValueError(
@@ -375,10 +437,10 @@ class GradientBoostedTreesLearner(GenericLearner):
             raise ValueError(
                 f"Unknown sampling_method {sampling_method!r}; expected "
                 "RANDOM, GOSS or SELGB")
-        if sampling_method == "SELGB":
-            # Selective gradient boosting ranks query groups: it needs
-            # the ranking task and its groups.
-            raise _unported("sampling_method='SELGB'", 12)
+        if sampling_method == "SELGB" and task != Task.RANKING:
+            # Selective gradient boosting ranks query groups (reference
+            # gradient_boosted_trees.cc:3053-3056).
+            raise ValueError("sampling_method=SELGB requires task=RANKING")
         if split_axis not in ("AXIS_ALIGNED", "SPARSE_OBLIQUE",
                               "MHLD_OBLIQUE"):
             raise ValueError(f"Unknown split_axis {split_axis!r}")
@@ -405,6 +467,17 @@ class GradientBoostedTreesLearner(GenericLearner):
         self.num_candidate_attributes = num_candidate_attributes
         self.num_candidate_attributes_ratio = num_candidate_attributes_ratio
         self.loss = loss
+        self.ranking_group = ranking_group
+        self.ndcg_truncation = ndcg_truncation
+        # Cap on the rows of a query group in the dense [groups, G]
+        # layout; longer groups are cut with a warning.
+        self.ranking_max_group_size = ranking_max_group_size
+        # The departure age is the label (reference train config
+        # label_event_observed / label_entry_age).
+        self.label_event_observed = label_event_observed
+        self.label_entry_age = label_entry_age
+        self.selective_gradient_boosting_ratio = (
+            selective_gradient_boosting_ratio)
         self.max_frontier = max_frontier
         self.sampling_method = sampling_method
         self.goss_alpha = goss_alpha
@@ -472,6 +545,69 @@ class GradientBoostedTreesLearner(GenericLearner):
             return self.loss
         return make_loss(self.loss, self.task, num_classes)
 
+    def _task_columns(self, ds) -> Dict[str, Optional[np.ndarray]]:
+        """The task's per-row columns of a dataset, raw (numpy; None when
+        the task has none): the ranking groups, the survival events and
+        entry ages."""
+        out = {"groups": None, "event": None, "entry": None}
+        if self.task == Task.RANKING:
+            if self.ranking_group is None:
+                raise ValueError("Task.RANKING requires ranking_group=")
+            out["groups"] = np.asarray(ds.data[self.ranking_group])
+        if self.task == Task.SURVIVAL_ANALYSIS:
+            if self.label_event_observed is None:
+                raise ValueError(
+                    "Task.SURVIVAL_ANALYSIS requires label_event_observed=")
+            out["event"] = bool_column(ds.data[self.label_event_observed])
+            if self.label_entry_age is not None:
+                out["entry"] = np.asarray(ds.data[self.label_entry_age],
+                                          np.float64)
+        return out
+
+    def _register(self, loss_obj, tr: dict, labels, weights,
+                  va: Optional[dict], valid_labels, valid_weights) -> None:
+        """Registers the training rows' (and with `va` the validation
+        rows') query groups or survival schedules on the loss (the JAX
+        package's train, gbt.py:528-611), on the learner's device."""
+        if isinstance(loss_obj, LambdaMartNdcg):
+            if self.task != Task.RANKING:
+                raise ValueError(
+                    f"{loss_obj.name} requires task=Task.RANKING")
+            loss_obj.ndcg_truncation = self.ndcg_truncation
+            for tag, cols, y in (("train", tr, labels),
+                                 ("valid", va, valid_labels)):
+                if cols is not None:
+                    rows, _ = build_group_rows(
+                        cols["groups"],
+                        max_group_size=self.ranking_max_group_size)
+                    loss_obj.register_groups(tag, len(y), rows, self.device)
+        if isinstance(loss_obj, CoxProportionalHazardLoss):
+            if self.task != Task.SURVIVAL_ANALYSIS:
+                raise ValueError(
+                    "COX_PROPORTIONAL_HAZARD requires "
+                    "task=Task.SURVIVAL_ANALYSIS")
+            for tag, cols, y, w in (("train", tr, labels, weights),
+                                    ("valid", va, valid_labels,
+                                     valid_weights)):
+                if cols is not None:
+                    loss_obj.register_survival(
+                        tag, y, cols["event"], cols["entry"],
+                        weights=w if self.weights is not None else None,
+                        device=self.device)
+
+    def _model_metadata(self) -> dict:
+        """The columns evaluate() reads, saved with the model (the JAX
+        package's _model_metadata)."""
+        md = {}
+        if self.ranking_group:
+            md["ranking_group"] = self.ranking_group
+            md["ndcg_truncation"] = self.ndcg_truncation
+        if self.label_event_observed:
+            md["label_event_observed"] = self.label_event_observed
+            if self.label_entry_age:
+                md["label_entry_age"] = self.label_entry_age
+        return md
+
     def train(self, data: InputData, valid: Optional[InputData] = None
               ) -> GradientBoostedTreesModel:
         t0 = time.perf_counter()
@@ -494,6 +630,8 @@ class GradientBoostedTreesLearner(GenericLearner):
                 self.sparse_oblique_max_num_projections)
             x_raw = oblique.raw_numerical(prep["dataset"], binner)
         monotone = monotone_directions(self.monotonic_constraints, binner)
+        task_tr = self._task_columns(prep["dataset"])
+        task_va = None
         va = None  # (bins_t, labels, weights, vs, x_raw, sets) of the
                    # validation rows
         if valid is not None:
@@ -502,10 +640,23 @@ class GradientBoostedTreesLearner(GenericLearner):
                   None if x_raw is None else
                   oblique.raw_numerical(prep["valid_dataset"], binner),
                   prep["valid_set_bits"])
+            task_va = self._task_columns(prep["valid_dataset"])
         elif self.validation_ratio > 0 and self.early_stopping != "NONE":
-            tr_idx, va_idx = split_validation(
-                bins_t.shape[1], self.validation_ratio, self.random_seed)
+            if task_tr["groups"] is not None:
+                # Ranking validates on whole query groups.
+                tr_idx, va_idx = split_validation_groups(
+                    task_tr["groups"], self.validation_ratio,
+                    self.random_seed)
+            else:
+                tr_idx, va_idx = split_validation(
+                    bins_t.shape[1], self.validation_ratio,
+                    self.random_seed)
             if len(va_idx):
+                task_va = {k: None if v is None else v[va_idx]
+                           for k, v in task_tr.items()}
+                task_tr = {k: None if v is None else v[tr_idx]
+                           for k, v in task_tr.items()}
+
                 def rows(idx):
                     on_dev = torch.from_numpy(idx).to(dev)
                     return (bins_t.index_select(1, on_dev),
@@ -556,6 +707,18 @@ class GradientBoostedTreesLearner(GenericLearner):
                 va[0], *on_device(va[1], va[2]),
                 None if vs is None else vs_inputs(va[3], Ac, Ap, dev),
                 None if obl is None else feature_major(va[4]), va[5])
+        self._register(loss_obj, task_tr, labels, weights,
+                       task_va if valid_set is not None else None,
+                       None if va is None else va[1],
+                       None if va is None else va[2])
+        selgb_rows = None
+        if self.sampling_method == "SELGB":
+            # SELGB ranks each query group the ranking loss registered.
+            if not isinstance(loss_obj, LambdaMartNdcg):
+                raise ValueError(
+                    "sampling_method=SELGB needs a ranking loss "
+                    f"(LAMBDA_MART_NDCG or XE_NDCG_MART), not {loss_obj.name}")
+            selgb_rows = loss_obj.rows_for("train", n)
         lookahead = (self.early_stopping_num_trees_look_ahead
                      if self.early_stopping == "LOSS_INCREASE" else 0)
 
@@ -567,7 +730,9 @@ class GradientBoostedTreesLearner(GenericLearner):
             obl=obl, num_numerical=binner.num_numerical, valid=valid_set,
             lookahead=lookahead,
             sampling=Sampling(self.sampling_method, self.subsample,
-                              self.goss_alpha, self.goss_beta),
+                              self.goss_alpha, self.goss_beta,
+                              self.selective_gradient_boosting_ratio,
+                              selgb_rows),
             candidate_features=self._candidate_features(
                 binner.num_features),
             set_bits=sets, monotone=monotone,
@@ -615,6 +780,7 @@ class GradientBoostedTreesLearner(GenericLearner):
             initial_predictions=out.init_pred.cpu().numpy(),
             num_trees_per_iter=K, loss_name=loss_obj.name,
             apply_link_function=self.apply_link_function,
+            extra_metadata=self._model_metadata(),
             training_logs={
                 "train_loss": train_losses[:num_iters].tolist(),
                 "valid_loss": None if valid_losses is None
@@ -849,14 +1015,18 @@ class ValidSet(NamedTuple):
 class Sampling(NamedTuple):
     """The row sample of an iteration (gbt.py:sample_mask)."""
 
-    method: str = "RANDOM"      # "RANDOM" (subsample) or "GOSS"
+    method: str = "RANDOM"      # "RANDOM" (subsample), "GOSS" or "SELGB"
     subsample: float = 1.0
     goss_alpha: float = 0.2
     goss_beta: float = 0.1
+    selgb_ratio: float = 0.01
+    # SELGB's query groups: int64 [groups, G] training rows, padding n.
+    group_rows: Optional[torch.Tensor] = None
 
     @property
     def draws(self) -> bool:
-        return self.method == "GOSS" or self.subsample < 1.0
+        return self.method == "GOSS" or (self.method == "RANDOM"
+                                         and self.subsample < 1.0)
 
 
 class BoostResult(NamedTuple):
@@ -971,6 +1141,28 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
     return loop.result(walls)
 
 
+def selgb_mask(rows: torch.Tensor, labels: torch.Tensor,
+               preds: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Selective gradient boosting's row mask f32 [n] (the JAX package's
+    SELGB sample_mask; reference SampleTrainingExamplesWithSelGB): per
+    query group (rows int64 [groups, G], padding n), every relevant row
+    (label > 0) and the ceil(ratio * #negatives) negatives of highest
+    score, ranked by a stable sort of the negated scores (ties keep the
+    earlier row); rows in no group get 0."""
+    n = preds.shape[0]
+    pad = rows >= n
+    safe = rows.clamp_max(n - 1)
+    pos = (labels[safe] > 0) & ~pad
+    neg = ~pos & ~pad
+    neg_score = torch.where(neg, preds[safe], float("-inf"))
+    rank = inverse_permutation(argsort_f32(-neg_score))
+    n_neg = neg.sum(dim=1, keepdim=True).float()
+    keep = pos | (neg & (rank < torch.ceil(f32(ratio) * n_neg)))
+    mask = torch.zeros(n + 1, dtype=torch.float32, device=preds.device)
+    mask[rows.reshape(-1)] = keep.reshape(-1).float()
+    return mask[:n]
+
+
 class _Loop:
     """The boosting loop's state: predictions (training and validation,
     [n] for K = 1, [n, K] otherwise) and the per-tree outputs, as device
@@ -1038,11 +1230,17 @@ class _Loop:
             return g[:, None], h[:, None]
         return g, h
 
-    def sample_mask(self, it: int, g: torch.Tensor) -> Optional[torch.Tensor]:
+    def sample_mask(self, it: int, g: torch.Tensor,
+                    preds: Optional[torch.Tensor] = None
+                    ) -> Optional[torch.Tensor]:
         """The iteration's per-row weight multiplier f32 [n] (gbt.py:
-        sample_mask), or None when every row counts once."""
+        sample_mask) at the gradients `g` and (SELGB) the predictions
+        `preds`, or None when every row counts once."""
         smp = self.sampling
         n = g.shape[0]
+        if smp.method == "SELGB":
+            return selgb_mask(smp.group_rows, self.labels, preds,
+                              smp.selgb_ratio)
         key = self.keys.sub[it] if smp.draws else None
         if smp.method == "GOSS":
             alpha, beta = smp.goss_alpha, smp.goss_beta
@@ -1070,7 +1268,7 @@ class _Loop:
             dropped = dart_dot(drop * self.tree_scale, self.contrib, it)
             preds_used = self.preds - dropped
         g, h = self._grad_hess(preds_used)
-        m = self.sample_mask(it, g)
+        m = self.sample_mask(it, g, preds_used)
         w = self.weights
         w_eff = w if m is None else w * m
         grow_bins = self.bins_t
@@ -1154,13 +1352,15 @@ class _Loop:
             # preds + new_contrib: the stored values added (module
             # docstring).
             self.preds = self.preds + torch.stack(contrib, dim=1)
-        self.losses.append(loss_obj.loss(self.labels, self.preds, w))
+        self.losses.append(loss_obj.loss(self.labels, self.preds, w,
+                                         tag="train"))
         if valid is not None:
             timer = cuda_build.launch_timer("valid_route")
             if K > 1 and not dart:
                 self.vpreds = self.vpreds + torch.stack(vcontrib, dim=1)
             self.valid_losses.append(
-                loss_obj.loss(valid.labels, self.vpreds, valid.weights))
+                loss_obj.loss(valid.labels, self.vpreds, valid.weights,
+                              tag="valid"))
             cuda_build.launch_done(timer)
         self.iterations += 1
 

@@ -71,9 +71,13 @@ class GenericLearner:
 
     def _infer_dataset(self, data: InputData) -> Dataset:
         """Dataset with this learner's type policy: classification labels
-        are always dictionary-encoded, user column_types apply; keyed
-        under `_forced_dataspec` when it is set."""
+        are always dictionary-encoded, a ranking group column is HASH
+        unless the user types it, user column_types apply; keyed under
+        `_forced_dataspec` when it is set."""
         column_types = dict(self.column_types)
+        group_col = getattr(self, "ranking_group", None)
+        if group_col:
+            column_types.setdefault(group_col, ColumnType.HASH)
         if self.label is not None and self.task == Task.CLASSIFICATION:
             column_types[self.label] = ColumnType.CATEGORICAL
         return Dataset.from_data(
@@ -85,10 +89,16 @@ class GenericLearner:
 
     def _select_feature_names(self, ds: Dataset) -> list:
         """Explicit `features=` wins; otherwise every column of one of
-        the learner's `_feature_types` but the label and weights."""
+        the learner's `_feature_types` but the label, the weights and a
+        task's group, event and entry-age columns."""
         if self.features is not None:
             return list(self.features)
-        exclude = {self.label, self.weights} - {None}
+        exclude = {
+            self.label, self.weights,
+            getattr(self, "ranking_group", None),
+            getattr(self, "label_event_observed", None),
+            getattr(self, "label_entry_age", None),
+        } - {None}
         return [c.name for c in ds.dataspec.columns
                 if c.name not in exclude and c.type in self._feature_types]
 
@@ -157,8 +167,10 @@ class GenericLearner:
         return torch.from_numpy(sets.view(np.int32)).to(self.device)
 
     def _encode_targets(self, ds: Dataset) -> Dict[str, np.ndarray]:
-        """Encoded labels (when the learner has one) and sample weights
-        (ones without a weights column), numpy."""
+        """Encoded labels (when the learner has one: class indices, or
+        f32 values for regression, ranking relevance and survival
+        departure ages) and sample weights (ones without a weights
+        column), numpy."""
         out = {}
         if self.label is not None:
             out["labels"] = ds.encoded_label(self.label, self.task)

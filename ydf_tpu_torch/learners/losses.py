@@ -4,8 +4,10 @@ predictions, per-row gradients/hessians and the reported loss.
 A pointwise loss (num_dims 1: binomial, squared error, Poisson, mean
 absolute error, binary focal, custom) takes raw scores f32 [n] and
 returns gradients [n]; the multinomial loss (num_dims K, one tree per
-class an iteration) takes [n, K] and returns [n, K]. The ranking and
-survival losses are not ported; make_loss raises for them.
+class an iteration) takes [n, K] and returns [n, K]. The ranking losses
+(learners/ranking_loss.py) and the Cox loss (learners/survival_loss.py)
+are pointwise in shape but read the query groups or the survival
+schedule the learner registers on them.
 
 Gradients and initial predictions round as the JAX package's do on the
 CPU, bit for bit: the sigmoid and softmax through XLA's exp and the
@@ -87,7 +89,7 @@ class BinomialLogLikelihood:
         p = sigmoid_f32(preds)
         return p - labels, p * (1.0 - p)
 
-    def loss(self, labels, preds, weights):
+    def loss(self, labels, preds, weights, tag: str = "train"):
         # Binomial deviance: 2 x weighted logloss. softplus(x) is
         # logaddexp(x, 0), as jax.nn.softplus computes it.
         ll = torch.logaddexp(preds, torch.zeros_like(preds)) - labels * preds
@@ -108,7 +110,7 @@ class MeanSquaredError:
         g = preds - labels
         return g, torch.ones_like(g)
 
-    def loss(self, labels, preds, weights):
+    def loss(self, labels, preds, weights, tag: str = "train"):
         se = torch.square(preds - labels)
         return torch.sqrt(torch.sum(weights * se)
                           / (torch.sum(weights) + _EPS))
@@ -136,7 +138,7 @@ class MultinomialLogLikelihood:
         y = torch.nn.functional.one_hot(labels.long(), self.num_classes)
         return p - y.to(p.dtype), p * (1.0 - p)
 
-    def loss(self, labels, preds, weights):
+    def loss(self, labels, preds, weights, tag: str = "train"):
         # jax.nn.log_softmax: shifted - log(sum(exp(shifted))).
         shifted = preds - preds.amax(dim=1, keepdim=True)
         logp = shifted - log_f32(sum_classes(exp_f32(shifted)))
@@ -159,7 +161,7 @@ class PoissonLoss:
         mu = exp_f32(preds)
         return mu - labels, mu
 
-    def loss(self, labels, preds, weights):
+    def loss(self, labels, preds, weights, tag: str = "train"):
         # 2 (mu - y log mu) + const: the reference's Poisson deviance.
         t = exp_f32(preds) - labels * preds
         return 2.0 * _sum_f32(weights * t) / (_sum_f32(weights) + _EPS)
@@ -186,7 +188,7 @@ class MeanAverageError:
         g = torch.sign(preds - labels)
         return g, torch.ones_like(g)
 
-    def loss(self, labels, preds, weights):
+    def loss(self, labels, preds, weights, tag: str = "train"):
         ae = torch.abs(preds - labels)
         return _sum_f32(weights * ae) / (_sum_f32(weights) + _EPS)
 
@@ -270,7 +272,7 @@ class BinaryFocalLoss:
         # Newton steps need positive curvature; clamped as the reference.
         return g, torch.clamp_min(h, _EPS)
 
-    def loss(self, labels, preds, weights):
+    def loss(self, labels, preds, weights, tag: str = "train"):
         c, pos, o, p, u, _ = self._parts(labels, preds)
         ex = (o * self._pow(p, self.gamma)) * log_f32(u)
         return _sum_f32(weights * ex) / (_sum_f32(weights) + _EPS)
@@ -306,7 +308,7 @@ class CustomLoss:
         g, h = self.gradient_and_hessian_fn(labels, preds)
         return g.reshape(-1), torch.clamp_min(h.reshape(-1), _EPS)
 
-    def loss(self, labels, preds, weights):
+    def loss(self, labels, preds, weights, tag: str = "train"):
         params = inspect.signature(self.loss_fn).parameters
         if len(params) >= 3:
             return torch.as_tensor(self.loss_fn(labels, preds, weights))
@@ -331,25 +333,33 @@ _POINTWISE = {cls.name: cls for cls in (
 
 
 def make_loss(name: str, task: Task, num_classes: int):
-    """The loss object of a name (the JAX package's make_loss): DEFAULT
-    is binomial for two classes, multinomial for more, squared error for
-    regression. The ranking and survival losses raise."""
+    """The loss object of a name (the JAX package's make_loss). DEFAULT
+    (or AUTO) picks the task's default: binomial for two classes,
+    multinomial for more, squared error for regression,
+    LAMBDA_MART_NDCG for ranking, COX_PROPORTIONAL_HAZARD for survival
+    analysis. XE_NDCG_MART and the other losses are taken by name."""
+    from ydf_tpu_torch.learners.ranking_loss import LambdaMartNdcg, XeNdcg
+    from ydf_tpu_torch.learners.survival_loss import (
+        CoxProportionalHazardLoss)
+
     if name in ("DEFAULT", "AUTO", None):
         if task == Task.CLASSIFICATION:
             name = (BinomialLogLikelihood.name if num_classes == 2
                     else MultinomialLogLikelihood.name)
         elif task == Task.REGRESSION:
             name = MeanSquaredError.name
+        elif task == Task.RANKING:
+            name = LambdaMartNdcg.name
+        elif task == Task.SURVIVAL_ANALYSIS:
+            name = CoxProportionalHazardLoss.name
         else:
-            raise NotImplementedError(
-                f"the default loss of {task.value} is not ported yet "
-                "(ROADMAP Queue 1 item 11)")
+            raise ValueError(f"No default GBT loss for task {task}")
     if name == MultinomialLogLikelihood.name:
         return MultinomialLogLikelihood(num_classes=num_classes)
     if name in _POINTWISE:
         return _POINTWISE[name]()
-    if name in ("LAMBDA_MART_NDCG", "XE_NDCG_MART",
-                "COX_PROPORTIONAL_HAZARD"):
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet (ROADMAP Queue 1 item 11)")
+    by_name = {cls.name: cls for cls in (
+        LambdaMartNdcg, XeNdcg, CoxProportionalHazardLoss)}
+    if name in by_name:
+        return by_name[name]()
     raise ValueError(f"Unknown loss {name!r}")

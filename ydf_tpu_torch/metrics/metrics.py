@@ -7,11 +7,15 @@ expressions, so an evaluation of the same predictions equals its own.
     ROC-AUC and PR-AUC (exact rank statistics), precision, recall, F1
     and the ROC curve points;
   * regression: RMSE, MAE, R², and MSLE/RMSLE on non-negative labels;
+  * ranking: NDCG@k, MRR and MAP@k over query groups;
+  * survival analysis: Harrell's concordance index;
   * confidence intervals: Wilson (accuracy), Hanley-McNeil (AUC) and a
     percentile bootstrap over examples for every other scalar metric.
 
-Ranking, uplift, survival and anomaly-detection metrics and the HTML
-report are not ported (ROADMAP Queue 1 items 11 and 20).
+  * anomaly detection: the ROC AUC of the scores when labels are given.
+
+Uplift metrics and the HTML report are not ported (ROADMAP Queue 1
+items 15 and 20).
 """
 
 from __future__ import annotations
@@ -124,6 +128,102 @@ def roc_curve_points(labels: np.ndarray, scores: np.ndarray):
     return fpr, tpr, thr
 
 
+def mrr(labels, scores, groups) -> float:
+    """Mean reciprocal rank over groups: 1/rank of the first relevant item
+    (reference ranking_mrr.cc; relevant = label >= 1)."""
+    labels = np.asarray(labels, dtype=np.float64)
+    scores = np.asarray(scores, dtype=np.float64)
+    groups = np.asarray(groups)
+    total, count = 0.0, 0
+    for gid in np.unique(groups):
+        m = groups == gid
+        rel = labels[m] >= 1.0
+        if not rel.any():
+            continue
+        order = np.argsort(-scores[m], kind="mergesort")
+        first = int(np.argmax(rel[order])) + 1
+        total += 1.0 / first
+        count += 1
+    return float(total / max(count, 1))
+
+
+def mean_average_precision(labels, scores, groups, k: int = 5) -> float:
+    """Mean AP@k over query groups (reference ranking_ap.cc APCalculator:
+    relevant = label > 0.5; AP = mean over relevant ranks r<=k of
+    precision@r; groups with no relevant item in the top-k score 0)."""
+    labels = np.asarray(labels, dtype=np.float64)
+    scores = np.asarray(scores, dtype=np.float64)
+    groups = np.asarray(groups)
+    total, count = 0.0, 0
+    for gid in np.unique(groups):
+        m = groups == gid
+        rel = labels[m] > 0.5
+        order = np.argsort(-scores[m], kind="mergesort")
+        kk = min(k, len(order))
+        hits = rel[order[:kk]]
+        num_rel = np.cumsum(hits)
+        ap_terms = np.where(hits, num_rel / np.arange(1, kk + 1), 0.0)
+        total += float(ap_terms.sum() / num_rel[-1]) if num_rel[-1] > 0 else 0.0
+        count += 1
+    return float(total / max(count, 1))
+
+
+def concordance_index(
+    times, risk_scores, events, weights=None, max_pairs_rows: int = 8000,
+    seed: int = 7,
+) -> float:
+    """Harrell's C-index: among comparable pairs (i observed an event
+    before j's departure), the fraction where the higher-risk prediction
+    belongs to i (ties count half). Subsamples rows beyond
+    `max_pairs_rows` to bound the O(n²) pair matrix."""
+    times = np.asarray(times, np.float64)
+    risk = np.asarray(risk_scores, np.float64)
+    events = np.asarray(events).astype(bool)
+    n = len(times)
+    w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
+    if n > max_pairs_rows:
+        idx = np.random.RandomState(seed).choice(n, max_pairs_rows, False)
+        times, risk, events, w = times[idx], risk[idx], events[idx], w[idx]
+        n = max_pairs_rows
+    num = den = 0.0
+    # Chunk the i axis so peak memory stays at chunk×n, not n².
+    chunk = max(1, (1 << 22) // max(n, 1))
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        comparable = events[lo:hi, None] & (times[lo:hi, None] < times[None, :])
+        pair_w = comparable * (w[lo:hi, None] * w[None, :])
+        conc = np.where(risk[lo:hi, None] > risk[None, :], 1.0, 0.0)
+        conc = np.where(risk[lo:hi, None] == risk[None, :], 0.5, conc)
+        num += float((pair_w * conc).sum())
+        den += float(pair_w.sum())
+    return float(num / den) if den > 0 else float("nan")
+
+
+def ndcg_at_k(labels, scores, groups, k: int = 5) -> float:
+    """Mean NDCG@k over query groups with exponential gains
+    (reference ranking_ndcg.cc: gain = 2^rel - 1)."""
+    labels = np.asarray(labels, dtype=np.float64)
+    scores = np.asarray(scores, dtype=np.float64)
+    groups = np.asarray(groups)
+    total, count = 0.0, 0
+    for gid in np.unique(groups):
+        m = groups == gid
+        rel = labels[m]
+        sc = scores[m]
+        if len(rel) == 0:
+            continue
+        order = np.argsort(-sc, kind="mergesort")
+        ideal = np.sort(rel)[::-1]
+        kk = min(k, len(rel))
+        discounts = 1.0 / np.log2(np.arange(2, kk + 2))
+        dcg = np.sum((2.0 ** rel[order[:kk]] - 1) * discounts)
+        idcg = np.sum((2.0 ** ideal[:kk] - 1) * discounts)
+        if idcg > 0:
+            total += dcg / idcg
+            count += 1
+    return float(total / max(count, 1))
+
+
 def wilson_interval(p: float, n: float, z: float = 1.959964) -> tuple:
     """Closed-form 95% CI for a proportion (accuracy) — the reference's
     closed-form CI family (`metric.h:160-169`)."""
@@ -186,16 +286,21 @@ def evaluate_predictions(
     predictions: np.ndarray,
     classes: Optional[List[str]] = None,
     weights: Optional[np.ndarray] = None,
+    groups: Optional[np.ndarray] = None,
+    ndcg_truncation: int = 5,
     confidence_intervals: bool = False,
     num_bootstrap: int = 2000,
     seed: int = 1234,
+    events: Optional[np.ndarray] = None,
 ) -> Evaluation:
     """The metrics of `predictions` (binary classification: P(class 1)
-    [n], or probabilities [n, C]; regression: values) against the
-    encoded `labels` (class indices, or values), each example weighted
-    by `weights` (default 1). Intervals, when asked for: a bootstrap of
-    `num_bootstrap` resamples drawn from `seed`, overridden by the
-    closed forms where they exist."""
+    [n], or probabilities [n, C]; regression, ranking and survival: raw
+    values) against the encoded `labels` (class indices, values,
+    relevances or departure ages), each example weighted by `weights`
+    (default 1); ranking reads each row's query `groups`, survival its
+    `events`. Intervals, when asked for: a bootstrap of `num_bootstrap`
+    resamples drawn from `seed` (over query groups for ranking),
+    overridden by the closed forms where they exist."""
     labels = np.asarray(labels)
     predictions = np.asarray(predictions)
     n = len(labels)
@@ -307,6 +412,63 @@ def evaluate_predictions(
             confidence_intervals=cis,
         )
 
+    if task == Task.RANKING:
+        assert groups is not None, "Ranking evaluation needs group ids"
+        preds1 = predictions.reshape(-1)
+        key = f"ndcg@{ndcg_truncation}"
+        metrics = {
+            key: ndcg_at_k(labels, preds1, groups, ndcg_truncation),
+            "mrr": mrr(labels, preds1, groups),
+            f"map@{ndcg_truncation}": mean_average_precision(
+                labels, preds1, groups, ndcg_truncation
+            ),
+        }
+        cis = None
+        if confidence_intervals:
+            # Resample query groups, not rows (groups are the i.i.d. unit).
+            uniq = np.unique(np.asarray(groups))
+            rows_of = {g: np.flatnonzero(np.asarray(groups) == g) for g in uniq}
+
+            def rank_metrics(idx_groups):
+                gs = uniq[np.asarray(idx_groups) % len(uniq)]
+                rows = np.concatenate([rows_of[g] for g in gs])
+                # Re-label each drawn group uniquely so a group sampled
+                # twice counts twice instead of merging into one
+                # double-sized group.
+                gids = np.repeat(
+                    np.arange(len(gs)), [len(rows_of[g]) for g in gs]
+                )
+                return {
+                    key: ndcg_at_k(
+                        labels[rows], preds1[rows], gids, ndcg_truncation
+                    ),
+                    "mrr": mrr(labels[rows], preds1[rows], gids),
+                }
+
+            cis = bootstrap_intervals(
+                rank_metrics, len(uniq), num_bootstrap=min(num_bootstrap, 500),
+                seed=seed,
+            )
+        return Evaluation(
+            task=task.value, num_examples=n, metrics=metrics,
+            confidence_intervals=cis,
+        )
+
+    if task == Task.SURVIVAL_ANALYSIS:
+        if events is None:
+            raise ValueError(
+                "Task.SURVIVAL_ANALYSIS evaluation requires events="
+            )
+        return Evaluation(
+            task=task.value,
+            num_examples=n,
+            metrics={
+                "concordance": concordance_index(
+                    labels, predictions.reshape(-1), events, w
+                )
+            },
+        )
+
     if task == Task.ANOMALY_DETECTION:
         # The ROC AUC of the scores when the labels take two values.
         metrics = {}
@@ -316,5 +478,5 @@ def evaluate_predictions(
 
     raise NotImplementedError(
         f"evaluation for task {task.value} is not ported yet (ROADMAP "
-        "Queue 1 items 11 and 20)"
+        "Queue 1 item 15)"
     )

@@ -225,21 +225,43 @@ class GenericModel:
                  confidence_intervals: bool = False,
                  num_bootstrap: int = 2000) -> Evaluation:
         """Metrics of predict(data) against the label column of `data`
-        (classification, regression and anomaly detection;
-        metrics/metrics.py), each row weighted by the column `weights`
-        when given."""
+        (classification, regression, ranking, survival analysis and
+        anomaly detection; metrics/metrics.py), each row weighted by the
+        column `weights` when given. Ranking reads the query groups and
+        NDCG truncation, survival analysis the event column, that
+        `extra_metadata` names."""
         if self.task not in (Task.CLASSIFICATION, Task.REGRESSION,
+                             Task.RANKING, Task.SURVIVAL_ANALYSIS,
                              Task.ANOMALY_DETECTION):
             raise NotImplementedError(
                 f"evaluating a {self.task.value} model is not ported yet "
-                "(ROADMAP Queue 1 items 11 and 20)"
+                "(ROADMAP Queue 1 item 15)"
             )
         ds = Dataset.from_data(data, dataspec=self.dataspec)
         preds = self.predict(ds)
         w = ds.data[weights].astype(np.float32) if weights else None
+        if self.task == Task.SURVIVAL_ANALYSIS:
+            from ydf_tpu_torch.learners.gbt import bool_column
+
+            ecol = self.extra_metadata.get("label_event_observed")
+            if not ecol:
+                raise ValueError(
+                    "Survival model lacks label_event_observed metadata")
+            return evaluate_predictions(
+                self.task, np.asarray(ds.data[self.label], np.float64),
+                preds, weights=w,
+                events=bool_column(np.asarray(ds.data[ecol])))
+        groups = None
+        ndcg_truncation = 5
+        if self.task == Task.RANKING:
+            gcol = self.extra_metadata.get("ranking_group")
+            groups = ds.data[gcol] if gcol else None
+            ndcg_truncation = int(self.extra_metadata.get("ndcg_truncation",
+                                                          5))
         return evaluate_predictions(
             self.task, ds.encoded_label(self.label, self.task), preds,
-            classes=self.classes, weights=w,
+            classes=self.classes, weights=w, groups=groups,
+            ndcg_truncation=ndcg_truncation,
             confidence_intervals=confidence_intervals,
             num_bootstrap=num_bootstrap,
         )
