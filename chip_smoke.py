@@ -90,7 +90,7 @@ Phases (one line each; any failure is an uncaught exception):
               layer of tree 0 (Lh 1 .. 512, binary Sq 3 and 3-class
               Sq 4) and the root histogram torch.equal to plain, the
               routed kernel's launch shape at L = 1024; a profiled train
-              of 20 trees; each kernel timed, the routed kernel at each
+              of 5 trees; each kernel timed, the routed kernel at each
               Lh on the path's own layers
   10 multiclass  train_multiclass (ydf_tpu_torch/testdata/
               train_multiclass, the JAX package's default learner on the
@@ -108,7 +108,7 @@ Phases (one line each; any failure is an uncaught exception):
               subsample, GOSS, candidate features, three classes with
               both) trained on the card against its JAX run; the root
               and routed kernels against plain on the path's own layers;
-              a profiled train of 20 iterations; each kernel timed
+              a profiled train of 5 iterations; each kernel timed
   11 cart_if  train_cart and train_if (ydf_tpu_torch/testdata/
               train_cart, train_if: the JAX package's CartLearner(label=
               "label") and IsolationForestLearner() with every default on
@@ -125,7 +125,7 @@ Phases (one line each; any failure is an uncaught exception):
               the card and save -> load bitwise; the root and routed
               kernels against plain on both paths' layers (S = 1 on 256
               rows; Lh up to 512 on 450,032 rows); a profiled isolation
-              forest of 50 trees; each kernel timed at both paths'
+              forest of 10 trees; each kernel timed at both paths'
               shapes
   12 oblique  train_oblique_gbt, _rf, _cart and _if (ydf_tpu_torch/
               testdata/train_oblique: the JAX package's four learners
@@ -134,7 +134,7 @@ Phases (one line each; any failure is an uncaught exception):
               its launches (binning once a tree for the projections, and
               once more for the GBT's validation rows), host reads and
               ms a tree; against the JAX runs: every kept tree (the
-              random forest: the fixture's first 50 of the card's 300)
+              random forest: the fixture's first 50 of the card's 100)
               by hash, its thresholds, projections and boundaries, the
               kept count, predictions and scores (SHA-256 of all
               100,000), evaluate and holdout metrics, CART's grown and
@@ -145,6 +145,28 @@ Phases (one line each; any failure is an uncaught exception):
               profiled train per path; each kernel timed at each path's
               shapes
 
+  13 sets     train_monotone, train_dart and train_sets (monotone
+              constraints, DART, CATEGORICAL_SET columns in the GBT, RF
+              and CART) against the JAX runs; the run-sum kernel at its
+              edge shapes
+  14 rank_surv  train_ranking, train_survival and train_rank_options
+              (the RANKING and SURVIVAL_ANALYSIS GBTs) against the JAX
+              runs; the losses' device time
+  15 uplift   train_uplift (the CATEGORICAL_UPLIFT forest of 300 trees
+              at S = 5 stats, its first 50 by hash; the uplift CART's
+              AUUC pruning; a NUMERICAL_UPLIFT forest), train_honest
+              (honest=True: classification and regression),
+              train_sets_alone (the GBT, RF and CART on two set columns
+              and no scalar feature: no routed launch) and
+              train_multitasker (two GBT tasks) against the JAX runs,
+              with launches, host reads, stage walls, ms a tree,
+              evaluate (Qini, AUUC), save -> load and the JAX-saved
+              models on the card; the binning, root and routed kernels
+              against plain at S = 5 on every layer of tree 0, the run
+              sums and prefix histograms at the set-only shapes, the
+              bank on the multitasker's models; profiled trees; each
+              kernel timed
+
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
 phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
@@ -152,7 +174,8 @@ phase 8 the default train path (train, then evaluate), phase 9 the
 random forest's and phase 10 the multiclass GBT's (train, then
 evaluate), phase 11 CART's (train, then evaluate) and the isolation
 forest's (train, then predict), phase 12 the four oblique learners'
-(train, then evaluate or predict).
+(train, then evaluate or predict), phases 13-15 each of their learners'
+runs (train, then evaluate; the multitasker's two tasks together).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -250,7 +273,7 @@ RF_SAME_TREES = 0.99
 RF_PROBA_ATOL = 1e-2
 RF_PROBA_MEAN_ATOL = 1e-3
 # Trees of phase 9's profiled train.
-RF_PROFILE_TREES = 20
+RF_PROFILE_TREES = 5
 # Trees of phase 9's main path: None is the learner's default, the
 # fixture's 300; a rehearsal on a CPU sets a few (the checks that need
 # the whole forest, its out-of-bag and test metrics, then only log).
@@ -282,7 +305,7 @@ MC_LOSS_RTOL = 2e-3
 MC_PROBA_ATOL = 2e-2
 MC_PROBA_MEAN_ATOL = 2e-3
 # Iterations of phase 10's profiled train.
-MC_PROFILE_ITERS = 20
+MC_PROFILE_ITERS = 5
 # train_gbt_options (phase 10): one small configuration per ported
 # option (ydf_tpu_torch/testdata/train_gbt_options), each held against
 # the JAX run: every tree's hash, the kept count, predictions bitwise.
@@ -303,7 +326,7 @@ TRAIN_IF = os.path.join(TESTDATA, "train_if")
 IF_ROWS = 500_000
 IF_TEST_ROWS = 100_000
 IF_ANOMALY = dict(fraction=0.01, scale=6.0, seed=11)
-IF_PROFILE_TREES = 50
+IF_PROFILE_TREES = 10
 # train_oblique (phase 12): the JAX package's learners with
 # split_axis="SPARSE_OBLIQUE" and every other default
 # (ydf_tpu_torch/testdata/train_oblique): the GBT and CART on the frame of
@@ -324,6 +347,9 @@ SETS_GBT_TEST_ROWS = 20_000
 SETS_RF_ROWS = 20_000
 SETS_RF_TEST_ROWS = 5_000
 SETS_RF_FIXTURE_TREES = 50
+# Trees phase 13's set forest grows on the card (the learner's default is
+# 300; cut to keep the whole script well inside its time limit).
+SETS_RF_TREES = 50
 SETS_CART_ROWS = 100_000
 SETS_CART_TEST_ROWS = 20_000
 SETS_VOCABS = (60, 500)
@@ -346,11 +372,34 @@ SURV_TEST_ROWS = 50_000
 SURV_CENSOR_SCALE = 2.5
 SURV_HP = dict(label="time", task="SURVIVAL_ANALYSIS",
                label_event_observed="event")
+TRAIN_UPLIFT = os.path.join(TESTDATA, "train_uplift")
+TRAIN_HONEST = os.path.join(TESTDATA, "train_honest")
+TRAIN_SETS_ALONE = os.path.join(TESTDATA, "train_sets_alone")
+TRAIN_MULTITASKER = os.path.join(TESTDATA, "train_multitasker")
+UPLIFT_FEATURES = 20
+UPLIFT_SEED = 31
+UPLIFT_ROWS = 50_000
+UPLIFT_TEST_ROWS = 10_000
+UPLIFT_HP = dict(label="y", task="CATEGORICAL_UPLIFT",
+                 uplift_treatment="treat")
+UPLIFT_TREES = 300  # the learner's default; the fixture holds 50
+UPLIFT_CART_ROWS = 100_000
+UPLIFT_NUM_ROWS = 20_000
+UPLIFT_NUM_TREES = 30
+HONEST_HP = dict(label="label", honest=True)
+HONEST_REG_ROWS = 20_000
+HONEST_REG_TREES = 30
+MULTITASK_SEED = 5
+MULTITASK_ROWS = 100_000
+MULTITASK_TEST_ROWS = 20_000
 TRAIN_OBLIQUE = os.path.join(TESTDATA, "train_oblique")
 OBLIQUE_HP = dict(label="label", split_axis="SPARSE_OBLIQUE")
 OBLIQUE_RF_FIXTURE_TREES = 50
 # Trees of phase 12's profiled trains, per path.
-OBLIQUE_PROFILE_TREES = dict(gbt=20, rf=10, cart=1, iforest=50)
+OBLIQUE_PROFILE_TREES = dict(gbt=5, rf=3, cart=1, iforest=10)
+# Trees phase 12's oblique forest grows on the card (the learner's
+# default is 300; its fixture holds the first 50).
+OBLIQUE_RF_TREES = 100
 # Tolerances against the JAX package's run. The port's f32 histograms sum
 # rows in another order (shared-memory atomics) than the JAX package's
 # f64 block partials, so near-tie splits may flip in late trees; the
@@ -507,6 +556,60 @@ def make_set_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED):
     test.update(tags=tags[train_rows:], words=words[train_rows:],
                 label=y[train_rows:])
     return train, test
+
+
+def make_uplift_frame(train_rows, test_rows, seed=UPLIFT_SEED,
+                      numerical=False):
+    """train_uplift's frame, shaped like the reference's sim_pte data
+    (the R uplift package's sim_pte simulation): UPLIFT_FEATURES
+    covariates x1.. (standard normals of correlation 0.2, f32), a
+    treatment "treat" (1 control, 2 treated; 45% treated, so that
+    control is the most frequent value), and an outcome "y" from a
+    logistic model with main effects of x1-x4 and a treatment effect
+    that depends on x1-x3 (sim_pte's +-1 treatment coding): a 0/1 draw,
+    or with numerical=True the logit plus normal noise (f32). 2% of the
+    test rows carry an unseen treatment (3)."""
+    n = train_rows + test_rows
+    rng = np.random.default_rng([seed, 17])
+    z0 = rng.standard_normal(n)
+    x = (np.sqrt(0.2) * z0[:, None] + np.sqrt(0.8) * rng.standard_normal(
+        (n, UPLIFT_FEATURES))).astype(np.float32)
+    xd = x.astype(np.float64)
+    treated = rng.uniform(size=n) < 0.45
+    t = np.where(treated, 1.0, -1.0)
+    effect = 0.6 * xd[:, 0] + 0.5 * (xd[:, 1] > 0) - 0.3 * xd[:, 2]
+    logit = -0.8 + 0.25 * xd[:, :4].sum(1) + 0.5 * t * effect
+    if numerical:
+        y = (logit + rng.normal(0.0, np.sqrt(2.0), n)).astype(np.float32)
+    else:
+        y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(
+            np.int64)
+    treat = np.where(treated, 2, 1).astype(np.int64)
+    treat[train_rows:][rng.uniform(size=test_rows) < 0.02] = 3
+    data = {f"x{i + 1}": x[:, i] for i in range(UPLIFT_FEATURES)}
+    data.update(treat=treat, y=y)
+    train = {k: v[:train_rows] for k, v in data.items()}
+    test = {k: v[train_rows:].copy() for k, v in data.items()}
+    return train, test
+
+
+def sets_alone_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED):
+    """train_sets_alone's frame: make_set_frame's two CATEGORICAL_SET
+    columns and its label only (no scalar feature)."""
+    frames = make_set_frame(train_rows, test_rows, seed)
+    return tuple({k: f[k] for k in ("tags", "words", "label")}
+                 for f in frames)
+
+
+def multitask_target(frame, seed=MULTITASK_SEED):
+    """The regression target of train_multitasker (and of the honest
+    regression forest) on a make_frame frame: 1.5 f0 - f1 + f2 f3 (a
+    missing f0 read as 0) plus normal noise of scale 0.5 from
+    default_rng([seed, 19, rows]), f32."""
+    x = [np.nan_to_num(frame[f"f{i}"].astype(np.float64)) for i in range(4)]
+    n = len(x[0])
+    noise = np.random.default_rng([seed, 19, n]).normal(0.0, 0.5, n)
+    return (1.5 * x[0] - x[1] + x[2] * x[3] + noise).astype(np.float32)
 
 
 def make_rank_frame(queries, seed=RANK_SEED, docs=RANK_DOCS,
@@ -1261,6 +1364,8 @@ def main():
     kernels.extend(set_path(smi, serving=counters))
     torch.cuda.synchronize()
     kernels.extend(rank_surv_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(uplift_honest_sets_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3594,17 +3699,20 @@ def cart_train(learner, data):
     from ydf_tpu_torch.learners import cart
 
     grown = []
-    original = cart.prune_single_tree
+    originals = (cart.prune_single_tree, cart.prune_single_tree_uplift)
 
-    def prune(model, valid_data, **kwargs):
-        grown.append(model.forest.to_numpy())
-        return original(model, valid_data, **kwargs)
+    def capture(fn):
+        def prune(model, valid_data, **kwargs):
+            grown.append(model.forest.to_numpy())
+            return fn(model, valid_data, **kwargs)
+        return prune
 
-    cart.prune_single_tree = prune
+    cart.prune_single_tree = capture(originals[0])
+    cart.prune_single_tree_uplift = capture(originals[1])
     try:
         model = learner.train(data)
     finally:
-        cart.prune_single_tree = original
+        cart.prune_single_tree, cart.prune_single_tree_uplift = originals
     return model, grown[0]
 
 
@@ -4209,8 +4317,9 @@ def oblique_path(smi, serving):
         f"the card bitwise; {smi}")
     lap("12b")
 
-    # -- 12c the random forest: 300 trees on train_rf's frame ---------- #
-    rlearner = ydf_tpu_torch.RandomForestLearner(device=DEVICE, **OBLIQUE_HP)
+    # -- 12c the random forest: OBLIQUE_RF_TREES on train_rf's frame --- #
+    rlearner = ydf_tpu_torch.RandomForestLearner(
+        device=DEVICE, **dict(OBLIQUE_HP, num_trees=OBLIQUE_RF_TREES))
 
     def rf_main():
         m = rlearner.train(rtrain)
@@ -4716,8 +4825,9 @@ def set_path(smi, serving):
         "bitwise; the set model serves on the routed engine")
     lap("13c")
 
-    # -- 13d the random forest on set columns: 300 trees --------------- #
-    rlearner = ydf_tpu_torch.RandomForestLearner(device=DEVICE, **RF_HP)
+    # -- 13d the random forest on set columns: SETS_RF_TREES trees ----- #
+    rlearner = ydf_tpu_torch.RandomForestLearner(
+        device=DEVICE, **dict(RF_HP, num_trees=SETS_RF_TREES))
 
     def rf_main():
         m = rlearner.train(rtrain)
@@ -4751,7 +4861,8 @@ def set_path(smi, serving):
     rf_err = max(abs(sev.metrics[k] - jev[k]) for k in jev)
     assert rf_err <= EVAL_SAME_ATOL, rf_err
     loop_ms = rlearner.last_timings["loop_s"] * 1e3
-    log("13 sets rf", f"RandomForestLearner(**{RF_HP}).train: wall "
+    log("13 sets rf", f"RandomForestLearner(**{RF_HP}, num_trees="
+        f"{SETS_RF_TREES}).train: wall "
         f"{(wall - reval_wall) * 1e3:.1f} ms; stages " + " ".join(
             f"{k}={v * 1e3:.1f}ms" for k, v in rlearner.last_timings.items())
         + f"; {T} trees, {loop_ms / T:.2f} ms a tree; kernel time (CUDA "
@@ -4883,9 +4994,9 @@ def set_path(smi, serving):
     profiles = {}
     for path, cls, hp, data, loop, trees in (
             ("train_monotone", ydf_tpu_torch.GradientBoostedTreesLearner,
-             mono_hp, train, "boost_s", 10),
+             mono_hp, train, "boost_s", 3),
             ("train_dart", ydf_tpu_torch.GradientBoostedTreesLearner,
-             DART_HP, dtrain, "boost_s", 10),
+             DART_HP, dtrain, "boost_s", 3),
             ("train_sets_gbt", ydf_tpu_torch.GradientBoostedTreesLearner,
              DEFAULT_HP, strain, "boost_s", 3),
             ("train_sets_rf", ydf_tpu_torch.RandomForestLearner, RF_HP,
@@ -5371,6 +5482,585 @@ def rank_surv_path(smi, serving):
     lap("14f")
     log("14 rank_surv", f"phase 14 wall {time.perf_counter() - t_phase:.1f} "
         f"s (by part, s: {walls})")
+    return result
+
+
+def uplift_honest_sets_path(smi, serving):
+    """Phase 15: the uplift and honest forests, set-only datasets and the
+    multitasker (ROADMAP items 29 and 15's rest) trained on the card
+    through the learners' entry points with every other default,
+    evaluated (Qini and AUUC for uplift), saved and loaded, the JAX-saved
+    models served on the card, against the JAX package's runs
+    (ydf_tpu_torch/testdata/train_uplift, train_honest, train_sets_alone,
+    train_multitasker). Returns the `kernels` entries of the paths'
+    training kernels, run sums and bank."""
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.config import Task
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.learners import random_forest as port_rf
+    from ydf_tpu_torch.models.forest import Forest
+    from ydf_tpu_torch.ops import histogram_kernels, segment_sum
+    from ydf_tpu_torch.serving import bank_scorer
+
+    t_phase = time.perf_counter()
+    walls, last = {}, [t_phase]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = round(now - last[0], 2)
+        last[0] = now
+
+    fixtures = {}
+    for name, d in (("uplift", TRAIN_UPLIFT), ("honest", TRAIN_HONEST),
+                    ("sets", TRAIN_SETS_ALONE),
+                    ("multitasker", TRAIN_MULTITASKER)):
+        with open(os.path.join(d, "config.json")) as f:
+            cfg = json.load(f)
+        fixtures[name] = (cfg, np.load(os.path.join(d, "expected.npz")))
+    ucfg, uexp = fixtures["uplift"]
+    hcfg, hexp = fixtures["honest"]
+    scfg, sexp = fixtures["sets"]
+    mcfg, mexp = fixtures["multitasker"]
+    ur, uc, un = ucfg["rf"], ucfg["cart"], ucfg["numerical"]
+    hr, hg = hcfg["rf"], hcfg["regression"]
+    sg, sr, sc = scfg["gbt"], scfg["rf"], scfg["cart"]
+    assert ucfg["generator"] == dict(features=UPLIFT_FEATURES,
+                                     seed=UPLIFT_SEED)
+    assert (ur["rows"], ur["test_rows"], uc["rows"], un["rows"],
+            un["num_trees"]) == (UPLIFT_ROWS, UPLIFT_TEST_ROWS,
+                                 UPLIFT_CART_ROWS, UPLIFT_NUM_ROWS,
+                                 UPLIFT_NUM_TREES)
+    assert (hr["rows"], hr["test_rows"], hg["rows"], hg["num_trees"]) == (
+        RF_ROWS, RF_TEST_ROWS, HONEST_REG_ROWS, HONEST_REG_TREES)
+    assert (sg["rows"], sg["test_rows"], sr["rows"], sr["test_rows"],
+            sr["fixture_trees"], sc["rows"], sc["test_rows"]) == (
+        SETS_GBT_ROWS, SETS_GBT_TEST_ROWS, SETS_RF_ROWS, SETS_RF_TEST_ROWS,
+        SETS_RF_FIXTURE_TREES, SETS_CART_ROWS, SETS_CART_TEST_ROWS)
+    assert (mcfg["rows"], mcfg["test_rows"]) == (MULTITASK_ROWS,
+                                                 MULTITASK_TEST_ROWS)
+    t0 = time.perf_counter()
+    frames = {
+        "uplift": make_uplift_frame(UPLIFT_ROWS, UPLIFT_TEST_ROWS),
+        "uplift_cart": make_uplift_frame(UPLIFT_CART_ROWS, uc["test_rows"]),
+        "uplift_numerical": make_uplift_frame(
+            UPLIFT_NUM_ROWS, un["test_rows"], numerical=True),
+        "honest": make_frame(RF_ROWS, RF_TEST_ROWS),
+        "honest_regression": make_frame(HONEST_REG_ROWS, hg["test_rows"]),
+        "sets_gbt": sets_alone_frame(SETS_GBT_ROWS, SETS_GBT_TEST_ROWS),
+        "sets_rf": sets_alone_frame(SETS_RF_ROWS, SETS_RF_TEST_ROWS),
+        "sets_cart": sets_alone_frame(SETS_CART_ROWS, SETS_CART_TEST_ROWS),
+        "multitasker": make_frame(MULTITASK_ROWS, MULTITASK_TEST_ROWS),
+    }
+    for key in ("honest_regression", "multitasker"):
+        for frame in frames[key]:
+            frame["target"] = multitask_target(frame)
+    for key, c in (("uplift", ur), ("uplift_cart", uc),
+                   ("uplift_numerical", un), ("honest", hr),
+                   ("honest_regression", hg), ("sets_gbt", sg),
+                   ("sets_rf", sr), ("sets_cart", sc),
+                   ("multitasker", mcfg)):
+        assert frame_sha256(frames[key][0]) == c["train_sha256"], key
+        assert frame_sha256(frames[key][1]) == c["test_sha256"], key
+    log("15 uplift", f"frames (uplift {UPLIFT_ROWS} x {UPLIFT_FEATURES} + "
+        f"{UPLIFT_TEST_ROWS}, CART {UPLIFT_CART_ROWS}, numerical "
+        f"{UPLIFT_NUM_ROWS}; honest {RF_ROWS}, regression "
+        f"{HONEST_REG_ROWS}; sets alone {SETS_GBT_ROWS} / {SETS_RF_ROWS} / "
+        f"{SETS_CART_ROWS}; multitasker {MULTITASK_ROWS} + "
+        f"{MULTITASK_TEST_ROWS}) in {time.perf_counter() - t0:.2f} s, "
+        "SHA-256 == the fixtures'; JAX on the CPU that wrote them: uplift "
+        f"RF {ur['jax_train_s_cpu']:.1f} s ({ur['fixture_trees']} trees), "
+        f"honest {hr['jax_train_s_cpu']:.1f} s, sets GBT "
+        f"{sg['jax_train_s_cpu']:.1f} s, multitasker "
+        f"{mcfg['jax_train_s_cpu']:.1f} s")
+    lap("setup")
+    paths = {}  # path -> (launches, kernel ms, events, routed by Lh)
+
+    def main_run(path, fn):
+        """Counts at 0, fn() on the card, counts read."""
+        reset_counts(serving)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted, others, events = read_counts(serving)
+        kernel_ms, routed_lh = split_events(events)
+        paths[path] = (counted, kernel_ms, events, routed_lh)
+        log("15 launches", f"{path}: {counted} launches (routed by hist "
+            f"slots: {routed_lh}); serving kernels {others}")
+        return result, counted, wall, kernel_ms, others
+
+    def check_run(path, m, c, exp, prefix, T, fields, tst, ev):
+        """Trees [0, T) by hash; the first T trees' predictions (1,024
+        bitwise, all by SHA-256) and evaluation against the fixture."""
+        pf = m.forest.to_numpy()
+        check_tree_hashes(exp, prefix, pf, T, fields)
+        sub = m
+        if m.forest.num_trees > T:
+            sub = type(m)(task=m.task, label=m.label, classes=m.classes,
+                          dataspec=m.dataspec, binner=m.binner,
+                          forest=Forest(*(a[:T] for a in m.forest)),
+                          max_depth=m.max_depth,
+                          extra_metadata=m.extra_metadata)
+            ev = sub.evaluate(tst)
+        preds = sub.predict(tst)
+        want = exp[f"{prefix}/predictions"]
+        assert same_bits(preds[:len(want)], want), f"{path} predictions"
+        assert array_sha256(preds) == c["predictions_sha256"], path
+        jev = c["jax_evaluate"]
+        err = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+        assert err <= EVAL_SAME_ATOL, (path, err)
+        assert m.extra_metadata.get("uplift_treatment") == c.get(
+            "extra_metadata", {}).get("uplift_treatment"), path
+        return preds, err
+
+    def rf_run(path, hp, data, tst, c, exp, prefix, fields, T_fix,
+               cls=None):
+        """A forest trained through the learner's entry point, then
+        evaluated; every check against the fixture."""
+        cls = cls or ydf_tpu_torch.RandomForestLearner
+        learner = cls(device=DEVICE, **hp)
+        reads0 = port_rf.HOST_READS
+
+        def fn():
+            m = learner.train(data)
+            t0 = time.perf_counter()
+            ev = m.evaluate(tst)
+            torch.cuda.synchronize()
+            return m, ev, time.perf_counter() - t0
+
+        (m, ev, eval_wall), counted, wall, kernel_ms, others = main_run(
+            path, fn)
+        T = m.forest.num_trees
+        depth = learner.max_depth
+        Fs = m.binner.num_set
+        if m.binner.num_scalar:
+            assert counted["histogram"] == T, counted
+            assert counted["histogram_routed"] == T * (depth - 1), counted
+            assert counted["binning"] >= 1, counted
+        else:  # sets alone: the prefix histograms, no routed launch
+            assert counted["histogram"] == T * 2 * Fs * depth, counted
+            assert counted["histogram_routed"] == 0, counted
+        honest = getattr(learner, "honest", False)
+        assert counted["segment_sum"] == (
+            2 * T * depth if Fs else 0) + (T if honest else 0), counted
+        preds, err = check_run(path, m, c, exp, prefix, T_fix, fields, tst,
+                               ev)
+        oob = ""
+        if c.get("oob_evaluation") and T == T_fix:
+            jo, po = c["oob_evaluation"], m.self_evaluation()
+            oerr = max(abs(po["metrics"][k] - jo["metrics"][k])
+                       for k in jo["metrics"])
+            assert oerr <= EVAL_SAME_ATOL, (path, oerr)
+            assert po["num_examples"] == jo["num_examples"], path
+            oob = f", out-of-bag metrics within {EVAL_SAME_ATOL}"
+        loop_ms = learner.last_timings["loop_s"] * 1e3
+        log("15 " + path, f"{cls.__name__}(**{hp}).train: wall "
+            f"{(wall - eval_wall) * 1e3:.1f} ms (host clock, ends in "
+            "synchronize); stages " + " ".join(
+                f"{k}={v * 1e3:.1f}ms" for k, v in
+                learner.last_timings.items())
+            + f"; {T} trees, {loop_ms / T:.2f} ms a tree (loop wall / "
+            f"trees), {port_rf.HOST_READS - reads0} host reads (before the "
+            "loop; the loop runs under sync debug mode \"error\"); kernel "
+            "time (CUDA events, train + evaluate) " + " ".join(
+                f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+            + f"; the first {T_fix} trees == JAX's by SHA-256, their "
+            f"{len(preds)} predictions bitwise (SHA-256), evaluate " +
+            " ".join(f"{k} {v:.12f}" for k, v in c["jax_evaluate"].items())
+            + f" within {EVAL_SAME_ATOL} (max {err:.3g}){oob}; evaluate "
+            f"{eval_wall * 1e3:.1f} ms; {smi}")
+        return learner, m
+
+    def cart_run(path, hp, data, tst, c, exp, fields):
+        learner = ydf_tpu_torch.CartLearner(device=DEVICE, **hp)
+
+        def fn():
+            m, grown = cart_train(learner, data)
+            t0 = time.perf_counter()
+            ev = m.evaluate(tst)
+            torch.cuda.synchronize()
+            return m, grown, ev, time.perf_counter() - t0
+
+        (m, grown, ev, eval_wall), counted, wall, kernel_ms, _ = main_run(
+            path, fn)
+        assert tree_sha256(grown, 0, fields=fields) == c["grown_sha256"]
+        assert tree_sha256(m.forest.to_numpy(), 0, fields=fields) == \
+            c["pruned_sha256"], path
+        pruned = m.extra_metadata["num_pruned_nodes"]
+        assert pruned == c["num_pruned_nodes"], (path, pruned)
+        jo, po = c["oob_evaluation"], m.self_evaluation()
+        err = max(abs(po["metrics"][k] - jo["metrics"][k])
+                  for k in jo["metrics"])
+        assert err <= EVAL_SAME_ATOL, (path, err)
+        preds, err2 = check_run(path, m, c, exp, "cart", 1, fields, tst, ev)
+        log("15 " + path, f"CartLearner(**{hp}).train: wall "
+            f"{(wall - eval_wall) * 1e3:.1f} ms; stages " + " ".join(
+                f"{k}={v * 1e3:.1f}ms" for k, v in
+                learner.last_timings.items())
+            + "; kernel time (CUDA events) " + " ".join(
+                f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+            + f"; grown ({c['grown_num_nodes']} nodes) and pruned ({pruned} "
+            "pruned) trees == JAX's by SHA-256; holdout and evaluate "
+            f"metrics within {EVAL_SAME_ATOL} (max {max(err, err2):.3g}); "
+            f"the {len(preds)} predictions bitwise; {smi}")
+        return m
+
+    def jax_saved(path, d, tst, want, evaluate=None):
+        """A JAX-saved model on the card: predictions on the fixture's
+        rows bitwise, its evaluation equal."""
+        jm = ydf_tpu_torch.load_model(d, device=DEVICE)
+        head = {k: v[:len(want)] for k, v in tst.items()}
+        assert same_bits(jm.predict(head), want), path
+        if evaluate:
+            jev = jm.evaluate(tst).metrics
+            err = max(abs(jev[k] - evaluate[k]) for k in evaluate)
+            assert err <= EVAL_SAME_ATOL, (path, err)
+        return jm
+
+    def save_load(path, m, tst):
+        with tempfile.TemporaryDirectory() as tmp:
+            m.save(os.path.join(tmp, "m"))
+            back = ydf_tpu_torch.load_model(os.path.join(tmp, "m"),
+                                            device=DEVICE)
+        assert back.predict(tst).tobytes() == m.predict(tst).tobytes(), path
+        assert back.extra_metadata == m.extra_metadata, path
+
+    fields = TREE_HASH_FIELDS
+    uplift_hp = dict(UPLIFT_HP, task=Task[UPLIFT_HP["task"]])
+    # -- 15a the uplift forest: 300 trees at S = 5 ---------------------- #
+    utrain, utest = frames["uplift"]
+    ulearner, umodel = rf_run("train_uplift", uplift_hp, utrain, utest, ur,
+                              uexp, "rf", fields, ur["fixture_trees"])
+    assert umodel.forest.num_trees == UPLIFT_TREES == ulearner.num_trees
+    save_load("train_uplift", umodel, utest)
+    jax_saved("train_uplift", os.path.join(TRAIN_UPLIFT, "rf_small"), utest,
+              uexp["rf/small_predictions"], ur["small_evaluate"])
+    lap("15a")
+    # -- 15b the uplift CART (AUUC pruning) and NUMERICAL_UPLIFT -------- #
+    ctrain, ctest = frames["uplift_cart"]
+    ucart = cart_run("train_uplift_cart", uplift_hp, ctrain, ctest, uc,
+                     uexp, fields)
+    jax_saved("train_uplift_cart", os.path.join(TRAIN_UPLIFT, "cart_model"),
+              ctest, uexp["cart/predictions"], uc["jax_evaluate"])
+    ntrain, ntest = frames["uplift_numerical"]
+    num_hp = dict(uplift_hp, task=Task.NUMERICAL_UPLIFT,
+                  num_trees=UPLIFT_NUM_TREES)
+    _, nmodel = rf_run("train_uplift_numerical", num_hp, ntrain, ntest, un,
+                       uexp, "numerical", fields, UPLIFT_NUM_TREES)
+    lap("15b")
+    # -- 15c honest forests --------------------------------------------- #
+    htrain, htest = frames["honest"]
+    honest_hp = dict(HONEST_HP, num_trees=hr["fixture_trees"])
+    hlearner, hmodel = rf_run("train_honest", honest_hp, htrain, htest, hr,
+                              hexp, "rf", fields, hr["fixture_trees"])
+    save_load("train_honest", hmodel, htest)
+    jax_saved("train_honest", os.path.join(TRAIN_HONEST, "rf_small"), htest,
+              hexp["rf/small_predictions"])
+    gtrain, gtest = frames["honest_regression"]
+    reg_hp = dict(HONEST_HP, label="target", task=Task.REGRESSION,
+                  num_trees=HONEST_REG_TREES)
+    _, gmodel = rf_run("train_honest_regression", reg_hp, gtrain, gtest, hg,
+                       hexp, "regression", fields, HONEST_REG_TREES)
+    lap("15c")
+    # -- 15d sets alone -------------------------------------------------- #
+    sfields = SET_TREE_HASH_FIELDS
+    strain, stest = frames["sets_gbt"]
+    slearner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                         **DEFAULT_HP)
+    reads0 = port_gbt.HOST_READS
+
+    def sets_gbt():
+        m = slearner.train(strain)
+        t0 = time.perf_counter()
+        ev = m.evaluate(stest)
+        torch.cuda.synchronize()
+        return m, ev, time.perf_counter() - t0
+
+    (smodel, sev, seval_wall), counted, wall, kernel_ms, others = main_run(
+        "train_sets_alone_gbt", sets_gbt)
+    logs = smodel.training_logs
+    trained, kept = logs["num_trees_trained"], logs["num_trees"]
+    assert (kept, trained) == (sg["num_trees"], sg["num_trees_trained"])
+    assert counted["histogram_routed"] == 0, counted
+    assert counted["histogram"] == trained * 2 * 2 * slearner.max_depth, (
+        counted)
+    assert counted["segment_sum"] == 2 * trained * slearner.max_depth
+    assert not any(others.values()), others  # set models serve routed
+    check_tree_hashes(sexp, "gbt", smodel.forest.to_numpy(), kept, sfields)
+    spreds = smodel.predict(stest)
+    assert array_sha256(spreds) == sg["predictions_sha256"]
+    err = max(abs(sev.metrics[k] - sg["jax_evaluate"][k])
+              for k in sg["jax_evaluate"])
+    assert err <= EVAL_SAME_ATOL, err
+    boost_ms = slearner.last_timings["boost_s"] * 1e3
+    log("15 train_sets_alone_gbt", f"GradientBoostedTreesLearner(**"
+        f"{DEFAULT_HP}).train on the two set columns alone: wall "
+        f"{(wall - seval_wall) * 1e3:.1f} ms; {trained} iterations trained, "
+        f"{kept} kept (== JAX's), {port_gbt.HOST_READS - reads0} host reads; "
+        f"{boost_ms / trained:.2f} ms a tree; kernel time (CUDA events) "
+        + " ".join(f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + "; no routed launch (rows routed by route_plain); every kept tree "
+        f"by SHA-256, the {len(spreds)} predictions by SHA-256, evaluate "
+        f"within {EVAL_SAME_ATOL} (max {err:.3g}); {smi}")
+    save_load("train_sets_alone_gbt", smodel, stest)
+    rtrain, rtest = frames["sets_rf"]
+    rf_run("train_sets_alone_rf", dict(RF_HP, num_trees=sr["fixture_trees"]),
+           rtrain, rtest, sr, sexp, "rf", sfields, sr["fixture_trees"])
+    ctrain2, ctest2 = frames["sets_cart"]
+    cart_run("train_sets_alone_cart", CART_HP, ctrain2, ctest2, sc, sexp,
+             sfields)
+    lap("15d")
+    # -- 15e the multitasker -------------------------------------------- #
+    mtrain, mtest = frames["multitasker"]
+    tasks = [dict(t, task=Task[t.get("task", "CLASSIFICATION")])
+             for t in mcfg["tasks"]]
+    reads0 = port_gbt.HOST_READS
+
+    def multitask():
+        m = ydf_tpu_torch.MultitaskerLearner(tasks, device=DEVICE).train(
+            mtrain)
+        t0 = time.perf_counter()
+        ev = m.evaluate(mtest)
+        torch.cuda.synchronize()
+        return m, ev, time.perf_counter() - t0
+
+    (mmodel, mev, meval_wall), counted, wall, kernel_ms, others = main_run(
+        "train_multitasker", multitask)
+    trained_all = 0
+    for label, sub in mmodel.models.items():
+        c = mcfg["models"][label]
+        logs = sub.training_logs
+        assert (logs["num_trees"], logs["num_trees_trained"]) == (
+            c["num_trees"], c["num_trees_trained"]), label
+        trained_all += logs["num_trees_trained"]
+        check_tree_hashes(mexp, label, sub.forest.to_numpy(),
+                          c["num_trees"], fields)
+        preds = sub.predict(mtest)
+        assert same_bits(preds[:len(mexp[f"{label}/predictions"])],
+                         mexp[f"{label}/predictions"]), label
+        assert array_sha256(preds) == c["predictions_sha256"], label
+        err = max(abs(mev[label].metrics[k] - c["jax_evaluate"][k])
+                  for k in c["jax_evaluate"])
+        assert err <= EVAL_SAME_ATOL, (label, err)
+    assert counted["histogram"] == trained_all, counted
+    assert counted["histogram_routed"] == trained_all * 5, counted
+    assert others[bank_scorer.__name__] > 0, others  # evaluate: the bank
+    with tempfile.TemporaryDirectory() as tmp:
+        mmodel.save(os.path.join(tmp, "m"))
+        back = ydf_tpu_torch.load_model(os.path.join(tmp, "m"),
+                                        device=DEVICE)
+    assert isinstance(back, ydf_tpu_torch.MultitaskerModel)
+    for label, p in back.predict(mtest).items():
+        assert p.tobytes() == mmodel.models[label].predict(mtest).tobytes()
+    jmt = ydf_tpu_torch.load_model(os.path.join(TRAIN_MULTITASKER, "model"),
+                                   device=DEVICE)
+    head = {k: v[:mcfg["compare_rows"]] for k, v in mtest.items()}
+    for label, p in jmt.predict(head).items():
+        assert same_bits(p, mexp[f"{label}/predictions"]), label
+    log("15 train_multitasker", f"MultitaskerLearner({mcfg['tasks']}).train "
+        f"(default GBT sub-learners): wall {(wall - meval_wall) * 1e3:.1f} ms;"
+        f" {trained_all} iterations trained over both tasks, "
+        f"{port_gbt.HOST_READS - reads0} host reads; kernel time (CUDA "
+        "events) " + " ".join(f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; serving {others}; both sub-models' kept trees == JAX's by "
+        "SHA-256, predictions bitwise, evaluate within "
+        f"{EVAL_SAME_ATOL}; the multitasker directory save -> load on the "
+        "card bitwise, the JAX-saved directory on the card bitwise; "
+        f"{smi}")
+    lap("15e")
+    # -- 15f the kernels against their plain versions ------------------- #
+    mfeatures = [k for k in mtrain if k not in ("label", "target")]
+    layers = {
+        "train_uplift": captured_layers(
+            ydf_tpu_torch.RandomForestLearner, uplift_hp, utrain),
+        "train_uplift_numerical": captured_layers(
+            ydf_tpu_torch.RandomForestLearner, num_hp, ntrain),
+        "train_honest_regression": captured_layers(
+            ydf_tpu_torch.RandomForestLearner, reg_hp, gtrain),
+        "train_sets_alone_gbt": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner, DEFAULT_HP, strain),
+        "train_sets_alone_rf": captured_layers(
+            ydf_tpu_torch.RandomForestLearner, RF_HP, rtrain),
+        "train_multitasker_label": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner,
+            dict(label="label", features=mfeatures), mtrain),
+        "train_multitasker_target": captured_layers(
+            ydf_tpu_torch.GradientBoostedTreesLearner,
+            dict(label="target", task=Task.REGRESSION, features=mfeatures),
+            mtrain),
+    }
+    binned = {"train_uplift": (umodel.binner, utrain),
+              "train_uplift_numerical": (nmodel.binner, ntrain),
+              "train_honest_regression": (gmodel.binner, gtrain),
+              "train_multitasker_label": (
+                  mmodel.models["label"].binner, mtrain),
+              "train_multitasker_target": (
+                  mmodel.models["target"].binner, mtrain)}
+    for path, case in layers.items():
+        if path in binned:
+            binner, data = binned[path]
+            Fn = binner.num_numerical
+            case["binning"].append(tuple(
+                torch.from_numpy(a).to(DEVICE) for a in (
+                    np.stack([np.asarray(data[k], np.float32)
+                              for k in binner.feature_names[:Fn]]),
+                    binner.boundaries[:Fn], binner.feature_num_bins[:Fn] - 1,
+                    binner.impute_values[:Fn])))
+            binning_check(case["binning"][-1])
+        lhs = []
+        for args in case["routed"]:
+            got = histogram_kernels.histogram_routed(*args)
+            want = histogram_kernels.histogram_routed_plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (
+                    f"{path}: routed kernel != plain at Lh {args[5]}")
+            lhs.append(args[5])
+        for args in case["root"]:
+            got = histogram_kernels.histogram(*args)
+            want = histogram_kernels.histogram_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{path}: histogram != plain"
+        for args in case["segment"]:
+            got = segment_sum.segment_sums(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, segment_sum.segment_sums_plain(*args)), (
+                f"{path}: segment sums != plain")
+        S = {a[4].shape[1] for a in case["routed"]} | {
+            a[2].shape[1] for a in case["root"]}
+        if path.startswith("train_uplift"):
+            # Every layer of a depth-16 tree, at the uplift width.
+            L = case["routed"][0][3].do_split.shape[0] - 1
+            assert S == {5} and lhs == [min(2 ** k, L // 2)
+                                        for k in range(15)], (path, S, lhs)
+        if path.startswith("train_sets_alone"):
+            assert not case["routed"] and case["segment"], path
+            assert all(a[0].shape[0] == 1 for a in case["root"]), path
+        if path == "train_honest_regression":
+            assert len(case["segment"]) == 1, path
+        log("15 kernels", f"{path}: {len(case['binning'])} binning, "
+            f"{len(case['root'])} histogram calls (S {sorted(S)}; the set "
+            "prefix shape F = 1 on the set-only paths), "
+            f"{len(case['routed'])} routed calls (Lh {sorted(set(lhs))}) and "
+            f"{len(case['segment'])} run sums of a one-tree train torch.equal "
+            "to plain")
+    bank_inputs_of = {}
+    for label in ("label", "target"):
+        model = mmodel.models[label]
+        bank = bank_scorer.build_bank_scorer(model)
+        assert bank is not None, label
+        xT = encoded_xT(model, mtest)
+        want = bank_scorer.score_plain(bank.tables, xT)
+        for walk, g in zip(("split", "per-thread"), both_walks(
+                lambda: bank_scorer.score(bank.tables, xT))):
+            assert torch.equal(g, want), f"{label} bank {walk} != plain"
+        bank_inputs_of[f"train_multitasker_{label}"] = (bank, xT)
+        log("15 kernels", f"bank_scorer on the multitasker's {label} model "
+            f"({model.forest.num_trees} trees): {xT.shape[1]} rows x "
+            f"{xT.shape[0]} features torch.equal to plain in both walks")
+    lap("15f")
+    # -- 15g where each loop's time goes -------------------------------- #
+    profiles = {}
+    for path, cls, hp, data, loop, trees in (
+            ("train_uplift", ydf_tpu_torch.RandomForestLearner, uplift_hp,
+             utrain, "loop_s", 3),
+            ("train_honest_regression", ydf_tpu_torch.RandomForestLearner,
+             reg_hp, gtrain, "loop_s", 3),
+            ("train_sets_alone_gbt",
+             ydf_tpu_torch.GradientBoostedTreesLearner, DEFAULT_HP, strain,
+             "boost_s", 2),
+            ("train_multitasker_label",
+             ydf_tpu_torch.GradientBoostedTreesLearner,
+             dict(label="label", features=mfeatures), mtrain, "boost_s",
+             5)):
+        prof = profiles[path] = dict(profile_train(
+            data, dict(hp, num_trees=trees), cls, loop), trees=trees)
+        log("15 profile", f"{path}: num_trees={trees} under torch.profiler: "
+            f"wall {prof['wall_ms']:.1f} ms, tree loop "
+            f"{prof['loop_ms']:.1f} ms ({prof['loop_ms'] / trees:.2f} ms a "
+            f"tree); {prof['kernels']} device kernels "
+            f"({prof['kernels'] / trees:.0f} a tree), device idle at least "
+            f"{100 * prof['idle_share']:.1f}% of the loop; largest: "
+            + "; ".join(f"{name[:50]} {ms:.3f} ms"
+                        for name, ms in prof["top"][:4]))
+    lap("15g")
+    # -- 15h each kernel timed at each path's shapes -------------------- #
+    result = []
+    main_of = {"train_multitasker_label": "train_multitasker",
+               "train_multitasker_target": "train_multitasker"}
+    for path, case in layers.items():
+        counted, kernel_ms, events, routed_lh = paths[main_of.get(path, path)]
+        prof = profiles.get(path)
+        kinds = []
+        if case["binning"]:
+            kinds.append(("binning", "binning.cu",
+                          "ydf_tpu/ops/binning_pallas.py:60"))
+        kinds.append(("histogram", "histogram.cu",
+                      "ydf_tpu/ops/histogram_pallas.py:81"))
+        if case["routed"]:
+            kinds.append(("histogram_routed", "histogram_routed.cu",
+                          "ydf_tpu/ops/histogram_pallas.py:172"))
+        if case["segment"]:
+            kinds.append(("segment_sum", "segment_sum.cu",
+                          "ydf_tpu/ops/grower.py:810 (an XLA einsum; no "
+                          "Pallas kernel)"))
+        inp = {"binning": max(case["binning"], key=lambda a: a[0].shape[1])
+               if case["binning"] else None,
+               "root": case["root"][0],
+               "routed": max(case["routed"], key=lambda a: a[5])
+               if case["routed"] else None,
+               "segment": max(case["segment"], key=lambda a: a[0].shape[0])
+               if case["segment"] else None}
+        for name, src, replaces in kinds:
+            t = measure_train(name, inp, reps=20)
+            log("15 timing", f"{path} {name} ({t['shape']}): "
+                f"{timing_text(t)}, {smi}")
+            entry = train_entry(name, path, src, replaces, t, counted[name],
+                                0.0, kernel_ms.get(name, 0.0))
+            if main_of.get(path):
+                entry["launches_of"] = main_of[path] + " (both tasks)"
+            if name == "segment_sum":
+                entry.update(runs=t["runs"], longest_run=t["longest_run"])
+            if prof:
+                entry["loop_ms_a_tree"] = prof["loop_ms"] / prof["trees"]
+                entry["idle_share"] = prof["idle_share"]
+            if name == "histogram_routed":
+                by_lh = oblique_layers(name, case["routed"], events,
+                                       routed_lh)
+                entry.update(layer_fields(by_lh))
+                log("15 layers", f"{name} on {path} by hist slots: "
+                    f"{layer_text(by_lh)}, {smi}")
+            result.append(entry)
+    counted, kernel_ms = paths["train_multitasker"][:2]
+    for path, (bank, xT) in bank_inputs_of.items():
+        t = measure(bank_scorer, bank.tables, bank.tables, xT)
+        log("15 timing", f"bank_scorer/{path} at {xT.shape[1]} rows x "
+            f"{xT.shape[0]} features: kernel {t['ms']:.4f} ms a call back "
+            f"to back, {t['device_ms']:.4f} ms on the card "
+            f"({t['device_how']}), plain {t['plain_ms']:.2f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']}), {smi}")
+        result.append({
+            "name": f"bank_scorer/{path}", "route": "cuda",
+            "source": "ydf_tpu_torch/csrc/bank_scorer.cu",
+            "replaces": "ydf_tpu/serving/pallas_scorer.py:118",
+            "launches": others[bank_scorer.__name__],
+            "launches_of": "train_multitasker (both tasks)",
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "device_how": t["device_how"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "library_device_ms": None,
+            "path_ms": kernel_ms.get("bank_scorer", 0.0),
+            "path_how": "CUDA events around each launch",
+        })
+    lap("15h")
+    log("15 uplift", f"phase 15 wall {time.perf_counter() - t_phase:.1f} s "
+        f"(by part, s: {walls})")
     return result
 
 

@@ -139,16 +139,29 @@ trees) and CART (100,000 rows; grown and pruned tree hashes). These
 refuse to run under another jax than 0.9.0 too (the per-item einsum's
 and DART's dot orders).
 
+Training fixtures `train_uplift/`, `train_honest/`, `train_sets_alone/`
+and `train_multitasker/` (the same layout, plus the frames' and bins'
+SHA-256 and CART's grown and pruned hashes and pruned count): the uplift
+random forest (its first 50 trees), the uplift CART and a NUMERICAL_UPLIFT
+forest on chip_smoke.make_uplift_frame; the honest forest on train_rf's
+frame and an honest regression; the GBT, random forest and CART on
+chip_smoke.sets_alone_frame (set columns only); the multitasker's two
+GBTs (its JAX directory in model/). rf_small/ and cart_model/ hold JAX
+models for the load tests.
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
-(~45 minutes on a CPU, train_rf and train_sets most of it;
+(~70 minutes on a CPU, train_rf and the set fixtures most of it;
 `--only train_bench`, `--only train_vs`, `--only train_default`,
 `--only train_rf`, `--only train_multiclass`, `--only
 train_gbt_options`, `--only train_cart` (~1 min), `--only train_if`
 (~1.5 min), `--only train_oblique` (~15 min), `--only train_monotone`
-(~1.5 min), `--only train_dart` (~15 s), `--only train_sets` (~12 min)
-or `--only serving` for one part).
+(~1.5 min), `--only train_dart` (~15 s), `--only train_sets` (~12 min),
+`--only train_uplift` (~4 min), `--only train_honest` (~7.5 min),
+`--only train_sets_alone` (~11 min), `--only train_multitasker` (~1
+min) or `--only serving` for one part).
 """
 
+import json
 import os
 import shutil
 import sys
@@ -810,18 +823,18 @@ TRAIN_CART = dict(
 )
 
 
-def capture_unpruned(cart_module, captured):
-    """Wraps cart_module.prune_single_tree so that each call records the
-    grown tree's arrays (forest fields, numpy) in `captured` before it
-    prunes; returns the original function."""
-    original = cart_module.prune_single_tree
+def capture_unpruned(cart_module, captured, name="prune_single_tree"):
+    """Wraps cart_module's pruning function `name` so that each call
+    records the grown tree's arrays (forest fields, numpy) in `captured`
+    before it prunes; returns the original function."""
+    original = getattr(cart_module, name)
 
     def prune(model, valid_data, **kwargs):
         captured.append({f: np.array(getattr(model.forest, f))
                          for f in model.forest._fields})
         return original(model, valid_data, **kwargs)
 
-    cart_module.prune_single_tree = prune
+    setattr(cart_module, name, prune)
     return original
 
 
@@ -1634,6 +1647,346 @@ def write_train_rank_options():
     _write_runs("train_rank_options", cfg, runs)
 
 
+TRAIN_UPLIFT = dict(
+    jax_version="0.9.0", compare_rows=1024, small_trees=3,
+    rf=dict(rows=50_000, test_rows=10_000, fixture_trees=50,
+            learner=dict(label="y", uplift_treatment="treat")),
+    cart=dict(rows=100_000, test_rows=10_000, validation_ratio=0.1,
+              seed=123456,
+              learner=dict(label="y", uplift_treatment="treat")),
+    numerical=dict(rows=20_000, test_rows=5_000, num_trees=30,
+                   learner=dict(label="y", uplift_treatment="treat")),
+)
+
+
+def _digests(hexes):
+    """Hex SHA-256 strings -> u8 [k, 32]."""
+    return np.stack([np.frombuffer(bytes.fromhex(h), np.uint8)
+                     for h in hexes])
+
+
+def _forest_run(m, test, compare_rows, fields, T=None):
+    """(config entries, arrays) of a trained JAX random forest or CART
+    on its test frame: the frame's and the bins' SHA-256 are added by the
+    caller; here the per-tree hashes of `fields` and node counts of the
+    first T trees, the predictions (all hashed, the first compare_rows
+    in full), the evaluation and the self-evaluation."""
+    import chip_smoke
+
+    fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    T = fo["feature"].shape[0] if T is None else T
+    preds = np.asarray(m.predict(test))
+    cfg = dict(
+        num_trees=int(fo["feature"].shape[0]),
+        predictions_sha256=chip_smoke.array_sha256(preds),
+        jax_evaluate=dict(m.evaluate(test).metrics),
+        oob_evaluation=m.oob_evaluation, classes=m.classes,
+        extra_metadata=m.extra_metadata,
+        test_sha256=chip_smoke.frame_sha256(test),
+    )
+    arrays = dict(
+        tree_sha256=_digests(chip_smoke.tree_sha256(fo, t, fields=fields)
+                             for t in range(T)),
+        num_nodes=fo["num_nodes"][:T].astype(np.int32),
+        predictions=preds[:compare_rows],
+    )
+    return cfg, arrays
+
+
+def _bins_sha256(m, train):
+    import chip_smoke
+    from ydf_tpu.dataset.dataset import Dataset
+
+    return chip_smoke.array_sha256(np.asarray(m.binner.transform(
+        Dataset.from_data(train, dataspec=m.dataspec))))
+
+
+def _cart_run(cfg, c, train, test, learner_kwargs, fields, task=None):
+    """The JAX CartLearner on (train, test) with its grown tree captured
+    before either pruning: (model, config entries, arrays)."""
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.learners import cart as jax_cart
+
+    grown = []
+    originals = (capture_unpruned(jax_cart, grown),
+                 capture_unpruned(jax_cart, grown,
+                                  "prune_single_tree_uplift"))
+    try:
+        t0 = time.perf_counter()
+        kw = dict(learner_kwargs) if task is None else dict(
+            learner_kwargs, task=task)
+        m = ydf.CartLearner(**kw).train(train)
+        c["jax_train_s_cpu"] = time.perf_counter() - t0
+    finally:
+        (jax_cart.prune_single_tree,
+         jax_cart.prune_single_tree_uplift) = originals
+    got, arrays = _forest_run(m, test, cfg["compare_rows"], fields)
+    fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    mask = np.random.RandomState(c["seed"]).uniform(size=c["rows"]) \
+        < c["validation_ratio"]
+    got.update(
+        train_sha256=chip_smoke.frame_sha256(train),
+        holdout_sha256=chip_smoke.array_sha256(mask),
+        grown_sha256=chip_smoke.tree_sha256(grown[0], 0, fields=fields),
+        grown_num_nodes=int(grown[0]["num_nodes"][0]),
+        pruned_sha256=chip_smoke.tree_sha256(fo, 0, fields=fields),
+        num_pruned_nodes=m.extra_metadata["num_pruned_nodes"])
+    c.update(got)
+    return m, arrays
+
+
+def write_train_uplift():
+    """train_uplift/: on chip_smoke.make_uplift_frame (sim_pte's shape),
+    the JAX RandomForestLearner(task=CATEGORICAL_UPLIFT,
+    uplift_treatment="treat") with every other default (its first
+    fixture_trees trees; trees are independent, so they are the first
+    trees of the 300-tree forest), the CATEGORICAL_UPLIFT CartLearner
+    (AUUC pruning on a 10% holdout) and a 30-tree NUMERICAL_UPLIFT forest
+    with a float outcome; rf_small/ and cart_model/ hold the JAX models
+    (the forest's first small_trees trees). ~4 min on 8 CPU threads (the
+    50-tree forest 118 s, CART 22 s, the numerical forest 63 s)."""
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.config import Task
+
+    cfg = json.loads(json.dumps(TRAIN_UPLIFT))
+    cfg["jax_impls"] = _jax_header(cfg)
+    cfg["generator"] = dict(features=chip_smoke.UPLIFT_FEATURES,
+                            seed=chip_smoke.UPLIFT_SEED)
+    d = os.path.join(OUT, "train_uplift")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    fields = chip_smoke.TREE_HASH_FIELDS
+    runs = {}
+    c = cfg["rf"]
+    train, test = chip_smoke.make_uplift_frame(c["rows"], c["test_rows"])
+    hp = dict(c["learner"], task=Task.CATEGORICAL_UPLIFT)
+    t0 = time.perf_counter()
+    m = ydf.RandomForestLearner(num_trees=c["fixture_trees"],
+                                **hp).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, runs["rf"] = _forest_run(m, test, cfg["compare_rows"], fields)
+    got.update(train_sha256=chip_smoke.frame_sha256(train),
+               bins_sha256=_bins_sha256(m, train))
+    c.update(got)
+    small = ydf.RandomForestLearner(num_trees=cfg["small_trees"],
+                                    **hp).train(train)
+    small.save(os.path.join(d, "rf_small"))
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    runs["rf"]["small_predictions"] = np.asarray(small.predict(head))
+    c["small_evaluate"] = dict(small.evaluate(test).metrics)
+    print(f"train_uplift rf: {c['fixture_trees']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s, {c['jax_evaluate']}", flush=True)
+
+    c = cfg["cart"]
+    train, test = chip_smoke.make_uplift_frame(c["rows"], c["test_rows"])
+    m, runs["cart"] = _cart_run(cfg, c, train, test, c["learner"], fields,
+                                Task.CATEGORICAL_UPLIFT)
+    m.save(os.path.join(d, "cart_model"))
+    print(f"train_uplift cart: {c['grown_num_nodes']} nodes grown, "
+          f"{c['num_pruned_nodes']} pruned in {c['jax_train_s_cpu']:.1f} s, "
+          f"{c['jax_evaluate']}", flush=True)
+
+    c = cfg["numerical"]
+    train, test = chip_smoke.make_uplift_frame(c["rows"], c["test_rows"],
+                                               numerical=True)
+    t0 = time.perf_counter()
+    m = ydf.RandomForestLearner(num_trees=c["num_trees"],
+                                task=Task.NUMERICAL_UPLIFT,
+                                **c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, runs["numerical"] = _forest_run(m, test, cfg["compare_rows"],
+                                         fields)
+    got.update(train_sha256=chip_smoke.frame_sha256(train))
+    c.update(got)
+    print(f"train_uplift numerical: {c['num_trees']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s, {c['jax_evaluate']}", flush=True)
+    _write_runs("train_uplift", cfg, runs)
+
+
+TRAIN_HONEST = dict(
+    jax_version="0.9.0", cat_seed=7, compare_rows=1024, small_trees=3,
+    rf=dict(rows=50_000, test_rows=10_000, fixture_trees=50,
+            learner=dict(label="label", honest=True)),
+    regression=dict(rows=20_000, test_rows=5_000, num_trees=30,
+                    learner=dict(label="target", honest=True)),
+)
+
+
+def write_train_honest():
+    """train_honest/: the JAX RandomForestLearner(honest=True) with every
+    other default on train_rf's frame (make_frame, its first
+    fixture_trees trees; rf_small/ the JAX model of its first
+    small_trees) and a 30-tree honest regression forest on
+    chip_smoke.multitask_target of a 20,000-row frame (float leaf stats
+    re-estimated in row order). ~7.5 min on 8 CPU threads (212 s and
+    203 s)."""
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.config import Task
+
+    cfg = json.loads(json.dumps(TRAIN_HONEST))
+    cfg["jax_impls"] = _jax_header(cfg)
+    d = os.path.join(OUT, "train_honest")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    fields = chip_smoke.TREE_HASH_FIELDS
+    runs = {}
+    c = cfg["rf"]
+    train, test = chip_smoke.make_frame(c["rows"], c["test_rows"],
+                                        cfg["cat_seed"])
+    t0 = time.perf_counter()
+    m = ydf.RandomForestLearner(num_trees=c["fixture_trees"],
+                                **c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, runs["rf"] = _forest_run(m, test, cfg["compare_rows"], fields)
+    got.update(train_sha256=chip_smoke.frame_sha256(train),
+               bins_sha256=_bins_sha256(m, train))
+    c.update(got)
+    small = ydf.RandomForestLearner(num_trees=cfg["small_trees"],
+                                    **c["learner"]).train(train)
+    small.save(os.path.join(d, "rf_small"))
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    runs["rf"]["small_predictions"] = np.asarray(small.predict(head))
+    print(f"train_honest rf: {c['fixture_trees']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s, oob {c['oob_evaluation']}",
+          flush=True)
+
+    c = cfg["regression"]
+    train, test = chip_smoke.make_frame(c["rows"], c["test_rows"],
+                                        cfg["cat_seed"])
+    train["target"] = chip_smoke.multitask_target(train)
+    test["target"] = chip_smoke.multitask_target(test)
+    t0 = time.perf_counter()
+    m = ydf.RandomForestLearner(num_trees=c["num_trees"],
+                                task=Task.REGRESSION,
+                                **c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, runs["regression"] = _forest_run(m, test, cfg["compare_rows"],
+                                          fields)
+    got.update(train_sha256=chip_smoke.frame_sha256(train))
+    c.update(got)
+    print(f"train_honest regression: {c['num_trees']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s, {c['jax_evaluate']}", flush=True)
+    _write_runs("train_honest", cfg, runs)
+
+
+TRAIN_SETS_ALONE = dict(
+    jax_version="0.9.0", cat_seed=7, compare_rows=1024,
+    columns=["tags", "words", "label"],
+    gbt=dict(rows=200_000, test_rows=20_000, learner=dict(label="label")),
+    rf=dict(rows=20_000, test_rows=5_000, fixture_trees=50,
+            learner=dict(label="label")),
+    cart=dict(rows=100_000, test_rows=20_000, validation_ratio=0.1,
+              seed=123456, learner=dict(label="label")),
+)
+
+
+def write_train_sets_alone():
+    """train_sets_alone/: the JAX GBT, random forest (its first
+    fixture_trees trees) and CART with every default on
+    chip_smoke.sets_alone_frame (make_set_frame's two CATEGORICAL_SET
+    columns and the label only: no scalar feature). ~11 min on 8 CPU
+    threads (the GBT 137 s, the RF and CART the rest)."""
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+
+    cfg = json.loads(json.dumps(TRAIN_SETS_ALONE))
+    cfg["jax_impls"] = _jax_header(cfg)
+    fields = chip_smoke.SET_TREE_HASH_FIELDS
+    runs = {}
+    c = cfg["gbt"]
+    train, test = chip_smoke.sets_alone_frame(c["rows"], c["test_rows"],
+                                              cfg["cat_seed"])
+    t0 = time.perf_counter()
+    m = ydf.GradientBoostedTreesLearner(**c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, runs["gbt"] = _gbt_run(m, test, cfg["compare_rows"], fields)
+    got["train_sha256"] = chip_smoke.frame_sha256(train)
+    c.update(got)
+    print(f"train_sets_alone gbt: {c['num_trees']} of "
+          f"{c['num_trees_trained']} in {c['jax_train_s_cpu']:.1f} s, "
+          f"{c['jax_evaluate']}", flush=True)
+
+    c = cfg["rf"]
+    train, test = chip_smoke.sets_alone_frame(c["rows"], c["test_rows"],
+                                              cfg["cat_seed"])
+    t0 = time.perf_counter()
+    m = ydf.RandomForestLearner(num_trees=c["fixture_trees"],
+                                **c["learner"]).train(train)
+    c["jax_train_s_cpu"] = time.perf_counter() - t0
+    got, runs["rf"] = _forest_run(m, test, cfg["compare_rows"], fields)
+    got["train_sha256"] = chip_smoke.frame_sha256(train)
+    c.update(got)
+    print(f"train_sets_alone rf: {c['fixture_trees']} trees in "
+          f"{c['jax_train_s_cpu']:.1f} s", flush=True)
+
+    c = cfg["cart"]
+    train, test = chip_smoke.sets_alone_frame(c["rows"], c["test_rows"],
+                                              cfg["cat_seed"])
+    _, runs["cart"] = _cart_run(cfg, c, train, test, c["learner"], fields)
+    print(f"train_sets_alone cart: {c['grown_num_nodes']} nodes grown, "
+          f"{c['num_pruned_nodes']} pruned in {c['jax_train_s_cpu']:.1f} s",
+          flush=True)
+    _write_runs("train_sets_alone", cfg, runs)
+
+
+TRAIN_MULTITASKER = dict(
+    jax_version="0.9.0", cat_seed=7, compare_rows=1024, rows=100_000,
+    test_rows=20_000,
+    tasks=[{"label": "label"}, {"label": "target", "task": "REGRESSION"}],
+)
+
+
+def write_train_multitasker():
+    """train_multitasker/: the JAX MultitaskerLearner with the default
+    GBT base on make_frame plus chip_smoke.multitask_target: the binary
+    label and the regression target; model/ holds its directory
+    (multitasker.txt, task_label/, task_target/). ~1 min on 8 CPU
+    threads (48 s)."""
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.config import Task
+
+    cfg = json.loads(json.dumps(TRAIN_MULTITASKER))
+    cfg["jax_impls"] = _jax_header(cfg)
+    d = os.path.join(OUT, "train_multitasker")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    train, test = chip_smoke.make_frame(cfg["rows"], cfg["test_rows"],
+                                        cfg["cat_seed"])
+    train["target"] = chip_smoke.multitask_target(train)
+    test["target"] = chip_smoke.multitask_target(test)
+    tasks = [dict(t, task=Task[t.get("task", "CLASSIFICATION")])
+             for t in cfg["tasks"]]
+    t0 = time.perf_counter()
+    m = ydf.MultitaskerLearner(tasks=tasks).train(train)
+    cfg["jax_train_s_cpu"] = time.perf_counter() - t0
+    cfg.update(train_sha256=chip_smoke.frame_sha256(train),
+               test_sha256=chip_smoke.frame_sha256(test), models={})
+    runs = {}
+    for label, sub in m.models.items():
+        got, runs[label] = _gbt_run(sub, test, cfg["compare_rows"],
+                                    chip_smoke.TREE_HASH_FIELDS)
+        cfg["models"][label] = got
+    m.save(os.path.join(d, "model"))
+    print(f"train_multitasker: {cfg['jax_train_s_cpu']:.1f} s, " + "; ".join(
+        f"{k}: {v['num_trees']} trees, {v['jax_evaluate']}"
+        for k, v in cfg["models"].items()), flush=True)
+    _write_runs("train_multitasker", cfg, runs)
+
+
 #: Where main() asks XLA to dump the boosting programs (for
 #: write_train_multiclass's update_forms); removed afterwards.
 DUMP_DIR = None
@@ -1688,6 +2041,14 @@ def main():
         write_train_survival()
     if only in (None, "train_rank_options"):
         write_train_rank_options()
+    if only in (None, "train_uplift"):
+        write_train_uplift()
+    if only in (None, "train_honest"):
+        write_train_honest()
+    if only in (None, "train_sets_alone"):
+        write_train_sets_alone()
+    if only in (None, "train_multitasker"):
+        write_train_multitasker()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

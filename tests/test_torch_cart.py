@@ -16,6 +16,8 @@ Tests marked `gpu` need a card (run on one with
 `python -m pytest --noconftest -m gpu tests/test_torch_*.py`).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -219,13 +221,40 @@ def test_save_load_both_ways(pair, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(task=Task.CATEGORICAL_UPLIFT), 15),
+    # The uplift task and honest trees train since ROADMAP item 15
+    # (tests/test_torch_uplift.py, tests/test_torch_honest.py): these
+    # cases hold the port to what the JAX package does with them ("jax").
+    (dict(task=Task.CATEGORICAL_UPLIFT), "jax"),
     # Sparse-oblique splits train (tests/test_torch_oblique.py); MHLD is
     # the GBT's alone, and the JAX package's CART rejects it.
     (dict(split_axis="MHLD_OBLIQUE"), None),
-    (dict(honest=True), 15),
+    (dict(honest=True), "jax"),
 ])
 def test_unported_options_raise(kwargs, item):
+    """MHLD splits raise; an option the port has ("jax") trains a small
+    frame as the JAX package does: the same error (the uplift task
+    without uplift_treatment) or the same pruned tree (honest=True)."""
+    if item == "jax":
+        require_jax()
+        df = make_frame(1200, 3)
+        jkw = dict(kwargs)
+        if "task" in jkw:
+            jkw["task"] = JaxTask[jkw["task"].value]
+        try:
+            jm, jerr = ydf.CartLearner(label="label", max_depth=6,
+                                       **jkw).train(df), None
+        except Exception as e:  # the JAX package's behaviour
+            jm, jerr = None, e
+        learner = ydf_tpu_torch.CartLearner(label="label", max_depth=6,
+                                            device="cpu", **kwargs)
+        if jerr is not None:
+            with pytest.raises(type(jerr), match=re.escape(str(jerr))):
+                learner.train(df)
+        else:
+            pm = learner.train(df)
+            assert_same_forest(jm, pm)
+            assert pm.extra_metadata == jm.extra_metadata
+        return
     error, match = ((NotImplementedError, f"item {item}") if item
                     else (ValueError, "split_axis"))
     with pytest.raises(error, match=match):

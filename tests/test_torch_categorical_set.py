@@ -649,10 +649,116 @@ def test_train_sets_fixture_matches_chip_smoke_constants():
 
 
 def test_set_features_alone_raise_naming_the_item():
-    """A dataset whose only features are sets is not ported: the grower
-    raises naming ROADMAP item 29 (the JAX grower takes it)."""
-    data = {k: v for k, v in set_frame(300).items()
-            if k in ("tags", "words", "label")}
-    with pytest.raises(NotImplementedError, match="item 29"):
-        ydf_tpu_torch.GradientBoostedTreesLearner(
-            label="label", device="cpu", num_trees=1).train(data)
+    """Set features alone train since ROADMAP item 29 (below); what still
+    raises is a frame with no feature at all, a ValueError in both
+    packages (the JAX grower finds no candidate column, the port's
+    grower says so), and the routed kernel's wrapper at F == 0, which
+    the grower no longer calls there."""
+    require_jax()
+    data = {"label": set_frame(300)["label"]}
+    for mod, extra in ((ydf, {}), (ydf_tpu_torch, {"device": "cpu"})):
+        with pytest.raises(ValueError):
+            mod.GradientBoostedTreesLearner(
+                label="label", num_trees=1, **extra).train(data)
+    n = 40
+    with pytest.raises(ValueError, match="F == 0"):
+        histogram_kernels.histogram_routed(
+            torch.zeros((0, n), dtype=torch.uint8),
+            torch.zeros(n, dtype=torch.int32),
+            torch.zeros(n, dtype=torch.int32), RouteTables(
+                do_split=torch.zeros(3, dtype=torch.bool),
+                route_f=torch.zeros(3, dtype=torch.int32),
+                go_left=torch.zeros((3, 32), dtype=torch.bool),
+                left_id=torch.zeros(3, dtype=torch.int32),
+                right_id=torch.zeros(3, dtype=torch.int32),
+                split_rank=torch.zeros(3, dtype=torch.int32),
+                hmap=torch.arange(3, dtype=torch.int32),
+                is_set=torch.zeros(3, dtype=torch.bool),
+                set_go_left=torch.zeros(1, dtype=torch.uint8)),
+            torch.ones((n, 3)), 1, 32)
+
+
+def sets_alone(frame):
+    return {k: frame[k] for k in ("tags", "words", "label")}
+
+
+@pytest.mark.parametrize("learner", ["gbt", "rf", "cart"])
+def test_set_features_alone_grow_the_jax_trees(learner):
+    """ROADMAP item 29: a frame whose only features are its two set
+    columns. No histogram of scalar columns, no sibling subtraction; the
+    rows are routed every layer by the plain chain (route_plain's
+    all-right branch at F == 0, then the set tables). The GBT, the random
+    forest (4 trees) and CART (pruned) equal the JAX package's, every
+    node array, leaf values, predictions and metrics."""
+    require_jax()
+    train = sets_alone(set_frame(2500, seed=7))
+    fresh = sets_alone(set_frame(600, seed=8, test=True))
+    kw = {"gbt": dict(num_trees=8), "rf": dict(num_trees=4),
+          "cart": {}}[learner]
+    cls = {"gbt": "GradientBoostedTreesLearner",
+           "rf": "RandomForestLearner", "cart": "CartLearner"}[learner]
+    jm = getattr(ydf, cls)(label="label", **kw).train(train)
+    before = dict(histogram_kernels.LAUNCHES)
+    pm = getattr(ydf_tpu_torch, cls)(label="label", device="cpu",
+                                     **kw).train(train)
+    assert pm.binner.num_scalar == 0 and pm.binner.num_set == 2
+    same_forests(jm, pm)
+    assert np.array_equal(bits(pm.predict(fresh)),
+                          bits(np.asarray(jm.predict(fresh))))
+    je, pe = jm.evaluate(fresh).metrics, pm.evaluate(fresh).metrics
+    for k, v in je.items():
+        assert abs(pe[k] - v) <= 1e-12, k
+    if learner == "cart":
+        assert (pm.extra_metadata["num_pruned_nodes"]
+                == jm.extra_metadata["num_pruned_nodes"])
+    assert histogram_kernels.LAUNCHES == before  # CPU: no kernel
+
+
+@pytest.mark.gpu
+def test_set_features_alone_on_card_match_cpu():
+    """The set-only GBT and random forest on the card equal the CPU
+    port's; the card launches the run sums and the prefix histograms,
+    and no routed kernel."""
+    _need_card()
+    train = sets_alone(set_frame(20_000, seed=7))
+    fresh = sets_alone(set_frame(600, seed=8, test=True))
+    for cls, kw in ((ydf_tpu_torch.GradientBoostedTreesLearner,
+                     dict(num_trees=5)),
+                    (ydf_tpu_torch.RandomForestLearner,
+                     dict(num_trees=3))):
+        before = dict(histogram_kernels.LAUNCHES)
+        seg0 = segment_sum.KERNEL_LAUNCHES
+        gm = cls(label="label", device="cuda", **kw).train(train)
+        assert histogram_kernels.LAUNCHES["histogram_routed"] == \
+            before["histogram_routed"]
+        assert histogram_kernels.LAUNCHES["histogram"] > before["histogram"]
+        assert segment_sum.KERNEL_LAUNCHES > seg0
+        cm = cls(label="label", device="cpu", **kw).train(train)
+        g, c = gm.forest.to_numpy(), cm.forest.to_numpy()
+        for f in NODE_FIELDS:
+            assert np.array_equal(g[f], c[f]), f
+        assert np.array_equal(bits(gm.predict(fresh)),
+                              bits(cm.predict(fresh)))
+
+
+def test_train_sets_alone_fixture_matches_chip_smoke_constants():
+    """The committed train_sets_alone fixture is the configuration phase
+    15 drives: make_set_frame's two set columns and the label, at
+    train_sets' sizes."""
+    import json
+
+    from test_torch_default_train import load_chip_smoke
+
+    smoke = load_chip_smoke()
+    with open(os.path.join(smoke.TRAIN_SETS_ALONE, "config.json")) as f:
+        cfg = json.load(f)
+    assert cfg["columns"] == ["tags", "words", "label"]
+    assert (cfg["gbt"]["rows"], cfg["rf"]["rows"], cfg["rf"]["fixture_trees"],
+            cfg["cart"]["rows"]) == (
+        smoke.SETS_GBT_ROWS, smoke.SETS_RF_ROWS, smoke.SETS_RF_FIXTURE_TREES,
+        smoke.SETS_CART_ROWS)
+    train, test = smoke.sets_alone_frame(cfg["rf"]["rows"],
+                                         cfg["rf"]["test_rows"])
+    assert sorted(train) == sorted(cfg["columns"])
+    assert smoke.frame_sha256(train) == cfg["rf"]["train_sha256"]
+    assert smoke.frame_sha256(test) == cfg["rf"]["test_sha256"]

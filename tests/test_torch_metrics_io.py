@@ -93,9 +93,10 @@ def test_evaluate_predictions_matches_jax(kind, intervals, weighted):
 
 
 def test_unported_tasks_raise():
-    # Ranking and survival evaluate since ROADMAP item 11 (their inputs
-    # are required); the uplift tasks and the HTML report do not.
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # Ranking, survival (ROADMAP item 11) and the uplift tasks (item 15)
+    # evaluate, their inputs required as in the JAX package; the HTML
+    # report does not.
+    with pytest.raises(AssertionError, match="needs treatments"):
         metrics.evaluate_predictions(Task.NUMERICAL_UPLIFT, np.zeros(3),
                                      np.zeros(3))
     with pytest.raises(AssertionError, match="group ids"):

@@ -24,6 +24,8 @@ Tests marked `gpu` need a card (run on one with
 
 import os
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -178,17 +180,48 @@ def test_save_load_both_ways(binary, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(honest=True), 15),
+    # Honest trees and the uplift tasks train since ROADMAP item 15
+    # (tests/test_torch_honest.py, tests/test_torch_uplift.py): these
+    # cases hold the port to what the JAX package does with them ("jax").
+    (dict(honest=True), "jax"),
     # Sparse-oblique splits train (tests/test_torch_oblique.py); MHLD is
     # the GBT's alone, and the JAX package's random forest rejects it.
     (dict(split_axis="MHLD_OBLIQUE"), None),
-    (dict(task=Task.CATEGORICAL_UPLIFT), 15),
-    (dict(uplift_treatment="t"), 15),
+    (dict(task=Task.CATEGORICAL_UPLIFT), "jax"),
+    (dict(uplift_treatment="t"), "jax"),
     (dict(compute_oob_variable_importances=True), 20),
     (dict(mesh=object()), 18),
     (dict(maximum_training_duration=10.0), 17),
 ])
 def test_unported_options_raise(kwargs, item):
+    """The options the port lacks raise naming their ROADMAP item; an
+    option it has ("jax") trains a small frame as the JAX package does:
+    the same error (an uplift task without uplift_treatment), or the
+    same trees (honest trees; a treatment column on a classification
+    task is kept out of the features)."""
+    if item == "jax":
+        require_jax()
+        df = make_frame(400, 3)
+        df["t"] = np.where(df["x2"] > 0, "b", "a")
+        kw = dict(label="label", num_trees=2, max_depth=5)
+        jkw = dict(kwargs)
+        if "task" in jkw:
+            jkw["task"] = JaxTask[jkw["task"].value]
+        try:
+            jm, jerr = ydf.RandomForestLearner(**kw, **jkw).train(df), None
+        except Exception as e:  # the JAX package's behaviour
+            jm, jerr = None, e
+        learner = ydf_tpu_torch.RandomForestLearner(device="cpu", **kw,
+                                                    **kwargs)
+        if jerr is not None:
+            with pytest.raises(type(jerr), match=re.escape(str(jerr))):
+                learner.train(df)
+        else:
+            pm = learner.train(df)
+            assert_same_forest(jm, pm)
+            assert "t" not in pm.binner.feature_names or (
+                "uplift_treatment" not in kwargs)
+        return
     error, match = ((NotImplementedError, f"item {item}") if item
                     else (ValueError, "split_axis"))
     with pytest.raises(error, match=match):

@@ -284,6 +284,7 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import sys, ydf_tpu_torch\n"
         "from ydf_tpu_torch.serving import registry\n"
         "from ydf_tpu_torch.learners import gbt, random_forest\n"
+        "from ydf_tpu_torch.learners import cart, multitasker\n"
         "from ydf_tpu_torch.learners import ranking_loss, survival_loss\n"
         "from ydf_tpu_torch.ops import grower, histogram_kernels, binning\n"
         "from ydf_tpu_torch.ops import vector_sequence\n"

@@ -13,6 +13,11 @@ hand-written CUDA kernels too.
     model = ydf.CartLearner(label="y").train(data)
     model.self_evaluation()      # out-of-bag, or CART's holdout
     model = ydf.IsolationForestLearner().train(data)   # anomaly scores
+    model = ydf.RandomForestLearner(label="y", uplift_treatment="t",
+                                    task=ydf.Task.CATEGORICAL_UPLIFT
+                                    ).train(data)        # uplift
+    model = ydf.MultitaskerLearner(tasks=[{"label": "y"}, {"label": "z"}]
+                                   ).train(data)     # one model a label
     model.predict(data)                          # numpy, like the JAX package
     model.evaluate(test)                         # metrics on the host
     model.save("path/to/dir")                    # loads in either package
@@ -32,6 +37,10 @@ from ydf_tpu_torch.dataset.dataspec import (
 from ydf_tpu_torch.learners.cart import CartLearner
 from ydf_tpu_torch.learners.gbt import GradientBoostedTreesLearner
 from ydf_tpu_torch.learners.isolation_forest import IsolationForestLearner
+from ydf_tpu_torch.learners.multitasker import (
+    MultitaskerLearner,
+    MultitaskerModel,
+)
 from ydf_tpu_torch.learners.random_forest import RandomForestLearner
 from ydf_tpu_torch.models.io import (
     binner_from_jax,
@@ -51,6 +60,8 @@ __all__ = [
     "GradientBoostedTreesLearner",
     "IsolationForestLearner",
     "IsolationForestModel",
+    "MultitaskerLearner",
+    "MultitaskerModel",
     "RandomForestLearner",
     "RandomForestModel",
     "Task",

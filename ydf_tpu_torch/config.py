@@ -20,6 +20,10 @@ class Task(enum.Enum):
     SURVIVAL_ANALYSIS = "SURVIVAL_ANALYSIS"
 
 
+#: The treatment-effect tasks (a treatment column beside the outcome).
+UPLIFT_TASKS = (Task.CATEGORICAL_UPLIFT, Task.NUMERICAL_UPLIFT)
+
+
 def resolve_num_bins(num_bins, n: int, min_cat_vocab: int = 0) -> int:
     """num_bins="auto" -> pow2ceil(n / 180) clipped to [64, 256] (floored
     at the largest categorical dictionary); an int is kept."""

@@ -25,9 +25,10 @@ added up from the leaves in one reverse sweep over the node ids
 wherever predicting its own value scores at least as well on the holdout
 as its pruned subtree: the weighted count of correct argmax classes, or
 -SSE around the node's training mean. The kept nodes are renumbered
-breadth first into fresh tensors on the model's device. Uplift pruning
-is not ported (the uplift task raises in the random forest learner,
-ROADMAP Queue 1 item 15).
+breadth first into fresh tensors on the model's device. A
+CATEGORICAL_UPLIFT tree prunes by the holdout's area under the uplift
+curve instead (prune_single_tree_uplift); a NUMERICAL_UPLIFT tree is not
+pruned and trains on all the rows, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,12 +42,14 @@ import torch
 from ydf_tpu_torch.config import Task
 from ydf_tpu_torch.dataset.dataset import Dataset, InputData
 from ydf_tpu_torch.learners.random_forest import RandomForestLearner
+from ydf_tpu_torch.metrics.metrics import qini_curve
 from ydf_tpu_torch.models.rf_model import RandomForestModel
 from ydf_tpu_torch.ops.routing import route_tree_values
 
 
 class CartLearner(RandomForestLearner):
-    """The JAX package's CartLearner for classification and regression."""
+    """The JAX package's CartLearner for classification, regression and
+    the uplift tasks."""
 
     def __init__(
         self,
@@ -71,7 +74,9 @@ class CartLearner(RandomForestLearner):
         when `valid` is given), then prunes it on the holdout. Without a
         holdout (validation_ratio <= 0, or a draw that holds out no row
         or every row) it trains the unpruned tree on all of `data`."""
-        if valid is None and self.validation_ratio <= 0:
+        prunable = self.task in (Task.CLASSIFICATION, Task.REGRESSION,
+                                 Task.CATEGORICAL_UPLIFT)
+        if not prunable or (valid is None and self.validation_ratio <= 0):
             return super().train(data)
         t0 = time.perf_counter()
         full = self._infer_dataset(data)
@@ -92,9 +97,14 @@ class CartLearner(RandomForestLearner):
             del self._forced_dataspec
         timings = dict(self.last_timings)
         t1 = time.perf_counter()
-        num_pruned = prune_single_tree(model, valid_part,
-                                       weights_col=self.weights,
-                                       task=self.task)
+        if self.task == Task.CATEGORICAL_UPLIFT:
+            num_pruned = prune_single_tree_uplift(
+                model, valid_part, weights_col=self.weights,
+                treatment_col=self.uplift_treatment)
+        else:
+            num_pruned = prune_single_tree(model, valid_part,
+                                           weights_col=self.weights,
+                                           task=self.task)
         model.extra_metadata["num_pruned_nodes"] = num_pruned
         t2 = time.perf_counter()
         ev = model.evaluate(valid_part, weights=self.weights)
@@ -241,3 +251,54 @@ def _compact_pruned_tree(model, new_is_leaf: np.ndarray) -> int:
     model.forest = forest._replace(**fields)
     model._engine_cache = {}
     return old_count - M
+
+
+def prune_single_tree_uplift(model, valid_data, *, weights_col,
+                             treatment_col) -> int:
+    """Reduced-error pruning of a CATEGORICAL_UPLIFT tree 0 (the JAX
+    package's prune_single_tree_uplift, the reference's
+    PruneTreeUpliftCategorical): per split node, from the deepest id up,
+    the holdout AUUC of the node's own uplift given to all its rows
+    against the AUUC of its pruned subtree's per-row uplifts; the node
+    becomes a leaf when its own scores at least as well. A node's rows
+    are its holdout rows with a known treatment in ascending order (so
+    both scores break ties alike), gathered from the leaves up; a node
+    whose rows lack a treatment arm scores 0 both ways and is pruned.
+    Returns the number of pruned nodes."""
+    ds, leaves, w = _route_validation(model, valid_data, weights_col)
+    y = np.asarray(ds.encoded_label(model.label, Task.CLASSIFICATION))
+    outcome = (y == 1).astype(np.int64)  # positive: the second class
+    tcodes = np.asarray(ds.encoded_categorical(treatment_col))
+    t01 = (tcodes == 2).astype(np.int64)
+    tree = _tree0(model.forest)
+    left, right, is_leaf = tree["left"], tree["right"], tree["is_leaf"]
+    lv = tree["leaf_value"]  # [N, 1] uplift
+    N = left.shape[0]
+
+    members = [[] for _ in range(N)]
+    for i in np.flatnonzero(tcodes >= 1):
+        members[leaves[i]].append(i)
+    members = [np.asarray(m, np.int64) for m in members]
+    for v in range(N - 1, -1, -1):
+        if not is_leaf[v]:
+            members[v] = np.sort(np.concatenate([members[left[v]],
+                                                 members[right[v]]]))
+
+    def auuc(pred, idx):
+        if idx.size == 0 or len(np.unique(t01[idx])) < 2:
+            return 0.0
+        return qini_curve(pred, outcome[idx], t01[idx],
+                          weights=w[idx])["auuc"]
+
+    preds = lv[leaves, 0].astype(np.float64)
+    new_is_leaf = is_leaf.copy()
+    for v in range(N - 1, -1, -1):
+        if is_leaf[v]:
+            continue
+        E = members[v]
+        as_subtree = auuc(preds[E], E)
+        as_leaf = auuc(np.full(E.shape, lv[v, 0], np.float64), E)
+        if as_leaf >= as_subtree:
+            new_is_leaf[v] = True
+            preds[E] = lv[v, 0]
+    return _compact_pruned_tree(model, new_is_leaf)

@@ -148,7 +148,7 @@ import torch
 from ydf_tpu_torch.config import Task, TreeConfig, resolve_max_frontier
 from ydf_tpu_torch.dataset.dataset import InputData
 from ydf_tpu_torch.dataset.dataspec import ColumnType
-from ydf_tpu_torch.learners.generic import GenericLearner
+from ydf_tpu_torch.learners.generic import GenericLearner, unported
 from ydf_tpu_torch.learners.losses import CustomLoss, make_loss, sum_classes
 from ydf_tpu_torch.learners.ranking_loss import (
     LambdaMartNdcg, argsort_f32, build_group_rows, inverse_permutation)
@@ -194,12 +194,6 @@ def bool_column(values: np.ndarray) -> np.ndarray:
         raise ValueError(
             "event-observed column contains missing values (NaN)")
     return v.astype(bool)
-
-
-def _unported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
 
 
 def fma_update(preds: torch.Tensor, raw: torch.Tensor,
@@ -373,8 +367,9 @@ class GradientBoostedTreesLearner(GenericLearner):
     (subsample, GOSS, SELGB), candidate features, monotone constraints
     and DART. `train(data, valid=None)`: an explicit validation set
     replaces the split. `loss` is a loss name or a
-    learners/losses.py:CustomLoss. The uplift tasks and MHLD splits
-    raise NotImplementedError."""
+    learners/losses.py:CustomLoss. A task with no default loss (the
+    uplift tasks, anomaly detection) raises the JAX package's ValueError
+    when it trains; MHLD splits raise NotImplementedError."""
 
     def __init__(
         self,
@@ -427,9 +422,6 @@ class GradientBoostedTreesLearner(GenericLearner):
         random_seed: int = 123456,
         device=None,
     ):
-        if task not in (Task.CLASSIFICATION, Task.REGRESSION, Task.RANKING,
-                        Task.SURVIVAL_ANALYSIS):
-            raise _unported(f"task {task.value}", 15)
         if not 0.0 <= dart_dropout < 1.0:
             raise ValueError(
                 f"dart_dropout must be in [0, 1), got {dart_dropout}")
@@ -445,7 +437,7 @@ class GradientBoostedTreesLearner(GenericLearner):
                               "MHLD_OBLIQUE"):
             raise ValueError(f"Unknown split_axis {split_axis!r}")
         if split_axis == "MHLD_OBLIQUE":
-            raise _unported("split_axis='MHLD_OBLIQUE'", 28)
+            raise unported("split_axis='MHLD_OBLIQUE'", 28)
         oblique.check_weight_type(sparse_oblique_weights)
         super().__init__(
             label=label, task=task, features=features, weights=weights,

@@ -36,6 +36,13 @@ JAX_FEATURE_TYPES = (
 )
 
 
+def unported(what: str, item) -> NotImplementedError:
+    """The error of a feature of the JAX package the port lacks."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
+    )
+
+
 class GenericLearner:
     #: Column types a learner trains on when `features=` is not given.
     _feature_types = JAX_FEATURE_TYPES
@@ -70,15 +77,22 @@ class GenericLearner:
         self.last_timings: Dict[str, float] = {}
 
     def _infer_dataset(self, data: InputData) -> Dataset:
-        """Dataset with this learner's type policy: classification labels
-        are always dictionary-encoded, a ranking group column is HASH
-        unless the user types it, user column_types apply; keyed under
+        """Dataset with this learner's type policy: classification and
+        categorical-uplift labels and an uplift treatment column are
+        always dictionary-encoded, a ranking group column is HASH unless
+        the user types it, user column_types apply; keyed under
         `_forced_dataspec` when it is set."""
         column_types = dict(self.column_types)
         group_col = getattr(self, "ranking_group", None)
         if group_col:
             column_types.setdefault(group_col, ColumnType.HASH)
-        if self.label is not None and self.task == Task.CLASSIFICATION:
+        treat_col = getattr(self, "uplift_treatment", None)
+        if treat_col:
+            # Code 1 is the most frequent value (control), code 2 the
+            # treated one.
+            column_types[treat_col] = ColumnType.CATEGORICAL
+        if self.label is not None and self.task in (
+                Task.CLASSIFICATION, Task.CATEGORICAL_UPLIFT):
             column_types[self.label] = ColumnType.CATEGORICAL
         return Dataset.from_data(
             data, label=self.label, dataspec=self._forced_dataspec,
@@ -90,12 +104,13 @@ class GenericLearner:
     def _select_feature_names(self, ds: Dataset) -> list:
         """Explicit `features=` wins; otherwise every column of one of
         the learner's `_feature_types` but the label, the weights and a
-        task's group, event and entry-age columns."""
+        task's group, treatment, event and entry-age columns."""
         if self.features is not None:
             return list(self.features)
         exclude = {
             self.label, self.weights,
             getattr(self, "ranking_group", None),
+            getattr(self, "uplift_treatment", None),
             getattr(self, "label_event_observed", None),
             getattr(self, "label_entry_age", None),
         } - {None}
@@ -137,7 +152,8 @@ class GenericLearner:
         out = {"dataset": ds, "binner": binner, "bins_t": bins_t,
                "vs": vs, "set_bits": self._set_bits(binner, ds)}
         out.update(self._encode_targets(ds))
-        if self.task == Task.CLASSIFICATION and self.label is not None:
+        if self.label is not None and self._label_task() == \
+                Task.CLASSIFICATION:
             out["classes"] = ds.label_classes(self.label)
         t5 = time.perf_counter()
         if valid is not None:
@@ -166,14 +182,32 @@ class GenericLearner:
             return None
         return torch.from_numpy(sets.view(np.int32)).to(self.device)
 
+    def _need(self, col_attr: str, ds: Dataset) -> None:
+        """The task's column named by `col_attr` must be in the data
+        (the JAX package's _need, which checks a dataset cache's stored
+        columns)."""
+        col = getattr(self, col_attr, None)
+        if col and col not in ds.data:
+            raise ValueError(
+                f"task {self.task} needs column {col!r} in the data "
+                f"({col_attr}={col!r})")
+
+    def _label_task(self) -> Task:
+        """How the label is encoded: a CATEGORICAL_UPLIFT outcome as a
+        classification label, a NUMERICAL_UPLIFT one as a regression
+        value."""
+        return {Task.CATEGORICAL_UPLIFT: Task.CLASSIFICATION,
+                Task.NUMERICAL_UPLIFT: Task.REGRESSION}.get(self.task,
+                                                            self.task)
+
     def _encode_targets(self, ds: Dataset) -> Dict[str, np.ndarray]:
         """Encoded labels (when the learner has one: class indices, or
-        f32 values for regression, ranking relevance and survival
-        departure ages) and sample weights (ones without a weights
-        column), numpy."""
+        f32 values for regression, ranking relevance, survival departure
+        ages and numerical uplift outcomes) and sample weights (ones
+        without a weights column), numpy."""
         out = {}
         if self.label is not None:
-            out["labels"] = ds.encoded_label(self.label, self.task)
+            out["labels"] = ds.encoded_label(self.label, self._label_task())
         out["sample_weights"] = (
             ds.data[self.weights].astype(np.float32)
             if self.weights is not None

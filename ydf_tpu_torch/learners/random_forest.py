@@ -12,15 +12,16 @@ Poisson(1) bootstrap of the rows, sqrt(F) candidate features per node for
 classification and F/3 for regression, winner-take-all votes, out-of-bag
 evaluation, max_frontier="auto" (1024 slots from 10,240 rows up).
 
-Tree t draws from key = fold_in(PRNGKey(seed), t): k_boot, k_grow, _,
-k_obl = split(key, 4). Its rows weigh w = w_base * poisson(k_boot, 1.0, (n,)),
-its stats are basis * w (classification: [one-hot label..., 1], so the
-stats are class counts; regression: [y, y^2, 1]), the grower draws each
-layer's candidate features from k_grow (ops/grower.py), and the leaves
-hold rule.leaf_value (the class distribution, or the mean). Rows the
-bootstrap left out (count 0, base weight > 0) vote on the tree for the
-out-of-bag evaluation: one-hot of the leaf's top class (winner take all)
-or the leaf value, summed in tree order in f32, as the JAX package does.
+Tree t draws from key = fold_in(PRNGKey(seed), t): k_boot, k_grow,
+k_honest, k_obl = split(key, 4). Its rows weigh w = w_base *
+poisson(k_boot, 1.0, (n,)), its stats are basis * w (classification:
+[one-hot label..., 1], so the stats are class counts; regression: [y,
+y^2, 1]), the grower draws each layer's candidate features from k_grow
+(ops/grower.py), and the leaves hold rule.leaf_value (the class
+distribution, or the mean). Rows the bootstrap left out (count 0, base
+weight > 0) vote on the tree for the out-of-bag evaluation: one-hot of
+the leaf's top class (winner take all) or the leaf value, summed in tree
+order in f32, as the JAX package does.
 
 Sparse-oblique splits (split_axis="SPARSE_OBLIQUE", _rf_run_chunk's
 projection step): tree t draws P = min(max(ceil(Fn ** exponent), 2),
@@ -46,11 +47,24 @@ layer (HOST_READS). The loop itself reads nothing back (it runs under
 torch.cuda.set_sync_debug_mode("error") on a card); the trees, leaf
 values and out-of-bag sums are read after the last tree.
 
-What the JAX package's learner offers and this port does not (honest
-trees, uplift tasks, out-of-bag permutation
-importances, a mesh, maximum_training_duration) raises
-NotImplementedError naming the ROADMAP item. bootstrap_size_ratio is
-stored and unused, as in the JAX package.
+Uplift tasks (task=CATEGORICAL_UPLIFT or NUMERICAL_UPLIFT with
+uplift_treatment=, the JAX package's uplift branch): the treatment column
+is dictionary-encoded (code 1, the most frequent value, is control; code
+2 treated; other codes weigh nothing) and kept out of the features; the
+stats are [control, control y, treated, treated y, known] x w and the
+rule UpliftEuclideanRule, whose leaves hold the uplift; only binary
+treatments and (for CATEGORICAL_UPLIFT) binary outcomes, no out-of-bag
+evaluation, extra_metadata names the treatment column.
+
+Honest trees (honest=True): tree t also draws est = bernoulli(k_honest,
+honest_ratio_leaf_examples, (n,)) on the device; the rows drawn weigh
+nothing while the tree grows, then each leaf's stats are summed again
+over them alone (honest_leaf_stats, in the JAX package's row order).
+
+What the JAX package's learner offers and this port does not
+(out-of-bag permutation importances, a mesh, maximum_training_duration)
+raises NotImplementedError naming the ROADMAP item. bootstrap_size_ratio
+is stored and unused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,18 +75,20 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ydf_tpu_torch.config import Task, TreeConfig, resolve_max_frontier
+from ydf_tpu_torch.config import (
+    UPLIFT_TASKS, Task, TreeConfig, resolve_max_frontier)
 from ydf_tpu_torch.dataset.dataset import InputData
 from ydf_tpu_torch.dataset.dataspec import ColumnType
-from ydf_tpu_torch.learners.generic import GenericLearner
+from ydf_tpu_torch.learners.generic import GenericLearner, unported
 from ydf_tpu_torch.metrics.metrics import evaluate_predictions
 from ydf_tpu_torch.models.forest import (
     bake_winner_take_all,
     forest_from_stacked_trees,
 )
 from ydf_tpu_torch.models.rf_model import RandomForestModel
-from ydf_tpu_torch.ops import grower, oblique
-from ydf_tpu_torch.ops.split_rules import ClassificationRule, RegressionRule
+from ydf_tpu_torch.ops import grower, oblique, segment_sum
+from ydf_tpu_torch.ops.split_rules import (
+    ClassificationRule, RegressionRule, UpliftEuclideanRule)
 from ydf_tpu_torch.utils import prng
 
 #: Reads of device values on the host by train_rf in this process: the
@@ -88,15 +104,10 @@ POISSON_STEPS = 16
 POISSON_CHUNK = 25
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
-
-
 class RandomForestLearner(GenericLearner):
-    """The JAX package's RandomForestLearner for classification and
-    regression on numerical, boolean and categorical features."""
+    """The JAX package's RandomForestLearner for classification,
+    regression and the uplift tasks on numerical, boolean, categorical
+    and categorical-set features."""
 
     def __init__(
         self,
@@ -132,21 +143,19 @@ class RandomForestLearner(GenericLearner):
         random_seed: int = 123456,
         device=None,
     ):
-        if task not in (Task.CLASSIFICATION, Task.REGRESSION):
-            raise _unported(f"random forest task {task.value}", 15)
+        if task not in (Task.CLASSIFICATION, Task.REGRESSION) + UPLIFT_TASKS:
+            raise NotImplementedError(
+                f"random forest task {task.value}: the port's forests "
+                "train classification, regression and the uplift tasks")
         if split_axis not in ("AXIS_ALIGNED", "SPARSE_OBLIQUE"):
             raise ValueError(f"Unknown split_axis {split_axis!r}")
         oblique.check_weight_type(sparse_oblique_weights)
-        if uplift_treatment:
-            raise _unported("uplift_treatment", 15)
-        if honest:
-            raise _unported("honest trees", 15)
         if compute_oob_variable_importances:
-            raise _unported("out-of-bag permutation importances", 20)
+            raise unported("out-of-bag permutation importances", 20)
         if mesh is not None:
-            raise _unported("mesh (multi-device training)", 18)
+            raise unported("mesh (multi-device training)", 18)
         if maximum_training_duration and maximum_training_duration > 0:
-            raise _unported("maximum_training_duration", 17)
+            raise unported("maximum_training_duration", 17)
         super().__init__(
             label=label, task=task, features=features, weights=weights,
             max_vocab_count=max_vocab_count,
@@ -172,6 +181,8 @@ class RandomForestLearner(GenericLearner):
         self.winner_take_all = winner_take_all
         self.compute_oob_performances = compute_oob_performances
         self.max_frontier = max_frontier
+        self.uplift_treatment = uplift_treatment
+        self.honest = honest
         self.honest_ratio_leaf_examples = honest_ratio_leaf_examples
 
     def _candidate_features(self, F: int) -> int:
@@ -202,7 +213,10 @@ class RandomForestLearner(GenericLearner):
         w_base = torch.from_numpy(prep["sample_weights"]).to(dev)
         labels = prep["labels"]
         classes = None
-        if self.task == Task.CLASSIFICATION:
+        if self.task in UPLIFT_TASKS:
+            rule = UpliftEuclideanRule()
+            basis, classes = self._uplift_basis(prep)
+        elif self.task == Task.CLASSIFICATION:
             classes = prep["classes"]
             C = len(classes)
             rule = ClassificationRule(num_classes=C)
@@ -222,7 +236,8 @@ class RandomForestLearner(GenericLearner):
             min_examples=self.min_examples,
         )
         oob_enabled = (self.compute_oob_performances
-                       and self.bootstrap_training_dataset)
+                       and self.bootstrap_training_dataset
+                       and self.task not in UPLIFT_TASKS)
         obl = oblique_inputs(self, prep)
         t1 = time.perf_counter()
         out = train_rf(
@@ -236,6 +251,8 @@ class RandomForestLearner(GenericLearner):
             winner_take_all=(self.winner_take_all
                              and self.task == Task.CLASSIFICATION),
             compute_oob=oob_enabled, obl=obl, set_bits=prep["set_bits"],
+            honest_ratio=(self.honest_ratio_leaf_examples if self.honest
+                          else 0.0),
         )
         t2 = time.perf_counter()
         forest = oblique_forest(out, binner)
@@ -243,6 +260,8 @@ class RandomForestLearner(GenericLearner):
             task=self.task, label=self.label, classes=classes,
             dataspec=prep["dataset"].dataspec, binner=binner, forest=forest,
             max_depth=self.max_depth, winner_take_all=self.winner_take_all,
+            extra_metadata=({"uplift_treatment": self.uplift_treatment}
+                            if self.uplift_treatment else None),
         )
         if oob_enabled:
             model.oob_evaluation = oob_evaluation(
@@ -255,6 +274,39 @@ class RandomForestLearner(GenericLearner):
                                   "finalize_s": t3 - t2,
                                   "train_s": t3 - t0})
         return model
+
+    def _uplift_basis(self, prep):
+        """The uplift stat basis f32 [n, 5] on the learner's device,
+        [control, control * y, treated, treated * y, known] with control
+        = known * (1 - t), treated = known * t (t: the treatment column's
+        code is 2, known: it is 1 or 2, so rows with a missing or unseen
+        treatment weigh nothing), y the outcome (1 for the second class
+        of a CATEGORICAL_UPLIFT label); and the classes (None for
+        NUMERICAL_UPLIFT)."""
+        col = self.uplift_treatment
+        if not col:
+            raise ValueError("Uplift tasks require uplift_treatment=")
+        ds = prep["dataset"]
+        self._need("uplift_treatment", ds)
+        if ds.dataspec.column_by_name(col).vocab_size > 3:
+            raise NotImplementedError("Only binary treatments are supported")
+        codes = torch.from_numpy(ds.encoded_categorical(col)).to(self.device)
+        t01 = (codes == 2).to(torch.float32)
+        known = (codes >= 1).to(torch.float32)
+        labels = prep["labels"]
+        classes = None
+        if self.task == Task.CATEGORICAL_UPLIFT:
+            classes = prep["classes"]
+            if len(classes) != 2:
+                raise NotImplementedError("Only binary outcomes are supported")
+            y = (labels == 1).astype(np.float32)
+        else:
+            y = labels.astype(np.float32)
+        y = torch.from_numpy(y).to(self.device)
+        control = known * (1.0 - t01)
+        treated = known * t01
+        return torch.stack([control, control * y, treated, treated * y,
+                            known], 1), classes
 
 
 def oblique_inputs(learner, prep) -> Optional[oblique.ObliqueInputs]:
@@ -327,6 +379,27 @@ class RFResult(NamedTuple):
                                      # [T, P, B-1]) or None
 
 
+def honest_leaf_stats(tree: grower.TreeArrays, leaf_id: torch.Tensor,
+                      est_stats: torch.Tensor) -> torch.Tensor:
+    """The leaf stats of an honest tree (_rf_run_chunk's re-estimation):
+    each leaf's stats summed again over the estimation rows (est_stats
+    f32 [n, S], zero on the rows that grew the tree) that reach it; a
+    leaf with no estimation weight, and every split node, keep the grown
+    stats. The JAX package sums with jax.ops.segment_sum, which XLA's CPU
+    code runs as a scatter-add in row order; a stable sort of the rows by
+    leaf and the in-order run sums (ops/segment_sum.py,
+    csrc/segment_sum.cu on a card) add in that order."""
+    N, S = tree.leaf_stats.shape
+    key, perm = torch.sort(leaf_id.long(), stable=True)
+    sums = segment_sum.segment_sums(key, est_stats[perm].contiguous())
+    head = segment_sum.run_heads(key)
+    seg = est_stats.new_zeros((N + 1, S))
+    seg[torch.where(head, key, N)] = sums  # row N: the other entries
+    seg = seg[:N]
+    use = tree.is_leaf & (seg[:, -1] > 0)
+    return torch.where(use[:, None], seg, tree.leaf_stats)
+
+
 def tree_keys(seed: int, num_trees: int, device) -> torch.Tensor:
     """[T, 4, 2]: split(fold_in(PRNGKey(seed), t), 4) for every tree:
     k_boot, k_grow, k_honest, k_oblique."""
@@ -359,14 +432,16 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
              max_nodes: int, num_trees: int, bootstrap: bool,
              candidate_features: int, num_numerical: int, seed: int,
              winner_take_all: bool, compute_oob: bool,
-             obl=None, set_bits: Optional[torch.Tensor] = None) -> RFResult:
+             obl=None, set_bits: Optional[torch.Tensor] = None,
+             honest_ratio: float = 0.0) -> RFResult:
     """Grows `num_trees` trees on the device of `bins_t` (u8 [F, n];
     rows [0, num_numerical) numerical, the rest categorical) from the
     row weights w_base f32 [n] and the stat basis f32 [n, S] (module
     docstring), with sparse-oblique splits when `obl`
     (ops/oblique.py:ObliqueInputs) is given and categorical-set
-    candidates when `set_bits` (i32 [n, Fs, W]) is. On a card the tree
-    loop runs under torch's sync debug mode "error"."""
+    candidates when `set_bits` (i32 [n, Fs, W]) is, and honest leaves
+    when `honest_ratio` > 0 (honest_leaf_stats). On a card the tree loop
+    runs under torch's sync debug mode "error"."""
     global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
@@ -416,6 +491,13 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
                 w = w_base * draws.to(torch.float32)
             else:
                 w = w_base
+            if honest_ratio > 0.0:
+                # Rows drawn for estimation grow nothing.
+                est = prng.bernoulli(keys[t, 2], honest_ratio,
+                                     (n,)).to(torch.float32)
+                w_grow = w * (1.0 - est)
+            else:
+                w_grow = w
             grow_bins = bins_t
             if P:
                 # One tree: the JAX package's chunk is a loop of one step.
@@ -425,7 +507,7 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
                                        bins_t[num_numerical:]])
                 obl_bounds.append(bounds)
             res = grower.grow_tree(
-                grow_bins, basis * w[:, None], rule=rule,
+                grow_bins, basis * w_grow[:, None], rule=rule,
                 max_depth=cfg.max_depth, frontier=cfg.frontier,
                 max_nodes=max_nodes, num_bins=cfg.num_bins,
                 num_numerical=num_numerical + P,
@@ -434,7 +516,11 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
                     (idx[t].long(), ok[t]) for idx, ok in columns],
                 set_members=members,
             )
-            lv = rule.leaf_value(res.tree.leaf_stats)  # [N, V]
+            tree = res.tree
+            if honest_ratio > 0.0:
+                tree = tree._replace(leaf_stats=honest_leaf_stats(
+                    tree, res.leaf_id, basis * (w * est)[:, None]))
+            lv = rule.leaf_value(tree.leaf_stats)  # [N, V]
             if compute_oob:
                 oob_f = ((draws == 0) & in_base).to(torch.float32)
                 vote = lv[res.leaf_id.long()]
@@ -442,7 +528,7 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
                     vote = bake_winner_take_all(vote)
                 oob_sum = oob_sum + vote * oob_f[:, None]
                 oob_count = oob_count + oob_f
-            trees.append(res.tree)
+            trees.append(tree)
             leaf_values.append(lv)
     finally:
         if on_card:

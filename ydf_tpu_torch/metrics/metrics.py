@@ -12,10 +12,11 @@ expressions, so an evaluation of the same predictions equals its own.
   * confidence intervals: Wilson (accuracy), Hanley-McNeil (AUC) and a
     percentile bootstrap over examples for every other scalar metric.
 
-  * anomaly detection: the ROC AUC of the scores when labels are given.
+  * anomaly detection: the ROC AUC of the scores when labels are given;
+  * the uplift tasks: the Qini and the area under the uplift curve
+    (qini_curve).
 
-Uplift metrics and the HTML report are not ported (ROADMAP Queue 1
-items 15 and 20).
+The HTML report is not ported (ROADMAP Queue 1 item 20).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ydf_tpu_torch.config import Task
+from ydf_tpu_torch.config import UPLIFT_TASKS, Task
 
 _EPS = 1e-12
 
@@ -280,6 +281,44 @@ def bootstrap_intervals(
     return out
 
 
+def qini_curve(uplift_pred, outcome, treatment, weights=None) -> dict:
+    """The Qini curve of uplift predictions and the areas under it (the
+    JAX package's qini_curve, after the reference's metric/uplift.cc):
+    rows by decreasing predicted uplift (a stable sort), the cumulative
+    treated positives minus the control positives scaled to the treated
+    weight, per unit of total weight, over the cumulative weight
+    fraction. outcome: 1 positive; treatment: 1 treated, 0 control.
+    Returns {"qini": the area above the random line, "auuc": the area,
+    "curve_fraction", "curve_uplift"}."""
+    n = len(uplift_pred)
+    w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
+    order = np.argsort(-np.asarray(uplift_pred, np.float64), kind="mergesort")
+    y = np.asarray(outcome, np.float64)[order]
+    t = np.asarray(treatment, np.float64)[order]
+    ww = w[order]
+    cum_w = np.cumsum(ww)
+    yt = np.cumsum(ww * y * t)
+    yc = np.cumsum(ww * y * (1 - t))
+    nt = np.cumsum(ww * t)
+    nc = np.cumsum(ww * (1 - t))
+    q = yt - yc * nt / np.maximum(nc, _EPS)
+    frac = cum_w / cum_w[-1]
+    qn = q / cum_w[-1]
+    auuc = float(_trapezoid(qn, frac))
+    return {
+        "qini": float(auuc - 0.5 * qn[-1]),
+        "auuc": auuc,
+        "curve_fraction": frac,
+        "curve_uplift": qn,
+    }
+
+
+def _trapezoid(y: np.ndarray, x: np.ndarray) -> float:
+    """np.trapezoid (numpy 2), or the same sum as np.trapz (numpy 1)."""
+    fn = getattr(np, "trapezoid", None) or np.trapz
+    return fn(y, x)
+
+
 def evaluate_predictions(
     task,
     labels: np.ndarray,
@@ -291,6 +330,7 @@ def evaluate_predictions(
     confidence_intervals: bool = False,
     num_bootstrap: int = 2000,
     seed: int = 1234,
+    treatments: Optional[np.ndarray] = None,
     events: Optional[np.ndarray] = None,
 ) -> Evaluation:
     """The metrics of `predictions` (binary classification: P(class 1)
@@ -298,9 +338,11 @@ def evaluate_predictions(
     values) against the encoded `labels` (class indices, values,
     relevances or departure ages), each example weighted by `weights`
     (default 1); ranking reads each row's query `groups`, survival its
-    `events`. Intervals, when asked for: a bootstrap of `num_bootstrap`
-    resamples drawn from `seed` (over query groups for ranking),
-    overridden by the closed forms where they exist."""
+    `events`, the uplift tasks its `treatments` (1 treated, 0 control;
+    the labels are 0/1 outcomes or values, the predictions uplifts).
+    Intervals, when asked for: a bootstrap of `num_bootstrap` resamples
+    drawn from `seed` (over query groups for ranking), overridden by the
+    closed forms where they exist."""
     labels = np.asarray(labels)
     predictions = np.asarray(predictions)
     n = len(labels)
@@ -469,6 +511,14 @@ def evaluate_predictions(
             },
         )
 
+    if task in UPLIFT_TASKS:
+        assert treatments is not None, "Uplift evaluation needs treatments"
+        r = qini_curve(predictions.reshape(-1), labels, treatments, w)
+        return Evaluation(
+            task=task.value, num_examples=n,
+            metrics={"qini": r["qini"], "auuc": r["auuc"]},
+        )
+
     if task == Task.ANOMALY_DETECTION:
         # The ROC AUC of the scores when the labels take two values.
         metrics = {}
@@ -476,7 +526,4 @@ def evaluate_predictions(
             metrics["auc"] = roc_auc(labels, predictions.reshape(-1))
         return Evaluation(task=task.value, num_examples=n, metrics=metrics)
 
-    raise NotImplementedError(
-        f"evaluation for task {task.value} is not ported yet (ROADMAP "
-        "Queue 1 item 15)"
-    )
+    raise NotImplementedError(f"Evaluation for task {task}")

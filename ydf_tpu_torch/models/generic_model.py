@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ydf_tpu_torch.config import Task
+from ydf_tpu_torch.config import UPLIFT_TASKS, Task
 from ydf_tpu_torch.dataset.binning import Binner
 from ydf_tpu_torch.dataset.dataset import Dataset, InputData
 from ydf_tpu_torch.dataset.dataspec import DataSpecification
@@ -225,21 +225,31 @@ class GenericModel:
                  confidence_intervals: bool = False,
                  num_bootstrap: int = 2000) -> Evaluation:
         """Metrics of predict(data) against the label column of `data`
-        (classification, regression, ranking, survival analysis and
-        anomaly detection; metrics/metrics.py), each row weighted by the
-        column `weights` when given. Ranking reads the query groups and
-        NDCG truncation, survival analysis the event column, that
-        `extra_metadata` names."""
-        if self.task not in (Task.CLASSIFICATION, Task.REGRESSION,
-                             Task.RANKING, Task.SURVIVAL_ANALYSIS,
-                             Task.ANOMALY_DETECTION):
-            raise NotImplementedError(
-                f"evaluating a {self.task.value} model is not ported yet "
-                "(ROADMAP Queue 1 item 15)"
-            )
+        (metrics/metrics.py), each row weighted by the column `weights`
+        when given. Ranking reads the query groups and NDCG truncation,
+        survival analysis the event column, the uplift tasks the
+        treatment column, that `extra_metadata` names; rows with a
+        missing or unseen treatment are left out."""
         ds = Dataset.from_data(data, dataspec=self.dataspec)
         preds = self.predict(ds)
         w = ds.data[weights].astype(np.float32) if weights else None
+        if self.task in UPLIFT_TASKS:
+            tcol = self.extra_metadata.get("uplift_treatment")
+            if not tcol:
+                raise ValueError(
+                    "Uplift model lacks uplift_treatment metadata")
+            tcodes = ds.encoded_categorical(tcol)
+            keep = tcodes >= 1
+            treatments = (tcodes[keep] == 2).astype(np.int64)
+            if self.task == Task.CATEGORICAL_UPLIFT:
+                labels = (ds.encoded_categorical(self.label)[keep]
+                          == 2).astype(np.int64)
+            else:
+                labels = np.asarray(ds.data[self.label], np.float64)[keep]
+            return evaluate_predictions(
+                self.task, labels, np.asarray(preds)[keep],
+                weights=None if w is None else w[keep],
+                treatments=treatments)
         if self.task == Task.SURVIVAL_ANALYSIS:
             from ydf_tpu_torch.learners.gbt import bool_column
 

@@ -8,8 +8,9 @@ forest model, read into the
 port's model on a torch device (the node arrays, each
 tree's vector-sequence anchors and the binner's vector-sequence fields
 included), and written from it in the same layout, so that each package
-loads the other's saves. The reference-format reader (ydf_format.py)
-and the multitasker directory are not ported (ROADMAP Queue 1 item 10).
+loads the other's saves; a multitasker's directory loads as its
+MultitaskerModel (learners/multitasker.py). The reference-format reader
+(ydf_format.py) is not ported (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -86,16 +87,21 @@ def save_model(model: GenericModel, path: str) -> None:
                         **model.forest.to_numpy())
 
 
-def load_model(path: str, device=None) -> GenericModel:
+def load_model(path: str, device=None):
     """Loads a model saved by `model.save(path)` of either package onto
-    `device` (default: the CUDA card)."""
+    `device` (default: the CUDA card): a model directory, or a
+    multitasker's (multitasker.txt and a model directory a label)."""
     dev = resolve_device(device)
     meta_path = os.path.join(path, "model.json")
     if not os.path.isfile(meta_path):
+        if os.path.isfile(os.path.join(path, "multitasker.txt")):
+            from ydf_tpu_torch.learners.multitasker import MultitaskerModel
+
+            return MultitaskerModel.load(path, device=dev)
         raise NotImplementedError(
             f"{path} holds no model.json; only models saved by the JAX "
-            "package load (YDF-format and multitasker directories are not "
-            "ported, ROADMAP Queue 1 item 10)"
+            "package load (YDF-format directories are not ported, ROADMAP "
+            "Queue 1 item 10)"
         )
     with open(meta_path) as f:
         meta = json.load(f)

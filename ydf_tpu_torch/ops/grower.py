@@ -48,6 +48,18 @@ wider of B / 32 and the sets' words) and the feature id F + f; each
 row's direction (least rank > t: left) goes into the routed kernel's
 `is_set` / `set_go_left` tables.
 
+With set features alone (no scalar column, `bins_t` [0, n]; the JAX
+package's F == 0 branches) the candidates are the set columns only: no
+histogram of scalar columns is built, there is no sibling subtraction,
+and the rows are routed every layer by route_plain (its bin gather
+skipped: every scalar decision goes right, the set tables decide).
+
+A rule may add its own validity (`split_valid(left, right)`: uplift's
+rows of each treatment arm) and the gain the grower compares with
+min_split_gain at each slot's chosen cut (`chosen_gain`; the argmax
+reads `gain`): XLA computes the two in different fusions, so their
+roundings can differ (ops/split_rules.py).
+
 Monotone constraints (the JAX package's `monotone` / `monotone_dirs`):
 `mono_dirs` f32 holds a direction (+1, -1, 0) for the leading candidate
 columns; a cut on a column with direction d is valid only when d *
@@ -323,6 +335,9 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
         & (right_all[..., -1] >= min_examples)
         & active[:, None, None]
     )
+    if hasattr(rule, "split_valid"):
+        # A rule's own validity (uplift: rows of each treatment arm).
+        valid &= rule.split_valid(cand, right_all)
     if columns is not None:
         valid &= col_ok[:, :, None]
     if mono_dirs is not None:
@@ -346,6 +361,21 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
         GAIN_TRACE.append(torch.topk(flat, min(2, flat.shape[1]),
                                      dim=1).values)
 
+    chosen = torch.gather(
+        left_all, 1,
+        best_f[:, None, None, None].expand(Ld, 1, B, left_all.shape[3]),
+    )[:, 0]  # [Ld, B, S]
+    left_stats = torch.gather(
+        chosen, 1, best_t[:, None, None].expand(Ld, 1, chosen.shape[2])
+    )[:, 0]
+    right_stats = parent - left_stats
+    if hasattr(rule, "chosen_gain"):
+        # The chosen cut's gain as the JAX grower compares it (the rule's
+        # docstring); -inf stays -inf (no valid cut).
+        best_gain = torch.where(
+            torch.isfinite(best_gain),
+            rule.chosen_gain(left_stats, right_stats, parent), best_gain)
+
     do_split = active & torch.isfinite(best_gain) & (
         best_gain > min_split_gain)
     if children_in_frontier and 2 * Ld > L:
@@ -363,14 +393,6 @@ def layer_decide(left_all, ranks, parent, active, nid, num_nodes, *, rule,
     left_id = torch.where(do_split, num_nodes + 2 * split_rank, N)
     right_id = torch.where(do_split, left_id + 1, N)
 
-    chosen = torch.gather(
-        left_all, 1,
-        best_f[:, None, None, None].expand(Ld, 1, B, left_all.shape[3]),
-    )[:, 0]  # [Ld, B, S]
-    left_stats = torch.gather(
-        chosen, 1, best_t[:, None, None].expand(Ld, 1, chosen.shape[2])
-    )[:, 0]
-    right_stats = parent - left_stats
     cut_ids = torch.arange(B, device=dev)
     go_left_bins = cut_ids[None, :] <= best_t[:, None]
     is_set_split = best_f >= Fcand
@@ -619,10 +641,8 @@ def grow_tree(
     the stats' device) the leading candidate columns' monotone
     directions (module docstring)."""
     F, n = bins_t.shape
-    if F == 0:
-        raise NotImplementedError(
-            "growing on categorical-set features alone (no scalar column) "
-            "is not ported yet (ROADMAP Queue 1 item 29)")
+    if F == 0 and set_members is None:
+        raise ValueError("grow_tree needs a scalar or a set feature")
     Fn = F if num_numerical is None else num_numerical
     S = stats.shape[1]
     L, B, N = frontier, num_bins, max_nodes
@@ -684,7 +704,14 @@ def grow_tree(
         parent = node_stats[:Ld]
         active = frontier_id[:Ld] < N
 
-        if tables is None:
+        if F == 0:
+            # Set features alone: no histogram; the previous layer's
+            # decisions are applied to the rows by the plain chain.
+            if tables is not None:
+                slot, leaf_id = route_plain(bins_t, slot, leaf_id,
+                                            tables)[:2]
+            hist = None
+        elif tables is None:
             hist = histogram(bins_t, slot, hist_stats, num_slots=Ld,
                              num_bins=B, quant=hist_quant,
                              quant_scale=qscale)
@@ -702,8 +729,12 @@ def grow_tree(
                 bins_t, slot, leaf_id, tables, hist_stats, num_slots=Ld,
                 num_bins=B, quant_scale=qscale,
             )
-        left_all, ranks = scalar_candidates(hist, num_numerical=Fn,
-                                            rule=rule)
+        if F == 0:
+            left_all = stats.new_zeros((Ld, 0, B, S))
+            ranks = None
+        else:
+            left_all, ranks = scalar_candidates(hist, num_numerical=Fn,
+                                                rule=rule)
         set_ranks = rank_min = None
         if Fs:
             left_set, set_ranks, rank_min = set_candidates(
@@ -738,7 +769,7 @@ def grow_tree(
         num_nodes = dec.num_nodes
 
         hmap = None
-        if children_in_frontier and L // 2 >= 1:
+        if children_in_frontier and L // 2 >= 1 and F > 0:
             parent_next, small_is_left_next, Lh_next, hmap = (
                 sibling_next_state(hist, do_split, split_rank,
                                    dec.left_stats, dec.right_stats,

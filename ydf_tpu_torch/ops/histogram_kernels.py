@@ -314,10 +314,14 @@ def route_plain(bins_t: torch.Tensor, slot: torch.Tensor,
     B = tables.go_left.shape[1]
     s = torch.where((slot >= 0) & (slot <= L), slot, L).long()
     split_e = tables.do_split[s]
-    rf_e = tables.route_f.long().clamp(0, max(F - 1, 0))[s]
-    bin_e = torch.gather(bins_t, 0, rf_e[None, :])[0].long()
-    glb = tables.go_left.reshape(-1)
-    go_left_e = (bin_e < B) & glb[s * B + bin_e.clamp(max=B - 1)]
+    if F == 0:
+        # Set features alone: only set splits (the JAX chain's zeros).
+        go_left_e = torch.zeros(n, dtype=torch.bool, device=bins_t.device)
+    else:
+        rf_e = tables.route_f.long().clamp(0, F - 1)[s]
+        bin_e = torch.gather(bins_t, 0, rf_e[None, :])[0].long()
+        glb = tables.go_left.reshape(-1)
+        go_left_e = (bin_e < B) & glb[s * B + bin_e.clamp(max=B - 1)]
     if tables.set_go_left.shape[0] == n:
         set_gl = tables.set_go_left != 0
     else:
@@ -375,8 +379,13 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
     """Fused routing + histogram: (accumulator [num_slots, F, B, Sq],
     new_slot i32 [n], new_leaf i32 [n])."""
     global SET_TABLE_LAUNCHES
-    n = bins_t.shape[1]
     _check(bins_t, slot, stats, num_bins)
+    F, n = bins_t.shape
+    if F == 0:
+        # The grower routes set-only rows through route_plain; the kernel
+        # would leave new_slot and new_leaf unwritten.
+        raise ValueError("histogram_routed needs at least one scalar "
+                         "feature (F == 0)")
     _check_tables(tables, n, num_bins)
     if leaf_id.dtype != torch.int32 or tuple(leaf_id.shape) != (n,):
         raise ValueError(f"leaf_id must be int32 [{n}]")
@@ -384,13 +393,12 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
         return histogram_routed_plain(bins_t, slot, leaf_id, tables, stats,
                                       num_slots, num_bins)
     _check_card(bins_t, slot, leaf_id, stats, *tables)
-    F = bins_t.shape[0]
     L = tables.do_split.shape[0] - 1
     Lh, B, Sq = num_slots, num_bins, stats.shape[1]
     dev = bins_t.device
     new_slot = torch.empty(n, dtype=torch.int32, device=dev)
     new_leaf = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0 or F == 0:
+    if n == 0:
         out = torch.zeros((Lh, F, B, Sq), dtype=acc_dtype(stats), device=dev)
         return out, new_slot, new_leaf
     # The reduce pass writes every cell: no zero fill.

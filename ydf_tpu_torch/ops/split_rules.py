@@ -8,6 +8,9 @@ stats[..., -1] is always the weighted example count.
     stats = [w 1[y=0], ..., w 1[y=C-1], w];
   * `RegressionRule`: RF regression (variance reduction),
     stats = [w y, w y^2, w];
+  * `UpliftEuclideanRule`: uplift forests (Euclidean divergence),
+    stats = [w_c, w y_c, w_t, w y_t, w], with a validity check of its
+    own (`split_valid`: rows of each treatment arm on each side);
   * `RandomSplitRule`: the isolation forest's random splits (Gumbel-max
     over the cuts), stats = [w]. Its gain also reads the layer's key and
     a context (`takes_key`); the other rules' gains take the stats only.
@@ -161,6 +164,68 @@ class RegressionRule:
 
     def cat_sort_key(self, hist: torch.Tensor) -> torch.Tensor:
         return hist[..., 0] / (hist[..., -1] + _EPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class UpliftEuclideanRule:
+    """Uplift splits by the squared Euclidean divergence between the
+    treated and the control outcome rates (the reference's uplift.h,
+    kEuclideanDistance). stats = [w_c, w y_c, w_t, w y_t, w]: the control
+    and treated weights and weighted outcomes, then the weight of the
+    rows with a known treatment. The leaf value is the estimated uplift
+    p_t - p_c; a cut is valid only when each side holds at least
+    `min_examples_per_treatment` of each arm (`split_valid`)."""
+
+    num_stats = 5
+    num_outputs = 1
+    num_cat_orderings = 1
+    min_examples_per_treatment: int = 5
+
+    def split_valid(self, left: torch.Tensor, right: torch.Tensor
+                    ) -> torch.Tensor:
+        m = self.min_examples_per_treatment
+        return ((left[..., 0] >= m) & (left[..., 2] >= m)
+                & (right[..., 0] >= m) & (right[..., 2] >= m))
+
+    @staticmethod
+    def _uplift(s: torch.Tensor) -> torch.Tensor:
+        pc = s[..., 1] / (s[..., 0] + _EPS)
+        pt = s[..., 3] / (s[..., 2] + _EPS)
+        return pt - pc
+
+    def _sides(self, left, right, parent):
+        """(fma(w_l, d_l^2, w_r d_r^2), w_p, d_p^2), d = p_t - p_c: the
+        children's masses as LLVM fuses them in XLA's CPU code."""
+        sq = [torch.square(self._uplift(s)) for s in (left, right, parent)]
+        return (fma_f32(left[..., 4], sq[0], right[..., 4] * sq[1]),
+                parent[..., 4], sq[2])
+
+    def gain(self, left: torch.Tensor, right: torch.Tensor,
+             parent: torch.Tensor) -> torch.Tensor:
+        """mass(left) + mass(right) - mass(parent), mass = w (p_t -
+        p_c)^2, as XLA's CPU code evaluates it inside the grower (read
+        from the object code of its split-search fusion): the children's
+        masses fused (_sides), then the parent's subtracted."""
+        sides, wp, sqp = self._sides(left, right, parent)
+        return sides - wp * sqp
+
+    def chosen_gain(self, left: torch.Tensor, right: torch.Tensor,
+                    parent: torch.Tensor) -> torch.Tensor:
+        """The gain of each slot's chosen cut as the grower compares it
+        with min_split_gain and ranks it on a frontier overflow: XLA
+        computes it again in the fusions that read the chosen index, and
+        there LLVM fuses the parent's mass too, fma(-w_p, d_p^2, sides)
+        (read from their object code). The argmax over the cuts sees
+        `gain`; where the masses cancel the two differ by an ulp, enough
+        to pass min_split_gain."""
+        sides, wp, sqp = self._sides(left, right, parent)
+        return fma_f32(-wp, sqp, sides)
+
+    def leaf_value(self, stats: torch.Tensor) -> torch.Tensor:
+        return self._uplift(stats)[..., None]
+
+    def cat_sort_key(self, hist: torch.Tensor) -> torch.Tensor:
+        return self._uplift(hist)
 
 
 @dataclasses.dataclass(frozen=True)
