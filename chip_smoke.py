@@ -166,6 +166,22 @@ Phases (one line each; any failure is an uncaught exception):
               sums and prefix histograms at the set-only shapes, the
               bank on the multitasker's models; profiled trees; each
               kernel timed
+  16 io       the reference YDF format and the model API: the
+              committed YDF exports of the JAX package
+              (ydf_tpu_torch/testdata/ydf_format: gbt_d6, the 3-class
+              GBT, the isolation forest, the uplift forest, a prefixed
+              uplift CART) loaded on the card, predictions and leaves
+              bitwise the JAX importer's, gbt_d6's import served at
+              1,048,576 rows (routed; predict and encode walls against
+              the JAX-saved model's bank predict); each fixture's source
+              model exported, every file's SHA-256 == the JAX export's; a
+              20-tree default GBT trained on 100,000 rows, exported and
+              loaded back, predictions bitwise; the binned QuickScorer
+              on gbt_d6's bins at 1,048,576 rows, torch.equal to its
+              plain version, the float QuickScorer and the routed
+              oracle; benchmark(engines=True) at 65,536 rows;
+              distance on 2,048 rows and serialize -> deserialize_model;
+              the binned kernel timed
 
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
@@ -175,7 +191,9 @@ random forest's and phase 10 the multiclass GBT's (train, then
 evaluate), phase 11 CART's (train, then evaluate) and the isolation
 forest's (train, then predict), phase 12 the four oblique learners'
 (train, then evaluate or predict), phases 13-15 each of their learners'
-runs (train, then evaluate; the multitasker's two tasks together).
+runs (train, then evaluate; the multitasker's two tasks together), phase
+16 the model IO path (import, export, round trip, binned QuickScorer,
+benchmark, leaves, distance, serialize) as one path.
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -392,6 +410,13 @@ HONEST_REG_TREES = 30
 MULTITASK_SEED = 5
 MULTITASK_ROWS = 100_000
 MULTITASK_TEST_ROWS = 20_000
+YDF_FORMAT = os.path.join(TESTDATA, "ydf_format")
+IO_PREDICT_ROWS = 1_048_576
+IO_TRAIN_ROWS = 100_000
+IO_TRAIN_TREES = 20
+IO_ROUND_TRIP_ROWS = 10_000
+IO_BENCHMARK_ROWS = 65_536
+IO_DISTANCE_ROWS = 2_048
 TRAIN_OBLIQUE = os.path.join(TESTDATA, "train_oblique")
 OBLIQUE_HP = dict(label="label", split_axis="SPARSE_OBLIQUE")
 OBLIQUE_RF_FIXTURE_TREES = 50
@@ -1366,6 +1391,8 @@ def main():
     kernels.extend(rank_surv_path(smi, serving=counters))
     torch.cuda.synchronize()
     kernels.extend(uplift_honest_sets_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(model_io_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6062,6 +6089,242 @@ def uplift_honest_sets_path(smi, serving):
     log("15 uplift", f"phase 15 wall {time.perf_counter() - t_phase:.1f} s "
         f"(by part, s: {walls})")
     return result
+
+
+def file_sha256s(d):
+    """{file name: SHA-256} of a directory's files."""
+    import hashlib
+
+    out = {}
+    for fname in sorted(os.listdir(d)):
+        with open(os.path.join(d, fname), "rb") as f:
+            out[fname] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def model_io_path(smi, serving):
+    """Phase 16: reference-format model IO and the model API (ROADMAP
+    items 10, 30 and 9's rest) on the card, through the entry points a
+    user calls: the committed YDF exports imported and served (gbt_d6 on
+    IO_PREDICT_ROWS rows), the fixture models exported (SHA-256 against
+    the JAX package's export), a default GBT trained on the card,
+    exported and imported back, the binned QuickScorer on gbt_d6,
+    benchmark(engines=True), predict_leaves, distance and serialize.
+    The counts are read after these and before the checks and timings.
+    Returns the `kernels` entry of the binned QuickScorer."""
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.dataset.dataset import Dataset
+    from ydf_tpu_torch.models.ydf_format import export_ydf_model
+    from ydf_tpu_torch.ops.routing import forest_predict_values, leaf_proximity
+    from ydf_tpu_torch.serving import bank_scorer, quickscorer
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(YDF_FORMAT, "config.json")) as f:
+        cfg = json.load(f)
+    exp = np.load(os.path.join(YDF_FORMAT, "expected.npz"))
+    reqs = {}
+    for name, c in cfg["models"].items():
+        with np.load(os.path.join(TESTDATA, c["requests"])) as z:
+            reqs[name] = {k: z[k] for k in z.files}
+    stored = reqs["gbt_d6"]
+    rng = np.random.default_rng(16)
+    extra = draw_requests(stored, IO_PREDICT_ROWS - len(stored["f0"]), rng)
+    # The stored rows first, so that the first 1,024 predictions are the
+    # fixture's.
+    big = {k: np.concatenate([v, extra[k]]) for k, v in stored.items()}
+    train, test = make_frame(IO_TRAIN_ROWS, IO_ROUND_TRIP_ROWS)
+    log("16 io", f"{len(cfg['models'])} YDF exports of the JAX package "
+        f"(jax {cfg['jax_version']}); {IO_PREDICT_ROWS} request rows, a "
+        f"{IO_TRAIN_ROWS}-row frame in {time.perf_counter() - t_phase:.2f} s")
+
+    walls = {}
+    reset_counts(serving)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    # (a) import: every committed YDF directory, gbt_d6 at full size.
+    t0 = time.perf_counter()
+    imported = {name: ydf_tpu_torch.load_model(os.path.join(YDF_FORMAT,
+                                                            name),
+                                               device=DEVICE)
+                for name in cfg["models"]}
+    walls["load_all"] = time.perf_counter() - t0
+    m = imported["gbt_d6"]
+    assert m.device.type == torch.device(DEVICE).type and m.native_missing
+    assert m.list_compatible_engines() == ["Routed"]
+    t0 = time.perf_counter()
+    m._encode(big)
+    torch.cuda.synchronize()
+    walls["import_encode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = m.predict(big)
+    walls["import_predict"] = time.perf_counter() - t0
+    assert pred.shape == (IO_PREDICT_ROWS,) and np.isfinite(pred).all()
+    n0 = len(stored["f0"])
+    assert same_bits(pred[:n0], exp["gbt_d6/predictions"]), "gbt_d6 import"
+    for name, model in imported.items():
+        got = model.predict(reqs[name])
+        assert same_bits(got, exp[f"{name}/predictions"]), f"{name} import"
+        leaves = model.predict_leaves(reqs[name])
+        assert np.array_equal(leaves, exp[f"{name}/leaves"]), (
+            f"{name} predict_leaves")
+    saved = ydf_tpu_torch.load_model(os.path.join(TESTDATA, "gbt_d6"),
+                                     device=DEVICE)
+    t0 = time.perf_counter()
+    saved._encode(big)
+    torch.cuda.synchronize()
+    walls["saved_encode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saved_pred = saved.predict(big)
+    walls["saved_predict"] = time.perf_counter() - t0
+    assert np.isfinite(saved_pred).all()
+    # (b) export: the port's export of each fixture's source model.
+    t0 = time.perf_counter()
+    for name, c in cfg["models"].items():
+        src = ydf_tpu_torch.load_model(os.path.join(TESTDATA, c["source"]),
+                                       device=DEVICE)
+        with tempfile.TemporaryDirectory() as tmp:
+            export_ydf_model(src, tmp)
+            assert file_sha256s(tmp) == c["sha256"], f"{name} export"
+    walls["export_all"] = time.perf_counter() - t0
+    # (c) round trip of a GBT trained on the card.
+    t0 = time.perf_counter()
+    trained = ydf_tpu_torch.GradientBoostedTreesLearner(
+        label="label", num_trees=IO_TRAIN_TREES, device=DEVICE).train(train)
+    walls["train"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        trained.save_ydf(tmp)
+        back = ydf_tpu_torch.load_model(tmp, device=DEVICE)
+    assert back.native_missing and back.num_trees() == trained.num_trees()
+    rt_trained, rt_back = trained.predict(test), back.predict(test)
+    assert same_bits(rt_trained, rt_back), "round trip"
+    # (d) the binned QuickScorer on gbt_d6's bins.
+    bq = quickscorer.build_binned_quickscorer(saved)
+    assert bq is not None
+    t0 = time.perf_counter()
+    bins = saved.binner.transform(Dataset.from_data(big, saved.dataspec),
+                                  saved.device)
+    binned = bq(bins)
+    torch.cuda.synchronize()
+    walls["binned_path"] = time.perf_counter() - t0
+    # (e) benchmark, every engine.
+    sub = {k: v[:IO_BENCHMARK_ROWS] for k, v in big.items()}
+    t0 = time.perf_counter()
+    bench = saved.benchmark(sub, num_runs=5, engines=True)
+    walls["benchmark"] = time.perf_counter() - t0
+    # (f) distance and serialize.
+    two = {k: v[:IO_DISTANCE_ROWS] for k, v in big.items()}
+    t0 = time.perf_counter()
+    dist = saved.distance(two)
+    walls["distance"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = ydf_tpu_torch.deserialize_model(saved.serialize(),
+                                               device=DEVICE)
+    assert same_bits(restored.predict(stored), saved.predict(stored)), (
+        "serialize -> deserialize_model")
+    walls["serialize"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    path_wall = time.perf_counter() - t_path
+    counted, others, events = read_counts(serving)
+    path_launches = quickscorer.KERNEL_ROWS / TIMING_ROWS
+    kernel_ms, _ = split_events(events)
+    for kernel in ("binning", "histogram", "histogram_routed"):
+        assert counted[kernel] > 0, f"phase 16 launched no {kernel}"
+    for mod in (quickscorer, bank_scorer):
+        assert others[mod.__name__] > 0, f"phase 16 launched no {mod}"
+    log("16 launches", f"path of {path_wall:.2f} s: training kernels "
+        f"{counted}; serving kernels {others}; kernel ms (CUDA events) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items()))
+    log("16 import", f"{len(imported)} YDF directories loaded on the card in "
+        f"{walls['load_all']:.2f} s, each bitwise the JAX importer's "
+        f"predictions and leaves on its 1,024 rows; gbt_d6 imported "
+        f"(routed, native missing values) at {IO_PREDICT_ROWS} rows: "
+        f"predict {walls['import_predict'] * 1e3:.1f} ms host wall, of it "
+        f"encode {walls['import_encode'] * 1e3:.1f} ms; the JAX-saved "
+        f"gbt_d6 (bank) predict {walls['saved_predict'] * 1e3:.1f} ms, "
+        f"encode {walls['saved_encode'] * 1e3:.1f} ms, {smi}")
+    log("16 export", f"{len(cfg['models'])} models exported in "
+        f"{walls['export_all']:.2f} s, every file's SHA-256 == the JAX "
+        "export's")
+    log("16 round trip", f"{trained.num_trees()} trees on {IO_TRAIN_ROWS} "
+        f"rows trained on the card in {walls['train']:.2f} s, exported, "
+        f"loaded back: {IO_ROUND_TRIP_ROWS} predictions bitwise")
+    log("16 benchmark", f"gbt_d6 at {IO_BENCHMARK_ROWS} rows: "
+        + json.dumps(bench) + f", {smi}")
+
+    # Checks and timings, after the counts.
+    xT_bins = bins.t()[:bq.tables.num_features].to(torch.float32)
+    plain = quickscorer.score_plain(bq.tables, xT_bins)
+    assert torch.equal(binned, plain), "binned QuickScorer != plain"
+    qs = quickscorer.build_quickscorer(saved)
+    xT = encoded_xT(saved, big)
+    float_scores = qs.score_xT(xT)
+    assert torch.equal(binned, float_scores), "binned != float QuickScorer"
+    F = saved.binner.num_numerical
+    oracle = forest_predict_values(
+        saved.forest, xT[:F].t().contiguous(),
+        xT[F:].t().to(torch.int32).contiguous(), num_numerical=F,
+        max_depth=saved.max_depth)[:, 0]
+    assert torch.equal(binned, oracle), "binned != routed oracle"
+    assert dist.shape == (IO_DISTANCE_ROWS, IO_DISTANCE_ROWS)
+    assert np.isfinite(dist).all() and (np.diag(dist) == 0).all()
+    assert np.array_equal(dist, dist.T)
+    leaves = saved._leaves(two).cpu()
+    part = 1.0 - leaf_proximity(leaves[:256], leaves).numpy()
+    assert same_bits(dist[:256], part), "distance != the CPU proximity"
+    err = float((binned - plain).abs().max())
+    log("16 binned", f"gbt_d6 binned QuickScorer at {IO_PREDICT_ROWS} rows "
+        f"(binning + engine {walls['binned_path'] * 1e3:.1f} ms host wall): "
+        "torch.equal to its plain version, the float QuickScorer and the "
+        f"routed oracle; distance {IO_DISTANCE_ROWS} x {IO_DISTANCE_ROWS} in "
+        f"{walls['distance'] * 1e3:.1f} ms, bitwise the CPU proximity on "
+        f"256 rows; serialize round trip {walls['serialize'] * 1e3:.1f} ms")
+    bank = bank_scorer.build_bank_scorer(saved)
+    for _ in range(3):
+        quickscorer.score(bq.tables, xT_bins)
+    torch.cuda.synchronize()
+    t = {
+        "ms": time_ms(lambda: quickscorer.score(bq.tables, xT_bins), reps=20),
+        "plain_ms": time_ms(lambda: quickscorer.score_plain(bq.tables,
+                                                            xT_bins), reps=1),
+        **score_bound(bq.tables, bank.tables, xT),
+    }
+    t["device_ms"], t["device_how"] = device_ms(
+        lambda: quickscorer.score(bq.tables, xT_bins),
+        KERNELS_OF["quickscorer"])
+    per_launch = [(int(k.split("/rows=")[1]), s.elapsed_time(e))
+                  for k, s, e in events if k.startswith("quickscorer/")]
+    log("16 timing", f"quickscorer/gbt_d6/binned at {xT_bins.shape[1]} rows "
+        f"x {xT_bins.shape[0]} features: kernel {t['ms']:.4f} ms a call "
+        f"back to back, {t['device_ms']:.4f} ms on the card "
+        f"({t['device_how']}), plain {t['plain_ms']:.2f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']}); the "
+        f"path's {others[quickscorer.__name__]} QuickScorer launches "
+        f"(binned and, in benchmark, float) {sum(ms for _, ms in per_launch):.4f}"
+        f" ms, {smi}")
+    log("16 io", f"phase 16 wall {time.perf_counter() - t_phase:.1f} s "
+        "(path walls, s: " + json.dumps(
+            {k: round(v, 3) for k, v in walls.items()}) + ")")
+    return [{
+        "name": "quickscorer/gbt_d6/binned", "route": "cuda",
+        "source": "ydf_tpu_torch/csrc/quickscorer.cu",
+        "replaces": "ydf_tpu/serving/quickscorer.py:232",
+        "launches": others[quickscorer.__name__],
+        "launches_of": "phase 16's path (the binned engine, and the float "
+                       "one inside benchmark)",
+        "max_abs_err": err, "ms": t["ms"], "device_ms": t["device_ms"],
+        "device_how": t["device_how"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "path_ms": sum(ms for _, ms in per_launch),
+        "path_how": "CUDA events around each launch",
+        "path_launch_ms": per_launch,
+        "path_launches_at_timing_rows": path_launches,
+        "path_bound_ms": t["bound_ms"] * path_launches,
+    }]
 
 
 def root_shape_text(args):

@@ -149,6 +149,19 @@ chip_smoke.sets_alone_frame (set columns only); the multitasker's two
 GBTs (its JAX directory in model/). rf_small/ and cart_model/ hold JAX
 models for the load tests.
 
+Fixture `ydf_format/` (at most 4 MB): the JAX package's
+`export_ydf_model` of gbt_d6 (gbt_d6/), of train_multiclass/model
+(multiclass/), of train_if/model (if/) and of train_uplift/rf_small
+(uplift_rf/), and of train_uplift/cart_model written under the file
+prefix "cart_" (prefixed/); config.json with each model's source, its
+request file and the SHA-256 of every exported file (the export of the
+prefixed model's source, which writes no prefix, for prefixed/);
+uplift_requests.npz (the first 1,024 test rows of
+chip_smoke.make_uplift_frame; the other models read gbt_d6's
+requests.npz); expected.npz with the predictions and predict_leaves
+(u8 or u16) of the JAX package's `load_ydf_model` of each directory on
+those rows.
+
 Run from the repo root:  python scripts/make_torch_port_fixtures.py
 (~70 minutes on a CPU, train_rf and the set fixtures most of it;
 `--only train_bench`, `--only train_vs`, `--only train_default`,
@@ -158,7 +171,7 @@ train_gbt_options`, `--only train_cart` (~1 min), `--only train_if`
 (~1.5 min), `--only train_dart` (~15 s), `--only train_sets` (~12 min),
 `--only train_uplift` (~4 min), `--only train_honest` (~7.5 min),
 `--only train_sets_alone` (~11 min), `--only train_multitasker` (~1
-min) or `--only serving` for one part).
+min), `--only ydf_format` (~10 s) or `--only serving` for one part).
 """
 
 import json
@@ -1987,6 +2000,72 @@ def write_train_multitasker():
     _write_runs("train_multitasker", cfg, runs)
 
 
+#: ydf_format/'s models: directory -> (source under OUT, request file
+#: under OUT, file prefix).
+YDF_FORMAT = {
+    "gbt_d6": ("gbt_d6", "gbt_d6/requests.npz", ""),
+    "multiclass": ("train_multiclass/model", "gbt_d6/requests.npz", ""),
+    "if": ("train_if/model", "gbt_d6/requests.npz", ""),
+    "uplift_rf": ("train_uplift/rf_small",
+                  "ydf_format/uplift_requests.npz", ""),
+    "prefixed": ("train_uplift/cart_model",
+                 "ydf_format/uplift_requests.npz", "cart_"),
+}
+
+
+def write_ydf_format():
+    """ydf_format/: the JAX package's YDF-format exports of five fixture
+    models, their files' SHA-256 and the JAX importer's predictions and
+    leaves on 1,024 rows."""
+    import hashlib
+    import tempfile
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.models.ydf_format import export_ydf_model, load_ydf_model
+
+    d = os.path.join(OUT, "ydf_format")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.makedirs(d)
+    _, test = chip_smoke.make_uplift_frame(chip_smoke.UPLIFT_ROWS,
+                                           chip_smoke.UPLIFT_TEST_ROWS)
+    np.savez_compressed(os.path.join(d, "uplift_requests.npz"),
+                        **{k: v[:REQUEST_ROWS] for k, v in test.items()})
+    cfg = dict(jax_version=__import__("jax").__version__,
+               request_rows=REQUEST_ROWS, models={})
+    expected = {}
+    for name, (src, requests, prefix) in YDF_FORMAT.items():
+        model = ydf.load_model(os.path.join(OUT, src))
+        out = os.path.join(d, name)
+        with tempfile.TemporaryDirectory() as tmp:
+            export_ydf_model(model, tmp)
+            files = {}
+            for fname in sorted(os.listdir(tmp)):
+                with open(os.path.join(tmp, fname), "rb") as f:
+                    files[fname] = hashlib.sha256(f.read()).hexdigest()
+                os.makedirs(out, exist_ok=True)
+                shutil.copyfile(os.path.join(tmp, fname),
+                                os.path.join(out, prefix + fname))
+        with np.load(os.path.join(OUT, requests)) as z:
+            req = {k: z[k] for k in z.files}
+        imported = load_ydf_model(out)
+        expected[f"{name}/predictions"] = np.asarray(imported.predict(req))
+        # Leaf ids in the narrowest unsigned type that holds them (the
+        # fixture's size); compared by value.
+        leaves = np.asarray(imported.predict_leaves(req))
+        expected[f"{name}/leaves"] = leaves.astype(
+            np.uint8 if leaves.max() < 256 else np.uint16)
+        cfg["models"][name] = dict(source=src, requests=requests,
+                                   prefix=prefix, sha256=files)
+        print(f"ydf_format/{name}: {len(files)} files, "
+              f"{sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))}"
+              " bytes", flush=True)
+    np.savez_compressed(os.path.join(d, "expected.npz"), **expected)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+
+
 #: Where main() asks XLA to dump the boosting programs (for
 #: write_train_multiclass's update_forms); removed afterwards.
 DUMP_DIR = None
@@ -2049,6 +2128,8 @@ def main():
         write_train_sets_alone()
     if only in (None, "train_multitasker"):
         write_train_multitasker()
+    if only in (None, "ydf_format"):
+        write_ydf_format()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

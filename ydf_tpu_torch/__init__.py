@@ -8,6 +8,7 @@ hand-written CUDA kernels too.
 
     import ydf_tpu_torch as ydf
     model = ydf.load_model("path/to/model")      # device="cuda" by default
+    model = ydf.load_model("path/to/ydf_dir")    # a reference YDF model
     model = ydf.GradientBoostedTreesLearner(label="y").train(data)
     model = ydf.RandomForestLearner(label="y").train(data)
     model = ydf.CartLearner(label="y").train(data)
@@ -21,6 +22,11 @@ hand-written CUDA kernels too.
     model.predict(data)                          # numpy, like the JAX package
     model.evaluate(test)                         # metrics on the host
     model.save("path/to/dir")                    # loads in either package
+    model.save_ydf("path/to/dir")                # the reference YDF format
+    print(model.describe())                      # the model card, as text
+    model.predict_leaves(data)                   # leaf ids [n, T]
+    model.distance(data)                         # 1 - Breiman proximity
+    model = ydf.deserialize_model(model.serialize())
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 on a CPU tensor every kernel wrapper runs its plain PyTorch version.
@@ -36,6 +42,7 @@ from ydf_tpu_torch.dataset.dataspec import (
 )
 from ydf_tpu_torch.learners.cart import CartLearner
 from ydf_tpu_torch.learners.gbt import GradientBoostedTreesLearner
+from ydf_tpu_torch.learners.losses import CustomLoss
 from ydf_tpu_torch.learners.isolation_forest import IsolationForestLearner
 from ydf_tpu_torch.learners.multitasker import (
     MultitaskerLearner,
@@ -44,10 +51,12 @@ from ydf_tpu_torch.learners.multitasker import (
 from ydf_tpu_torch.learners.random_forest import RandomForestLearner
 from ydf_tpu_torch.models.io import (
     binner_from_jax,
+    deserialize_model,
     forest_from_jax,
     load_model,
     save_model,
 )
+from ydf_tpu_torch.models.ydf_format import load_ydf_model
 from ydf_tpu_torch.models.if_model import IsolationForestModel
 from ydf_tpu_torch.models.rf_model import RandomForestModel
 
@@ -55,6 +64,7 @@ __all__ = [
     "CartLearner",
     "Column",
     "ColumnType",
+    "CustomLoss",
     "DataSpecification",
     "Dataset",
     "GradientBoostedTreesLearner",
@@ -66,8 +76,10 @@ __all__ = [
     "RandomForestModel",
     "Task",
     "binner_from_jax",
+    "deserialize_model",
     "forest_from_jax",
     "infer_dataspec",
     "load_model",
+    "load_ydf_model",
     "save_model",
 ]

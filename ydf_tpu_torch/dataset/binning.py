@@ -39,7 +39,14 @@ import torch
 from ydf_tpu_torch.dataset.dataspec import ColumnType, DataSpecification
 from ydf_tpu_torch.ops.binning import bin_columns
 
-_NUMERICAL_LIKE = (ColumnType.NUMERICAL, ColumnType.BOOLEAN)
+# Columns that encode and serve as numerical features (the JAX package's
+# list; models/ydf_format.py maps an imported model's columns by it): a
+# DISCRETIZED_NUMERICAL column of an imported or JAX-trained model
+# carries its raw values. Fitting takes the first two only: training on
+# the dataspec's stored bins is ROADMAP Queue 1 item 16.
+NUMERICAL_LIKE = (ColumnType.NUMERICAL, ColumnType.BOOLEAN,
+                   ColumnType.DISCRETIZED_NUMERICAL)
+_FIT_NUMERICAL = (ColumnType.NUMERICAL, ColumnType.BOOLEAN)
 # Rows above which boundaries come from a fixed-seed sample of this size.
 SAMPLE_ROWS = 200_000
 SAMPLE_SEED = 0xB1A5
@@ -176,7 +183,7 @@ class Binner:
             return [f for f in features
                     if spec.column_by_name(f).type in types]
 
-        numericals = of_type(*_NUMERICAL_LIKE)
+        numericals = of_type(*_FIT_NUMERICAL)
         categoricals = of_type(ColumnType.CATEGORICAL)
         sets = of_type(ColumnType.CATEGORICAL_SET)
         vs = of_type(ColumnType.NUMERICAL_VECTOR_SEQUENCE)

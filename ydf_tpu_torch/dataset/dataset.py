@@ -38,6 +38,17 @@ class Dataset:
         self.num_rows = sizes.pop() if sizes else 0
 
     @staticmethod
+    def from_examples(examples, dataspec: Optional[DataSpecification] = None,
+                      **kwargs) -> "Dataset":
+        """Row-wise ingestion: a sequence of {column: value} dicts
+        (dataset/example.py); a column missing from a row is a missing
+        cell."""
+        from ydf_tpu_torch.dataset.example import examples_to_columns
+
+        return Dataset.from_data(examples_to_columns(examples),
+                                 dataspec=dataspec, **kwargs)
+
+    @staticmethod
     def from_data(
         data: InputData,
         dataspec: Optional[DataSpecification] = None,

@@ -102,6 +102,32 @@ class DataSpecification:
             created_num_rows=d.get("created_num_rows", 0),
         )
 
+    def __str__(self) -> str:
+        """The column summary of `model.describe()`, the JAX package's
+        text."""
+        lines = [f"Number of columns: {len(self.columns)}", ""]
+        by_type: Dict[str, List[str]] = {}
+        for c in self.columns:
+            by_type.setdefault(c.type.value, []).append(c.name)
+        for t, names in sorted(by_type.items()):
+            lines.append(f"{t}: {len(names)}")
+        lines.append("")
+        for i, c in enumerate(self.columns):
+            extra = ""
+            if c.type == ColumnType.NUMERICAL:
+                extra = (f" mean:{c.mean:.6g} min:{c.min_value:.6g} "
+                         f"max:{c.max_value:.6g}")
+            elif c.type in (ColumnType.CATEGORICAL,
+                            ColumnType.CATEGORICAL_SET):
+                extra = f" vocab-size:{c.vocab_size}"
+            elif c.type == ColumnType.DISCRETIZED_NUMERICAL:
+                nb = len(c.discretized_boundaries or []) + 1
+                extra = f" mean:{c.mean:.6g} bins:{nb}"
+            if c.num_missing:
+                extra += f" num-missing:{c.num_missing}"
+            lines.append(f'  {i}: "{c.name}" {c.type.value}{extra}')
+        return "\n".join(lines)
+
 
 MISSING_STRINGS = {"", "NA", "N/A", "nan", "NaN", "null", "None"}
 # Out-of-vocabulary item, vocabulary index 0.

@@ -476,8 +476,7 @@ class GradientBoostedTreesLearner(GenericLearner):
         self.goss_beta = goss_beta
         self.apply_link_function = apply_link_function
         self.dart_dropout = dart_dropout
-        self.monotonic_constraints = (dict(monotonic_constraints)
-                                      if monotonic_constraints else None)
+        self.monotonic_constraints = dict(monotonic_constraints or {})
         self.split_axis = split_axis
         self.sparse_oblique_num_projections_exponent = (
             sparse_oblique_num_projections_exponent)

@@ -76,6 +76,43 @@ class GenericLearner:
         #: Host-clock seconds of the last train()'s stages.
         self.last_timings: Dict[str, float] = {}
 
+    # ---- the reference PYDF learner's accessors ---------------------- #
+
+    def learner_name(self) -> str:
+        """e.g. "GradientBoostedTreesLearner"."""
+        return type(self).__name__
+
+    @classmethod
+    def hyperparameter_spec(cls):
+        """{name: HyperParameter} of every constructor parameter
+        (learners/hyperparameters.py)."""
+        from ydf_tpu_torch.learners.hyperparameters import (
+            hyperparameter_spec,
+        )
+
+        return hyperparameter_spec(cls)
+
+    def hyperparameters(self) -> Dict[str, object]:
+        """The current values of the spec's parameters, by name."""
+        return {name: getattr(self, name)
+                for name in type(self).hyperparameter_spec()
+                if hasattr(self, name)}
+
+    def validate_hyperparameters(self) -> None:
+        """Checks the current values against the spec: catches an invalid
+        value set after construction."""
+        from ydf_tpu_torch.learners.hyperparameters import check_value
+
+        spec = type(self).hyperparameter_spec()
+        for name, value in self.hyperparameters().items():
+            check_value(spec[name], value, type(self).__name__)
+
+    def extract_input_feature_names(self, data: InputData) -> list:
+        """The feature columns this learner would train on for `data`:
+        dataspec inference and the label / weights / group / treatment
+        exclusions, no binning."""
+        return self._select_feature_names(self._infer_dataset(data))
+
     def _infer_dataset(self, data: InputData) -> Dataset:
         """Dataset with this learner's type policy: classification and
         categorical-uplift labels and an uplift treatment column are

@@ -1,6 +1,6 @@
-"""GradientBoostedTreesModel.predict (counterpart of
-ydf_tpu/models/gbt_model.py): raw scores + initial predictions, then the
-link function. The link runs in numpy float32 with the JAX package's
+"""GradientBoostedTreesModel.predict and plot_training_logs (counterpart
+of ydf_tpu/models/gbt_model.py): raw scores + initial predictions, then
+the link function. The link runs in numpy float32 with the JAX package's
 expressions, so predictions are bit-identical to it.
 """
 
@@ -85,6 +85,52 @@ class GradientBoostedTreesModel(GenericModel):
         if self.task == Task.CLASSIFICATION and self.apply_link_function:
             return _softmax(scores)
         return scores
+
+    def plot_training_logs(self) -> str:
+        """Self-contained SVG of the per-iteration train and validation
+        losses, the JAX package's string."""
+        logs = self.training_logs
+        tl = logs.get("train_loss") or []
+        vl = logs.get("valid_loss") or []
+        if not tl:
+            return "<svg/>"
+        W, H, pad = 640, 360, 40
+        series = [("train", tl, "#1f77b4")]
+        if vl:
+            series.append(("validation", vl, "#d62728"))
+        all_vals = [v for _, vs, _ in series for v in vs]
+        lo, hi = min(all_vals), max(all_vals)
+        span = (hi - lo) or 1.0
+        n = max(len(tl), len(vl), 2)
+
+        def pts(vs):
+            return " ".join(
+                f"{pad + (W - 2 * pad) * i / (n - 1):.1f},"
+                f"{H - pad - (H - 2 * pad) * (v - lo) / span:.1f}"
+                for i, v in enumerate(vs)
+            )
+
+        lines = "".join(
+            f'<polyline fill="none" stroke="{c}" stroke-width="1.5" '
+            f'points="{pts(vs)}"/>'
+            f'<text x="{W - pad}" y="{20 + 16 * k}" text-anchor="end" '
+            f'fill="{c}" font-size="12">{name}</text>'
+            for k, (name, vs, c) in enumerate(series)
+        )
+        axes = (
+            f'<line x1="{pad}" y1="{H - pad}" x2="{W - pad}" y2="{H - pad}" '
+            'stroke="#888"/>'
+            f'<line x1="{pad}" y1="{pad}" x2="{pad}" y2="{H - pad}" '
+            'stroke="#888"/>'
+            f'<text x="{W // 2}" y="{H - 8}" text-anchor="middle" '
+            'font-size="12">iterations</text>'
+            f'<text x="{pad}" y="{pad - 8}" font-size="12">'
+            f"loss ({self.loss_name})</text>"
+        )
+        return (
+            f'<svg xmlns="http://www.w3.org/2000/svg" width="{W}" '
+            f'height="{H}">{axes}{lines}</svg>'
+        )
 
     def _metadata(self) -> Dict[str, Any]:
         return {

@@ -1,7 +1,7 @@
-"""GenericModel: serving surface shared by the port's models
-(counterpart of ydf_tpu/models/generic_model.py: _encode_inputs,
-_raw_scores, _fast_engine, list_compatible_engines, force_engine,
-evaluate and save).
+"""GenericModel: the surface shared by the port's models (counterpart
+of ydf_tpu/models/generic_model.py: serving, introspection, describe,
+predict_leaves / distance, predict_class / predict_example,
+self_evaluation, benchmark, evaluate, save / save_ydf / serialize).
 
 Raw columns are encoded on the host in numpy, exactly as the JAX package
 encodes them, then moved to the model's device; the engines take and
@@ -10,7 +10,11 @@ CATEGORICAL_SET features is served by the routed engine
 (ops/routing.py), which scores each tree's anchors through
 csrc/vector_sequence.cu and intersects the packed sets with the nodes'
 masks; the QuickScorer and bank engines refuse such models, as the JAX
-package's do. Telemetry spans are not ported (ROADMAP Queue 1 item 17).
+package's do, and so do they a model that routes missing values
+natively (one imported from the YDF format). Telemetry spans are not
+ported (ROADMAP Queue 1 item 17), nor are the tree accessors, the
+variable importances but the structure ones, the html model card and
+the exports to other frameworks (items 20 and 21).
 """
 
 from __future__ import annotations
@@ -26,7 +30,11 @@ from ydf_tpu_torch.dataset.dataset import Dataset, InputData
 from ydf_tpu_torch.dataset.dataspec import DataSpecification
 from ydf_tpu_torch.metrics.metrics import Evaluation, evaluate_predictions
 from ydf_tpu_torch.models.forest import Forest
-from ydf_tpu_torch.ops.routing import forest_predict_values
+from ydf_tpu_torch.ops.routing import (
+    forest_leaves,
+    forest_predict_values,
+    leaf_proximity,
+)
 
 
 class GenericModel:
@@ -65,6 +73,131 @@ class GenericModel:
     @property
     def device(self) -> torch.device:
         return self.forest.device
+
+    # ------------------------------------------------------------------ #
+    # Introspection (the reference PYDF model's accessors)
+    # ------------------------------------------------------------------ #
+
+    def input_feature_names(self) -> List[str]:
+        return list(self.binner.feature_names)
+
+    def num_trees(self) -> int:
+        return int(self.forest.num_trees)
+
+    def num_nodes(self) -> int:
+        return int(self.forest.num_nodes.sum())
+
+    def name(self) -> str:
+        """Model type name, e.g. "RANDOM_FOREST"."""
+        return self.model_type
+
+    def data_spec(self) -> DataSpecification:
+        return self.dataspec
+
+    def label_classes(self) -> List[str]:
+        """The classification label's dictionary."""
+        if not self.classes:
+            raise ValueError(
+                "label_classes is only defined for classification models")
+        return list(self.classes)
+
+    def _column_indices(self) -> Dict[str, int]:
+        return {c.name: i for i, c in enumerate(self.dataspec.columns)}
+
+    def label_col_idx(self) -> int:
+        return self._column_indices().get(self.label, -1)
+
+    def input_features_col_idxs(self) -> List[int]:
+        return [f[2] for f in self.input_features()]
+
+    def input_features(self) -> List[tuple]:
+        """[(name, column type, column index)] of the input features."""
+        by_name = self._column_indices()
+        cols = self.dataspec.columns
+        return [(n, cols[by_name[n]].type.value, by_name[n])
+                for n in self.input_feature_names()]
+
+    def describe(self, output_format: str = "text") -> str:
+        """Model card, the JAX package's text line for line: structure
+        statistics, input features with their types, structure variable
+        importances, training logs and self-evaluation when present, the
+        dataspec. The html form is not ported (ROADMAP Queue 1 item
+        20)."""
+        if output_format != "text":
+            raise NotImplementedError(
+                f"describe(output_format={output_format!r}): only the text "
+                "form is ported (ROADMAP Queue 1 item 20)")
+        from ydf_tpu_torch.analysis.importance import structure_importances
+
+        f = self.forest.to_numpy()
+        nn = f["num_nodes"]
+        leaf_counts = [int(f["is_leaf"][t, : nn[t]].sum())
+                       for t in range(len(nn))]
+        feats = self.input_feature_names()
+        lines = [
+            f'Type: "{self.model_type}"',
+            f"Task: {self.task.value}",
+            f'Label: "{self.label}"',
+        ]
+        if self.classes:
+            lines.append(f"Classes: {self.classes}")
+        lines += ["", f"Input features ({len(feats)}):"]
+        for name in feats:
+            col = self.dataspec.column_by_name(name)
+            extra = (f" vocab={col.vocab_size}" if col.vocabulary is not None
+                     else f" mean={col.mean:.4g}")
+            lines.append(f"  {name}: {col.type.value}{extra}")
+        for name in self.binner.vs_names:
+            col = self.dataspec.column_by_name(name)
+            lines.append(f"  {name}: {col.type.value} dim={col.vector_length}")
+        lines += [
+            "",
+            f"Number of trees: {self.num_trees()}",
+            f"Total number of nodes: {self.num_nodes()}",
+            f"Number of leaves: {sum(leaf_counts)}",
+            (f"Nodes per tree: min {int(nn.min())} / mean "
+             f"{float(nn.mean()):.1f} / max {int(nn.max())}")
+            if len(nn) else "",
+            f"Maximum depth: {self.max_depth}",
+        ]
+        si = structure_importances(self)
+        top = si.get("NUM_NODES") or next(iter(si.values()), [])
+        if top:
+            lines += ["", "Variable importances (NUM_NODES):"]
+            for d in top[:10]:
+                lines.append(f"  {d['feature']:>25}: {d['importance']:.5g}")
+        logs = getattr(self, "training_logs", None)
+        if logs and logs.get("train_loss"):
+            tl = logs["train_loss"]
+            lines += [
+                "",
+                f"Training: {len(tl)} iterations, final train loss "
+                f"{tl[-1]:.5f}"
+                + (f", final valid loss {logs['valid_loss'][-1]:.5f}"
+                   if logs.get("valid_loss") else ""),
+            ]
+        oob = getattr(self, "oob_evaluation", None)
+        if oob:
+            m = ", ".join(f"{k}={v:.4f}"
+                          for k, v in list(oob["metrics"].items())[:4])
+            lines += ["", f"Self-evaluation (OOB): {m}"]
+        lines += ["", "Dataspec:", str(self.dataspec)]
+        return "\n".join(lines)
+
+    def self_evaluation(self):
+        """The training run's own evaluation: a random forest's
+        out-of-bag one, a GBT's last kept validation loss (its logs keep
+        the kept iterations only), else None."""
+        oob = getattr(self, "oob_evaluation", None)
+        if oob is not None:
+            return oob
+        logs = getattr(self, "training_logs", None)
+        if logs and logs.get("valid_loss") is not None:
+            vl = np.asarray(logs["valid_loss"])
+            if vl.size:
+                return {"source": "gbt_validation",
+                        "metrics": {"loss": float(vl[-1])}}
+        return None
 
     # ------------------------------------------------------------------ #
     # Serving
@@ -217,6 +350,128 @@ class GenericModel:
         """Raw (margin) scores f32 [n, V] as numpy."""
         return self._scores(self._encode(data), combine)
 
+    def predict_class(self, data: InputData) -> np.ndarray:
+        """The most likely class name of every row (classification)."""
+        if not self.classes:
+            raise ValueError(
+                "predict_class is only defined for classification models")
+        p = np.asarray(self.predict(data))
+        classes = np.asarray(self.classes)
+        if p.ndim == 1:  # binary: the probability of classes[1]
+            return classes[(p >= 0.5).astype(np.int64)]
+        return classes[np.argmax(p, axis=1)]
+
+    def predict_example(self, example: dict):
+        """Scores one {column: value} row (dataset/example.py); a column
+        the row lacks is a missing value."""
+        return self.predict(Dataset.from_examples([example],
+                                                  dataspec=self.dataspec))[0]
+
+    def _leaves(self, data: InputData) -> torch.Tensor:
+        """Leaf ids int32 [n, T] on the model's device."""
+        enc = self._encode(data)
+        return forest_leaves(
+            self.forest, enc["x_num"], enc["x_cat"],
+            num_numerical=self.binner.num_numerical,
+            max_depth=self.max_depth, x_vs_vals=enc.get("x_vs_vals"),
+            x_vs_len=enc.get("x_vs_len"), vs_missing=enc.get("vs_missing"),
+            x_set=enc.get("x_set"), set_missing=enc.get("set_missing"),
+        )
+
+    def predict_leaves(self, data: InputData) -> np.ndarray:
+        """The leaf node id of every row in every tree: int32 [n, T]
+        (the reference's PredictLeaves)."""
+        return self._leaves(data).cpu().numpy()
+
+    def distance(self, data1: InputData,
+                 data2: Optional[InputData] = None) -> np.ndarray:
+        """Pairwise distance f32 [n1, n2]: 1 - the fraction of trees that
+        route the pair to the same leaf (Breiman proximity;
+        ops/routing.py:leaf_proximity); data2=None compares data1 with
+        itself."""
+        l1 = self._leaves(data1)
+        l2 = l1 if data2 is None else self._leaves(data2)
+        return 1.0 - leaf_proximity(l1, l2).cpu().numpy()
+
+    def benchmark(self, data: InputData, num_runs: int = 10,
+                  engines: bool = False) -> dict:
+        """Inference speed on `data`: the best wall time of `num_runs`
+        predicts after one warm-up (kernel builds excluded), per-example
+        p50 / p99 and the growth of the process's peak RSS over the runs.
+        engines=True also times each serving engine whose envelope takes
+        the model on the encoded inputs (encoding excluded): `routed`
+        (ops/routing.py), `quickscorer`, `binned_quickscorer` (on the
+        binner's bins) and the bank under its registry name,
+        `BankScorer`."""
+        import time
+
+        from ydf_tpu_torch.utils.telemetry import (
+            LatencyHistogram,
+            peak_rss_bytes,
+        )
+
+        if num_runs < 1:
+            raise ValueError("num_runs must be >= 1")
+        ds = Dataset.from_data(data, dataspec=self.dataspec)
+        self.predict(ds)  # warm-up: kernel builds and engine tables
+        rss0 = peak_rss_bytes()
+        times = []
+        hist = LatencyHistogram()
+        for _ in range(num_runs):
+            t0 = time.perf_counter()
+            self.predict(ds)
+            dt = time.perf_counter() - t0
+            times.append(dt)
+            hist.observe_s(dt)
+        best = min(times)
+        n = max(ds.num_rows, 1)
+        out = {
+            "num_examples": ds.num_rows,
+            "num_runs": num_runs,
+            "best_wall_s": best,
+            "ns_per_example": 1e9 * best / n,
+            "p50_ns_per_example": hist.percentile_ns(50) / n,
+            "p99_ns_per_example": hist.percentile_ns(99) / n,
+            "peak_rss_delta_bytes": max(peak_rss_bytes() - rss0, 0),
+        }
+        if not engines:
+            return out
+        from ydf_tpu_torch.serving import bank_scorer, quickscorer, registry
+
+        dev = self.device
+
+        def _time_engine(fn):
+            fn()  # warm-up
+            ts = []
+            for _ in range(num_runs):
+                t0 = time.perf_counter()
+                fn()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                ts.append(time.perf_counter() - t0)
+            return 1e9 * min(ts) / n
+
+        enc = self._encode(ds)
+        xn, xc = enc["x_num"], enc["x_cat"]
+        eng = {"routed": _time_engine(lambda: forest_predict_values(
+            self.forest, xn, xc, num_numerical=self.binner.num_numerical,
+            max_depth=self.max_depth, combine="sum", x_set=enc.get("x_set"),
+            x_vs_vals=enc.get("x_vs_vals"), x_vs_len=enc.get("x_vs_len")))}
+        if getattr(self, "num_trees_per_iter", 1) == 1:
+            if registry._qs_compatible(self):
+                qs = quickscorer.build_quickscorer(self)
+                eng["quickscorer"] = _time_engine(lambda: qs(xn, xc))
+                bq = quickscorer.build_binned_quickscorer(self)
+                if bq is not None:
+                    bins = self.binner.transform(ds, dev)
+                    eng["binned_quickscorer"] = _time_engine(
+                        lambda: bq(bins))
+            if bank_scorer.in_envelope(self):
+                bank = bank_scorer.build_bank_scorer(self)
+                eng["BankScorer"] = _time_engine(lambda: bank(xn, xc))
+        out["engines_ns_per_example"] = eng
+        return out
+
     # ------------------------------------------------------------------ #
     # Evaluation and persistence
     # ------------------------------------------------------------------ #
@@ -281,6 +536,28 @@ class GenericModel:
         from ydf_tpu_torch.models.io import save_model
 
         save_model(self, path)
+
+    def save_ydf(self, path: str) -> None:
+        """Writes the model as a reference YDF model directory
+        (models/ydf_format.py), the bytes the JAX package's save_ydf
+        writes."""
+        from ydf_tpu_torch.models.ydf_format import export_ydf_model
+
+        export_ydf_model(self, path)
+
+    def serialize(self) -> bytes:
+        """The model as bytes, a tar of the saved directory; restore with
+        deserialize_model of either package."""
+        import io
+        import tarfile
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            self.save(tmp)
+            buf = io.BytesIO()
+            with tarfile.open(fileobj=buf, mode="w") as tar:
+                tar.add(tmp, arcname="model")
+            return buf.getvalue()
 
     def _metadata(self) -> Dict[str, Any]:
         """Subclass-specific JSON metadata."""

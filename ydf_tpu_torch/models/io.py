@@ -1,16 +1,18 @@
 """Model loading and saving (counterpart of ydf_tpu/models/io.py:
-load_model, save_model).
+load_model, save_model, deserialize_model).
 
 The JAX package's model directory — `model.json` (task, label,
 dataspec, binner, model-specific fields) and `forest.npz` (node arrays)
 — of a gradient boosted trees, random forest (CART's too) or isolation
-forest model, read into the
-port's model on a torch device (the node arrays, each
-tree's vector-sequence anchors and the binner's vector-sequence fields
-included), and written from it in the same layout, so that each package
-loads the other's saves; a multitasker's directory loads as its
-MultitaskerModel (learners/multitasker.py). The reference-format reader
-(ydf_format.py) is not ported (ROADMAP Queue 1 item 10).
+forest model, read into the port's model on a torch device (the node
+arrays, each tree's vector-sequence anchors and the binner's
+vector-sequence fields included), and written from it in the same
+layout, so that each package loads the other's saves. A multitasker's
+directory loads as its MultitaskerModel (learners/multitasker.py), and a
+directory in the reference YDF format (header.pb, data_spec.pb, node
+shards; written by the reference library, pip ydf or `save_ydf`) loads
+through models/ydf_format.py. `deserialize_model` restores the bytes of
+`model.serialize()`, a tar of the saved directory.
 """
 
 from __future__ import annotations
@@ -88,9 +90,10 @@ def save_model(model: GenericModel, path: str) -> None:
 
 
 def load_model(path: str, device=None):
-    """Loads a model saved by `model.save(path)` of either package onto
-    `device` (default: the CUDA card): a model directory, or a
-    multitasker's (multitasker.txt and a model directory a label)."""
+    """Loads a model onto `device` (default: the CUDA card): a directory
+    saved by `model.save(path)` of either package, a multitasker's
+    (multitasker.txt and a model directory a label), or a reference YDF
+    model directory (models/ydf_format.py)."""
     dev = resolve_device(device)
     meta_path = os.path.join(path, "model.json")
     if not os.path.isfile(meta_path):
@@ -98,18 +101,22 @@ def load_model(path: str, device=None):
             from ydf_tpu_torch.learners.multitasker import MultitaskerModel
 
             return MultitaskerModel.load(path, device=dev)
-        raise NotImplementedError(
-            f"{path} holds no model.json; only models saved by the JAX "
-            "package load (YDF-format directories are not ported, ROADMAP "
-            "Queue 1 item 10)"
+        from ydf_tpu_torch.models import ydf_format
+
+        if ydf_format.is_ydf_model_dir(path):
+            return ydf_format.load_ydf_model(path, device=dev)
+        raise ValueError(
+            f"{path} holds no model: neither a model.json (a model saved "
+            "by either package), a multitasker.txt, nor a YDF-format "
+            "header.pb and data_spec.pb"
         )
     with open(meta_path) as f:
         meta = json.load(f)
     cls = MODEL_TYPES.get(meta["model_type"])
     if cls is None:
-        raise NotImplementedError(
-            f"model type {meta['model_type']} is not ported yet "
-            "(ROADMAP Queue 1 item 9)"
+        raise ValueError(
+            f"unknown model type {meta['model_type']!r}; a model.json of "
+            f"either package holds one of {sorted(MODEL_TYPES)}"
         )
     with np.load(os.path.join(path, "forest.npz")) as z:
         forest = forest_from_jax({k: z[k] for k in z.files})
@@ -125,3 +132,17 @@ def load_model(path: str, device=None):
         native_missing=meta.get("native_missing", False),
     )
     return cls._from_saved(common, meta["specific"])
+
+
+def deserialize_model(data: bytes, device=None):
+    """Restores a model from `model.serialize()` bytes of either package
+    (a tar of the saved directory) onto `device` (default: the CUDA
+    card)."""
+    import io
+    import tarfile
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with tarfile.open(fileobj=io.BytesIO(data)) as tar:
+            tar.extractall(tmp, filter="data")
+        return load_model(os.path.join(tmp, "model"), device=device)

@@ -7,7 +7,9 @@ every layer below the root, through csrc/histogram_routed.cu; and
 package's is XLA.
 
 Serving: value-mode routing in plain PyTorch (route_tree_values /
-forest_predict_values).
+forest_predict_values), each row's leaf in every tree (forest_leaves)
+and the leaves' Breiman proximity (leaf_proximity), plain PyTorch as the
+JAX package's are XLA.
 
 This is the generic serving engine (rank 0 in serving/registry.py) and
 the oracle the kernels are tested against. It walks `max_depth` steps per
@@ -310,14 +312,6 @@ def forest_predict_values(
     with vector-sequence anchors needs the padded sequences
     (Binner.transform_vs on the forest's device), one with set features
     their packed rows."""
-    has_vs = forest.vs_anchor.numel() > 0
-    if has_vs and x_vs_vals is None:
-        raise ValueError("this forest has vector-sequence conditions; pass "
-                         "x_vs_vals and x_vs_len")
-    if has_vs:
-        vals = [x_vs_vals[:, j].contiguous()
-                for j in range(x_vs_vals.shape[1])]
-        lens = [x_vs_len[:, j].contiguous() for j in range(x_vs_len.shape[1])]
     if combine not in ("sum", "mean"):
         raise ValueError(f"combine must be 'sum' or 'mean', got {combine!r}")
     T = forest.num_trees
@@ -326,17 +320,87 @@ def forest_predict_values(
         (n, forest.leaf_value.shape[-1]), dtype=torch.float32,
         device=x_num.device,
     )
-    for t in range(T):
-        # One batched scoring of the tree's anchors, before its depth loop.
-        proj = vs_tree_projections(forest, t, vals, lens) if has_vs else None
-        leaves = route_tree_values(
-            forest, t, x_num, x_cat, num_numerical, max_depth,
-            vs_proj=proj, vs_missing=vs_missing, x_set=x_set,
-            set_missing=set_missing,
-        )
+    for t, leaves in _tree_leaves(
+            forest, x_num, x_cat, num_numerical, max_depth, x_vs_vals,
+            x_vs_len, vs_missing, x_set, set_missing):
         acc = acc + forest.leaf_value[t][leaves]
     if combine == "mean":
         # XLA rewrites the oracle's `acc / T` as a multiply by the f32
         # reciprocal; the same rounding here keeps the means bitwise equal.
         return acc * (torch.ones((), dtype=torch.float32) / T).to(acc.device)
     return acc
+
+
+def _tree_leaves(forest: Forest, x_num, x_cat, num_numerical: int,
+                 max_depth: int, x_vs_vals=None, x_vs_len=None,
+                 vs_missing=None, x_set=None, set_missing=None):
+    """Yields (t, leaf ids int64 [n]) of every tree in order, each tree's
+    anchors scored in one batch before its depth loop."""
+    has_vs = forest.vs_anchor.numel() > 0
+    if has_vs and x_vs_vals is None:
+        raise ValueError("this forest has vector-sequence conditions; pass "
+                         "x_vs_vals and x_vs_len")
+    if has_vs:
+        vals = [x_vs_vals[:, j].contiguous()
+                for j in range(x_vs_vals.shape[1])]
+        lens = [x_vs_len[:, j].contiguous() for j in range(x_vs_len.shape[1])]
+    for t in range(forest.num_trees):
+        proj = vs_tree_projections(forest, t, vals, lens) if has_vs else None
+        yield t, route_tree_values(
+            forest, t, x_num, x_cat, num_numerical, max_depth,
+            vs_proj=proj, vs_missing=vs_missing, x_set=x_set,
+            set_missing=set_missing,
+        )
+
+
+def forest_leaves(
+    forest: Forest,
+    x_num: torch.Tensor,
+    x_cat: torch.Tensor,
+    num_numerical: int,
+    max_depth: int,
+    x_vs_vals: Optional[torch.Tensor] = None,
+    x_vs_len: Optional[torch.Tensor] = None,
+    vs_missing: Optional[torch.Tensor] = None,
+    x_set: Optional[torch.Tensor] = None,
+    set_missing: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Leaf node id of every example in every tree: int32 [n, T] on the
+    inputs' device (the JAX package's forest_leaves; the reference's
+    PredictLeaves). The [T, n] ids are stacked on the device and
+    transposed there, so a caller copies them to the host once."""
+    n = x_num.shape[0] if x_num.numel() else x_cat.shape[0]
+    out = torch.empty((forest.num_trees, n), dtype=torch.int32,
+                      device=x_num.device)
+    for t, leaves in _tree_leaves(
+            forest, x_num, x_cat, num_numerical, max_depth, x_vs_vals,
+            x_vs_len, vs_missing, x_set, set_missing):
+        out[t] = leaves
+    return out.t().contiguous()
+
+
+#: Compared cells (rows of leaves1 x rows of leaves2 x trees) of one
+#: chunk of leaf_proximity: 2^26, the JAX package's cap.
+PROXIMITY_CELLS = 1 << 26
+
+
+def leaf_proximity(leaves1: torch.Tensor, leaves2: torch.Tensor,
+                   chunk: int = 1024) -> torch.Tensor:
+    """Breiman proximity, the fraction of trees that route a pair to the
+    same leaf: f32 [n1, n2] (the JAX package's leaf_proximity; reference
+    random_forest.h:211-217). The rows of leaves1 go in chunks of at
+    most `chunk` rows and PROXIMITY_CELLS compared cells, so the
+    [chunk, n2, T] comparison stays bounded at any n2 and T."""
+    n2, T = leaves2.shape
+    step = min(chunk, max(1, PROXIMITY_CELLS // max(n2 * T, 1)))
+    # XLA takes the mean as the (exact) count times the f32 reciprocal
+    # of T; so does this, for the same bits.
+    inv_t = (torch.ones((), dtype=torch.float32) / max(T, 1)).to(
+        leaves1.device)
+    out = torch.empty((leaves1.shape[0], n2), dtype=torch.float32,
+                      device=leaves1.device)
+    for r0 in range(0, leaves1.shape[0], step):
+        same = leaves1[r0:r0 + step, None, :] == leaves2[None, :, :]
+        out[r0:r0 + step] = same.sum(dim=2, dtype=torch.int32).to(
+            torch.float32) * inv_t
+    return out

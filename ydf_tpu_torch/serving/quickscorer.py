@@ -14,7 +14,10 @@ and leaf values are summed in tree order, one f32 add per tree — the
 order of the generic routed engine, so the scores are bit-identical.
 
 The kernel (csrc/quickscorer.cu) replaces the TPU kernel
-ydf_tpu/serving/quickscorer.py:_qs_kernel. It takes the input
+ydf_tpu/serving/quickscorer.py:_qs_kernel. It serves both engines: the
+float one (QuickScorerEngine, raw values) and the 8-bit one
+(BinnedQuickScorerEngine, the binner's bin ids with each threshold
+replaced by its bin cut, in the same packed tables). It takes the input
 feature-major, xT f32 [F, n], as the TPU engine does, and the model as
 `pack_tables` lays it out: numerical conditions as 16-byte records and
 categorical ones folded into one mask table for each (tree, feature), in
@@ -576,3 +579,51 @@ def build_quickscorer(model) -> Optional[QuickScorerEngine]:
     if qsm is None or not fits_shared_memory(qsm):
         return None
     return QuickScorerEngine(qsm, model.forest.device)
+
+
+class BinnedQuickScorerEngine:
+    """The 8-bit engine (counterpart of the JAX package's
+    BinnedQuickScorerEngine; reference 8bits_numerical_features.h): the
+    same kernel over the binner's bin matrix. Each numerical condition's
+    threshold is its bin cut (v >= boundaries[t] ⇔ bin(v) >= t + 1), and
+    the bin ids go in as f32 feature values; categorical rows carry the
+    category codes, as in the float engine."""
+
+    def __init__(self, qsm: QuickScorerModel, bin_thresh: np.ndarray,
+                 device):
+        self.qsm = qsm._replace(cond_thresh=bin_thresh)
+        self.tables = make_tables(self.qsm, device)
+
+    def __call__(self, bins: torch.Tensor) -> torch.Tensor:
+        """Raw scores f32 [n] of `Binner.transform`'s u8 [n, F] (the view
+        of a contiguous feature-major [F, n], read as it lies)."""
+        xT = bins.t()[:self.tables.num_features]
+        return score(self.tables, xT.to(torch.float32))
+
+
+def build_binned_quickscorer(model) -> Optional[BinnedQuickScorerEngine]:
+    """The 8-bit engine over the model's own binner on the model's
+    device, or None outside QuickScorer's envelope or for a serving-only
+    binner (an imported model's +inf boundaries bin every value to 0)."""
+    qsm = compile_forest_cached(
+        model.forest, model.binner.num_numerical,
+        num_features=model.binner.num_scalar,
+    )
+    if qsm is None or not fits_shared_memory(qsm):
+        return None
+    b = model.binner
+    has_numerical_cond = bool((qsm.cond_is_cat == 0).any())
+    if has_numerical_cond and not np.isfinite(b.boundaries).any():
+        return None
+    bin_thresh = np.zeros_like(qsm.cond_thresh)
+    for c in range(len(qsm.cond_feature)):
+        fi = int(qsm.cond_feature[c])
+        if qsm.cond_is_cat[c]:
+            continue  # categorical conditions use bitmaps, not thresholds
+        if fi >= b.num_numerical:
+            return None
+        nb = int(b.feature_num_bins[fi]) - 1
+        t = np.searchsorted(b.boundaries[fi, :nb], qsm.cond_thresh[c],
+                            side="left")
+        bin_thresh[c] = np.float32(t + 1)
+    return BinnedQuickScorerEngine(qsm, bin_thresh, model.forest.device)
