@@ -182,6 +182,24 @@ Phases (one line each; any failure is an uncaught exception):
               oracle; benchmark(engines=True) at 65,536 rows;
               distance on 2,048 rows and serialize -> deserialize_model;
               the binned kernel timed
+  17 cache    out-of-core data (ydf_tpu_torch/testdata/train_cache and
+              train_discretized): make_frame's 500,000 + 100,000 rows
+              written as 4 CSV shards and a test CSV (SHA-256 == the
+              fixture's); the CSV loader built with g++; the main path:
+              create_dataset_cache in chunks of 65,536 rows (pass 2 bins
+              each chunk on the card: one binning launch a chunk), the
+              default GBT trained from the cache, evaluate on the test
+              CSV; against the JAX runs: every cache file and the
+              metadata, the same bytes in chunks of 500,000 and the sketch
+              mode's cache, the validation rows, every tree by hash, the
+              losses, metrics (1e-12) and predictions bitwise; the default
+              GBT with discretize_numerical_columns=True on 200,000 rows
+              (trees by hash, predictions, save_ydf == the JAX export);
+              predict on TFRecord and Avro files of 4,096 test rows and
+              predict_tf_examples, bitwise the in-memory predict; each
+              binning chunk, the root and tree 0's routed launches and the
+              bank's against their plain versions; each kernel timed; a
+              profiled 20-tree train from the cache (the idle share)
 
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
@@ -193,7 +211,9 @@ forest's (train, then predict), phase 12 the four oblique learners'
 (train, then evaluate or predict), phases 13-15 each of their learners'
 runs (train, then evaluate; the multitasker's two tasks together), phase
 16 the model IO path (import, export, round trip, binned QuickScorer,
-benchmark, leaves, distance, serialize) as one path.
+benchmark, leaves, distance, serialize) as one path, phase 17 the cache
+path (build, train, evaluate) and the discretized GBT's (train,
+predict).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -411,6 +431,25 @@ MULTITASK_SEED = 5
 MULTITASK_ROWS = 100_000
 MULTITASK_TEST_ROWS = 20_000
 YDF_FORMAT = os.path.join(TESTDATA, "ydf_format")
+TRAIN_CACHE = os.path.join(TESTDATA, "train_cache")
+TRAIN_DISCRETIZED = os.path.join(TESTDATA, "train_discretized")
+#: Phase 17: make_frame's train rows in CACHE_SHARDS CSV shards, its
+#: test rows in one CSV; the cache built in chunks of CACHE_CHUNK_ROWS,
+#: then of CACHE_BIG_CHUNK_ROWS (the same bytes).
+CACHE_SHARDS = 4
+CACHE_ROWS = 500_000
+CACHE_TEST_ROWS = 100_000
+CACHE_CHUNK_ROWS = 65_536
+CACHE_BIG_CHUNK_ROWS = 500_000
+CACHE_HP = dict(label="label")
+CACHE_COMPARE_ROWS = 1024
+#: The test rows' head that goes through the TFRecord and Avro files (the
+#: Python record writer takes about 90 s for 100,000 rows on a CPU).
+CACHE_RECORD_ROWS = 4_096
+CACHE_PROFILE_TREES = 20
+DISC_ROWS = 200_000
+DISC_TEST_ROWS = 50_000
+DISC_HP = dict(label="label", discretize_numerical_columns=True)
 IO_PREDICT_ROWS = 1_048_576
 IO_TRAIN_ROWS = 100_000
 IO_TRAIN_TREES = 20
@@ -430,6 +469,10 @@ OBLIQUE_RF_TREES = 100
 # f64 block partials, so near-tie splits may flip in late trees; the
 # first tree's splits must be equal.
 TRAIN_LOSS_RTOL = 1e-3
+#: The GBT's reported binomial and squared-error losses are torch's own
+#: functions, not XLA's sums (learners/losses.py): within this relative
+#: tolerance of the JAX package's, the trees bitwise.
+REPORTED_LOSS_RTOL = 1e-5
 RAW_SCORE_ATOL = 0.05
 RAW_SCORE_MEAN_ATOL = 1e-3
 # f32 histogram cells: |kernel - plain| <= HIST_RTOL * (sum of |terms|)
@@ -530,6 +573,136 @@ def make_frame(train_rows, test_rows, seed=DEFAULT_CAT_SEED, classes=2):
         col[rng.uniform(size=test_rows) < 0.03] = ""
         test[f"c{j}"] = col
     return train, test
+
+
+def cache_frames(train_rows, test_rows):
+    """make_frame's rows plus a weights column "w" (uniform in [0.5, 2),
+    f32) and a treatment "treat" (int, 1 with probability 0.4), drawn
+    from default_rng([DEFAULT_CAT_SEED, 17, rows]) for each part: the
+    small dataset-cache runs."""
+    train, test = make_frame(train_rows, test_rows)
+    for part, n in ((train, train_rows), (test, test_rows)):
+        rng = np.random.default_rng([DEFAULT_CAT_SEED, 17, n])
+        part["w"] = rng.uniform(0.5, 2.0, n).astype(np.float32)
+        part["treat"] = (rng.uniform(size=n) < 0.4).astype(np.int64)
+    return train, test
+
+
+def csv_text(cols):
+    """A frame as CSV text: a header of the column names, one line a
+    row; floats in the shortest repr of their own type
+    (`astype(str)`), a NaN as an empty cell; other columns as str."""
+    names = list(cols)
+    cells = []
+    for k in names:
+        a = np.asarray(cols[k])
+        s = a.astype(str)
+        if a.dtype.kind == "f":
+            s[np.isnan(a)] = ""
+        cells.append(s.tolist())
+    return "\n".join([",".join(names)]
+                     + [",".join(r) for r in zip(*cells)]) + "\n"
+
+
+def write_csv_shards(directory, train, test, shards):
+    """Writes train-<k>.csv (the train rows cut into `shards` files of
+    equal rows) and test.csv; returns the file names."""
+    n = len(next(iter(train.values())))
+    edges = np.linspace(0, n, shards + 1).astype(np.int64)
+    names = []
+    for k in range(shards):
+        part = {c: v[edges[k]:edges[k + 1]] for c, v in train.items()}
+        names.append(f"train-{k}.csv")
+        with open(os.path.join(directory, names[-1]), "w") as f:
+            f.write(csv_text(part))
+    names.append("test.csv")
+    with open(os.path.join(directory, names[-1]), "w") as f:
+        f.write(csv_text(test))
+    return names
+
+
+def _avro_long(v):
+    """Avro's zigzag varint of an int."""
+    v = (v << 1) ^ (v >> 63)
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _avro_field(name, a):
+    """(schema type, cell encoder) of one column: floats as nullable
+    doubles (NaN -> null), ints as longs, strings as nullable strings
+    ("" or None -> null), object cells of strings as string arrays, of
+    float rows as arrays of float arrays (vector sequences)."""
+    import struct
+
+    def string(v):
+        b = str(v).encode("utf-8")
+        return _avro_long(len(b)) + b
+
+    if a.dtype.kind == "f":
+        return ["null", "double"], lambda v: (
+            b"\x00" if np.isnan(v) else b"\x02" + struct.pack("<d", v))
+    if a.dtype.kind in "iu":
+        return "long", lambda v: _avro_long(int(v))
+    if a.dtype.kind in "US":
+        return ["null", "string"], lambda v: (
+            b"\x00" if v == "" else b"\x02" + string(v))
+    first = next((v for v in a if v is not None and len(v)), None)
+    nested = first is not None and np.ndim(first[0]) == 1
+
+    def array(v, item):
+        v = list(v)
+        body = b"".join(item(x) for x in v)
+        return (_avro_long(len(v)) + body if v else b"") + b"\x00"
+
+    if nested:
+        row = lambda x: array(x, lambda f: struct.pack("<f", f))  # noqa
+        return ["null", {"type": "array", "items": {
+            "type": "array", "items": "float"}}], lambda v: (
+            b"\x00" if v is None else b"\x02" + array(v, row))
+    return ["null", {"type": "array", "items": "string"}], lambda v: (
+        b"\x00" if v is None else b"\x02" + array(v, string))
+
+
+def write_avro(path, cols, codec="deflate", block_rows=4096):
+    """An Avro object container file of the columns (the reader's test
+    encoder: one record a row, `codec` "null" or "deflate", a fixed sync
+    marker, blocks of block_rows records)."""
+    import zlib
+
+    names = list(cols)
+    fields = [_avro_field(k, np.asarray(cols[k])) for k in names]
+    schema = {"type": "record", "name": "row", "fields": [
+        {"name": k, "type": t} for k, (t, _) in zip(names, fields)]}
+    sync = bytes(range(16))
+    meta = {"avro.schema": json.dumps(schema).encode(),
+            "avro.codec": codec.encode()}
+    head = bytearray(b"Obj\x01")
+    head += _avro_long(len(meta))
+    for k, v in meta.items():
+        head += _avro_long(len(k)) + k.encode() + _avro_long(len(v)) + v
+    head += b"\x00" + sync
+    n = len(cols[names[0]])
+    cells = [list(np.asarray(cols[k])) for k in names]
+    with open(path, "wb") as f:
+        f.write(head)
+        for s in range(0, n, block_rows):
+            e = min(s + block_rows, n)
+            block = b"".join(enc(cells[j][i])
+                             for i in range(s, e)
+                             for j, (_, enc) in enumerate(fields))
+            if codec == "deflate":
+                c = zlib.compressobj(6, zlib.DEFLATED, -15)
+                block = c.compress(block) + c.flush()
+            f.write(_avro_long(e - s) + _avro_long(len(block)) + block
+                    + sync)
 
 
 def set_cells(rng, n, vocab, max_items, prefix):
@@ -1393,6 +1566,8 @@ def main():
     kernels.extend(uplift_honest_sets_path(smi, serving=counters))
     torch.cuda.synchronize()
     kernels.extend(model_io_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(cache_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6091,15 +6266,16 @@ def uplift_honest_sets_path(smi, serving):
     return result
 
 
-def file_sha256s(d):
-    """{file name: SHA-256} of a directory's files."""
+def file_sha256(path):
     import hashlib
 
-    out = {}
-    for fname in sorted(os.listdir(d)):
-        with open(os.path.join(d, fname), "rb") as f:
-            out[fname] = hashlib.sha256(f.read()).hexdigest()
-    return out
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def file_sha256s(d):
+    """{file name: SHA-256} of a directory's files."""
+    return {f: file_sha256(os.path.join(d, f)) for f in sorted(os.listdir(d))}
 
 
 def model_io_path(smi, serving):
@@ -6325,6 +6501,411 @@ def model_io_path(smi, serving):
         "path_launches_at_timing_rows": path_launches,
         "path_bound_ms": t["bound_ms"] * path_launches,
     }]
+
+
+def record_calls(module, name, limit):
+    """Wraps module.name so that the tensor arguments of its first
+    `limit` calls are cloned as it got them (route tables included):
+    (the records, a function restoring the original)."""
+    import torch
+
+    from ydf_tpu_torch.ops.histogram_kernels import RouteTables
+
+    calls = []
+    original = getattr(module, name)
+
+    def wrapped(*args):
+        if len(calls) < limit:
+            calls.append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else
+                type(a)(*(t.clone() for t in a)) if isinstance(
+                    a, RouteTables) else a for a in args))
+        return original(*args)
+
+    setattr(module, name, wrapped)
+    return calls, lambda: setattr(module, name, original)
+
+
+def cache_record(cache):
+    """{"files": {data file: SHA-256}, "meta_sha256": ...} of a dataset
+    cache: the metadata hashed as canonical JSON without its source path
+    and request fingerprint (scripts/make_torch_port_fixtures.py writes
+    the JAX package's the same way)."""
+    import hashlib
+
+    files = {f: file_sha256(os.path.join(cache.path, f))
+             for f in sorted(cache._meta["integrity"]["files"])}
+    meta = {k: v for k, v in cache._meta.items()
+            if k not in ("source", "request_fingerprint")}
+    return {"files": files, "meta_sha256": hashlib.sha256(json.dumps(
+        meta, sort_keys=True).encode()).hexdigest()}
+
+
+def check_run_trees(exp, prefix, model):
+    """Every tree of a port model against the fixture's per-tree SHA-256
+    (a NaN hashed as canonical_nan writes it) and node counts; returns
+    the tree count."""
+    fo = canonical_nan(model.forest.to_numpy())
+    T = fo["feature"].shape[0]
+    want = [h.tobytes().hex() for h in exp[f"{prefix}/tree_sha256"]]
+    got = [tree_sha256(fo, t) for t in range(T)]
+    bad = [t for t in range(max(T, len(want)))
+           if t >= min(T, len(want)) or got[t] != want[t]]
+    assert not bad, f"{prefix}: trees {bad[:10]} != the JAX package's"
+    assert np.array_equal(fo["num_nodes"], exp[f"{prefix}/num_nodes"])
+    return T
+
+
+def cache_path(smi, serving):
+    """Phase 17: out-of-core data (ROADMAP item 16) on the card. The
+    phase writes make_frame's rows as CSV shards, builds the dataset
+    cache from them (pass 2 bins every chunk on the card), trains the
+    default GBT from the cache and evaluates it on the test CSV: the main
+    path, its counts read after it. Then, against the JAX package's runs
+    (ydf_tpu_torch/testdata/train_cache, train_discretized): the files,
+    the cache at another chunking and in sketch mode, the trees, losses,
+    metrics and predictions; the GBT on DISCRETIZED_NUMERICAL columns and
+    its YDF export; predict on TFRecord and Avro files and
+    predict_tf_examples; each kernel against its plain version on the
+    path's own launches, and timed. Returns the `kernels` entries of the
+    path's four kernels."""
+    import gzip
+    import hashlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.dataset import binning as dataset_binning
+    from ydf_tpu_torch.dataset import cache as pcache
+    from ydf_tpu_torch.dataset import native_csv, tfrecord
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.serving import bank_scorer
+    from ydf_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    rss0 = telemetry.peak_rss_bytes()
+    with open(os.path.join(TRAIN_CACHE, "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(TRAIN_DISCRETIZED, "config.json")) as f:
+        dcfg = json.load(f)
+    exp = np.load(os.path.join(TRAIN_CACHE, "expected.npz"))
+    dexp = np.load(os.path.join(TRAIN_DISCRETIZED, "expected.npz"))
+    assert (cfg["rows"], cfg["test_rows"], cfg["shards"], cfg["chunk_rows"],
+            cfg["big_chunk_rows"], cfg["learner"], cfg["compare_rows"],
+            cfg["record_rows"]) == (
+        CACHE_ROWS, CACHE_TEST_ROWS, CACHE_SHARDS, CACHE_CHUNK_ROWS,
+        CACHE_BIG_CHUNK_ROWS, CACHE_HP, CACHE_COMPARE_ROWS,
+        CACHE_RECORD_ROWS), cfg
+    assert (dcfg["rows"], dcfg["test_rows"], dcfg["learner"]) == (
+        DISC_ROWS, DISC_TEST_ROWS, DISC_HP), dcfg
+    tmp = tempfile.mkdtemp(prefix="ydf_cache_")
+    walls = {}
+    try:
+        # -- 17a the files --------------------------------------------- #
+        t0 = time.perf_counter()
+        train, test = make_frame(CACHE_ROWS, CACHE_TEST_ROWS)
+        walls["frame"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        names = write_csv_shards(tmp, train, test, CACHE_SHARDS)
+        walls["csv_write"] = time.perf_counter() - t0
+        shas = {n: file_sha256(os.path.join(tmp, n)) for n in names}
+        assert shas == cfg["csv_sha256"], "CSV files != the fixture's"
+        train_bytes = sum(os.path.getsize(os.path.join(tmp, n))
+                          for n in names[:-1])
+        walls["gxx"] = native_csv.build(force=True)
+        log("17 files", f"{CACHE_SHARDS} CSV shards of "
+            f"{CACHE_ROWS // CACHE_SHARDS} rows ({train_bytes} bytes) and a "
+            f"{CACHE_TEST_ROWS}-row test CSV written in "
+            f"{walls['csv_write']:.2f} s (frame {walls['frame']:.2f} s), "
+            f"every SHA-256 == the fixture's (numpy {np.__version__}); the "
+            f"CSV loader built with g++ in {walls['gxx']:.2f} s")
+
+        # -- 17b the main path: cache, train, evaluate on the CSV ------- #
+        reset_counts(serving)
+        recs, restores = {}, []
+        for key, mod, name, limit in (
+                ("binning", dataset_binning, "bin_columns", 64),
+                ("root", histogram_kernels, "histogram", 1),
+                ("routed", histogram_kernels, "histogram_routed", 5),
+                ("bank", bank_scorer, "score", 1)):
+            recs[key], undo = record_calls(mod, name, limit)
+            restores.append(undo)
+        reads0 = port_gbt.HOST_READS
+        try:
+            torch.cuda.synchronize()
+            t_path = time.perf_counter()
+            t0 = time.perf_counter()
+            cache = pcache.create_dataset_cache(
+                f"csv:{tmp}/train-*.csv", os.path.join(tmp, "cache"),
+                chunk_rows=CACHE_CHUNK_ROWS, **CACHE_HP)
+            walls["cache_build"] = time.perf_counter() - t0
+            build = cache.build_timings
+            t0 = time.perf_counter()
+            learner = ydf_tpu_torch.GradientBoostedTreesLearner(**CACHE_HP)
+            model = learner.train(cache)
+            torch.cuda.synchronize()
+            walls["train"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ev = model.evaluate(f"csv:{tmp}/test.csv")
+            torch.cuda.synchronize()
+            walls["evaluate"] = time.perf_counter() - t0
+            path_wall = time.perf_counter() - t_path
+        finally:
+            for undo in restores:
+                undo()
+        counted, others, events = read_counts(serving)
+        reads = port_gbt.HOST_READS - reads0
+        assert model.device.type == torch.device(DEVICE).type
+        logs = model.training_logs
+        trained, kept = logs["num_trees_trained"], logs["num_trees"]
+        chunks = build["chunk_rows"]
+        assert chunks == [CACHE_CHUNK_ROWS, CACHE_ROWS // CACHE_SHARDS
+                          - CACHE_CHUNK_ROWS] * CACHE_SHARDS, chunks
+        assert counted["binning"] == len(chunks), counted
+        assert counted["histogram"] == trained, counted
+        assert counted["histogram_routed"] == trained * (
+            learner.max_depth - 1), counted
+        assert others[bank_scorer.__name__] >= 1, others
+        assert not any(v for k, v in others.items()
+                       if k != bank_scorer.__name__), others
+        kernel_ms, routed_lh = split_events(events)
+        bin_ms = [s.elapsed_time(e) for k, s, e in events if k == "binning"]
+        mb = train_bytes / 1e6
+        log("17 launches", f"cache + train + evaluate ({path_wall:.2f} s): "
+            f"{counted} launches (routed by hist slots {routed_lh}); "
+            f"serving {others}; {reads} host reads; kernel ms (CUDA "
+            "events) " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                   kernel_ms.items()))
+        log("17 cache", f"create_dataset_cache of {CACHE_ROWS} rows in "
+            f"{walls['cache_build']:.2f} s: pass 1 {build['pass1_s']:.2f} s "
+            f"({mb / build['pass1_s']:.1f} MB/s of CSV parsed and "
+            f"summarized), fit {build['fit_s']:.3f} s, pass 2 "
+            f"{build['pass2_s']:.2f} s ({mb / build['pass2_s']:.1f} MB/s), "
+            f"of it the device binning {build['bin_s']:.3f} s (transform, "
+            "row-major copy on the card, copy back; host clock); "
+            f"{len(chunks)} chunks {chunks[:2]}..., one binning launch "
+            "each, device ms (CUDA events) " + " ".join(
+                f"{ms:.4f}" for ms in bin_ms) + f"; peak host RSS "
+            f"{telemetry.peak_rss_bytes() / 2**30:.2f} GiB (process "
+            f"lifetime; {rss0 / 2**30:.2f} GiB before the phase), {smi}")
+        log("17 train", f"GradientBoostedTreesLearner(**{CACHE_HP})"
+            f".train(cache): wall {walls['train'] * 1e3:.1f} ms; stages "
+            + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in
+                       learner.last_timings.items())
+            + f"; {trained} trees trained, {kept} kept; "
+            f"{learner.last_timings['boost_s'] * 1e3 / trained:.2f} ms a "
+            f"tree; evaluate of {CACHE_TEST_ROWS} CSV rows "
+            f"{walls['evaluate'] * 1e3:.1f} ms, {smi}")
+
+        # -- 17c against the JAX package's run ------------------------- #
+        rec = cache_record(cache)
+        assert rec["files"] == cfg["cache"]["files"], "cache files"
+        assert rec["meta_sha256"] == cfg["cache"]["meta_sha256"], "meta"
+        t0 = time.perf_counter()
+        big = pcache.create_dataset_cache(
+            f"csv:{tmp}/train-*.csv", os.path.join(tmp, "big"),
+            chunk_rows=CACHE_BIG_CHUNK_ROWS, **CACHE_HP)
+        walls["big_chunks"] = time.perf_counter() - t0
+        assert cache_record(big) == rec, "chunking changed a byte"
+        shutil.rmtree(big.path)
+        t0 = time.perf_counter()
+        sk = pcache.create_dataset_cache(
+            f"csv:{tmp}/train-*.csv", os.path.join(tmp, "sketch"),
+            chunk_rows=CACHE_CHUNK_ROWS, boundaries="sketch", **CACHE_HP)
+        walls["sketch"] = time.perf_counter() - t0
+        assert cache_record(sk) == cfg["sketch_cache"], "sketch cache"
+        shutil.rmtree(sk.path)
+        _, va_idx = port_gbt.split_validation(cache.num_rows,
+                                              learner.validation_ratio,
+                                              learner.random_seed)
+        assert array_sha256(va_idx.astype(np.int64)) == \
+            cfg["valid_idx_sha256"], "validation rows"
+        jf = cfg["full"]
+        assert (kept, trained) == (jf["num_trees_kept"],
+                                   jf["num_trees_trained"]), (kept, trained)
+        T = check_run_trees(exp, "full", model)
+        loss_rel = 0.0
+        for k in ("train_loss", "valid_loss"):
+            got = np.array([r[k] for r in logs["iterations"]], np.float64)
+            want = exp[f"full/{k}"].astype(np.float64)
+            assert got.shape == want.shape, k
+            loss_rel = max(loss_rel, float(np.abs(got / want - 1).max()))
+        assert loss_rel <= REPORTED_LOSS_RTOL, loss_rel
+        jev = jf["jax_evaluate"]
+        same = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+        assert same <= EVAL_SAME_ATOL, (ev.metrics, jev)
+        head = {k: v[:CACHE_COMPARE_ROWS] for k, v in test.items()}
+        pred = model.predict(head)
+        assert same_bits(pred, exp["full/predictions"]), "predictions"
+        log("17 vs JAX", f"every cache file's SHA-256 and the metadata == "
+            f"the JAX package's; the same bytes in chunks of "
+            f"{CACHE_BIG_CHUNK_ROWS} ({walls['big_chunks']:.2f} s) and in "
+            f"sketch mode == JAX's sketch cache ({walls['sketch']:.2f} s); "
+            f"validation rows, {kept} of {trained} trees kept, all {T} trees "
+            f"by hash and {CACHE_COMPARE_ROWS} predictions bitwise, the "
+            f"reported losses within {loss_rel:.2e} (<= "
+            f"{REPORTED_LOSS_RTOL}, torch's binomial loss); "
+            f"evaluate on the test CSV within {same:.3g} of JAX's (<= "
+            f"{EVAL_SAME_ATOL}): " + " ".join(
+                f"{k} {ev.metrics[k]:.6f}" for k in jev))
+
+        # -- 17d the GBT on DISCRETIZED_NUMERICAL columns --------------- #
+        dtrain, dtest = make_frame(DISC_ROWS, DISC_TEST_ROWS)
+        reset_counts(serving)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dlearner = ydf_tpu_torch.GradientBoostedTreesLearner(**DISC_HP)
+        dmodel = dlearner.train(dtrain)
+        dpred = dmodel.predict(dtest)
+        torch.cuda.synchronize()
+        walls["discretized"] = time.perf_counter() - t0
+        dcounted, dothers, _ = read_counts(serving)
+        dtrained = dmodel.training_logs["num_trees_trained"]
+        assert dcounted["binning"] >= 1 and dcounted["histogram"] == \
+            dtrained and dothers[bank_scorer.__name__] >= 1, (dcounted,
+                                                             dothers)
+        dj = dcfg["full"]
+        assert dmodel.training_logs["num_trees"] == dj["num_trees_kept"]
+        DT = check_run_trees(dexp, "full", dmodel)
+        assert same_bits(dpred[:CACHE_COMPARE_ROWS], dexp["full/predictions"])
+        assert array_sha256(dpred) == dj["test_predictions_sha256"]
+        ydir = os.path.join(tmp, "ydf")
+        dmodel.save_ydf(ydir)
+        assert file_sha256s(ydir) == dj["export_sha256"]
+        log("17 discretized", f"GradientBoostedTreesLearner(**{DISC_HP}) "
+            f"on {DISC_ROWS} rows, predict on {DISC_TEST_ROWS}: "
+            f"{walls['discretized']:.2f} s ("
+            f"{dlearner.last_timings['boost_s'] * 1e3 / dtrained:.2f} ms a "
+            f"tree), launches {dcounted}, serving "
+            f"{dothers}; {dmodel.training_logs['num_trees']} of {dtrained} "
+            f"kept, all {DT} trees by hash and the predictions bitwise the "
+            "JAX run's; save_ydf's files == the JAX export's by SHA-256; "
+            f"served by {dmodel.list_compatible_engines()[0]}")
+
+        # -- 17e TFRecord and Avro -------------------------------------- #
+        rows = {k: v[:CACHE_RECORD_ROWS] for k, v in test.items()}
+        tf = os.path.join(tmp, "test.tfrecord.gz")
+        t0 = time.perf_counter()
+        tfrecord.write_tfrecord_columns(tf, rows, compressed=True)
+        walls["tfrecord_write"] = time.perf_counter() - t0
+        with gzip.open(tf, "rb") as f:
+            stream = f.read()
+        assert hashlib.sha256(stream).hexdigest() == \
+            cfg["tfrecord_records_sha256"], "TFRecord records"
+        av = os.path.join(tmp, "test.avro")
+        write_avro(av, rows)
+        want = model.predict(rows)
+        t0 = time.perf_counter()
+        got_tf = model.predict(f"tfrecord:{tf}")
+        walls["tfrecord_predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_av = model.predict(f"avro:{av}")
+        walls["avro_predict"] = time.perf_counter() - t0
+        records = list(tfrecord.iter_records(tf))[:CACHE_COMPARE_ROWS]
+        got_ex = model.predict_tf_examples(records)
+        assert same_bits(got_tf, want) and same_bits(got_av, want)
+        assert same_bits(got_ex, want[:CACHE_COMPARE_ROWS])
+        log("17 readers", f"{CACHE_RECORD_ROWS} test rows: TFRecord (gzip) "
+            f"written in {walls['tfrecord_write']:.2f} s, its records' "
+            "SHA-256 == the JAX writer's; predict on the tfrecord path "
+            f"({len(stream) / 1e6 / walls['tfrecord_predict']:.2f} MB/s of "
+            f"records, {walls['tfrecord_predict']:.2f} s), on the avro path "
+            f"(deflate, {os.path.getsize(av)} bytes, "
+            f"{walls['avro_predict']:.2f} s) and predict_tf_examples of "
+            f"{CACHE_COMPARE_ROWS} records bitwise the in-memory predict")
+
+        # -- 17f each kernel against plain on the path's launches ------- #
+        assert len(recs["binning"]) == len(chunks)
+        for args in recs["binning"]:
+            assert torch.equal(binning.bin_columns(*args),
+                               binning.bin_columns_plain(*args)), \
+                "binning chunk != plain"
+        root = recs["root"][0]
+        err_root = hist_check(
+            histogram_kernels.histogram(*root),
+            histogram_kernels.histogram_plain(*root),
+            histogram_kernels.histogram_plain(*abs_stats(root, 2)),
+            "root histogram")
+        err_routed = 0.0
+        for args in recs["routed"]:
+            got = histogram_kernels.histogram_routed(*args)
+            want_r = histogram_kernels.histogram_routed_plain(*args)
+            assert torch.equal(got[1], want_r[1]) and torch.equal(
+                got[2], want_r[2]), "routed: new_slot / new_leaf != plain"
+            err_routed = max(err_routed, hist_check(
+                got[0], want_r[0], histogram_kernels.histogram_routed_plain(
+                    *abs_stats(args, 4))[0], "routed histogram"))
+        tables, xT = recs["bank"][0]
+        assert torch.equal(bank_scorer.score(tables, xT),
+                           bank_scorer.score_plain(tables, xT)), "bank"
+        log("17 kernels", f"{len(chunks)} binning chunks "
+            f"({tuple(recs['binning'][0][0].shape)} ... "
+            f"{tuple(recs['binning'][-1][0].shape)}) torch.equal to plain; "
+            f"the root histogram (max abs {err_root:.3g}) and tree 0's "
+            f"{len(recs['routed'])} routed layers (Lh "
+            f"{[a[5] for a in recs['routed']]}; new_slot, new_leaf "
+            f"torch.equal, max abs {err_routed:.3g}) within {HIST_RTOL} x "
+            f"mass + {HIST_ATOL}; the bank on evaluate's {xT.shape[1]} "
+            "rows torch.equal")
+
+        # -- 17g timings ------------------------------------------------ #
+        inp = {"binning": recs["binning"][0], "root": root,
+               "routed": max(recs["routed"], key=lambda a: a[5])}
+        err = {"binning": 0.0, "histogram": err_root,
+               "histogram_routed": err_routed}
+        out = []
+        for name, src, replaces in (
+            ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+            ("histogram", "histogram.cu",
+             "ydf_tpu/ops/histogram_pallas.py:81"),
+            ("histogram_routed", "histogram_routed.cu",
+             "ydf_tpu/ops/histogram_pallas.py:172"),
+        ):
+            t = measure_train(name, inp)
+            log("17 timing", f"{name} ({t['shape']}): {timing_text(t)}, "
+                f"{smi}")
+            out.append(train_entry(name, "train_cache", src, replaces, t,
+                                   counted[name], err[name],
+                                   kernel_ms.get(name, 0.0)))
+            if name == "binning":
+                out[-1]["path_launch_ms"] = bin_ms
+        t = measure(bank_scorer, tables, tables, xT)
+        log("17 timing", f"bank_scorer/train_cache at {xT.shape[1]} rows x "
+            f"{xT.shape[0]} features ({kept} trees): kernel {t['ms']:.4f} "
+            f"ms a call back to back, {t['device_ms']:.4f} ms on the card "
+            f"({t['device_how']}), plain {t['plain_ms']:.2f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']}), "
+            f"{smi}")
+        out.append({
+            "name": "bank_scorer/train_cache", "route": "cuda",
+            "source": "ydf_tpu_torch/csrc/bank_scorer.cu",
+            "replaces": "ydf_tpu/serving/pallas_scorer.py:118",
+            "launches": others[bank_scorer.__name__],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "device_ms": t["device_ms"], "device_how": t["device_how"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "library_device_ms": None,
+            "path_ms": kernel_ms.get("bank_scorer", 0.0),
+            "path_how": "CUDA events around each launch",
+        })
+        prof = profile_train(cache, dict(CACHE_HP, num_trees=CACHE_PROFILE_TREES))
+        log("17 profile", f"one more train from the cache, num_trees="
+            f"{CACHE_PROFILE_TREES}, under torch.profiler: wall "
+            f"{prof['wall_ms']:.1f} ms, boosting loop {prof['loop_ms']:.1f} "
+            f"ms; {prof['kernels']} device kernels, {prof['busy_ms']:.3f} ms "
+            "of device time over the whole train, so the device is idle at "
+            f"least {100 * prof['idle_share']:.1f}% of the loop; largest: "
+            + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in prof["top"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("17 cache", f"phase 17 wall {time.perf_counter() - t_phase:.1f} s "
+        "(walls, s: " + json.dumps({k: round(v, 3) for k, v in
+                                    walls.items()}) + ")")
+    return out
 
 
 def root_shape_text(args):

@@ -2066,6 +2066,260 @@ def write_ydf_format():
         json.dump(cfg, f, indent=1)
 
 
+TRAIN_CACHE = dict(
+    rows=500_000, test_rows=100_000, shards=4, chunk_rows=65_536,
+    big_chunk_rows=500_000, learner=dict(label="label"), compare_rows=1024,
+    # The TFRecord and Avro files hold the test rows' head: the Python
+    # record writer takes about 90 s for all 100,000 rows on a CPU.
+    record_rows=4_096,
+    # The small runs the CPU tests repeat: the forests at depth 6 (the
+    # port's plain PyTorch grower takes about 60 s a depth-16 forest of 5
+    # trees on one CPU thread).
+    small=dict(rows=3_000, test_rows=500, shards=2, chunk_rows=1_024,
+               trees=5),
+)
+
+
+def _check_parse(files):
+    """The JAX package's CSV loader and pandas parse every column of
+    `files` to the same values (floats to the same bits)."""
+    import pandas as pd
+
+    from ydf_tpu.dataset import native_csv
+
+    for f in files:
+        a = native_csv.read_csv(f)
+        b = pd.read_csv(f)
+        for k, v in a.items():
+            w = b[k].to_numpy()
+            if v.dtype.kind == "f":
+                assert np.array_equal(v.view(np.int64),
+                                      w.astype(np.float64).view(np.int64)), (
+                    f, k)
+            else:
+                assert [x for x in v.tolist()] == [
+                    "" if isinstance(x, float) else x for x in w.tolist()], (
+                    f, k)
+
+
+#: The small runs of train_cache/: (create_dataset_cache arguments,
+#: learner, learner arguments).
+SMALL_CACHE_RUNS = {
+    "gbt": (dict(label="label"), "GradientBoostedTreesLearner",
+            dict(label="label")),
+    "rf_weights": (dict(label="label", weights="w"), "RandomForestLearner",
+                   dict(label="label", weights="w", max_depth=6)),
+    "uplift": (dict(label="label", task="NUMERICAL_UPLIFT",
+                    uplift_treatment="treat"), "RandomForestLearner",
+               dict(label="label", task="NUMERICAL_UPLIFT",
+                    uplift_treatment="treat", max_depth=6)),
+    "cart": (dict(label="label"), "CartLearner",
+             dict(label="label", validation_ratio=0.0, max_depth=6)),
+    "if": (dict(label="label"), "IsolationForestLearner",
+           dict(label="label", num_trees=2)),
+    "oblique": (dict(label="label", store_raw_numerical=True),
+                "GradientBoostedTreesLearner",
+                dict(label="label", split_axis="SPARSE_OBLIQUE")),
+}
+
+
+def _jax_run(m, test, compare_rows):
+    """The per-tree hashes (a NaN as chip_smoke.canonical_nan writes it),
+    node counts and predictions of a trained JAX model, with the GBT's
+    losses and counts."""
+    import chip_smoke
+
+    fo = chip_smoke.canonical_nan(
+        {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields})
+    T = fo["feature"].shape[0]
+    preds = np.asarray(m.predict(test))
+    cfg = dict(num_trees=T, predictions_sha256=chip_smoke.array_sha256(preds))
+    arrays = dict(
+        tree_sha256=_digests(chip_smoke.tree_sha256(fo, t) for t in range(T)),
+        num_nodes=fo["num_nodes"].astype(np.int32),
+        predictions=preds[:compare_rows],
+    )
+    logs = getattr(m, "training_logs", None) or {}
+    if logs.get("iterations"):
+        cfg["num_trees_kept"] = logs["num_trees"]
+        cfg["num_trees_trained"] = logs["num_trees_trained"]
+        arrays["train_loss"] = np.array(
+            [r["train_loss"] for r in logs["iterations"]], np.float32)
+        arrays["valid_loss"] = np.array(
+            [np.nan if r["valid_loss"] is None else r["valid_loss"]
+             for r in logs["iterations"]], np.float32)
+    return cfg, arrays
+
+
+def write_train_cache():
+    """train_cache/: the JAX package's dataset cache of chip_smoke's
+    phase-17 CSV shards and its default GBT trained from it, plus the
+    small runs the CPU tests load."""
+    import gzip
+    import tempfile
+
+    import pandas as pd
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.config import Task
+    from ydf_tpu.dataset.cache import create_dataset_cache
+    from ydf_tpu.dataset.tfrecord import write_tfrecord_columns
+
+    cfg = dict(TRAIN_CACHE, jax_version=__import__("jax").__version__,
+               cat_seed=chip_smoke.DEFAULT_CAT_SEED,
+               data_seed=chip_smoke.DATA_SEED)
+    # With pandas installed the JAX package streams the CSV shards
+    # through pandas' chunked reader; without it, through its native
+    # loader, which gives an integer label the classes "0.0" / "1.0"
+    # that its label encoding never finds (ROADMAP Queue 3). These runs
+    # use pandas, on files both readers parse to the same bits.
+    cfg["jax_csv_reader"] = f"pandas {pd.__version__} (chunked)"
+    out = os.path.join(OUT, "train_cache")
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train, test = chip_smoke.make_frame(cfg["rows"], cfg["test_rows"])
+        names = chip_smoke.write_csv_shards(tmp, train, test, cfg["shards"])
+        paths = [os.path.join(tmp, n) for n in names]
+        cfg["csv_sha256"] = {n: chip_smoke.file_sha256(p) for n, p in zip(names, paths)}
+        _check_parse(paths)
+        src = f"csv:{tmp}/train-*.csv"
+        c = create_dataset_cache(src, os.path.join(tmp, "c"),
+                                 chunk_rows=cfg["chunk_rows"], label="label")
+        cfg["cache"] = chip_smoke.cache_record(c)
+        big = create_dataset_cache(src, os.path.join(tmp, "big"),
+                                   chunk_rows=cfg["big_chunk_rows"],
+                                   label="label")
+        assert chip_smoke.cache_record(big) == cfg["cache"], "chunking changed a byte"
+        sk = create_dataset_cache(src, os.path.join(tmp, "sk"),
+                                  chunk_rows=cfg["chunk_rows"],
+                                  label="label", boundaries="sketch")
+        cfg["sketch_cache"] = chip_smoke.cache_record(sk)
+        m = ydf.GradientBoostedTreesLearner(**cfg["learner"]).train(c)
+        n = c.num_rows
+        perm = np.random.RandomState(123456).permutation(n)
+        va_idx = perm[:min(max(int(n * 0.1), 1), n - 1)]
+        cfg["valid_idx_sha256"] = chip_smoke.array_sha256(
+            va_idx.astype(np.int64))
+        head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+        run_cfg, runs["full"] = _jax_run(m, head, cfg["compare_rows"])
+        runs["full"]["initial_predictions"] = np.asarray(
+            m.initial_predictions, np.float32)
+        cfg["full"] = run_cfg
+        cfg["full"]["jax_evaluate"] = dict(
+            m.evaluate(os.path.join(tmp, "test.csv")).metrics)
+        tf = os.path.join(tmp, "test.tfrecord.gz")
+        write_tfrecord_columns(tf, {k: v[:cfg["record_rows"]]
+                                    for k, v in test.items()},
+                               compressed=True)
+        with gzip.open(tf, "rb") as f:
+            cfg["tfrecord_records_sha256"] = __import__("hashlib").sha256(
+                f.read()).hexdigest()
+        print(f"train_cache full: {run_cfg}", flush=True)
+
+        # The small runs.
+        sm = cfg["small"]
+        strain, stest = chip_smoke.cache_frames(sm["rows"],
+                                                sm["test_rows"])
+        d = os.path.join(tmp, "small")
+        os.makedirs(d)
+        names = chip_smoke.write_csv_shards(d, strain, stest, sm["shards"])
+        sp = [os.path.join(d, n) for n in names]
+        _check_parse(sp)
+        cfg["small"]["csv_sha256"] = {n: chip_smoke.file_sha256(p)
+                                      for n, p in zip(names, sp)}
+        cfg["small"]["runs"] = {}
+        for name, (ckw, learner, lkw) in SMALL_CACHE_RUNS.items():
+            args = dict(lkw)
+            if learner != "CartLearner":
+                args.setdefault("num_trees", sm["trees"])
+            ckw, hp = dict(ckw), dict(args)
+            if "task" in ckw:
+                ckw["task"] = Task[ckw["task"]]
+                hp["task"] = Task[hp["task"]]
+            c = create_dataset_cache(f"csv:{d}/train-*.csv",
+                                     os.path.join(d, f"c_{name}"),
+                                     chunk_rows=sm["chunk_rows"], **ckw)
+            m = getattr(ydf, learner)(**hp).train(c)
+            rc, runs[name] = _jax_run(m, stest, sm["test_rows"])
+            rc["cache"] = chip_smoke.cache_record(c)
+            rc.update(cache_args=SMALL_CACHE_RUNS[name][0], learner=learner,
+                      learner_args=args)
+            cfg["small"]["runs"][name] = rc
+            print(f"train_cache small {name}: {rc['num_trees']} trees",
+                  flush=True)
+    _write_runs("train_cache", cfg, runs)
+
+
+TRAIN_DISCRETIZED = dict(
+    rows=200_000, test_rows=50_000, learner=dict(
+        label="label", discretize_numerical_columns=True),
+    compare_rows=1024,
+    small=dict(rows=3_000, test_rows=500, trees=5),
+)
+
+#: The small discretized runs: (learner, its arguments).
+SMALL_DISCRETIZED_RUNS = {
+    "gbt": ("GradientBoostedTreesLearner", dict(num_trees=5)),
+    "gbt_256": ("GradientBoostedTreesLearner",
+                dict(num_trees=5, num_bins=256)),
+    "gbt_bins_40": ("GradientBoostedTreesLearner",
+                    dict(num_trees=5, num_discretized_numerical_bins=40)),
+    "rf": ("RandomForestLearner", dict(num_trees=5, max_depth=6)),
+    "cart": ("CartLearner", dict(max_depth=6)),
+    "if": ("IsolationForestLearner", dict(num_trees=2)),
+}
+
+
+def write_train_discretized():
+    """train_discretized/: the JAX package's default GBT with
+    discretize_numerical_columns=True on make_frame (chip_smoke's phase
+    17), its YDF export's SHA-256s, and the small runs of all four
+    learners the CPU tests load."""
+    import tempfile
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.models.ydf_format import export_ydf_model
+
+    cfg = dict(TRAIN_DISCRETIZED, jax_version=__import__("jax").__version__)
+    out = os.path.join(OUT, "train_discretized")
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    runs = {}
+
+    def export_sha(m):
+        with tempfile.TemporaryDirectory() as tmp:
+            export_ydf_model(m, tmp)
+            return {f: chip_smoke.file_sha256(os.path.join(tmp, f))
+                    for f in sorted(os.listdir(tmp))}
+
+    train, test = chip_smoke.make_frame(cfg["rows"], cfg["test_rows"])
+    m = ydf.GradientBoostedTreesLearner(**cfg["learner"]).train(train)
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    cfg["full"], runs["full"] = _jax_run(m, head, cfg["compare_rows"])
+    cfg["full"]["test_predictions_sha256"] = chip_smoke.array_sha256(
+        np.asarray(m.predict(test)))
+    cfg["full"]["export_sha256"] = export_sha(m)
+    print(f"train_discretized full: {cfg['full']['num_trees']} trees",
+          flush=True)
+    sm = cfg["small"]
+    strain, stest = chip_smoke.make_frame(sm["rows"], sm["test_rows"])
+    cfg["small"]["runs"] = {}
+    for name, (learner, kw) in SMALL_DISCRETIZED_RUNS.items():
+        m = getattr(ydf, learner)(**dict(cfg["learner"], **kw)).train(strain)
+        rc, runs[name] = _jax_run(m, stest, sm["test_rows"])
+        if learner == "GradientBoostedTreesLearner":
+            rc["export_sha256"] = export_sha(m)
+        rc.update(learner=learner, learner_args=dict(cfg["learner"], **kw))
+        cfg["small"]["runs"][name] = rc
+        print(f"train_discretized small {name}: {rc['num_trees']} trees",
+              flush=True)
+    _write_runs("train_discretized", cfg, runs)
+
+
 #: Where main() asks XLA to dump the boosting programs (for
 #: write_train_multiclass's update_forms); removed afterwards.
 DUMP_DIR = None
@@ -2130,6 +2384,10 @@ def main():
         write_train_multitasker()
     if only in (None, "ydf_format"):
         write_ydf_format()
+    if only in (None, "train_cache"):
+        write_train_cache()
+    if only in (None, "train_discretized"):
+        write_train_discretized()
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

@@ -269,7 +269,11 @@ def test_port_imports_no_jax():
     # The modules that keep their own copies of JAX-package host code.
     copies = {"utils/protowire.py", "models/ydf_format.py",
               "dataset/example.py", "utils/telemetry.py",
-              "analysis/importance.py", "learners/hyperparameters.py"}
+              "analysis/importance.py", "learners/hyperparameters.py",
+              "dataset/native_csv.py", "dataset/frame_io.py",
+              "dataset/grain_io.py", "dataset/avro.py",
+              "dataset/tfrecord.py", "dataset/sketch.py",
+              "dataset/cache.py"}
     seen = {os.path.relpath(p, os.path.join(REPO, "ydf_tpu_torch"))
             for p in paths}
     assert copies <= seen, copies - seen
@@ -301,6 +305,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "from ydf_tpu_torch.dataset import example\n"
         "from ydf_tpu_torch.analysis import importance\n"
         "from ydf_tpu_torch.learners import hyperparameters\n"
+        "from ydf_tpu_torch.dataset import native_csv, frame_io, grain_io\n"
+        "from ydf_tpu_torch.dataset import avro, tfrecord, sketch, cache\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ydf_tpu')]\n"
         "print(bad)\n"

@@ -361,7 +361,8 @@ def discretized():
 def test_discretized_numerical_serves(discretized, saved):
     """DISCRETIZED_NUMERICAL columns encode and serve as numerical ones:
     the JAX-saved model and its YDF export predict in the port what
-    they predict in JAX; the binner keeps refusing to fit on them."""
+    they predict in JAX; the binner fits on their stored boundaries as
+    the JAX binner does."""
     jm, test, tmp = discretized
     d = os.path.join(tmp, saved)
     pm = ydf_tpu_torch.load_model(d, device="cpu")
@@ -374,12 +375,15 @@ def test_discretized_numerical_serves(discretized, saved):
         from ydf_tpu_torch.dataset.binning import Binner
         from ydf_tpu_torch.dataset.dataset import Dataset
 
+        from ydf_tpu.dataset.binning import Binner as JaxBinner
+        from ydf_tpu.dataset.dataset import Dataset as JaxDataset
+
         ds = Dataset.from_data(test, dataspec=pm.dataspec)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            Binner.fit(ds, ["n0", "c0"])
+        jds = JaxDataset.from_data(test, dataspec=jm.dataspec)
+        assert Binner.fit(ds, ["n0", "c0"]).to_json() == JaxBinner.fit(
+            jds, ["n0", "c0"]).to_json()
         # The binner bins an encoded DISCRETIZED_NUMERICAL column as a
         # numerical one, bitwise the JAX binner's bins.
-        from ydf_tpu.dataset.dataset import Dataset as JaxDataset
 
         bins = pm.binner.transform(ds, "cpu").numpy()
         jbins = np.asarray(jm.binner.transform(

@@ -27,6 +27,13 @@ hand-written CUDA kernels too.
     model.predict_leaves(data)                   # leaf ids [n, T]
     model.distance(data)                         # 1 - Breiman proximity
     model = ydf.deserialize_model(model.serialize())
+    model = ydf.GradientBoostedTreesLearner(label="y").train(
+        "csv:/data/train-*.csv")                 # typed, sharded paths
+    model.evaluate("tfrecord:/data/test.tfrecord")
+    from ydf_tpu_torch.dataset.cache import create_dataset_cache
+    cache = create_dataset_cache("csv:/data/train-*.csv", "/cache",
+                                 label="y")     # binned chunk by chunk
+    model = ydf.GradientBoostedTreesLearner(label="y").train(cache)
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 on a CPU tensor every kernel wrapper runs its plain PyTorch version.

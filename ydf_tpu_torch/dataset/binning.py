@@ -2,11 +2,16 @@
 of ydf_tpu/dataset/binning.py: boundaries_from_sketch, Binner.fit,
 _fit_common, transform).
 
-Numerical and boolean columns: missing values impute to the column mean;
-bin(v) = #{b : boundary_b <= v}, so "bin <= t" is "v < boundary_t". A
-column with at most num_bins - 1 distinct values gets the midpoints
-between them as boundaries (exact split search); otherwise deduplicated
-quantiles of a fixed-seed 200k-row sample. CATEGORICAL columns: bin =
+Numerical, boolean and DISCRETIZED_NUMERICAL columns: missing values
+impute to the column mean; bin(v) = #{b : boundary_b <= v}, so
+"bin <= t" is "v < boundary_t". A DISCRETIZED_NUMERICAL column's
+boundaries are the dataspec's stored ones (cast to f32; two that round
+to one f32 leave an empty bin between them, as in the JAX package), so
+its cuts export as DiscretizedHigher conditions. Otherwise a column with
+at most num_bins - 1 distinct values gets the midpoints between them as
+boundaries (exact split search), and other columns deduplicated
+quantiles of a fixed-seed 200k-row sample (`fit`) or of the streaming
+dataset cache's merged summaries (`fit_from_summaries`). CATEGORICAL columns: bin =
 dictionary index (0 = out of vocabulary); indices >= num_bins collapse
 to 0, and the dictionary is frequency-sorted, so only the rarest
 categories collapse. CATEGORICAL_SET columns are not binned either:
@@ -39,14 +44,11 @@ import torch
 from ydf_tpu_torch.dataset.dataspec import ColumnType, DataSpecification
 from ydf_tpu_torch.ops.binning import bin_columns
 
-# Columns that encode and serve as numerical features (the JAX package's
-# list; models/ydf_format.py maps an imported model's columns by it): a
-# DISCRETIZED_NUMERICAL column of an imported or JAX-trained model
-# carries its raw values. Fitting takes the first two only: training on
-# the dataspec's stored bins is ROADMAP Queue 1 item 16.
+# Columns that bin, encode and serve as numerical features, their raw
+# values (the JAX package's list; models/ydf_format.py maps an imported
+# model's columns by it).
 NUMERICAL_LIKE = (ColumnType.NUMERICAL, ColumnType.BOOLEAN,
-                   ColumnType.DISCRETIZED_NUMERICAL)
-_FIT_NUMERICAL = (ColumnType.NUMERICAL, ColumnType.BOOLEAN)
+                  ColumnType.DISCRETIZED_NUMERICAL)
 # Rows above which boundaries come from a fixed-seed sample of this size.
 SAMPLE_ROWS = 200_000
 SAMPLE_SEED = 0xB1A5
@@ -165,6 +167,23 @@ class Binner:
                                   column_boundaries)
 
     @staticmethod
+    def fit_from_summaries(spec: DataSpecification, features: Sequence[str],
+                           num_bins: int, summaries: Dict) -> "Binner":
+        """Fits the rules from the streaming cache's merged pass-1
+        summaries (the JAX package's fit_from_summaries): `summaries`
+        maps each numerical feature to a dataset.sketch.NumericSummary,
+        whose weighted items give the boundaries."""
+
+        def column_boundaries(name: str) -> np.ndarray:
+            s = summaries[name]
+            v, w = s.weighted_items()
+            return boundaries_from_sketch(
+                v, w, num_bins, distinct_is_exact=s.distinct_exact())
+
+        return Binner._fit_common(spec, features, num_bins,
+                                  column_boundaries)
+
+    @staticmethod
     def _fit_common(spec: DataSpecification, features: Sequence[str],
                     num_bins: int,
                     column_boundaries: Callable[[str], np.ndarray]
@@ -183,27 +202,36 @@ class Binner:
             return [f for f in features
                     if spec.column_by_name(f).type in types]
 
-        numericals = of_type(*_FIT_NUMERICAL)
+        numericals = of_type(*NUMERICAL_LIKE)
         categoricals = of_type(ColumnType.CATEGORICAL)
         sets = of_type(ColumnType.CATEGORICAL_SET)
         vs = of_type(ColumnType.NUMERICAL_VECTOR_SEQUENCE)
-        unported = [f for f in features
-                    if f not in numericals + categoricals + sets + vs]
-        if unported:
+        unsupported = [f for f in features
+                       if f not in numericals + categoricals + sets + vs]
+        if unsupported:
             raise NotImplementedError(
-                f"feature columns {unported}: discretized-numerical, hash "
-                "and other input features are not ported yet (ROADMAP "
-                "Queue 1 item 16)"
-            )
+                f"Unsupported feature columns for binning: "
+                f"{sorted(unsupported)}")
         ordered = numericals + categoricals + sets
         F = len(ordered)
-        boundaries = np.full((F, num_bins - 1), np.inf, dtype=np.float32)
+        max_boundaries = num_bins - 1
+        boundaries = np.full((F, max_boundaries), np.inf, dtype=np.float32)
         impute = np.zeros((F,), dtype=np.float32)
         fnb = np.ones((F,), dtype=np.int32)
         for i, name in enumerate(numericals):
-            b = column_boundaries(name)
+            col = spec.column_by_name(name)
+            if (col.type == ColumnType.DISCRETIZED_NUMERICAL
+                    and col.discretized_boundaries is not None):
+                b = np.asarray(col.discretized_boundaries, np.float32)
+                if len(b) > max_boundaries:
+                    # More stored boundaries than the bin budget: an even
+                    # subsample keeps the value range covered.
+                    idx = np.linspace(0, len(b) - 1, max_boundaries)
+                    b = b[np.round(idx).astype(int)]
+            else:
+                b = column_boundaries(name)
             boundaries[i, : len(b)] = b
-            impute[i] = np.float32(spec.column_by_name(name).mean)
+            impute[i] = np.float32(col.mean)
             fnb[i] = len(b) + 1
         for j, name in enumerate(categoricals):
             fnb[len(numericals) + j] = min(

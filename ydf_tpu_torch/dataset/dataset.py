@@ -1,12 +1,17 @@
 """Columnar in-memory dataset: name → 1-D numpy array + dataspec
-(counterpart of ydf_tpu/dataset/dataset.py). A dict of arrays or a pandas
-DataFrame is keyed under a model's dataspec (serving) or under the one
-inferred from it (training), and encoded with the JAX package's rules, so
-encodings equal its own bit for bit.
+(counterpart of ydf_tpu/dataset/dataset.py). A dict of arrays, a pandas
+or polars DataFrame, an xarray Dataset, a Grain loader or a typed path
+("csv:/data/train-*.csv", the four "tfrecord…:" prefixes, "avro:") is
+keyed under a model's dataspec (serving) or under the one inferred from
+it (training), and encoded with the JAX package's rules, so encodings
+equal its own bit for bit. CSV files go through the port's loader
+(dataset/native_csv.py), whole, in sorted shard order.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -22,7 +27,64 @@ from ydf_tpu_torch.dataset.dataspec import (
     vector_sequence_cell,
 )
 
-InputData = Union["Dataset", Dict[str, Any], "pandas.DataFrame"]  # noqa: F821
+InputData = Union["Dataset", Dict[str, Any], str,
+                  "pandas.DataFrame"]  # noqa: F821
+
+# The reference's TFRecord format prefixes (formats.cc:56-81).
+_TFRECORD_PREFIXES = ("tfrecord", "tfrecordv2+gz+tfe",
+                      "tfrecord-nocompression", "tfrecordv2+tfe")
+
+
+def _split_typed_path(path: str):
+    """"prefix:path" -> (format, path); an untyped path is csv."""
+    if ":" in path and not os.path.exists(path):
+        prefix, _, rest = path.partition(":")
+        if prefix == "csv":
+            return "csv", rest
+        if prefix in _TFRECORD_PREFIXES:
+            return "tfrecord", rest
+        if prefix == "avro":
+            return "avro", rest
+        raise ValueError(f"Unsupported dataset format prefix {prefix!r}")
+    return "csv", path
+
+
+def _resolve_typed_path(path: str) -> List[str]:
+    """A typed, sharded or glob path ("csv:/p/a*.csv") -> its files,
+    sorted."""
+    _, path = _split_typed_path(path)
+    files = sorted(glob.glob(path)) if any(c in path for c in "*?[") \
+        else [path]
+    if not files:
+        raise FileNotFoundError(path)
+    return files
+
+
+def _read_csv(path: str) -> Dict[str, np.ndarray]:
+    """One CSV file's columns through the port's loader: float64 with
+    NaN missing, or object strings with "" missing. Raises where the
+    loader does (no pandas fallback)."""
+    from ydf_tpu_torch.dataset import native_csv
+
+    return native_csv.read_csv(path)
+
+
+def read_path_columns(path: str) -> Dict[str, np.ndarray]:
+    """The columns of a typed path: every shard read and concatenated in
+    sorted order."""
+    fmt, raw_path = _split_typed_path(path)
+    if fmt == "tfrecord":
+        from ydf_tpu_torch.dataset.tfrecord import (
+            read_tfrecord_columns, resolve_tfrecord_path)
+
+        return read_tfrecord_columns(resolve_tfrecord_path(raw_path))
+    if fmt == "avro":
+        from ydf_tpu_torch.dataset.avro import read_avro_columns
+        from ydf_tpu_torch.dataset.tfrecord import resolve_tfrecord_path
+
+        return read_avro_columns(resolve_tfrecord_path(raw_path))
+    parts = [_read_csv(f) for f in _resolve_typed_path(path)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 class Dataset:
@@ -56,12 +118,18 @@ class Dataset:
         max_vocab_count: int = 2000,
         min_vocab_frequency: int = 5,
         column_types: Optional[Dict[str, ColumnType]] = None,
+        detect_numerical_as_discretized: bool = False,
+        discretized_max_bins: int = 255,
     ) -> "Dataset":
-        """A dict of arrays/lists, a pandas DataFrame or a Dataset, keyed
+        """A dict of arrays/lists, a pandas or polars DataFrame, an
+        xarray Dataset, a Grain loader, a typed path or a Dataset, keyed
         under `dataspec`, or under the dataspec inferred from the data
         when none is given (counterpart of the JAX package's
-        Dataset.from_data for numerical, boolean and categorical
-        columns)."""
+        Dataset.from_data). With detect_numerical_as_discretized, the
+        inferred numerical features are DISCRETIZED_NUMERICAL with at
+        most `discretized_max_bins` bins."""
+        from ydf_tpu_torch.dataset import frame_io, grain_io
+
         if isinstance(data, Dataset):
             if dataspec is not None:
                 return Dataset(data.data, dataspec)
@@ -73,10 +141,20 @@ class Dataset:
             if not mismatched:
                 return data
             cols = dict(data.data)
+        elif isinstance(data, str):
+            cols = read_path_columns(data)
+        elif frame_io.is_polars_frame(data):
+            # Before the generic DataFrame branch: polars has .to_dict and
+            # .columns too, but its Series differ in corners.
+            cols = frame_io.polars_to_columns(data)
         elif isinstance(data, dict):
             cols = {k: column_array(v) for k, v in data.items()}
         elif hasattr(data, "to_dict") and hasattr(data, "columns"):
             cols = {c: data[c].to_numpy() for c in data.columns}
+        elif grain_io.is_grain(data):
+            cols = grain_io.to_columns(data)
+        elif frame_io.is_xarray_dataset(data):
+            cols = frame_io.xarray_to_columns(data)
         else:
             raise TypeError(f"Unsupported dataset type: {type(data)}")
         if dataspec is None:
@@ -84,6 +162,9 @@ class Dataset:
                 cols, label=label, max_vocab_count=max_vocab_count,
                 min_vocab_frequency=min_vocab_frequency,
                 column_types=column_types,
+                detect_numerical_as_discretized=(
+                    detect_numerical_as_discretized),
+                discretized_max_bins=discretized_max_bins,
             )
         return Dataset(cols, dataspec)
 

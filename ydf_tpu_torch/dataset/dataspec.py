@@ -151,10 +151,13 @@ def infer_column(
     max_vocab_count: int = 2000,
     min_vocab_frequency: int = 5,
     force_type: Optional[ColumnType] = None,
+    discretized_max_bins: int = 255,
 ) -> Column:
     """One column's type and statistics (counterpart of
     ydf_tpu/dataset/dataspec.py:infer_column) for the types the port
     takes: NUMERICAL and BOOLEAN columns (mean, min, max, counts),
+    DISCRETIZED_NUMERICAL ones (the same, and at most
+    discretized_max_bins - 1 stored boundaries; only when forced),
     CATEGORICAL and CATEGORICAL_SET ones (frequency-sorted dictionary of
     values or items, OOV at index 0) and NUMERICAL_VECTOR_SEQUENCE ones
     (vector length, min and max sequence length, value and missing
@@ -188,7 +191,8 @@ def infer_column(
         else:
             ctype = ColumnType.CATEGORICAL
 
-    if ctype in (ColumnType.NUMERICAL, ColumnType.BOOLEAN):
+    if ctype in (ColumnType.NUMERICAL, ColumnType.BOOLEAN,
+                 ColumnType.DISCRETIZED_NUMERICAL):
         if values.dtype.kind in "iub":
             n_missing, ok = 0, values
         else:
@@ -199,11 +203,15 @@ def infer_column(
             ok = fvals if n_missing == 0 else fvals[~missing]
         if ok.size == 0:
             return Column(name=name, type=ctype, num_missing=n_missing)
+        boundaries = None
+        if ctype == ColumnType.DISCRETIZED_NUMERICAL:
+            boundaries = discretized_boundaries(ok, discretized_max_bins)
         return Column(
             name=name, type=ctype,
             mean=float(ok.mean(dtype=np.float64)),
             min_value=float(ok.min()), max_value=float(ok.max()),
             num_values=int(ok.size), num_missing=n_missing,
+            discretized_boundaries=boundaries,
         )
 
     if ctype == ColumnType.CATEGORICAL:
@@ -305,10 +313,23 @@ def infer_column(
             num_values=int(len(values) - num_missing),
             num_missing=num_missing,
         )
-    raise NotImplementedError(
-        f"column {name!r}: type {ctype.value} is not ported yet "
-        "(ROADMAP Queue 1 item 16)"
-    )
+    raise NotImplementedError(f"Column type {ctype} not yet supported")
+
+
+def discretized_boundaries(ok: np.ndarray, max_bins: int) -> List[float]:
+    """The stored boundaries of a DISCRETIZED_NUMERICAL column (the JAX
+    package's _discretized_boundaries), from its non-missing values: with
+    at most max_bins distinct values the midpoints between them, else
+    the deduplicated quantiles at max_bins - 1 evenly spaced levels
+    (numpy's "linear" method), all in float64."""
+    ok = np.asarray(ok, dtype=np.float64)
+    uniq = np.unique(ok)
+    if len(uniq) <= max_bins:
+        b = (uniq[:-1] + uniq[1:]) / 2
+    else:
+        b = np.unique(np.quantile(
+            ok, np.linspace(0, 1, max_bins + 1)[1:-1], method="linear"))
+    return [float(v) for v in b]
 
 
 def tokenize_set_value(v: Any) -> Optional[List[str]]:
@@ -371,10 +392,15 @@ def infer_dataspec(
     max_vocab_count: int = 2000,
     min_vocab_frequency: int = 5,
     column_types: Optional[Dict[str, ColumnType]] = None,
+    detect_numerical_as_discretized: bool = False,
+    discretized_max_bins: int = 255,
 ) -> DataSpecification:
     """The dataspec of a columnar mapping name -> 1-D array (counterpart
     of ydf_tpu/dataset/dataspec.py:infer_dataspec). The label keeps every
-    class: no vocabulary cap and a minimum frequency of 1."""
+    class: no vocabulary cap and a minimum frequency of 1. With
+    detect_numerical_as_discretized, every numerical column but the label
+    and the user-typed ones is DISCRETIZED_NUMERICAL, with at most
+    discretized_max_bins bins."""
     column_types = column_types or {}
     cols, n = [], 0
     for name, values in data.items():
@@ -386,9 +412,14 @@ def infer_dataspec(
                                      min_vocab_frequency=1,
                                      force_type=force))
         else:
+            if (force is None and detect_numerical_as_discretized
+                    and values.dtype != np.bool_
+                    and _is_numeric_dtype(values)):
+                force = ColumnType.DISCRETIZED_NUMERICAL
             cols.append(infer_column(
                 name, values, max_vocab_count=max_vocab_count,
                 min_vocab_frequency=min_vocab_frequency, force_type=force,
+                discretized_max_bins=discretized_max_bins,
             ))
     return DataSpecification(columns=cols, created_num_rows=n)
 

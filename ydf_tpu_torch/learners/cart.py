@@ -78,6 +78,14 @@ class CartLearner(RandomForestLearner):
                                  Task.CATEGORICAL_UPLIFT)
         if not prunable or (valid is None and self.validation_ratio <= 0):
             return super().train(data)
+        from ydf_tpu_torch.dataset.cache import DatasetCache
+
+        if isinstance(data, DatasetCache):
+            # The holdout is drawn from the full data's raw columns, which
+            # a cache does not keep (the JAX package fails here too).
+            raise TypeError(
+                "CartLearner prunes on a holdout of in-memory rows; train "
+                "from a DatasetCache with validation_ratio=0 (no pruning)")
         t0 = time.perf_counter()
         full = self._infer_dataset(data)
         if valid is None:

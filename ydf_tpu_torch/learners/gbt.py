@@ -419,6 +419,8 @@ class GradientBoostedTreesLearner(GenericLearner):
         max_vocab_count: int = 2000,
         min_vocab_frequency: int = 5,
         column_types: Optional[Dict[str, ColumnType]] = None,
+        discretize_numerical_columns: bool = False,
+        num_discretized_numerical_bins: int = 255,
         random_seed: int = 123456,
         device=None,
     ):
@@ -444,6 +446,8 @@ class GradientBoostedTreesLearner(GenericLearner):
             max_vocab_count=max_vocab_count,
             min_vocab_frequency=min_vocab_frequency, num_bins=num_bins,
             random_seed=random_seed, column_types=column_types,
+            discretize_numerical_columns=discretize_numerical_columns,
+            num_discretized_numerical_bins=num_discretized_numerical_bins,
             device=device,
         )
         self.num_trees = num_trees
@@ -619,7 +623,7 @@ class GradientBoostedTreesLearner(GenericLearner):
                 binner.num_numerical,
                 self.sparse_oblique_num_projections_exponent,
                 self.sparse_oblique_max_num_projections)
-            x_raw = oblique.raw_numerical(prep["dataset"], binner)
+            x_raw = self.raw_numerical(prep)
         monotone = monotone_directions(self.monotonic_constraints, binner)
         task_tr = self._task_columns(prep["dataset"])
         task_va = None
@@ -629,7 +633,7 @@ class GradientBoostedTreesLearner(GenericLearner):
             va = (prep["valid_bins_t"], prep["valid_labels"],
                   prep["valid_sample_weights"], prep["valid_vs"],
                   None if x_raw is None else
-                  oblique.raw_numerical(prep["valid_dataset"], binner),
+                  self.raw_numerical(prep, "valid_"),
                   prep["valid_set_bits"])
             task_va = self._task_columns(prep["valid_dataset"])
         elif self.validation_ratio > 0 and self.early_stopping != "NONE":

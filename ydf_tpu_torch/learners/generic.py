@@ -2,14 +2,18 @@
 _infer_dataset, _select_feature_names, _prepare): dataset ingestion and
 dataspec inference, feature selection, binning and label encoding.
 
-Scope of the training slices: in-memory data (a dict of arrays, a pandas
-DataFrame or a ydf_tpu_torch Dataset) and an optional validation set of
-the same kinds, no dataset cache. The learners take numerical, boolean,
-categorical and categorical-set features (the isolation forest no sets),
-gradient boosted trees also NUMERICAL_VECTOR_SEQUENCE ones. A learner
-that splits its input before training (CART's holdout) pins the full
-data's dataspec in `_forced_dataspec`; an unsupervised one (the
-isolation forest) has no label.
+The training data is anything Dataset.from_data takes (a dict of
+arrays, a DataFrame, a typed path such as "csv:/data/train-*.csv", ...)
+or an on-disk DatasetCache (dataset/cache.py: its memmapped bins go to
+the device once, feature-major); the optional validation set is
+in-memory data or a path. The learners take numerical, boolean,
+discretized-numerical, categorical and categorical-set features (the
+isolation forest no sets), gradient boosted trees also
+NUMERICAL_VECTOR_SEQUENCE ones; discretize_numerical_columns=True makes
+the inferred numerical features DISCRETIZED_NUMERICAL, binned on their
+stored boundaries. A learner that splits its input before training
+(CART's holdout) pins the full data's dataspec in `_forced_dataspec`; an
+unsupervised one (the isolation forest) has no label.
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ class GenericLearner:
         num_bins="auto",
         random_seed: int = 123456,
         column_types: Optional[Dict[str, ColumnType]] = None,
+        discretize_numerical_columns: bool = False,
+        num_discretized_numerical_bins: int = 255,
         device=None,
     ):
         self.label = label
@@ -72,6 +78,8 @@ class GenericLearner:
         self.num_bins = num_bins
         self.random_seed = random_seed
         self.column_types = dict(column_types) if column_types else {}
+        self.discretize_numerical_columns = discretize_numerical_columns
+        self.num_discretized_numerical_bins = num_discretized_numerical_bins
         self.device = resolve_device(device)
         #: Host-clock seconds of the last train()'s stages.
         self.last_timings: Dict[str, float] = {}
@@ -136,6 +144,8 @@ class GenericLearner:
             max_vocab_count=self.max_vocab_count,
             min_vocab_frequency=self.min_vocab_frequency,
             column_types=column_types,
+            detect_numerical_as_discretized=self.discretize_numerical_columns,
+            discretized_max_bins=self.num_discretized_numerical_bins,
         )
 
     def _select_feature_names(self, ds: Dataset) -> list:
@@ -164,7 +174,12 @@ class GenericLearner:
         without such features), encoded labels and weights (numpy).
         With `valid`, the same for it under the training dataspec and
         binner ("valid_dataset", "valid_bins_t", "valid_vs",
-        "valid_labels", "valid_weights")."""
+        "valid_labels", "valid_weights"). A DatasetCache goes through
+        _prepare_from_cache."""
+        from ydf_tpu_torch.dataset.cache import DatasetCache
+
+        if isinstance(data, DatasetCache):
+            return self._prepare_from_cache(data, valid)
         t0 = time.perf_counter()
         ds = self._infer_dataset(data)
         features = self._select_feature_names(ds)
@@ -209,6 +224,103 @@ class GenericLearner:
             "valid_encode_s": time.perf_counter() - t5,
         }
         return out
+
+    def _prepare_from_cache(self, cache, valid: Optional[InputData] = None
+                            ) -> Dict:
+        """_prepare's result for an on-disk DatasetCache (the JAX
+        package's _prepare_from_cache): its binner and dataspec, the
+        memmapped u8 bins copied to the device once and made
+        feature-major there, the stored labels and weights, a Dataset of
+        the label and the stored task columns, and the stored raw
+        numericals ("raw_numerical", numpy) for oblique splits. The
+        cache must have been built for the learner's label, weights and
+        task columns."""
+        t0 = time.perf_counter()
+        if self.label != cache.label:
+            raise ValueError(
+                f"Cache was built for label {cache.label!r}, learner wants "
+                f"{self.label!r}")
+        if cache.weights != self.weights:
+            # Either way round the training rows and an explicit valid=
+            # set would be weighted inconsistently.
+            raise ValueError(
+                f"Learner weights column {self.weights!r} does not match "
+                f"the cache's stored weights ({cache.weights!r}); recreate "
+                f"the cache with weights={self.weights!r} or construct the "
+                f"learner with weights={cache.weights!r}")
+
+        def need(col_attr: str) -> None:
+            col = getattr(self, col_attr, None)
+            if col and col not in cache.extra_columns:
+                raise ValueError(
+                    f"task {self.task} needs column {col!r} stored in the "
+                    f"cache; recreate it with create_dataset_cache(..., "
+                    f"{col_attr}={col!r})")
+
+        if self.task == Task.RANKING:
+            need("ranking_group")
+        elif self.task == Task.SURVIVAL_ANALYSIS:
+            need("label_event_observed")
+            need("label_entry_age")
+        elif self.task in (Task.CATEGORICAL_UPLIFT, Task.NUMERICAL_UPLIFT):
+            need("uplift_treatment")
+        raw = None
+        if getattr(self, "split_axis", "AXIS_ALIGNED") != "AXIS_ALIGNED":
+            raw = cache.raw_numerical
+            if raw is None and cache.binner.num_numerical > 0:
+                raise ValueError(
+                    "SPARSE_OBLIQUE needs raw feature values; recreate the "
+                    "cache with store_raw_numerical=True")
+            raw = None if raw is None else np.asarray(raw, np.float32)
+        labels = np.array(cache.labels)  # off the memmap, writable
+        data = {cache.label: labels}
+        for col in cache.extra_columns:
+            data[col] = cache.extra_column(col)
+        w = cache.sample_weights
+        t1 = time.perf_counter()
+        bins_t = torch.from_numpy(np.array(cache.bins)).to(
+            self.device).t().contiguous()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        out = {
+            "dataset": Dataset(data, cache.dataspec),
+            "binner": cache.binner, "bins_t": bins_t, "vs": None,
+            "set_bits": None, "raw_numerical": raw, "labels": labels,
+            "sample_weights": (np.array(w, np.float32) if w is not None
+                               else np.ones((cache.num_rows,), np.float32)),
+        }
+        if self.task in (Task.CLASSIFICATION, Task.CATEGORICAL_UPLIFT):
+            classes = cache.label_classes()
+            if classes is None:
+                raise ValueError(
+                    "Cache label is numerical; train with a regression task")
+            out["classes"] = classes
+        t3 = time.perf_counter()
+        if valid is not None:
+            vds = Dataset.from_data(valid, dataspec=cache.dataspec)
+            out["valid_dataset"] = vds
+            out["valid_bins_t"] = cache.binner.transform(vds,
+                                                         self.device).t()
+            out["valid_vs"] = out["valid_set_bits"] = None
+            out.update({f"valid_{k}": v
+                        for k, v in self._encode_targets(vds).items()})
+        self.last_timings = {
+            "ingest_s": t1 - t0,
+            "bins_to_device_s": t2 - t1,
+            "valid_encode_s": time.perf_counter() - t3,
+        }
+        return out
+
+    def raw_numerical(self, prep: Dict, which: str = "") -> np.ndarray:
+        """The imputed numerical features f32 [n, Fn] of the training rows
+        (which="") or of the validation rows (which="valid_"): a cache's
+        stored matrix, else encoded from the dataset."""
+        from ydf_tpu_torch.ops import oblique
+
+        if not which and prep.get("raw_numerical") is not None:
+            return prep["raw_numerical"]
+        return oblique.raw_numerical(prep[f"{which}dataset"], prep["binner"])
 
     def _set_bits(self, binner: Binner, ds: Dataset
                   ) -> Optional[torch.Tensor]:

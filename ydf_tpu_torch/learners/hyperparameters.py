@@ -59,6 +59,7 @@ _LIMITS: Dict[str, _Limit] = {
     "max_vocab_count": _Limit(min_value=-1),
     "min_vocab_frequency": _Limit(min_value=1),
     "num_bins": _Limit(min_value=2, max_value=256, allow_auto=True),
+    "num_discretized_numerical_bins": _Limit(min_value=2, max_value=65536),
     "num_trees": _Limit(min_value=1),
     "max_depth": _Limit(min_value=-2),
     "min_examples": _Limit(min_value=1),

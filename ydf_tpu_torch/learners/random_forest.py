@@ -140,6 +140,8 @@ class RandomForestLearner(GenericLearner):
         max_vocab_count: int = 2000,
         min_vocab_frequency: int = 5,
         column_types: Optional[Dict[str, ColumnType]] = None,
+        discretize_numerical_columns: bool = False,
+        num_discretized_numerical_bins: int = 255,
         random_seed: int = 123456,
         device=None,
     ):
@@ -161,6 +163,8 @@ class RandomForestLearner(GenericLearner):
             max_vocab_count=max_vocab_count,
             min_vocab_frequency=min_vocab_frequency, num_bins=num_bins,
             random_seed=random_seed, column_types=column_types,
+            discretize_numerical_columns=discretize_numerical_columns,
+            num_discretized_numerical_bins=num_discretized_numerical_bins,
             device=device,
         )
         self.num_trees = num_trees
@@ -318,7 +322,7 @@ def oblique_inputs(learner, prep) -> Optional[oblique.ObliqueInputs]:
     Fn = binner.num_numerical
     if learner.split_axis != "SPARSE_OBLIQUE" or Fn == 0:
         return None
-    x = oblique.raw_numerical(prep["dataset"], binner)
+    x = learner.raw_numerical(prep)
     return oblique.ObliqueInputs(
         x_t=torch.from_numpy(np.ascontiguousarray(x.T)).to(learner.device),
         num_projections=oblique.num_projections(

@@ -1,7 +1,9 @@
 """GenericModel: the surface shared by the port's models (counterpart
 of ydf_tpu/models/generic_model.py: serving, introspection, describe,
 predict_leaves / distance, predict_class / predict_example,
-self_evaluation, benchmark, evaluate, save / save_ydf / serialize).
+self_evaluation, benchmark, evaluate, save / save_ydf / serialize,
+predict_tf_examples). Every data argument takes what Dataset.from_data
+takes, typed paths ("csv:", "tfrecord:", "avro:") included.
 
 Raw columns are encoded on the host in numpy, exactly as the JAX package
 encodes them, then moved to the model's device; the engines take and
@@ -360,6 +362,14 @@ class GenericModel:
         if p.ndim == 1:  # binary: the probability of classes[1]
             return classes[(p >= 0.5).astype(np.int64)]
         return classes[np.argmax(p, axis=1)]
+
+    def predict_tf_examples(self, serialized) -> np.ndarray:
+        """Scores a sequence of serialized tf.Example protos (the JAX
+        package's predict_tf_examples, over the port's wire codec)."""
+        from ydf_tpu_torch.dataset.tfrecord import tf_examples_to_columns
+
+        return self.predict(Dataset.from_data(
+            tf_examples_to_columns(serialized), dataspec=self.dataspec))
 
     def predict_example(self, example: dict):
         """Scores one {column: value} row (dataset/example.py); a column
