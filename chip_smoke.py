@@ -134,7 +134,7 @@ Phases (one line each; any failure is an uncaught exception):
               its launches (binning once a tree for the projections, and
               once more for the GBT's validation rows), host reads and
               ms a tree; against the JAX runs: every kept tree (the
-              random forest: the fixture's first 50 of the card's 100)
+              random forest: the fixture's 50, all the card grows)
               by hash, its thresholds, projections and boundaries, the
               kept count, predictions and scores (SHA-256 of all
               100,000), evaluate and holdout metrics, CART's grown and
@@ -152,8 +152,8 @@ Phases (one line each; any failure is an uncaught exception):
   14 rank_surv  train_ranking, train_survival and train_rank_options
               (the RANKING and SURVIVAL_ANALYSIS GBTs) against the JAX
               runs; the losses' device time
-  15 uplift   train_uplift (the CATEGORICAL_UPLIFT forest of 300 trees
-              at S = 5 stats, its first 50 by hash; the uplift CART's
+  15 uplift   train_uplift (the CATEGORICAL_UPLIFT forest, the
+              fixture's 50 trees at S = 5 stats, by hash; the uplift CART's
               AUUC pruning; a NUMERICAL_UPLIFT forest), train_honest
               (honest=True: classification and regression),
               train_sets_alone (the GBT, RF and CART on two set columns
@@ -201,6 +201,21 @@ Phases (one line each; any failure is an uncaught exception):
               bank's against their plain versions; each kernel timed; a
               profiled 20-tree train from the cache (the idle share)
 
+  18 robust  train_mhld (ydf_tpu_torch/testdata/train_mhld: the JAX
+              package's GBT with split_axis="MHLD_OBLIQUE" on make_frame's
+              500,000 + 100,000 rows): W of every kept tree bitwise, the
+              boundaries, every kept tree by hash, the kept count, the
+              predictions (SHA-256), evaluate; the launches (the scatter
+              matrices' one host read before the loop), ms a tree, a
+              profiled 10-tree train (the idle share), the path's
+              kernels against plain and timed; train_default preempted
+              after three snapshots and resumed (every tree == phase 8's
+              run and the fixture; a mismatched resume refused); the GBT
+              and the random forest with a deadline (their trees a prefix
+              of phases 8's and 9's); a train and a predict with
+              telemetry on (the metrics, the flushed trace; ms a tree on
+              against off)
+
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
 phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
@@ -213,7 +228,7 @@ runs (train, then evaluate; the multitasker's two tasks together), phase
 16 the model IO path (import, export, round trip, binned QuickScorer,
 benchmark, leaves, distance, serialize) as one path, phase 17 the cache
 path (build, train, evaluate) and the discretized GBT's (train,
-predict).
+predict), phase 18 the MHLD GBT's (train, evaluate).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -364,7 +379,7 @@ TRAIN_IF = os.path.join(TESTDATA, "train_if")
 IF_ROWS = 500_000
 IF_TEST_ROWS = 100_000
 IF_ANOMALY = dict(fraction=0.01, scale=6.0, seed=11)
-IF_PROFILE_TREES = 10
+IF_PROFILE_TREES = 5
 # train_oblique (phase 12): the JAX package's learners with
 # split_axis="SPARSE_OBLIQUE" and every other default
 # (ydf_tpu_torch/testdata/train_oblique): the GBT and CART on the frame of
@@ -420,7 +435,9 @@ UPLIFT_ROWS = 50_000
 UPLIFT_TEST_ROWS = 10_000
 UPLIFT_HP = dict(label="y", task="CATEGORICAL_UPLIFT",
                  uplift_treatment="treat")
-UPLIFT_TREES = 300  # the learner's default; the fixture holds 50
+# The uplift forest's trees on the card: the fixture's 50 (the learner's
+# default is 300; cut to keep the script inside its time limit).
+UPLIFT_TREES = 50
 UPLIFT_CART_ROWS = 100_000
 UPLIFT_NUM_ROWS = 20_000
 UPLIFT_NUM_TREES = 30
@@ -450,6 +467,18 @@ CACHE_PROFILE_TREES = 20
 DISC_ROWS = 200_000
 DISC_TEST_ROWS = 50_000
 DISC_HP = dict(label="label", discretize_numerical_columns=True)
+TRAIN_MHLD = os.path.join(TESTDATA, "train_mhld")
+MHLD_HP = dict(label="label", split_axis="MHLD_OBLIQUE")
+MHLD_PROFILE_TREES = 5
+#: Phase 18's timed MHLD train with changing row weights (subsample <
+#: 1: the scatter sums a tree on the card, one host read a tree).
+MHLD_SUB_HP = dict(MHLD_HP, subsample=0.5, num_trees=5)
+RESUME_INTERVAL = 25
+RESUME_PREEMPT_AFTER = 3
+DEADLINE_S = 3.0
+#: Phase 8's and 9's card forests (Forest.to_numpy()), for phase 18's
+#: resume and deadline runs.
+CARD_FORESTS = {}
 IO_PREDICT_ROWS = 1_048_576
 IO_TRAIN_ROWS = 100_000
 IO_TRAIN_TREES = 20
@@ -460,10 +489,11 @@ TRAIN_OBLIQUE = os.path.join(TESTDATA, "train_oblique")
 OBLIQUE_HP = dict(label="label", split_axis="SPARSE_OBLIQUE")
 OBLIQUE_RF_FIXTURE_TREES = 50
 # Trees of phase 12's profiled trains, per path.
-OBLIQUE_PROFILE_TREES = dict(gbt=5, rf=3, cart=1, iforest=10)
+OBLIQUE_PROFILE_TREES = dict(gbt=5, rf=3, cart=1, iforest=5)
 # Trees phase 12's oblique forest grows on the card (the learner's
-# default is 300; its fixture holds the first 50).
-OBLIQUE_RF_TREES = 100
+# default is 300; its fixture holds the first 50; cut to the fixture's
+# to keep the script inside its time limit).
+OBLIQUE_RF_TREES = 50
 # Tolerances against the JAX package's run. The port's f32 histograms sum
 # rows in another order (shared-memory atomics) than the JAX package's
 # f64 block partials, so near-tie splits may flip in late trees; the
@@ -1568,6 +1598,8 @@ def main():
     kernels.extend(model_io_path(smi, serving=counters))
     torch.cuda.synchronize()
     kernels.extend(cache_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(robust_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2824,6 +2856,7 @@ def default_path(smi, serving):
            "valid": np.abs(pv[:m] / jv[:m] - 1)}
     for k, r in rel.items():
         assert r.max() <= TRAIN_LOSS_RTOL, (k, r.max())
+    CARD_FORESTS["train_default"] = pf
     head = {k: v[:DEFAULT_COMPARE_ROWS] for k, v in test.items()}
     raw = model._raw_scores(head, combine="sum")[:, 0] \
         + model.initial_predictions[0]
@@ -3076,6 +3109,7 @@ def rf_path(smi, serving):
         kept.append(int(m.sum()))
     assert kept == exp["mask_kept"].tolist()
     pf = model.forest.to_numpy()
+    CARD_FORESTS["train_rf"] = pf
     same = [tree_sha256(pf, t) == exp["tree_sha256"][t].tobytes().hex()
             for t in range(T)]
     differ = [t for t, ok in enumerate(same) if not ok]
@@ -5934,10 +5968,12 @@ def uplift_honest_sets_path(smi, serving):
 
     fields = TREE_HASH_FIELDS
     uplift_hp = dict(UPLIFT_HP, task=Task[UPLIFT_HP["task"]])
-    # -- 15a the uplift forest: 300 trees at S = 5 ---------------------- #
+    # -- 15a the uplift forest: UPLIFT_TREES trees at S = 5 ------------ #
     utrain, utest = frames["uplift"]
-    ulearner, umodel = rf_run("train_uplift", uplift_hp, utrain, utest, ur,
-                              uexp, "rf", fields, ur["fixture_trees"])
+    ulearner, umodel = rf_run("train_uplift",
+                              dict(uplift_hp, num_trees=UPLIFT_TREES),
+                              utrain, utest, ur, uexp, "rf", fields,
+                              ur["fixture_trees"])
     assert umodel.forest.num_trees == UPLIFT_TREES == ulearner.num_trees
     save_load("train_uplift", umodel, utest)
     jax_saved("train_uplift", os.path.join(TRAIN_UPLIFT, "rf_small"), utest,
@@ -6906,6 +6942,415 @@ def cache_path(smi, serving):
         "(walls, s: " + json.dumps({k: round(v, 3) for k, v in
                                     walls.items()}) + ")")
     return out
+
+
+def forest_hashes(forest_np, T=None, fields=TREE_HASH_FIELDS):
+    """Per-tree SHA-256 (tree_sha256) of a forest's first T trees."""
+    T = forest_np["feature"].shape[0] if T is None else T
+    return [tree_sha256(forest_np, t, fields=fields) for t in range(T)]
+
+
+def robust_path(smi, serving):
+    """Phase 18: MHLD-oblique splits and the GBT's robustness surface.
+    18 mhld: GradientBoostedTreesLearner(split_axis="MHLD_OBLIQUE") with
+    every other default trained on train_default's frame on the card
+    against the JAX package's run (ydf_tpu_torch/testdata/train_mhld):
+    W, boundaries, the kept count, every kept tree by hash, the
+    predictions; its launches, host reads, ms a tree, the device's idle
+    share of a profiled stretch; the path's kernels against plain and
+    timed. 18 resume: train_default's GBT with a working_dir, preempted
+    after three chunks of 25, then resumed: every tree == phase 8's card
+    run and the fixture; a mismatched resume refused. 18 deadline: the
+    GBT and the random forest with a deadline: their trees a prefix of
+    phases 8's and 9's. 18 telemetry: a training and a predict with
+    telemetry on: the metrics, the flushed trace, ms a tree on and off.
+    Returns the `kernels` entries of the MHLD path's three kernels."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.ops import histogram_kernels
+    from ydf_tpu_torch.utils import telemetry
+    from ydf_tpu_torch.utils.snapshot import Snapshots
+
+    t_phase = time.perf_counter()
+    walls, last = {}, [t_phase]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = round(now - last[0], 2)
+        last[0] = now
+
+    with open(os.path.join(TRAIN_MHLD, "config.json")) as f:
+        cfg = json.load(f)
+    exp = np.load(os.path.join(TRAIN_MHLD, "expected.npz"))
+    c = cfg["gbt"]
+    assert (c["rows"], c["test_rows"], c["learner"], cfg["cat_seed"]) == (
+        DEFAULT_ROWS, DEFAULT_TEST_ROWS, MHLD_HP, DEFAULT_CAT_SEED), c
+    train, test = make_frame(DEFAULT_ROWS, DEFAULT_TEST_ROWS)
+    assert frame_sha256(train) == c["train_sha256"], "train frame"
+    assert frame_sha256(test) == c["test_sha256"], "test frame"
+    import scipy
+
+    try:
+        blas = scipy.show_config(mode="dicts")["Build Dependencies"]["blas"]
+        blas = blas.get("openblas configuration") or blas.get("name")
+    except Exception as e:  # the build information is optional
+        blas = f"unknown ({type(e).__name__})"
+    log("18 mhld", f"the solves' LAPACK on this host: scipy "
+        f"{scipy.__version__}, numpy {np.__version__}, BLAS {blas}; frames "
+        f"{DEFAULT_ROWS} + {DEFAULT_TEST_ROWS} rows, "
+        f"SHA-256 == the fixture's; JAX fixture: jax {cfg['jax_version']}, "
+        f"impls {cfg['jax_impls']}, {c['num_trees']} of "
+        f"{c['num_trees_trained']} trees kept in {c['jax_train_s_cpu']:.1f} "
+        "s on the CPU that wrote it")
+    lap("setup")
+
+    # -- 18a the main path: MHLD with every other default, evaluate ---- #
+    records, restore = capture_returns(port_gbt, "boost")
+    reads0 = port_gbt.HOST_READS
+    reset_counts(serving)
+    torch.cuda.synchronize()
+    try:
+        t0 = time.perf_counter()
+        learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                            **MHLD_HP)
+        model = learner.train(train)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev = model.evaluate(test)
+        torch.cuda.synchronize()
+        eval_wall = time.perf_counter() - t0
+    finally:
+        restore()
+    counted, others, events = read_counts(serving)
+    reads = port_gbt.HOST_READS - reads0
+    kernel_ms, routed_lh = split_events(events)
+    logs = model.training_logs
+    trained, kept = logs["num_trees_trained"], logs["num_trees"]
+    depth = learner.max_depth
+    chunks = -(-trained // min(learner.early_stopping_num_trees_look_ahead,
+                               port_gbt.MAX_CHUNK_TREES))
+    assert counted["histogram"] == trained, counted
+    assert counted["histogram_routed"] == trained * (depth - 1), counted
+    # The binner's call, then each iteration's training and validation
+    # projections.
+    assert counted["binning"] == 1 + 2 * trained, counted
+    assert not any(others.values()), others  # an oblique forest: routed
+    # The scatter matrices' one read before the loop (the row weights
+    # stay), then the look-ahead stop's read a chunk: none for MHLD in it.
+    assert reads == 1 + chunks, (reads, chunks)
+    boost_ms = learner.last_timings["boost_s"] * 1e3
+    log("18 launches", f"train_mhld (train + evaluate): {counted} launches "
+        f"(routed by hist slots: {routed_lh}); serving kernels {others} (an "
+        "oblique forest serves routed)")
+    log("18 train", f"GradientBoostedTreesLearner(**{MHLD_HP}).train: wall "
+        f"{wall * 1e3:.1f} ms (host clock, ends in synchronize); stages "
+        + " ".join(f"{k}={v * 1e3:.1f}ms"
+                   for k, v in learner.last_timings.items())
+        + f"; {trained} trees trained, {kept} kept; {reads} host reads "
+        f"(1 before the loop: the scatter matrices; {chunks} chunks); "
+        f"{boost_ms / trained:.2f} ms a tree (loop wall / trees trained, "
+        "each chunk's 28 solves a tree at its start included); kernel "
+        "time "
+        "(CUDA events, train + evaluate) " + " ".join(
+            f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; evaluate of {DEFAULT_TEST_ROWS} rows {eval_wall * 1e3:.1f} ms;"
+        f" {smi}")
+    pf = model.forest.to_numpy()
+    W, bounds = (a.cpu().numpy() for a in records[0].obl_out)
+    jW = exp["gbt/oblique_weights"]
+    T = min(kept, c["num_trees"])
+    hashes = forest_hashes(pf, T, TREE_HASH_FIELDS + ("threshold",))
+    tree_same = [h == exp["gbt/tree_sha256"][t].tobytes().hex()
+                 for t, h in enumerate(hashes)]
+    w_same = W[:T].tobytes() == jW[:T].tobytes()
+    bounds_same = [array_sha256(b) == exp["gbt/bounds_sha256"][t].tobytes(
+    ).hex() for t, b in enumerate(bounds[:T])]
+    preds = model.predict(test)
+    exact = (w_same and all(tree_same) and all(bounds_same)
+             and kept == c["num_trees"]
+             and trained == c["num_trees_trained"]
+             and array_sha256(preds) == c["predictions_sha256"])
+    jev = c["jax_evaluate"]
+    ev_err = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+    if exact:
+        log("18 mhld vs JAX", f"{kept} of {trained} trees == JAX's: every "
+            "kept tree by SHA-256 (node arrays with thresholds), its 28 x 28 "
+            "projections W bitwise, its 28 x 255 boundaries by SHA-256; "
+            f"the {DEFAULT_TEST_ROWS} predictions bitwise (SHA-256); "
+            "evaluate " + " ".join(f"{k} {ev.metrics[k]:.6f}" for k in jev)
+            + f" (max |diff| to JAX's {ev_err:.3g})")
+    else:
+        # Where the two part, for the record; the check is exact.
+        w_err = float(np.abs(W[:T] - jW[:T]).max())
+        first = next((t for t, ok in enumerate(tree_same) if not ok), None)
+        w_first = next((t for t in range(T)
+                        if W[t].tobytes() != jW[t].tobytes()), None)
+        log("18 mhld vs JAX", f"NOT bitwise: W max |diff| {w_err:.3g} "
+            f"(first differing W: iteration {w_first}), first differing "
+            f"tree {first}, {sum(tree_same)} of {T} trees equal, bounds "
+            f"{sum(bounds_same)} of {T} equal, kept/trained {kept}/"
+            f"{trained} vs JAX {c['num_trees']}/{c['num_trees_trained']}, "
+            "evaluate " + " ".join(f"{k} {ev.metrics[k]:.6f} (JAX "
+                                   f"{jev[k]:.6f})" for k in jev))
+    assert exact, "train_mhld on the card != the JAX run (18 mhld vs JAX)"
+    lap("18a")
+
+    # -- 18a' changing row weights; the host's part of a tree ---------- #
+    reads0 = port_gbt.HOST_READS
+    records, restore = capture_returns(port_gbt, "boost")
+    try:
+        t0 = time.perf_counter()
+        sub = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                        **MHLD_SUB_HP)
+        smodel = sub.train(train)
+        torch.cuda.synchronize()
+        sub_wall = time.perf_counter() - t0
+    finally:
+        restore()
+    sub_reads = port_gbt.HOST_READS - reads0
+    sub_trained = smodel.training_logs["num_trees_trained"]
+    assert sub_trained == MHLD_SUB_HP["num_trees"], sub_trained
+    # One read a tree (the scatter sums and w), none other: no look-ahead
+    # stop at 5 trees.
+    assert sub_reads == sub_trained, (sub_reads, sub_trained)
+    sW = records[0].obl_out[0].cpu().numpy()
+    assert sW.shape == (sub_trained, 28, 28) and np.isfinite(sW).all()
+    norms = np.sqrt((sW.astype(np.float64) ** 2).sum(-1))
+    assert np.abs(norms - 1).max() < 1e-5, norms
+    sub_ms = sub.last_timings["boost_s"] * 1e3 / sub_trained
+    # The host's part of a tree: 28 solves (path i and ii) and, with
+    # changing row weights, the w^T x chain over the training rows.
+    from ydf_tpu_torch.ops import mhld
+    from ydf_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(0)
+    n_tr = int(round(DEFAULT_ROWS * 0.9))
+    xh = rng.normal(size=(n_tr, 28)).astype(np.float32)
+    wh = (rng.random(n_tr) < 0.5).astype(np.float32)
+    mhld.fma_chain(wh[:1000], xh[:1000])  # built and warm
+    t0 = time.perf_counter()
+    mhld.fma_chain(wh, xh)
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    X = rng.normal(size=(400, 28)).astype(np.float32)
+    Y = rng.normal(size=(2, 28)).astype(np.float32)
+    masks = mhld.subset_masks(prng.prng_key(0)[None], 28, 28, 4)[0].numpy()
+    SW, SB = (X.T @ X).astype(np.float32), (Y.T @ Y).astype(np.float32)
+    mhld.solve_projections(SW, SB, np.float32(0.05), masks)
+    t0 = time.perf_counter()
+    mhld.solve_projections(SW, SB, np.float32(0.05), masks)
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    log("18 mhld ii", f"GradientBoostedTreesLearner(**{MHLD_SUB_HP}) at "
+        f"full width: wall {sub_wall * 1e3:.1f} ms, {sub_ms:.2f} ms a tree "
+        f"(loop wall / trees), {sub_reads} host reads (one a tree), W "
+        "finite with unit rows; the host's part of a tree: 28 solves "
+        f"{solve_ms:.2f} ms, the w^T x chain over {n_tr} x 28 rows "
+        f"{chain_ms:.2f} ms (host clock); {smi}")
+    lap("18a'")
+
+    # -- 18b the path's kernels against plain, timed ------------------- #
+    case = captured_layers(ydf_tpu_torch.GradientBoostedTreesLearner,
+                           MHLD_HP, train)
+    assert case["binning"], "no projection binning captured"
+    for args in case["binning"]:
+        binning_check(args)
+    for args in case["routed"]:
+        got = histogram_kernels.histogram_routed(*args)
+        want = histogram_kernels.histogram_routed_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), f"routed != plain at Lh {args[5]}"
+    for args in case["root"]:
+        got = histogram_kernels.histogram(*args)
+        want = histogram_kernels.histogram_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), "root histogram != plain"
+    log("18 kernels", f"train_mhld: the projection binning "
+        f"({len(case['binning'])} calls, values "
+        f"{tuple(case['binning'][0][0].shape)}), the root histogram (F "
+        f"{case['root'][0][0].shape[0]}, n {case['root'][0][0].shape[1]}) "
+        f"and histogram_routed at Lh {sorted({a[5] for a in case['routed']})}"
+        " of a one-tree train's own calls torch.equal to plain")
+    prof = profile_train(train, dict(MHLD_HP, num_trees=MHLD_PROFILE_TREES))
+    log("18 profile", f"one more train, num_trees={MHLD_PROFILE_TREES}, "
+        "under torch.profiler (the profiler slows the host): wall "
+        f"{prof['wall_ms']:.1f} ms, boosting loop {prof['loop_ms']:.1f} ms "
+        f"({prof['loop_ms'] / MHLD_PROFILE_TREES:.2f} ms a tree); "
+        f"{prof['kernels']} device kernels, {prof['busy_ms']:.3f} ms of "
+        "device time over the whole train, so the device is idle at least "
+        f"{100 * prof['idle_share']:.1f}% of the loop; largest: "
+        + "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in prof["top"]))
+    result = []
+    inp = {"binning": max(case["binning"], key=lambda a: a[0].shape[1]),
+           "root": case["root"][0],
+           "routed": max(case["routed"], key=lambda a: a[5])}
+    for name, src, replaces in (
+            ("binning", "binning.cu", "ydf_tpu/ops/binning_pallas.py:60"),
+            ("histogram", "histogram.cu",
+             "ydf_tpu/ops/histogram_pallas.py:81"),
+            ("histogram_routed", "histogram_routed.cu",
+             "ydf_tpu/ops/histogram_pallas.py:172")):
+        t = measure_train(name, inp, reps=RF_ROOT_REPS
+                          if name == "histogram" else 20)
+        log("18 timing", f"train_mhld {name} ({t['shape']}): "
+            f"{timing_text(t)}, {smi}")
+        result.append(train_entry(name, "train_mhld", src, replaces, t,
+                                  counted[name], 0.0,
+                                  kernel_ms.get(name, 0.0)))
+        result[-1]["loop_ms_a_tree"] = boost_ms / trained
+        result[-1]["idle_share"] = prof["idle_share"]
+        result[-1]["host_reads"] = reads
+        if name == "histogram_routed":
+            by_lh = oblique_layers(name, case["routed"], events, routed_lh)
+            result[-1].update(layer_fields(by_lh))
+            log("18 layers", f"{name} on train_mhld by hist slots: "
+                f"{layer_text(by_lh)}, {smi}")
+    lap("18b")
+
+    # -- 18c resume: preempted after 3 chunks, resumed ----------------- #
+    with open(os.path.join(TRAIN_DEFAULT, "config.json")) as f:
+        dcfg = json.load(f)
+    jax_default = dict(np.load(os.path.join(TRAIN_DEFAULT, "forest.npz")))
+    dtrain, _ = make_frame(DEFAULT_ROWS, DEFAULT_TEST_ROWS)
+    tmp = tempfile.mkdtemp(prefix="phase18_")
+    try:
+        wd = os.path.join(tmp, "wd")
+        kw = dict(DEFAULT_HP, working_dir=wd,
+                  resume_training_snapshot_interval_trees=RESUME_INTERVAL)
+        t0 = time.perf_counter()
+        learner = ydf_tpu_torch.GradientBoostedTreesLearner(device=DEVICE,
+                                                            **kw)
+        learner._preempt_after_chunks = RESUME_PREEMPT_AFTER
+        try:
+            learner.train(dtrain)
+            raise AssertionError("no TrainingPreempted")
+        except port_gbt.TrainingPreempted as e:
+            preempted = str(e)
+        pre_wall = time.perf_counter() - t0
+        done = Snapshots(wd).latest()[2]["completed_iters"]
+        assert done == RESUME_INTERVAL * RESUME_PREEMPT_AFTER, done
+        t0 = time.perf_counter()
+        resumed = ydf_tpu_torch.GradientBoostedTreesLearner(
+            device=DEVICE, resume_training=True, **kw).train(dtrain)
+        torch.cuda.synchronize()
+        res_wall = time.perf_counter() - t0
+        rf_ = resumed.forest.to_numpy()
+        rk = resumed.training_logs["num_trees"]
+        assert rk == dcfg["num_trees"], (rk, dcfg["num_trees"])
+        got = forest_hashes(rf_)
+        assert got == forest_hashes(jax_default), "resumed != train_default"
+        card = CARD_FORESTS.get("train_default")
+        if card is not None:
+            assert got == forest_hashes(card), "resumed != phase 8's run"
+        try:
+            ydf_tpu_torch.GradientBoostedTreesLearner(
+                device=DEVICE, resume_training=True,
+                **dict(kw, max_depth=5)).train(dtrain)
+            raise AssertionError("a mismatched resume was accepted")
+        except ValueError as e:
+            assert "refusing to resume" in str(e), e
+        log("18 resume", f"working_dir, a snapshot every {RESUME_INTERVAL} "
+            f"iterations, SIGTERM's path after chunk {RESUME_PREEMPT_AFTER}:"
+            f" {preempted!r} after {pre_wall:.1f} s; resumed from "
+            f"{done} iterations in {res_wall:.1f} s: {rk} trees kept, every "
+            "tree == the train_default fixture by hash"
+            + (" and == phase 8's uninterrupted card run"
+               if card is not None else " (phase 8's run not in this "
+                                         "process)")
+            + "; a resume with max_depth=5 refused; " + smi)
+        lap("18c")
+
+        # -- 18d deadlines: a prefix of the full runs' trees ----------- #
+        t0 = time.perf_counter()
+        cut = ydf_tpu_torch.GradientBoostedTreesLearner(
+            device=DEVICE, maximum_training_duration=DEADLINE_S,
+            **DEFAULT_HP).train(dtrain)
+        g_wall = time.perf_counter() - t0
+        cf = cut.forest.to_numpy()
+        ck, ct = (cut.training_logs["num_trees"],
+                  cut.training_logs["num_trees_trained"])
+        assert ct % 25 == 0 or ct == dcfg["num_trees_trained"]
+        assert forest_hashes(cf) == forest_hashes(jax_default, ck), (
+            "the GBT's deadline trees are not a prefix of the full run's")
+        rtrain, _ = make_frame(RF_ROWS, RF_TEST_ROWS)
+        t0 = time.perf_counter()
+        rcut = ydf_tpu_torch.RandomForestLearner(
+            device=DEVICE, maximum_training_duration=DEADLINE_S,
+            **RF_HP).train(rtrain)
+        r_wall = time.perf_counter() - t0
+        rcf = rcut.forest.to_numpy()
+        rT = rcf["feature"].shape[0]
+        rexp = np.load(os.path.join(TRAIN_RF, "expected.npz"))
+        rf_hashes = forest_hashes(rcf)
+        rf_fix = [h.tobytes().hex() for h in rexp["tree_sha256"][:rT]]
+        rcard = CARD_FORESTS.get("train_rf")
+        if rcard is not None:
+            assert rf_hashes == forest_hashes(rcard, rT), (
+                "the forest's deadline trees are not a prefix of phase 9's")
+        log("18 deadline", f"maximum_training_duration={DEADLINE_S} s (the "
+            "clock from train()'s entry): the GBT stopped at "
+            f"{ct} iterations ({ck} kept) in {g_wall:.1f} s, its trees == "
+            f"the first {ck} of the full run's by hash; the random forest "
+            f"kept {rT} of {RF_HP.get('num_trees', 300)} trees in "
+            f"{r_wall:.1f} s, "
+            + ("== the first of phase 9's card forest by hash, "
+               if rcard is not None else "")
+            + f"{sum(a == b for a, b in zip(rf_hashes, rf_fix))} of {rT} == "
+            f"the train_rf fixture's; {smi}")
+        lap("18d")
+
+        # -- 18e telemetry: metrics, trace, cost ----------------------- #
+        data = make_data(TRAIN_ROWS, TRAIN_FEATURES)
+        hp = dict(TRAIN_HP)
+
+        def ms_a_tree():
+            learner = ydf_tpu_torch.GradientBoostedTreesLearner(
+                device=DEVICE, **hp)
+            model = learner.train(data)
+            return model, learner.last_timings["boost_s"] * 1e3 / hp[
+                "num_trees"]
+
+        tdir = os.path.join(tmp, "telemetry")
+        # [warm, off, on]: the first train of these shapes warms them.
+        runs = [ms_a_tree()[1], ms_a_tree()[1]]
+        with telemetry.active(tdir):
+            m, ms = ms_a_tree()
+            runs.append(ms)
+            m.predict({c: v[:4096] for c, v in data.items()
+                       if c != "label"})
+            text = telemetry.metrics_text()
+            telemetry.flush()
+        off_ms, on_ms = runs[1], runs[2]
+        for name in ("ydf_train_iterations_total", "ydf_train_chunk_latency_ns",
+                     "ydf_train_last_train_loss", "ydf_serve_requests_total",
+                     "ydf_serve_latency_ns", 'subsystem="bin_matrix"'):
+            assert name in text, name
+        files = os.listdir(tdir)
+        trace = [f for f in files if f.startswith("trace-")]
+        assert trace and any(f.startswith("metrics-") for f in files), files
+        with open(os.path.join(tdir, trace[0])) as f:
+            spans = {json.loads(line)["name"] for line in f}
+        assert {"train", "train.chunk", "train.tree", "serve.predict",
+                "serve.kernel"} <= spans, spans
+        log("18 telemetry", f"train_bench's GBT ({hp['num_trees']} trees) "
+            f"and a predict of 4,096 rows under telemetry.active: "
+            f"metrics_text() names {len(text.splitlines())} lines (the "
+            "train, serve and memory families), flush wrote "
+            f"{sorted(files)} with spans {sorted(spans)}; ms a tree "
+            f"(loop wall / trees) of a warm-up, off, on: "
+            + ", ".join(f"{r:.2f}" for r in runs)
+            + f" ({on_ms:.2f} on against {off_ms:.2f} off); {smi}")
+        lap("18e")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("18 robust", f"phase 18 wall {time.perf_counter() - t_phase:.1f} s "
+        f"(by part, s: {walls})")
+    return result
 
 
 def root_shape_text(args):

@@ -171,7 +171,18 @@ train_gbt_options`, `--only train_cart` (~1 min), `--only train_if`
 (~1.5 min), `--only train_dart` (~15 s), `--only train_sets` (~12 min),
 `--only train_uplift` (~4 min), `--only train_honest` (~7.5 min),
 `--only train_sets_alone` (~11 min), `--only train_multitasker` (~1
-min), `--only ydf_format` (~10 s) or `--only serving` for one part).
+min), `--only ydf_format` (~10 s), `--only train_mhld` (~25 min),
+`--only mhld_order` (~10 s) or `--only serving` for one part).
+
+Fixture `train_mhld/xla_order.npz` (`--only mhld_order`, also written
+by `--only train_mhld`): what XLA's CPU computes for the row dots a^T b
+(`dots_{n}_{M}`), the vector-matrix dot w^T x and the column sums
+(`vdot_{n}`, `colsum_{n}`) on MHLD_DOTS' and MHLD_VDOTS' inputs, and the
+JAX learner's make_mhld_W inside a lax.scan over six iterations
+(`program_{i}` for the row weights mhld_program_case gives), the
+references of tests/test_torch_mhld.py. XLA's CPU dots shard their rows
+by its thread count, so the script runs JAX on XLA_CPU_THREADS cores
+(the count that wrote every MHLD fixture) and refuses a host with fewer.
 """
 
 import json
@@ -2325,6 +2336,241 @@ def write_train_discretized():
 DUMP_DIR = None
 
 
+#: The cores JAX runs on when MHLD fixtures are written: XLA's CPU dot
+#: splits its rows into one block a thread (ops/mhld.py:ROW_BLOCKS).
+XLA_CPU_THREADS = 8
+#: The XLA-order probes of ops/mhld.py: a^T b at (rows, M) and w^T x
+#: and the column sums at rows; make_mhld_W's program on
+#: MHLD_PROGRAM_ROWS rows, six iterations.
+MHLD_DOTS = ((2700, 28), (3000, 28), (18000, 28), (18000, 2), (18000, 3))
+MHLD_VDOTS = (2700, 18000)
+MHLD_PROGRAM_ROWS = 18000
+
+
+def pin_xla_cpu_threads():
+    """Runs this process on XLA_CPU_THREADS cores, before JAX starts
+    its CPU client (which sizes its thread pool by the affinity)."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < XLA_CPU_THREADS:
+        raise SystemExit(f"the MHLD fixtures need {XLA_CPU_THREADS} cores "
+                         f"(XLA's dot order follows them); this host has "
+                         f"{len(cores)}")
+    os.sched_setaffinity(0, cores[:XLA_CPU_THREADS])
+
+
+def mhld_dot_case(n, M):
+    """(a f32 [n, M], b f32 [n, 28]) of the row-dot probe."""
+    rng = np.random.default_rng(n + M)
+    return (rng.normal(size=(n, M)).astype(np.float32),
+            rng.normal(size=(n, 28)).astype(np.float32))
+
+
+def mhld_vdot_case(n):
+    """(w f32 [n] with 30% zeros, x f32 [n, 28]) of the vector-dot
+    probe."""
+    rng = np.random.default_rng(n)
+    w = (rng.random(n) < 0.7).astype(np.float32) * np.float32(2.5)
+    return w, rng.normal(size=(n, 28)).astype(np.float32)
+
+
+def mhld_program_case():
+    """(x f32 [n, 28] with three feature scales, y int32 [n], the row
+    weights [all ones, a Bernoulli(0.5) draw], the port's six
+    iterations' k_proj int64 [6, 2]) of the make_mhld_W program."""
+    import torch  # noqa: F401  (the port's key chain)
+
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.utils import prng
+
+    n = MHLD_PROGRAM_ROWS
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(n, 28)) * rng.choice([0.1, 1, 10], size=28)
+         ).astype(np.float32)
+    y = (rng.random(n) < 0.4).astype(np.int32)
+    ws = [np.ones(n, np.float32),
+          prng.bernoulli(prng.prng_key(3), 0.5, (n,)).numpy().astype(
+              np.float32)]
+    keys = port_gbt.iteration_keys(7, 6, 1, False, "cpu",
+                                   with_oblique=True).proj.numpy()
+    return x, y, ws, keys
+
+
+def jax_make_mhld_W(x_tr_raw, y_tr, w_eff, k_proj, P, num_label_classes,
+                    mhld_max_attributes):
+    """The JAX package's make_mhld_W (ydf_tpu/learners/gbt.py:1196-1253)
+    as a function of its closure's values."""
+    import jax
+    import jax.numpy as jnp
+
+    Fn = x_tr_raw.shape[1]
+    C = max(num_label_classes, 2)
+    oh = jax.nn.one_hot(y_tr.astype(jnp.int32), C, dtype=jnp.float32)
+    cw = oh * w_eff[:, None]
+    n_c = cw.sum(0)
+    tot = jnp.maximum(w_eff.sum(), 1e-12)
+    mu_c = (cw.T @ x_tr_raw) / jnp.maximum(n_c, 1e-12)[:, None]
+    mu = (w_eff @ x_tr_raw) / tot
+    Sxx = (x_tr_raw * w_eff[:, None]).T @ x_tr_raw
+    SW = Sxx - (mu_c.T * n_c[None, :]) @ mu_c
+    d = mu_c - mu[None, :]
+    SB = (d.T * n_c[None, :]) @ d
+    smax = min(max(mhld_max_attributes, 2), Fn)
+    sizes = 2 + (jnp.arange(P) % max(smax - 1, 1))
+    k_sub = jax.random.split(k_proj, P)
+
+    def subset_mask(kk, size):
+        scores = jax.random.uniform(kk, (Fn,))
+        kth = jnp.sort(scores)[Fn - size]
+        return scores >= kth
+
+    masks = jax.vmap(subset_mask)(k_sub, sizes)
+    reg = 1e-3 * jnp.trace(SW) / Fn + 1e-6
+
+    def solve_one(m):
+        mf = m.astype(jnp.float32)
+        MM = mf[:, None] * mf[None, :]
+        SWp = SW * MM + jnp.diag(1.0 - mf) + reg * jnp.eye(Fn)
+        SBp = SB * MM
+        L = jnp.linalg.cholesky(SWp)
+        A = jax.scipy.linalg.solve_triangular(L, SBp, lower=True)
+        M2 = jax.scipy.linalg.solve_triangular(L, A.T, lower=True).T
+        M2 = 0.5 * (M2 + M2.T)
+        _, evecs = jnp.linalg.eigh(M2)
+        v = evecs[:, -1]
+        wp = jax.scipy.linalg.solve_triangular(L.T, v, lower=False) * mf
+        return (wp / jnp.maximum(jnp.linalg.norm(wp), 1e-12)).astype(
+            jnp.float32)
+
+    return jax.vmap(solve_one)(masks)
+
+
+def write_mhld_order(d):
+    """train_mhld/xla_order.npz (module docstring)."""
+    import jax
+
+    out = {}
+    dot = jax.jit(lambda a, b: a.T @ b)
+    for n, M in MHLD_DOTS:
+        out[f"dots_{n}_{M}"] = np.asarray(dot(*mhld_dot_case(n, M)))
+    for n in MHLD_VDOTS:
+        w, x = mhld_vdot_case(n)
+        out[f"vdot_{n}"] = np.asarray(jax.jit(lambda w, x: w @ x)(w, x))
+        out[f"colsum_{n}"] = np.asarray(jax.jit(lambda x: x.sum(0))(x))
+    x, y, ws, keys = mhld_program_case()
+
+    # The arrays are arguments: closure constants would be folded into
+    # another program.
+    @jax.jit
+    def program(x, y, w, ks):
+        def step(c, k):
+            return c, jax_make_mhld_W(x, y, w, k, 28, 2, 4)
+        return jax.lax.scan(step, 0, ks)[1]
+
+    for i, w in enumerate(ws):
+        out[f"program_{i}"] = np.asarray(
+            program(x, y, w, keys.astype(np.uint32)))
+    os.makedirs(d, exist_ok=True)
+    np.savez_compressed(os.path.join(d, "xla_order.npz"), **out)
+    print(f"train_mhld/xla_order.npz: {sorted(out)}", flush=True)
+
+
+TRAIN_MHLD = dict(
+    jax_version="0.9.0", cat_seed=7, compare_rows=1024,
+    gbt=dict(rows=500_000, test_rows=100_000,
+             learner=dict(label="label", split_axis="MHLD_OBLIQUE")),
+    # Small runs for the CPU tests: 20,000 rows (18,000 after the
+    # validation split: the row dots' order is identified there, not at
+    # 2,700 rows for two classes, ops/mhld.py), depth 4, a few trees.
+    small_rows=20_000, small_test_rows=2_000,
+    small=dict(
+        binary=dict(label="label", split_axis="MHLD_OBLIQUE",
+                    num_trees=12, max_depth=4),
+        attributes2=dict(label="label", split_axis="MHLD_OBLIQUE",
+                         num_trees=8, max_depth=4,
+                         mhld_oblique_max_num_attributes=2),
+        three_class=dict(label="label", split_axis="MHLD_OBLIQUE",
+                         num_trees=6, max_depth=4,
+                         mhld_oblique_max_num_attributes=3),
+        subsample=dict(label="label", split_axis="MHLD_OBLIQUE",
+                       num_trees=12, max_depth=4, subsample=0.5),
+        goss=dict(label="label", split_axis="MHLD_OBLIQUE", num_trees=12,
+                  max_depth=4, sampling_method="GOSS"),
+    ),
+)
+
+
+def _mhld_run(m, train, test, compare_rows, W, bounds):
+    """(config entries, arrays) of a trained JAX MHLD GBT: _gbt_run's
+    per-tree hashes (node arrays with thresholds) and predictions, each
+    kept tree's projections W [28, 28] in full, its boundaries by
+    SHA-256 and iteration 0's in full."""
+    import chip_smoke
+
+    got, arrays = _gbt_run(m, test, compare_rows,
+                           chip_smoke.TREE_HASH_FIELDS + ("threshold",))
+    got["train_sha256"] = chip_smoke.frame_sha256(train)
+    T = got["num_trees"]
+    arrays["oblique_weights"] = np.asarray(W, np.float32)[:T]
+    arrays["bounds_sha256"] = np.stack(
+        [np.frombuffer(bytes.fromhex(chip_smoke.array_sha256(b)), np.uint8)
+         for b in np.asarray(bounds, np.float32)[:T]])
+    arrays["bounds0"] = np.asarray(bounds, np.float32)[0]
+    return got, arrays
+
+
+def write_train_mhld():
+    """train_mhld/: the JAX GBT with split_axis="MHLD_OBLIQUE" and every
+    other default on train_default's frame (500,000 + 100,000 rows; 28
+    projections an iteration from LDA), and TRAIN_MHLD's small runs on
+    20,000 rows of it (binary, mhld_oblique_max_num_attributes=2, the
+    three-class frame with 3, subsample=0.5 and GOSS: the row weights
+    change between iterations)."""
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.learners import gbt as jax_gbt
+
+    cfg = json.loads(json.dumps(TRAIN_MHLD))
+    cfg["jax_impls"] = _jax_header(cfg)
+    d = os.path.join(OUT, "train_mhld")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    runs = {}
+
+    def train_run(name, c, hp, rows, test_rows, classes=2):
+        train, test = make_frame(cfg["cat_seed"], rows, test_rows,
+                                 keep_label=True, classes=classes)
+        logs, restore = chip_smoke.capture_returns(jax_gbt, "_train_gbt")
+        try:
+            t0 = time.perf_counter()
+            m = ydf.GradientBoostedTreesLearner(**hp).train(train)
+            c["jax_train_s_cpu"] = time.perf_counter() - t0
+        finally:
+            restore()
+        m.force_engine("Routed")
+        run_logs = logs[0][2]
+        got, runs[name] = _mhld_run(m, train, test, cfg["compare_rows"],
+                                    run_logs["oblique_w"],
+                                    run_logs["oblique_b"])
+        c.update(got)
+        print(f"train_mhld {name}: {c['num_trees']} of "
+              f"{c['num_trees_trained']} in {c['jax_train_s_cpu']:.1f} s",
+              flush=True)
+
+    small = {}
+    for name, hp in cfg["small"].items():
+        small[name] = {"learner": hp}
+        train_run(f"small_{name}", small[name], hp, cfg["small_rows"],
+                  cfg["small_test_rows"],
+                  classes=3 if name == "three_class" else 2)
+    cfg["small"] = small
+    c = cfg["gbt"]
+    train_run("gbt", c, c["learner"], c["rows"], c["test_rows"])
+    _write_runs("train_mhld", cfg, runs)
+    write_mhld_order(d)
+
+
 def main():
     import tempfile
 
@@ -2338,6 +2584,8 @@ def main():
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "") + f" --xla_dump_to={DUMP_DIR}"
             " --xla_dump_hlo_module_re=.*jit_run.*").strip()
+    if only in (None, "train_mhld", "mhld_order"):
+        pin_xla_cpu_threads()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -2388,6 +2636,10 @@ def main():
         write_train_cache()
     if only in (None, "train_discretized"):
         write_train_discretized()
+    if only in (None, "train_mhld"):
+        write_train_mhld()
+    if only == "mhld_order":
+        write_mhld_order(os.path.join(OUT, "train_mhld"))
     if only not in (None, "serving"):
         return
     import ydf_tpu as ydf

@@ -469,19 +469,27 @@ def test_routing_projection_matches_jax_reduce(Fn):
 
 
 def test_mhld_and_monotone_constraints_still_raise():
-    """MHLD_OBLIQUE names ROADMAP item 28 on the GBT; a monotone
-    constraint with oblique splits (ported since item 14b) raises, as
-    the JAX package's, only on an unknown or a non-numerical feature;
-    the RF, CART and isolation forest reject MHLD as the JAX package
-    does; unknown weight types raise."""
+    """MHLD_OBLIQUE trains on the GBT (ported since ROADMAP item 28,
+    tests/test_torch_mhld.py) and raises the JAX package's ValueError on
+    a task other than classification and with monotone constraints; a
+    monotone constraint with oblique splits (ported since item 14b)
+    raises, as the JAX package's, only on an unknown or a non-numerical
+    feature; the RF, CART and isolation forest reject MHLD as the JAX
+    package does; unknown weight types raise."""
     kw = dict(label="label", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 28"):
-        ydf_tpu_torch.GradientBoostedTreesLearner(split_axis="MHLD_OBLIQUE",
-                                                  **kw)
     rng = np.random.default_rng(0)
     data = {"f0": rng.normal(size=200).astype(np.float32),
             "c": np.array(["a", "b"] * 100),
             "label": rng.integers(0, 2, 200)}
+    for extra, match in (
+            (dict(task=ydf_tpu_torch.Task.REGRESSION),
+             "only available for classification"),
+            (dict(monotonic_constraints={"f0": 1}),
+             "not supported with MHLD_OBLIQUE")):
+        with pytest.raises(ValueError, match=match):
+            ydf_tpu_torch.GradientBoostedTreesLearner(
+                split_axis="MHLD_OBLIQUE", validation_ratio=0.0,
+                num_trees=1, **extra, **kw).train(data)
     for bad, match in (({"nope": 1}, "Unknown monotonic"),
                        ({"c": 1}, "non-numerical")):
         with pytest.raises(ValueError, match=match):

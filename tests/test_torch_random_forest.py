@@ -191,7 +191,9 @@ def test_save_load_both_ways(binary, tmp_path):
     (dict(uplift_treatment="t"), "jax"),
     (dict(compute_oob_variable_importances=True), 20),
     (dict(mesh=object()), 18),
-    (dict(maximum_training_duration=10.0), 17),
+    # A deadline trains since ROADMAP item 17: a generous one keeps every
+    # tree (tests/test_torch_checkpoint.py cuts the forest short).
+    (dict(maximum_training_duration=10.0), "jax"),
 ])
 def test_unported_options_raise(kwargs, item):
     """The options the port lacks raise naming their ROADMAP item; an

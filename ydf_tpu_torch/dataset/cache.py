@@ -37,6 +37,7 @@ import json
 import os
 import time
 import warnings
+import weakref
 import zlib
 from typing import Dict, Iterator, List, Optional
 
@@ -58,6 +59,8 @@ from ydf_tpu_torch.dataset.dataspec import (
     DataSpecification,
 )
 from ydf_tpu_torch.dataset.sketch import IngestPartial, NumericSummary
+from ydf_tpu_torch.utils import failpoints, telemetry
+from ydf_tpu_torch.utils.snapshot import _durable_replace
 
 #: Cache format version, part of every request fingerprint (the JAX
 #: package's: v2 is the sketch-based pass 1).
@@ -207,18 +210,6 @@ def _verify_file(path: str, rec: Dict[str, object], full: bool) -> None:
                     "reuse=True rebuilds automatically)")
 
 
-def _durable_replace(tmp: str, dst: str) -> None:
-    """fsync(tmp), rename, fsync(dir): dst is atomic and durable."""
-    with open(tmp, "rb") as f:
-        os.fsync(f.fileno())
-    os.replace(tmp, dst)
-    fd = os.open(os.path.dirname(dst) or ".", os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-
-
 def _write_meta(cache_dir: str, meta: Dict) -> None:
     meta_path = os.path.join(cache_dir, "cache_meta.json")
     tmp = meta_path + ".tmp"
@@ -239,6 +230,8 @@ def _try_reuse_cache(cache_dir: str, request_fp: str
     try:
         cache = DatasetCache(cache_dir, verify="full")
     except CacheCorruptionError as e:
+        if telemetry.ENABLED:
+            telemetry.counter("ydf_cache_rebuild_total").inc()
         warnings.warn(
             f"existing dataset cache in {cache_dir!r} failed integrity "
             f"verification ({e}); rebuilding it", RuntimeWarning,
@@ -304,6 +297,19 @@ def _row_shard_file(k: int) -> str:
     return f"bins_rows_{k}.npy"
 
 
+# Open cache handles for the memory ledger's "dataset_cache" pull source,
+# sampled only at ledger snapshots.
+_OPEN_CACHES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def open_cache_bytes_total() -> int:
+    """The on-disk bytes of every open cache (DatasetCache.resident_bytes)."""
+    return sum(c.resident_bytes() for c in list(_OPEN_CACHES))
+
+
+telemetry.register_mem_source("dataset_cache", open_cache_bytes_total)
+
+
 class DatasetCache:
     """Handle to a cache directory; the learners train from it.
 
@@ -346,6 +352,24 @@ class DatasetCache:
         self.build_timings: Dict[str, object] = {}
         if verify != "off":
             self.verify(full=(verify == "full"))
+        _OPEN_CACHES.add(self)  # the memory ledger's "dataset_cache"
+
+    def resident_bytes(self) -> int:
+        """On-disk bytes of this cache's data files (the memmapped
+        footprint the memory ledger's "dataset_cache" row reports; 0 when
+        the directory cannot be read)."""
+        total = 0
+        try:
+            for name in os.listdir(self.path):
+                if name.endswith(".npy"):
+                    try:
+                        total += os.path.getsize(os.path.join(self.path,
+                                                              name))
+                    except OSError:
+                        continue
+        except OSError:
+            return 0
+        return int(total)
 
     def verify(self, full: bool = True) -> None:
         """Every data file against its integrity record; raises
@@ -354,8 +378,16 @@ class DatasetCache:
         integrity = self._meta.get("integrity")
         if not integrity:
             return
-        for name, rec in integrity["files"].items():
-            _verify_file(os.path.join(self.path, name), rec, full)
+        if telemetry.ENABLED:
+            telemetry.counter("ydf_cache_verify_total",
+                              mode="full" if full else "size").inc()
+        try:
+            for name, rec in integrity["files"].items():
+                _verify_file(os.path.join(self.path, name), rec, full)
+        except CacheCorruptionError:
+            if telemetry.ENABLED:
+                telemetry.counter("ydf_cache_corruption_total").inc()
+            raise
 
     def _record(self, name: str) -> Optional[Dict]:
         return (self._meta.get("integrity") or {}).get("files", {}).get(name)
@@ -480,6 +512,8 @@ class DatasetCache:
         del out
         integ = self._meta.setdefault("integrity", {"files": {}})
         integ["files"][name] = _file_integrity(path)
+        if telemetry.ENABLED:
+            telemetry.counter("ydf_cache_shard_rebuilds_total").inc()
         _write_meta(self.path, self._meta)
 
     def rebuild_row_shard(self, k: int) -> None:
@@ -622,7 +656,9 @@ class _CacheWriters:
         return bins.numpy()
 
     def write_chunk(self, row: int, chunk: Dict[str, np.ndarray]) -> None:
-        """Bins one chunk into rows [row, row + k) of every file."""
+        """Bins one chunk into rows [row, row + k) of every file (the
+        failpoint site cache.write_chunk first)."""
+        failpoints.hit("cache.write_chunk")
         ds = Dataset(chunk, self.spec)
         k = ds.num_rows
         cb = self.bin_chunk(ds)
@@ -718,6 +754,11 @@ def _publish_meta(cache_dir: str, spec: DataSpecification, binner: Binner,
         "request_fingerprint": request_fp,
         "boundaries": boundaries,
     }
+    if telemetry.ENABLED:
+        telemetry.counter("ydf_cache_builds_total").inc()
+        telemetry.counter("ydf_cache_bytes_written_total").inc(
+            sum(rec["size"] for rec in meta["integrity"]["files"].values()))
+    failpoints.hit("cache.finalize")
     _write_meta(cache_dir, meta)
     return DatasetCache(cache_dir)
 

@@ -12,11 +12,13 @@ from __future__ import annotations
 
 import glob
 import os
+import weakref
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
 from ydf_tpu_torch.config import Task
+from ydf_tpu_torch.utils import telemetry
 from ydf_tpu_torch.dataset.dataspec import (
     ColumnType,
     DataSpecification,
@@ -85,6 +87,27 @@ def read_path_columns(path: str) -> Dict[str, np.ndarray]:
         return read_avro_columns(resolve_tfrecord_path(raw_path))
     parts = [_read_csv(f) for f in _resolve_typed_path(path)]
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+# The learners' live bin matrices (device tensors) for the memory
+# ledger's "bin_matrix" pull source, sampled only at ledger snapshots.
+_LIVE_BIN_MATRICES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def track_bin_matrix(bins):
+    """Counts `bins` (a tensor) in the "bin_matrix" memory row while it
+    lives; returns it."""
+    _LIVE_BIN_MATRICES.add(bins)
+    return bins
+
+
+def bin_matrix_bytes_total() -> int:
+    """The bytes of every live bin matrix."""
+    return sum(int(b.numel()) * b.element_size()
+               for b in list(_LIVE_BIN_MATRICES))
+
+
+telemetry.register_mem_source("bin_matrix", bin_matrix_bytes_total)
 
 
 class Dataset:

@@ -33,31 +33,40 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
-def build(force: bool = False) -> float:
-    """Compiles the loader when stale (or, with force, always). Returns
-    the wall seconds; raises RuntimeError with g++'s log on failure."""
-    if not force and os.path.isfile(LIBRARY) and (
-            os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+def gxx_build(source: str, library: str, what: str,
+              force: bool = False) -> float:
+    """Compiles the host C++ `source` into the shared `library` with
+    GXX_FLAGS when stale (or, with force, always). Returns the wall
+    seconds; raises RuntimeError naming `what` with g++'s log on
+    failure."""
+    if not force and os.path.isfile(library) and (
+            os.path.getmtime(library) >= os.path.getmtime(source)):
         return 0.0
     t0 = time.perf_counter()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(library), exist_ok=True)
     # Write beside the target and rename: a concurrent loader never sees
     # a half-written library.
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = ["g++", *GXX_FLAGS, "-o", tmp, SOURCE]
+    tmp = f"{library}.{os.getpid()}.tmp"
+    cmd = ["g++", *GXX_FLAGS, "-o", tmp, source]
     try:
         p = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except OSError as e:
         raise RuntimeError(
-            f"the CSV loader cannot be built: {' '.join(cmd)}: {e}") from e
+            f"{what} cannot be built: {' '.join(cmd)}: {e}") from e
     if p.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(
-            f"the CSV loader's build failed (exit {p.returncode}): "
+            f"{what}'s build failed (exit {p.returncode}): "
             f"{' '.join(cmd)}\n{p.stdout}{p.stderr}")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     return time.perf_counter() - t0
+
+
+def build(force: bool = False) -> float:
+    """Compiles the loader when stale (or, with force, always): the wall
+    seconds (gxx_build)."""
+    return gxx_build(SOURCE, LIBRARY, "the CSV loader", force)
 
 
 def _declare(lib) -> None:

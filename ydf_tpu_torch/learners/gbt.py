@@ -44,11 +44,11 @@ of the one device bin matrix. Every tree routes the validation rows
 (ops/routing.py:route_tree_bins), updates their predictions as the
 training ones and records the iteration's loss. With look-ahead
 stopping the loop runs in chunks of min(look_ahead, 25) iterations and
-reads the chunk's validation losses back once after it, the loop's only
-host read: it stops once the best loss lies `look_ahead` iterations back
-(_early_stop_hit), and the model keeps argmin + 1 iterations, (argmin +
-1) * K trees. Trees never depend on the chunking: a chunk only decides
-where the loop stops.
+reads the chunk's validation losses back once after it (the loop's only
+host read but MHLD's, below): it stops once the best loss lies
+`look_ahead` iterations back (_early_stop_hit), and the model keeps
+argmin + 1 iterations, (argmin + 1) * K trees. Trees never depend on
+the chunking: a chunk only decides where the loop stops.
 
 NUMERICAL_VECTOR_SEQUENCE features (the JAX package's per-iteration
 anchor candidates, gbt.py:1312-1383): every iteration draws, for each VS
@@ -132,13 +132,59 @@ ones shrink by nd / (nd + 1); each iteration's contributions stay on
 the device ([T, n] plus [T, nv] f32). The final weights are baked into
 the stored leaf values, so they depend on how many iterations ran.
 
-What this slice does not port raises NotImplementedError naming the
-ROADMAP item; nothing falls back to a default the JAX package would not
-take.
+MHLD-oblique splits (split_axis="MHLD_OBLIQUE", classification only, no
+monotone constraints; the JAX package's make_mhld_W, gbt.py:1196-1253):
+the projections come from linear discriminant analysis of the
+iteration's weighted rows (ops/mhld.py) instead of random draws, and
+then go through projection_columns as sparse-oblique ones. When the row
+weights are the same every iteration (no row sampling: the default),
+the scatter matrices are summed once on the device and read back once
+before the loop, and each chunk's W is solved on the host at the
+chunk's start, outside the sync debug region (_Loop.solve_chunk): the
+loop reads nothing more and solves only the iterations it runs.
+Otherwise (subsample < 1, GOSS) each iteration sums
+its scatter matrices on the device and reads them back with one counted
+host read (HOST_READS); that read, the solves on the host and the copy
+of W to the device are the one place the loop leaves torch's sync debug
+mode "error" (_Loop._mhld_weights).
+
+Checkpoints (working_dir; the JAX package's gbt.py:1995-2190): the loop
+runs in chunks of resume_training_snapshot_interval_trees iterations
+(the trees never depend on the chunking), and after each chunk writes
+the chunk's outputs durably (chunk_<start>.npz), then a snapshot
+(utils/snapshot.py) of the port's own state: the training and
+validation predictions, DART's contributions and weights, the
+validation losses and the chunk list, fingerprinted by the
+configuration and the data. resume_training=True continues from the
+newest snapshot, its finished chunks re-read (the look-ahead stop sees
+their losses); a snapshot of other data or hyperparameters, or one the
+JAX package wrote, is refused. SIGTERM or SIGINT during such a loop
+sets a flag that the loop reads after the next snapshot, then raises
+TrainingPreempted (exit_code 75); a second signal kills the default way
+(_PreemptionGuard). maximum_training_duration (seconds from train()'s
+entry) stops the loop at the first chunk boundary past it (chunks of
+min(look-ahead, 25), or 25), keeping the finished trees.
+
+Telemetry (utils/telemetry.py; a flag test a site when off): the train,
+train.chunk, train.tree and train.layer spans, ydf_train_iterations_total,
+ydf_train_chunk_latency_ns and the loss gauges a chunk (one host read of
+the last losses), the memory ledger's snapshot in training_logs
+["memory"], a flush at the end; the failpoint sites gbt.chunk (after a
+snapshot) and telemetry.oom (a chunk boundary), and the flight
+recorder's dump on a crash or a preemption.
+
+What this slice does not port (the multi-device arguments) raises
+NotImplementedError naming the ROADMAP item; nothing falls back to a
+default the JAX package would not take.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import os
+import signal
+import threading
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -155,22 +201,35 @@ from ydf_tpu_torch.learners.ranking_loss import (
 from ydf_tpu_torch.learners.survival_loss import CoxProportionalHazardLoss
 from ydf_tpu_torch.models.forest import forest_from_stacked_trees
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
-from ydf_tpu_torch.ops import grower, oblique
+from ydf_tpu_torch.ops import grower, mhld, oblique
 from ydf_tpu_torch.ops.routing import route_tree_bins
 from ydf_tpu_torch.ops.split_rules import HessianGainRule
 from ydf_tpu_torch.ops.vector_sequence import vs_scores
-from ydf_tpu_torch.utils import cuda_build, prng
+from ydf_tpu_torch.utils import cuda_build, failpoints, log, prng, telemetry
+from ydf_tpu_torch.utils.profiling import StageTimer, maybe_trace
+from ydf_tpu_torch.utils.snapshot import Snapshots, _durable_replace
 from ydf_tpu_torch.utils.xla_cpu import f32, fma_f32
 
 
 #: Reads of device values on the host by boost() in this process: the
-#: validation losses once per chunk of the look-ahead stop, and the
+#: validation losses once per chunk of the look-ahead stop, the
 #: candidate columns' widths once before the loop when candidate
-#: features are sampled; the loop makes no other.
+#: features are sampled, MHLD's scatter matrices (once before the loop,
+#: or once a tree when the row weights change), a checkpoint's copies
+#: once a chunk, the last losses once a chunk when telemetry or debug
+#: logging is on; the loop makes no other.
 HOST_READS = 0
 #: Most iterations a chunk of the look-ahead stop runs (the JAX
 #: package's in-memory early-stop loop, gbt.py:1918-1920).
 MAX_CHUNK_TREES = 25
+#: The `format` of the port's snapshot metadata: a snapshot without it
+#: (the JAX package's) is refused.
+SNAPSHOT_FORMAT = "ydf_tpu_torch.gbt/1"
+#: The hyperparameters that change no tree: left out of the snapshot
+#: fingerprint, so a resume may change them.
+RESUME_FREE = ("working_dir", "resume_training",
+               "resume_training_snapshot_interval_trees",
+               "maximum_training_duration", "device")
 
 
 def bool_column(values: np.ndarray) -> np.ndarray:
@@ -369,7 +428,9 @@ class GradientBoostedTreesLearner(GenericLearner):
     replaces the split. `loss` is a loss name or a
     learners/losses.py:CustomLoss. A task with no default loss (the
     uplift tasks, anomaly detection) raises the JAX package's ValueError
-    when it trains; MHLD splits raise NotImplementedError."""
+    when it trains. MHLD-oblique splits, checkpoints, preemption,
+    deadlines and telemetry as the module docstring says; the
+    multi-device arguments raise NotImplementedError."""
 
     def __init__(
         self,
@@ -413,6 +474,10 @@ class GradientBoostedTreesLearner(GenericLearner):
         numerical_vector_sequence_enable_closer_than: bool = True,
         numerical_vector_sequence_enable_projected_more_than: bool = True,
         monotonic_constraints: Optional[dict] = None,
+        working_dir: Optional[str] = None,
+        resume_training: bool = False,
+        resume_training_snapshot_interval_trees: int = 50,
+        maximum_training_duration: float = -1.0,
         features: Optional[Sequence[str]] = None,
         weights: Optional[str] = None,
         num_bins="auto",
@@ -422,8 +487,18 @@ class GradientBoostedTreesLearner(GenericLearner):
         discretize_numerical_columns: bool = False,
         num_discretized_numerical_bins: int = 255,
         random_seed: int = 123456,
+        mesh=None,
+        distributed_workers: Optional[Sequence[str]] = None,
+        distributed_membership=None,
         device=None,
     ):
+        if mesh is not None:
+            raise unported("mesh (multi-device training)", 18)
+        if distributed_workers:
+            raise unported("distributed_workers (distributed training)", 18)
+        if distributed_membership is not None:
+            raise unported("distributed_membership (elastic distributed "
+                           "training)", 18)
         if not 0.0 <= dart_dropout < 1.0:
             raise ValueError(
                 f"dart_dropout must be in [0, 1), got {dart_dropout}")
@@ -438,8 +513,6 @@ class GradientBoostedTreesLearner(GenericLearner):
         if split_axis not in ("AXIS_ALIGNED", "SPARSE_OBLIQUE",
                               "MHLD_OBLIQUE"):
             raise ValueError(f"Unknown split_axis {split_axis!r}")
-        if split_axis == "MHLD_OBLIQUE":
-            raise unported("split_axis='MHLD_OBLIQUE'", 28)
         oblique.check_weight_type(sparse_oblique_weights)
         super().__init__(
             label=label, task=task, features=features, weights=weights,
@@ -498,6 +571,24 @@ class GradientBoostedTreesLearner(GenericLearner):
         self.sparse_oblique_max_num_projections = (
             sparse_oblique_max_num_projections)
         self.mhld_oblique_max_num_attributes = mhld_oblique_max_num_attributes
+        # Checkpoints (module docstring): with a working_dir the loop
+        # snapshots every `resume_training_snapshot_interval_trees`
+        # iterations and resume_training=True continues from the newest.
+        self.working_dir = working_dir
+        self.resume_training = resume_training
+        self.resume_training_snapshot_interval_trees = (
+            resume_training_snapshot_interval_trees)
+        # Seconds for the whole train() call, the clock started at its
+        # entry; <= 0 for none.
+        self.maximum_training_duration = maximum_training_duration
+        self.mesh = mesh
+        self.distributed_workers = distributed_workers
+        self.distributed_membership = distributed_membership
+        # Test hooks (the JAX package's): abort after N snapshots, or
+        # take a SIGTERM during chunk N (the real signal's path but its
+        # delivery).
+        self._abort_after_chunks = None
+        self._preempt_after_chunks = None
         # Anchors per kind per (iteration, VS feature) (reference
         # decision_tree.proto numerical_vector_sequence, :433-442).
         self.numerical_vector_sequence_num_anchors = (
@@ -603,10 +694,50 @@ class GradientBoostedTreesLearner(GenericLearner):
                 md["label_entry_age"] = self.label_entry_age
         return md
 
+    def _fingerprint(self, labels: np.ndarray, weights: np.ndarray,
+                     binner, n: int, nv: int) -> str:
+        """SHA-1 of the hyperparameters that decide the trees and of the
+        data (labels, weights, the binner's boundaries, the row counts):
+        a snapshot of another run is refused."""
+        fp = hashlib.sha1()
+        hp = {k: (v if isinstance(v, (str, int, float, bool, type(None),
+                                      tuple, list, dict))
+                  else type(v).__name__)
+              for k, v in self.hyperparameters().items()
+              if k not in RESUME_FREE}
+        fp.update(repr(sorted(hp.items())).encode())
+        fp.update(np.asarray([n, nv], np.int64).tobytes())
+        for a in (labels, weights, binner.boundaries):
+            fp.update(np.ascontiguousarray(a).tobytes())
+        return fp.hexdigest()
+
+    def _check_mhld(self) -> None:
+        """The JAX package's MHLD restrictions (gbt.py:697-709)."""
+        if self.task != Task.CLASSIFICATION:
+            # The reference restriction (oblique.cc:689-692): LDA needs
+            # class labels.
+            raise ValueError(
+                "MHLD_OBLIQUE is only available for classification; "
+                "use SPARSE_OBLIQUE for other tasks")
+        if self.monotonic_constraints:
+            raise ValueError(
+                "monotonic constraints are not supported with "
+                "MHLD_OBLIQUE (LDA coefficients cannot be sign-forced)")
+
     def train(self, data: InputData, valid: Optional[InputData] = None
               ) -> GradientBoostedTreesModel:
         t0 = time.perf_counter()
-        prep = self._prepare(data, valid=valid)
+        t_train0_ns = time.perf_counter_ns()
+        # The deadline's clock starts at train() entry: ingest and binning
+        # count against maximum_training_duration.
+        deadline = (time.monotonic() + self.maximum_training_duration
+                    if self.maximum_training_duration
+                    and self.maximum_training_duration > 0 else None)
+        timer = StageTimer()
+        if self.split_axis == "MHLD_OBLIQUE":
+            self._check_mhld()
+        with timer.stage("ingest_bin"):
+            prep = self._prepare(data, valid=valid)
         binner = prep["binner"]
         dev = self.device
         num_classes = len(prep.get("classes", [])) or 1
@@ -618,7 +749,8 @@ class GradientBoostedTreesLearner(GenericLearner):
         sets = prep["set_bits"]  # i32 [n, Fs, W] on the device, or None
         x_raw = None  # imputed numerical features [n, Fn] (oblique)
         P = 0
-        if self.split_axis == "SPARSE_OBLIQUE" and binner.num_numerical:
+        if self.split_axis in ("SPARSE_OBLIQUE", "MHLD_OBLIQUE") and (
+                binner.num_numerical):
             P = oblique.num_projections(
                 binner.num_numerical,
                 self.sparse_oblique_num_projections_exponent,
@@ -683,9 +815,14 @@ class GradientBoostedTreesLearner(GenericLearner):
 
         Ac, Ap = self._vs_anchor_counts()
         vs = valid_set = obl = None
+        y_dev, w_dev = on_device(labels, weights)
         if vs_all is not None and Ac + Ap > 0:
             vs = vs_inputs(vs_all, Ac, Ap, dev)
-        if x_raw is not None:
+        if x_raw is not None and self.split_axis == "MHLD_OBLIQUE":
+            obl = mhld.MHLDInputs.make(
+                x_raw, y_dev, num_classes, P,
+                self.mhld_oblique_max_num_attributes)
+        elif x_raw is not None:
             mono_vec = None
             if monotone is not None and any(monotone[:binner.num_numerical]):
                 # Sign-forced coefficients on the constrained features.
@@ -717,22 +854,34 @@ class GradientBoostedTreesLearner(GenericLearner):
         lookahead = (self.early_stopping_num_trees_look_ahead
                      if self.early_stopping == "LOSS_INCREASE" else 0)
 
+        checkpoint = None
+        if self.working_dir:
+            checkpoint = Checkpoint(
+                self.working_dir,
+                self.resume_training_snapshot_interval_trees,
+                self.resume_training,
+                self._fingerprint(labels, weights, binner, n,
+                                  0 if va is None else len(va[1])),
+                self._abort_after_chunks, self._preempt_after_chunks)
         t1 = time.perf_counter()
-        out = boost(
-            bins_t, *on_device(labels, weights), loss_obj=loss_obj,
-            rule=rule, tree_cfg=tree_cfg, num_trees=self.num_trees,
-            shrinkage=self.shrinkage, seed=self.random_seed, vs=vs,
-            obl=obl, num_numerical=binner.num_numerical, valid=valid_set,
-            lookahead=lookahead,
-            sampling=Sampling(self.sampling_method, self.subsample,
-                              self.goss_alpha, self.goss_beta,
-                              self.selective_gradient_boosting_ratio,
-                              selgb_rows),
-            candidate_features=self._candidate_features(
-                binner.num_features),
-            set_bits=sets, monotone=monotone,
-            dart_dropout=self.dart_dropout,
-        )
+        with timer.stage("device_loop"), maybe_trace("gbt_train"):
+            out = boost(
+                bins_t, y_dev, w_dev, loss_obj=loss_obj,
+                rule=rule, tree_cfg=tree_cfg, num_trees=self.num_trees,
+                shrinkage=self.shrinkage, seed=self.random_seed, vs=vs,
+                obl=obl, num_numerical=binner.num_numerical,
+                valid=valid_set, lookahead=lookahead,
+                sampling=Sampling(self.sampling_method, self.subsample,
+                                  self.goss_alpha, self.goss_beta,
+                                  self.selective_gradient_boosting_ratio,
+                                  selgb_rows),
+                candidate_features=self._candidate_features(
+                    binner.num_features),
+                set_bits=sets, monotone=monotone,
+                dart_dropout=self.dart_dropout, checkpoint=checkpoint,
+                deadline=deadline,
+            )
+        t_fin = time.perf_counter()
         train_losses = out.train_loss.cpu().numpy()
         valid_losses = (None if out.valid_loss is None
                         else out.valid_loss.cpu().numpy())
@@ -786,6 +935,19 @@ class GradientBoostedTreesLearner(GenericLearner):
                     train_losses, valid_losses, out.chunk_walls),
             },
         )
+        timer.seconds["finalize"] = time.perf_counter() - t_fin
+        model.training_profile = timer.finish()
+        if telemetry.ENABLED:
+            trained = int(len(train_losses))
+            emit_train_spans(out.chunk_walls, trained, self.max_depth)
+            telemetry.emit_span(
+                "train", t_train0_ns, time.perf_counter_ns() - t_train0_ns,
+                {"rows": int(n), "num_trees": trained,
+                 "learner": "GRADIENT_BOOSTED_TREES"})
+            # The memory ledger's end-of-train snapshot beside the
+            # per-iteration records.
+            model.training_logs["memory"] = telemetry.ledger().snapshot()
+            telemetry.flush()
         self.last_timings["train_s"] = time.perf_counter() - t0
         return model
 
@@ -796,8 +958,8 @@ def iteration_records(train_losses, valid_losses, chunk_walls):
     losses and seconds, each chunk's host wall spread evenly over its
     trees."""
     secs = np.zeros((len(train_losses),), np.float64)
-    for start, count, seconds in chunk_walls:
-        secs[start:start + count] = seconds / count
+    for start, count, _, dur_ns in chunk_walls:
+        secs[start:start + count] = dur_ns / 1e9 / count
     return [
         {"iteration": i + 1, "train_loss": float(train_losses[i]),
          "valid_loss": (None if valid_losses is None
@@ -1035,36 +1197,211 @@ class BoostResult(NamedTuple):
     vs_out: Optional[tuple]     # (anchors [T, Pv, D], boundaries
                                 # [T, Pv, B-1]) or None
     valid_loss: Optional[torch.Tensor]  # f32 [T], None without `valid`
-    chunk_walls: List[tuple]    # (first iteration, iterations, seconds)
+    chunk_walls: List[tuple]    # (first iteration, iterations, host
+                                # perf_counter_ns at its start, ns)
     obl_out: Optional[tuple] = None  # (projections [T, P, Fn], boundaries
                                      # [T, P, B-1]) or None
+
+
+class Checkpoint(NamedTuple):
+    """boost()'s snapshots (the learner's working_dir; module
+    docstring)."""
+
+    directory: str
+    interval: int = 50              # iterations a chunk
+    resume: bool = False
+    fingerprint: str = ""           # of the configuration and the data
+    abort_after_chunks: Optional[int] = None    # test hooks
+    preempt_after_chunks: Optional[int] = None
+
+
+class TrainingPreempted(RuntimeError):
+    """SIGTERM or SIGINT arrived during checkpointed training (the JAX
+    package's TrainingPreempted). The boosting loop finished the chunk in
+    flight, saved its snapshot durably and stopped: train again with
+    resume_training=True to continue where it stopped, with the trees of
+    an uninterrupted run."""
+
+    #: EX_TEMPFAIL: a transient condition; reschedule the job.
+    exit_code = 75
+
+
+class _TrainingAborted(RuntimeError):
+    """Raised by the test-only abort hook (the reference injects failures
+    the same way: MaybeSimulateFailure, worker.cc:415-452)."""
+
+
+class _PreemptionGuard:
+    """SIGTERM and SIGINT handlers around the checkpointed boosting loop
+    (the JAX package's _PreemptionGuard; main thread only, where Python
+    delivers signals). The handler only sets a flag: the loop checks it
+    at each chunk boundary, right after the snapshot save, so the last
+    snapshot of a preemption is the one just made durable. A second
+    signal restores the previous handlers and delivers itself again."""
+
+    _SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+    def __init__(self):
+        self.triggered = False
+        self.signal_name: Optional[str] = None
+        self._old = {}
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            for sig in self._SIGNALS:
+                try:
+                    self._old[sig] = signal.signal(sig, self._handle)
+                except (ValueError, OSError):
+                    pass  # an embedding that refuses: keep its handlers
+        return self
+
+    def __exit__(self, *exc):
+        for sig, old in self._old.items():
+            try:
+                signal.signal(sig, old if old is not None
+                              else signal.SIG_DFL)
+            except (ValueError, OSError, TypeError):
+                pass
+        self._old.clear()
+        return False
+
+    def trigger(self, signum: int) -> None:
+        """Flags a preemption (the real handler and the
+        _preempt_after_chunks test hook share this path)."""
+        self.signal_name = signal.Signals(signum).name
+        self.triggered = True
+
+    def _handle(self, signum, frame):
+        if self.triggered:
+            # Second signal: restore the previous disposition and deliver
+            # it again.
+            old = self._old.pop(signum, signal.SIG_DFL)
+            try:
+                signal.signal(signum, old if old is not None
+                              else signal.SIG_DFL)
+            except (ValueError, OSError, TypeError):
+                signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+            return
+        self.trigger(signum)
+
+
+def _oom_failpoint():
+    """The `telemetry.oom` failpoint: an injected fault at a chunk
+    boundary becomes a real MemoryError (the flight recorder's "oom"
+    dump). One module-constant check when failpoints are unarmed."""
+    try:
+        failpoints.hit("telemetry.oom")
+    except failpoints.FailpointError as e:
+        raise MemoryError(f"injected OOM: {e}") from None
+
+
+@contextlib.contextmanager
+def _flight_guard():
+    """An exception that escapes the boosting loop flushes buffered
+    telemetry and writes the flight recorder's dump
+    (`flight_<pid>.jsonl`, reason "oom" for a MemoryError, else
+    "train_exception") before propagating; TrainingPreempted writes its
+    own. A no-op when telemetry is off."""
+    try:
+        yield
+    except TrainingPreempted:
+        raise
+    except BaseException as e:
+        if telemetry.ENABLED:
+            kind = "oom" if isinstance(e, MemoryError) else "exception"
+            telemetry.flight_record(kind,
+                                    error=f"{type(e).__name__}: {e}")
+            telemetry.flush()
+            telemetry.flight_dump("oom" if kind == "oom"
+                                  else "train_exception")
+        raise
+
+
+def emit_train_spans(chunk_walls, trained: int, max_depth: int) -> None:
+    """The boosting timeline's spans (the JAX package's
+    _emit_train_spans): one measured `train.chunk` span a chunk, divided
+    evenly into `train.tree` and `train.layer` spans flagged
+    `attributed` (the host does not see a tree start and end on the
+    device)."""
+    if not telemetry.ENABLED:
+        return
+    for s, c, t0, dur in chunk_walls or []:
+        n = max(min(s + c, trained) - s, 0)
+        telemetry.emit_span("train.chunk", t0, dur,
+                            {"start_iter": s, "iterations": c})
+        if n == 0 or dur <= 0:
+            continue
+        tree_dur = dur // c
+        layer_dur = max(tree_dur // max(max_depth, 1), 1)
+        for j in range(n):
+            tt0 = t0 + j * tree_dur
+            telemetry.emit_span("train.tree", tt0, tree_dur,
+                                {"iteration": s + j + 1, "attributed": True})
+            for d in range(max_depth):
+                telemetry.emit_span("train.layer", tt0 + d * layer_dur,
+                                    layer_dur,
+                                    {"depth": d, "attributed": True})
+
+
+@contextlib.contextmanager
+def _sync_allowed(on_card: bool):
+    """Leaves the loop's sync debug mode "error" for the block (a
+    counted host read, a copy to the card)."""
+    if not on_card:
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def chunk_length(lookahead: int, stopping: bool, num_trees: int,
+                 checkpoint: Optional[Checkpoint], deadline) -> int:
+    """Iterations a chunk of boost()'s loop (the JAX package's loops):
+    the snapshot interval with a working_dir; min(lookahead, 25) with the
+    look-ahead stop, or 25 for a deadline alone; else the whole loop."""
+    if checkpoint is not None:
+        return max(1, checkpoint.interval)
+    if stopping or deadline is not None:
+        return max(1, min(lookahead or MAX_CHUNK_TREES, MAX_CHUNK_TREES))
+    return num_trees
 
 
 def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
           *, loss_obj, rule, tree_cfg: TreeConfig, num_trees: int,
           shrinkage: float, seed: int = 123456,
-          vs: Optional[VSInputs] = None,
-          obl: Optional[oblique.ObliqueInputs] = None, hist_quant: str = "f32",
+          vs: Optional[VSInputs] = None, obl=None, hist_quant: str = "f32",
           num_numerical: Optional[int] = None,
           valid: Optional[ValidSet] = None,
           lookahead: int = 0, sampling: Sampling = Sampling(),
           candidate_features: int = -1,
           set_bits: Optional[torch.Tensor] = None,
           monotone: Optional[tuple] = None,
-          dart_dropout: float = 0.0) -> BoostResult:
+          dart_dropout: float = 0.0,
+          checkpoint: Optional[Checkpoint] = None,
+          deadline: Optional[float] = None) -> BoostResult:
     """The boosting loop on the device of `bins_t` (u8 [F, n]; rows
     [0, num_numerical) numerical, the rest categorical; default all
     numerical), T <= num_trees iterations of loss_obj.num_dims trees,
-    with sparse-oblique splits when `obl` is given, categorical-set
-    candidates when `set_bits` (i32 [n, Fs, W]) is, monotone directions
-    per feature (`monotone`, monotone_directions) and DART when
-    dart_dropout > 0 (module docstring).
+    with oblique splits when `obl` is given (ops/oblique.py:
+    ObliqueInputs for sparse-oblique, ops/mhld.py:MHLDInputs for MHLD),
+    categorical-set candidates when `set_bits` (i32 [n, Fs, W]) is,
+    monotone directions per feature (`monotone`, monotone_directions)
+    and DART when dart_dropout > 0 (module docstring).
     With `valid`, every tree scores the validation rows; with lookahead >
     0 as well (and num_trees > lookahead, as the JAX package), the loop
     runs in chunks of min(lookahead, MAX_CHUNK_TREES) iterations, reads
     each chunk's validation losses back once (HOST_READS) and stops once
-    early_stop_hit. On a card each chunk runs under torch's sync debug
-    mode "error": no other host sync happens inside the loop."""
+    early_stop_hit. With `checkpoint` the chunks are its interval and
+    each chunk ends with a snapshot; `deadline` (time.monotonic()) stops
+    the loop at the first chunk boundary past it. On a card each chunk
+    runs under torch's sync debug mode "error": no other host sync
+    happens inside the loop but MHLD's one read a tree when the row
+    weights change between iterations (ops/mhld.py)."""
     global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
@@ -1074,17 +1411,28 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
     Fs = 0 if set_bits is None else set_bits.shape[1]
     Pv = 0 if vs is None else len(vs.values) * vs.anchors_per_feature
     P = 0 if obl is None else obl.num_projections
+    is_mhld = isinstance(obl, mhld.MHLDInputs)
     sampled = 0 < candidate_features < F + P + Pv + Fs
     dart = dart_dropout > 0.0
-    keys = draws = columns = obl_w = drops = members = None
+    keys = draws = columns = obl_w = drops = members = masks = scatter = None
     if sampling.draws or sampled or vs is not None or P or dart:
-        keys = iteration_keys(seed, num_trees, K, vs is not None, dev,
-                              with_oblique=P > 0, with_dart=dart)
+        keys_host = iteration_keys(seed, num_trees, K, vs is not None, "cpu",
+                                   with_oblique=P > 0, with_dart=dart)
+        keys = IterationKeys(*(None if k is None else k.to(dev)
+                               for k in keys_host))
     if vs is not None:
         draws = vs_words(keys.vs, len(vs.values),
                          vs.num_closer + 2 * vs.num_projected)
-    if P:
+    if P and not is_mhld:
         obl_w = obl.weights(keys.proj)
+    elif P:
+        masks = obl.masks(keys_host.proj)
+        if not sampling.draws:
+            # The row weights are the same every iteration: the scatter
+            # matrices once before the loop, each chunk's projections at
+            # its start.
+            scatter = obl.scatter(obl.sums(weights).cpu().numpy())
+            HOST_READS += 1
     if dart:
         drops = dart_drops(keys.drop, dart_dropout)
     if sampled:
@@ -1099,7 +1447,8 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
         members = grower.set_members(set_bits)
         HOST_READS += 1
     stopping = valid is not None and 0 < lookahead < num_trees
-    clen = min(lookahead, MAX_CHUNK_TREES) if stopping else num_trees
+    clen = chunk_length(lookahead, stopping, num_trees, checkpoint, deadline)
+    on_card = dev.type == "cuda"
     loop = _Loop(bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
                  tree_cfg=tree_cfg, shrinkage=shrinkage,
                  hist_quant=hist_quant, vs=vs, draws=draws,
@@ -1107,33 +1456,115 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
                  num_numerical=num_numerical, valid=valid,
                  sampling=sampling, keys=keys, columns=columns,
                  members=members, monotone=monotone, drops=drops,
-                 num_trees=num_trees)
-    on_card = dev.type == "cuda"
+                 num_trees=num_trees, masks=masks, scatter=scatter,
+                 on_card=on_card)
+    snaps = None
+    if checkpoint is not None:
+        snaps = Snapshots(checkpoint.directory, max_kept=2)
+        if checkpoint.resume:
+            loop.resume(snaps, checkpoint)
     walls = []
-    while loop.iterations < num_trees:
-        start = loop.iterations
-        count = min(clen, num_trees - start)
-        t0 = time.perf_counter()
-        if on_card:
-            # The loop must never wait on the card: any synchronizing
-            # call inside it raises instead of silently serializing the
-            # trees.
-            prev_mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            for it in range(start, start + count):
-                loop.step(it)
-        finally:
+    chunks_done = 0
+    with _PreemptionGuard() if snaps is not None else \
+            contextlib.nullcontext() as guard, _flight_guard():
+        while loop.iterations < num_trees:
+            start = loop.iterations
+            count = min(clen, num_trees - start)
+            # DART runs its last chunk exactly; the other loops run
+            # whole chunks and drop the excess (the JAX package's
+            # _chunk_len), which decides the oblique quantiles' form.
+            loop.loop_of_one = (count if dart else clen) == 1
+            t0 = time.perf_counter_ns()
+            if scatter is not None:
+                loop.solve_chunk(start, count)
             if on_card:
-                torch.cuda.set_sync_debug_mode(prev_mode)
-        if stopping:
-            # The chunk's one host read.
-            seen = torch.stack(loop.valid_losses).cpu().numpy()
-            HOST_READS += 1
-        walls.append((start, count, time.perf_counter() - t0))
-        if stopping and early_stop_hit(seen, lookahead):
-            break
+                # The loop must never wait on the card: any synchronizing
+                # call inside it raises instead of silently serializing
+                # the trees.
+                prev_mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for it in range(start, start + count):
+                    loop.step(it)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(prev_mode)
+            seen = None
+            if stopping:
+                # The chunk's one host read.
+                seen = torch.stack(loop.valid_losses).cpu().numpy()
+                HOST_READS += 1
+            elif deadline is not None and on_card:
+                # The deadline reads the host clock once the chunk ran.
+                torch.cuda.synchronize(dev)
+            dur = time.perf_counter_ns() - t0
+            walls.append((start, count, t0, dur))
+            _note_chunk(loop, start, count, num_trees, dur, seen)
+            if snaps is not None:
+                loop.save(snaps, checkpoint, start, count)
+                HOST_READS += 1
+                chunks_done += 1
+                failpoints.hit("gbt.chunk")
+            _oom_failpoint()
+            if snaps is not None:
+                if (checkpoint.preempt_after_chunks is not None
+                        and chunks_done >= checkpoint.preempt_after_chunks):
+                    guard.trigger(signal.SIGTERM)
+                if guard.triggered:
+                    # The snapshot just saved is the last one; export the
+                    # buffered telemetry and the flight recorder before
+                    # raising.
+                    done = loop.iterations
+                    if telemetry.ENABLED:
+                        emit_train_spans(walls, done, tree_cfg.max_depth)
+                        telemetry.flight_record(
+                            "preempt", signal=guard.signal_name,
+                            completed_iters=done, num_trees=num_trees)
+                        telemetry.flush()
+                        telemetry.flight_dump("preempt")
+                    raise TrainingPreempted(
+                        f"training preempted by {guard.signal_name}: "
+                        f"snapshot at {done}/{num_trees} iterations in "
+                        f"{checkpoint.directory!r} is resumable "
+                        "(resume_training=True)")
+            if stopping and early_stop_hit(seen, lookahead):
+                break
+            if (snaps is not None and checkpoint.abort_after_chunks
+                    is not None
+                    and chunks_done >= checkpoint.abort_after_chunks):
+                raise _TrainingAborted(
+                    f"aborted after {chunks_done} chunks "
+                    f"({loop.iterations} iterations)")
+            if deadline is not None and time.monotonic() >= deadline:
+                break
     return loop.result(walls)
+
+
+def _note_chunk(loop, start: int, count: int, num_trees: int, dur_ns: int,
+                seen: Optional[np.ndarray]) -> None:
+    """The chunk's training metrics and progress line (the JAX package's
+    _note_chunk): ydf_train_iterations_total, ydf_train_chunk_latency_ns
+    and the loss gauges when telemetry is on, a debug line. Reading the
+    last losses is a host read (HOST_READS), made only for them."""
+    global HOST_READS
+    if not (telemetry.ENABLED or log.is_debug()):
+        return
+    tl = float(loop.losses[-1])
+    HOST_READS += 1
+    vl = None
+    if loop.valid is not None:
+        vl = float(seen[-1] if seen is not None else loop.valid_losses[-1])
+    if telemetry.ENABLED:
+        telemetry.counter("ydf_train_iterations_total").inc(count)
+        telemetry.histogram("ydf_train_chunk_latency_ns").observe_ns(dur_ns)
+        telemetry.gauge("ydf_train_last_train_loss").set(tl)
+        if vl is not None:
+            telemetry.gauge("ydf_train_last_valid_loss").set(vl)
+    if log.is_debug():
+        done = min(start + count, num_trees)
+        log.debug(f"gbt: iter {done}/{num_trees} train_loss={tl:.6g}"
+                  + (f" valid_loss={vl:.6g}" if vl is not None else "")
+                  + f" chunk_s={dur_ns / 1e9:.3f}")
 
 
 def selgb_mask(rows: torch.Tensor, labels: torch.Tensor,
@@ -1169,7 +1600,7 @@ class _Loop:
                  tree_cfg, shrinkage, hist_quant, vs, draws, obl, obl_w,
                  loop_of_one, num_numerical, valid, sampling, keys,
                  columns, members=None, monotone=None, drops=None,
-                 num_trees=0):
+                 num_trees=0, masks=None, scatter=None, on_card=False):
         self.bins_t, self.labels, self.weights = bins_t, labels, weights
         self.loss_obj, self.rule, self.cfg = loss_obj, rule, tree_cfg
         self.shrinkage, self.hist_quant = shrinkage, hist_quant
@@ -1179,6 +1610,12 @@ class _Loop:
         self.obl, self.obl_w, self.loop_of_one = obl, obl_w, loop_of_one
         self.sampling, self.keys, self.columns = sampling, keys, columns
         self.members, self.drops = members, drops
+        # MHLD: every iteration's subset masks (host), the scatter
+        # matrices when the row weights stay (else None), the current
+        # chunk's solved projections (its start and W [count, P, Fn]),
+        # and every iteration's projections as the loop takes them.
+        self.masks, self.scatter, self.on_card = masks, scatter, on_card
+        self.chunk_w, self.obl_ws = None, []
         self.K = loss_obj.num_dims
         self.Fn = bins_t.shape[0] if num_numerical is None else num_numerical
         dev = bins_t.device
@@ -1204,6 +1641,7 @@ class _Loop:
                     (num_trees,) + self.vpreds.shape, dtype=torch.float32,
                     device=dev)
         self.iterations = 0
+        self.chunk_starts: List[int] = []  # the snapshots' chunk list
         self.trees, self.leaf_values, self.losses = [], [], []
         self.valid_losses, self.vs_anchors, self.vs_bounds = [], [], []
         self.obl_bounds = []
@@ -1271,23 +1709,26 @@ class _Loop:
         Fn = self.Fn
         mono = self.mono
         if self.obl is not None:
+            if self.obl_w is not None:
+                W = self.obl_w[it]
+            else:
+                W = self._mhld_weights(it, w_eff)
+                self.obl_ws.append(W)
             # The projection columns go after the numerical features,
             # the JAX package's [num, obl, vs, cat].
             cols, bounds = oblique.projection_columns(
-                self.obl.x_t, self.obl_w[it], qs=self.qs,
-                loop_of_one=self.loop_of_one)
+                self.obl.x_t, W, qs=self.qs, loop_of_one=self.loop_of_one)
             grow_bins = torch.cat([grow_bins[:Fn], cols, grow_bins[Fn:]])
             if valid is not None:
                 cols_va, _ = oblique.projection_columns(
-                    valid.x_t, self.obl_w[it], bounds=bounds)
+                    valid.x_t, W, bounds=bounds)
                 grow_va = torch.cat([grow_va[:Fn], cols_va, grow_va[Fn:]])
             Fn += cols.shape[0]
             self.obl_bounds.append(bounds)
             if mono is not None:
                 # A projection touching a constrained feature increases
                 # with it (its coefficients are sign-forced).
-                touch = (self.obl_w[it].abs()
-                         * self.mono_num.abs()).sum(dim=1) > 0
+                touch = (W.abs() * self.mono_num.abs()).sum(dim=1) > 0
                 mono = torch.cat([self.mono_num, touch.float()])
         if self.vs is not None:
             # The anchor columns go between the numerical and the
@@ -1359,6 +1800,133 @@ class _Loop:
             cuda_build.launch_done(timer)
         self.iterations += 1
 
+    def solve_chunk(self, start: int, count: int) -> None:
+        """MHLD with the row weights the same every iteration: the
+        projections of iterations [start, start + count) solved on the
+        host from the scatter matrices read before the loop, and copied
+        to the device; called at the chunk's start, outside the sync
+        debug mode "error"."""
+        W = np.stack([self.obl.solve(self.scatter, self.masks[it])
+                      for it in range(start, start + count)])
+        self.chunk_w = (start, torch.from_numpy(W).to(self.bins_t.device))
+
+    def _mhld_weights(self, it: int, w_eff: torch.Tensor) -> torch.Tensor:
+        """Iteration `it`'s MHLD projections: from its chunk's solves
+        when the row weights stay (solve_chunk); else at its row weights
+        `w_eff`: the scatter sums on the device, one host read
+        (HOST_READS, outside the sync debug mode "error"), the solves on
+        the host, W copied back."""
+        global HOST_READS
+        if self.scatter is not None:
+            start, W = self.chunk_w
+            return W[it - start]
+        packed = self.obl.sums(w_eff)
+        with _sync_allowed(self.on_card):
+            host = packed.cpu().numpy()
+            HOST_READS += 1
+            W = self.obl.solve(self.obl.scatter(host), self.masks[it])
+            return torch.from_numpy(W).to(self.bins_t.device)
+
+    # -- checkpoints ----------------------------------------------------- #
+
+    def _carry(self) -> Dict[str, torch.Tensor]:
+        """The state the next iteration reads (module docstring)."""
+        out = {"init_pred": self.init_pred, "preds": self.preds}
+        if self.valid is not None:
+            out["vpreds"] = self.vpreds
+        if self.drops is not None:
+            out["contrib"], out["tree_scale"] = self.contrib, self.tree_scale
+            if self.valid is not None:
+                out["vcontrib"] = self.vcontrib
+        return out
+
+    def _chunk_arrays(self, start: int, count: int) -> Dict[str, np.ndarray]:
+        """Iterations [start, start + count)'s outputs as numpy arrays
+        (a chunk's payload)."""
+        K = self.K
+        trees = self.trees[start * K:(start + count) * K]
+        out = {f"trees_{f}": torch.stack([getattr(t, f) for t in trees])
+               for f in grower.TreeArrays._fields}
+        out["lv"] = torch.stack(self.leaf_values[start * K:(start + count)
+                                                 * K])
+        out["tl"] = torch.stack(self.losses[start:start + count])
+        if self.valid is not None:
+            out["vl"] = torch.stack(self.valid_losses[start:start + count])
+        if self.obl is not None:
+            out["ob"] = torch.stack(self.obl_bounds[start:start + count])
+            if self.obl_w is None:
+                out["ow"] = torch.stack(self.obl_ws[start:start + count])
+        if self.vs is not None:
+            out["vsa"] = torch.stack(self.vs_anchors[start:start + count])
+            out["vsb"] = torch.stack(self.vs_bounds[start:start + count])
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def save(self, snaps: Snapshots, ck: Checkpoint, start: int,
+             count: int) -> None:
+        """The chunk's payload (chunk_<start>.npz, durable), then the
+        snapshot of the carry, the validation losses so far and the
+        chunk list (the JAX package's order: a snapshot never names a
+        payload that could be torn)."""
+        path = os.path.join(ck.directory, f"chunk_{start}.npz")
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **self._chunk_arrays(start, count))
+        _durable_replace(tmp, path)
+        arrays = {k: v.cpu().numpy() for k, v in self._carry().items()}
+        if self.valid is not None:
+            arrays["valid_losses"] = torch.stack(
+                self.valid_losses).cpu().numpy()
+        self.chunk_starts.append(start)
+        done = start + count
+        snaps.save(done, arrays, meta={
+            "format": SNAPSHOT_FORMAT, "completed_iters": done,
+            "fingerprint": ck.fingerprint,
+            "chunk_starts": list(self.chunk_starts)})
+
+    def resume(self, snaps: Snapshots, ck: Checkpoint) -> None:
+        """Continues from the newest readable snapshot, if any: the
+        carry back on the device, the finished chunks' outputs from
+        their payloads (and so the look-ahead stop's history)."""
+        state = snaps.latest()
+        if state is None:
+            return
+        _, arrays, meta = state
+        if meta.get("format") != SNAPSHOT_FORMAT:
+            raise ValueError(
+                f"Snapshot in {ck.directory!r} was not written by "
+                "ydf_tpu_torch (the JAX package's snapshots hold its own "
+                "program state and do not resume in the port); refusing "
+                "to resume. Delete the directory or disable "
+                "resume_training.")
+        if meta.get("fingerprint") != ck.fingerprint:
+            raise ValueError(
+                f"Snapshot in {ck.directory!r} was created with different "
+                "data or hyperparameters; refusing to resume. Delete the "
+                "directory or disable resume_training.")
+        dev = self.bins_t.device
+        for k, v in arrays.items():
+            if k != "valid_losses":
+                setattr(self, k, torch.from_numpy(v).to(dev))
+        for st in meta["chunk_starts"]:
+            with np.load(os.path.join(ck.directory, f"chunk_{st}.npz")) as z:
+                part = {k: torch.from_numpy(z[k]).to(dev) for k in z.files}
+            fields = [part[f"trees_{f}"] for f in grower.TreeArrays._fields]
+            self.trees.extend(grower.TreeArrays(*(a[i] for a in fields))
+                              for i in range(fields[0].shape[0]))
+            self.leaf_values.extend(part["lv"])
+            self.losses.extend(part["tl"])
+            if "vl" in part:
+                self.valid_losses.extend(part["vl"])
+            if "ob" in part:
+                self.obl_bounds.extend(part["ob"])
+            if "ow" in part:
+                self.obl_ws.extend(part["ow"])
+            if "vsa" in part:
+                self.vs_anchors.extend(part["vsa"])
+                self.vs_bounds.extend(part["vsb"])
+        self.chunk_starts = list(meta["chunk_starts"])
+        self.iterations = meta["completed_iters"]
+
     def _dart_update(self, it, drop, nd, dropped, preds_used, contrib,
                      vcontrib) -> None:
         """DART's step (the JAX package's boost_step): the new iteration
@@ -1399,7 +1967,9 @@ class _Loop:
                       torch.stack(self.vs_bounds))
         if self.obl is not None:
             T = len(self.obl_bounds)
-            obl_out = (self.obl_w[:T], torch.stack(self.obl_bounds))
+            obl_out = (self.obl_w[:T] if self.obl_w is not None
+                       else torch.stack(self.obl_ws),
+                       torch.stack(self.obl_bounds))
         return BoostResult(
             trees=stacked, leaf_values=leaf_values,
             train_loss=torch.stack(self.losses), init_pred=self.init_pred,

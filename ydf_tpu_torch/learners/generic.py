@@ -26,7 +26,8 @@ import torch
 
 from ydf_tpu_torch.config import Task, resolve_num_bins
 from ydf_tpu_torch.dataset.binning import Binner
-from ydf_tpu_torch.dataset.dataset import Dataset, InputData
+from ydf_tpu_torch.dataset.dataset import (
+    Dataset, InputData, track_bin_matrix)
 from ydf_tpu_torch.dataset.dataspec import ColumnType
 from ydf_tpu_torch.models.io import resolve_device
 
@@ -195,7 +196,8 @@ class GenericLearner:
         binner = Binner.fit(ds, features, num_bins=resolve_num_bins(
             self.num_bins, ds.num_rows, min_cat_vocab=max_vocab))
         t2 = time.perf_counter()
-        bins_t = binner.transform(ds, self.device).t()  # no copy
+        bins_t = track_bin_matrix(
+            binner.transform(ds, self.device).t())  # no copy
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t3 = time.perf_counter()
@@ -278,8 +280,8 @@ class GenericLearner:
             data[col] = cache.extra_column(col)
         w = cache.sample_weights
         t1 = time.perf_counter()
-        bins_t = torch.from_numpy(np.array(cache.bins)).to(
-            self.device).t().contiguous()
+        bins_t = track_bin_matrix(torch.from_numpy(np.array(cache.bins)).to(
+            self.device).t().contiguous())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()

@@ -61,10 +61,15 @@ honest_ratio_leaf_examples, (n,)) on the device; the rows drawn weigh
 nothing while the tree grows, then each leaf's stats are summed again
 over them alone (honest_leaf_stats, in the JAX package's row order).
 
+maximum_training_duration (seconds, the clock started at train()'s
+entry) stops the tree loop at the first boundary of a chunk of
+CHUNK_TREES trees past the deadline, as the JAX package's chunked loop
+does; the forest keeps the trees grown, a prefix of the full run's.
+
 What the JAX package's learner offers and this port does not
-(out-of-bag permutation importances, a mesh, maximum_training_duration)
-raises NotImplementedError naming the ROADMAP item. bootstrap_size_ratio
-is stored and unused, as in the JAX package.
+(out-of-bag permutation importances, a mesh) raises NotImplementedError
+naming the ROADMAP item. bootstrap_size_ratio is stored and unused, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,6 +107,9 @@ POISSON_STEPS = 16
 #: Trees whose bootstrap counts are drawn together (bounds the draw's
 #: temporaries at POISSON_CHUNK x n).
 POISSON_CHUNK = 25
+#: Trees a chunk of the tree loop grows between deadline checks (the
+#: JAX package's chunk_trees).
+CHUNK_TREES = 25
 
 
 class RandomForestLearner(GenericLearner):
@@ -156,8 +164,6 @@ class RandomForestLearner(GenericLearner):
             raise unported("out-of-bag permutation importances", 20)
         if mesh is not None:
             raise unported("mesh (multi-device training)", 18)
-        if maximum_training_duration and maximum_training_duration > 0:
-            raise unported("maximum_training_duration", 17)
         super().__init__(
             label=label, task=task, features=features, weights=weights,
             max_vocab_count=max_vocab_count,
@@ -188,6 +194,7 @@ class RandomForestLearner(GenericLearner):
         self.uplift_treatment = uplift_treatment
         self.honest = honest
         self.honest_ratio_leaf_examples = honest_ratio_leaf_examples
+        self.maximum_training_duration = maximum_training_duration
 
     def _candidate_features(self, F: int) -> int:
         """Per-node attribute sample size; 0 selects the reference
@@ -209,6 +216,10 @@ class RandomForestLearner(GenericLearner):
         """Trains on `data`; `valid` is ignored, as in the JAX package
         (the forest evaluates itself out of bag)."""
         t0 = time.perf_counter()
+        # The deadline's clock starts at train() entry.
+        deadline = (time.monotonic() + self.maximum_training_duration
+                    if self.maximum_training_duration
+                    and self.maximum_training_duration > 0 else None)
         prep = self._prepare(data)
         binner = prep["binner"]
         dev = self.device
@@ -257,6 +268,7 @@ class RandomForestLearner(GenericLearner):
             compute_oob=oob_enabled, obl=obl, set_bits=prep["set_bits"],
             honest_ratio=(self.honest_ratio_leaf_examples if self.honest
                           else 0.0),
+            deadline=deadline,
         )
         t2 = time.perf_counter()
         forest = oblique_forest(out, binner)
@@ -271,7 +283,7 @@ class RandomForestLearner(GenericLearner):
             model.oob_evaluation = oob_evaluation(
                 self.task, labels, prep["sample_weights"],
                 out.oob_sum.cpu().numpy(), out.oob_count.cpu().numpy(),
-                classes, self.num_trees)
+                classes, int(out.trees.feature.shape[0]))
         t3 = time.perf_counter()
         self.last_timings.update(out.timings)
         self.last_timings.update({"train_rf_s": t2 - t1,
@@ -437,7 +449,8 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
              candidate_features: int, num_numerical: int, seed: int,
              winner_take_all: bool, compute_oob: bool,
              obl=None, set_bits: Optional[torch.Tensor] = None,
-             honest_ratio: float = 0.0) -> RFResult:
+             honest_ratio: float = 0.0,
+             deadline: Optional[float] = None) -> RFResult:
     """Grows `num_trees` trees on the device of `bins_t` (u8 [F, n];
     rows [0, num_numerical) numerical, the rest categorical) from the
     row weights w_base f32 [n] and the stat basis f32 [n, S] (module
@@ -445,7 +458,10 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
     (ops/oblique.py:ObliqueInputs) is given and categorical-set
     candidates when `set_bits` (i32 [n, Fs, W]) is, and honest leaves
     when `honest_ratio` > 0 (honest_leaf_stats). On a card the tree loop
-    runs under torch's sync debug mode "error"."""
+    runs under torch's sync debug mode "error". With a `deadline`
+    (time.monotonic()) the loop runs in chunks of CHUNK_TREES trees and
+    stops at the first chunk boundary past it (on a card after waiting
+    for the chunk), keeping the trees grown."""
     global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
@@ -484,59 +500,68 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
     t1 = time.perf_counter()
 
     on_card = dev.type == "cuda"
-    if on_card:
-        prev_mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
+    chunk = CHUNK_TREES if deadline is not None else num_trees
     trees, leaf_values, obl_bounds = [], [], []
-    try:
-        for t in range(num_trees):
-            if bootstrap:
-                draws = counts[t]
-                w = w_base * draws.to(torch.float32)
-            else:
-                w = w_base
-            if honest_ratio > 0.0:
-                # Rows drawn for estimation grow nothing.
-                est = prng.bernoulli(keys[t, 2], honest_ratio,
-                                     (n,)).to(torch.float32)
-                w_grow = w * (1.0 - est)
-            else:
-                w_grow = w
-            grow_bins = bins_t
-            if P:
-                # One tree: the JAX package's chunk is a loop of one step.
-                cols, bounds = oblique.projection_columns(
-                    obl.x_t, obl_w[t], qs=qs, loop_of_one=num_trees == 1)
-                grow_bins = torch.cat([bins_t[:num_numerical], cols,
-                                       bins_t[num_numerical:]])
-                obl_bounds.append(bounds)
-            res = grower.grow_tree(
-                grow_bins, basis * w_grow[:, None], rule=rule,
-                max_depth=cfg.max_depth, frontier=cfg.frontier,
-                max_nodes=max_nodes, num_bins=cfg.num_bins,
-                num_numerical=num_numerical + P,
-                min_examples=cfg.min_examples,
-                columns=None if columns is None else [
-                    (idx[t].long(), ok[t]) for idx, ok in columns],
-                set_members=members,
-            )
-            tree = res.tree
-            if honest_ratio > 0.0:
-                tree = tree._replace(leaf_stats=honest_leaf_stats(
-                    tree, res.leaf_id, basis * (w * est)[:, None]))
-            lv = rule.leaf_value(tree.leaf_stats)  # [N, V]
-            if compute_oob:
-                oob_f = ((draws == 0) & in_base).to(torch.float32)
-                vote = lv[res.leaf_id.long()]
-                if winner_take_all:
-                    vote = bake_winner_take_all(vote)
-                oob_sum = oob_sum + vote * oob_f[:, None]
-                oob_count = oob_count + oob_f
-            trees.append(tree)
-            leaf_values.append(lv)
-    finally:
+    for start in range(0, num_trees, chunk):
         if on_card:
-            torch.cuda.set_sync_debug_mode(prev_mode)
+            prev_mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(start, min(start + chunk, num_trees)):
+                if bootstrap:
+                    draws = counts[t]
+                    w = w_base * draws.to(torch.float32)
+                else:
+                    w = w_base
+                if honest_ratio > 0.0:
+                    # Rows drawn for estimation grow nothing.
+                    est = prng.bernoulli(keys[t, 2], honest_ratio,
+                                         (n,)).to(torch.float32)
+                    w_grow = w * (1.0 - est)
+                else:
+                    w_grow = w
+                grow_bins = bins_t
+                if P:
+                    # One tree: the JAX package's chunk is a loop of one
+                    # step.
+                    cols, bounds = oblique.projection_columns(
+                        obl.x_t, obl_w[t], qs=qs, loop_of_one=num_trees == 1)
+                    grow_bins = torch.cat([bins_t[:num_numerical], cols,
+                                           bins_t[num_numerical:]])
+                    obl_bounds.append(bounds)
+                res = grower.grow_tree(
+                    grow_bins, basis * w_grow[:, None], rule=rule,
+                    max_depth=cfg.max_depth, frontier=cfg.frontier,
+                    max_nodes=max_nodes, num_bins=cfg.num_bins,
+                    num_numerical=num_numerical + P,
+                    min_examples=cfg.min_examples,
+                    columns=None if columns is None else [
+                        (idx[t].long(), ok[t]) for idx, ok in columns],
+                    set_members=members,
+                )
+                tree = res.tree
+                if honest_ratio > 0.0:
+                    tree = tree._replace(leaf_stats=honest_leaf_stats(
+                        tree, res.leaf_id, basis * (w * est)[:, None]))
+                lv = rule.leaf_value(tree.leaf_stats)  # [N, V]
+                if compute_oob:
+                    oob_f = ((draws == 0) & in_base).to(torch.float32)
+                    vote = lv[res.leaf_id.long()]
+                    if winner_take_all:
+                        vote = bake_winner_take_all(vote)
+                    oob_sum = oob_sum + vote * oob_f[:, None]
+                    oob_count = oob_count + oob_f
+                trees.append(tree)
+                leaf_values.append(lv)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode(prev_mode)
+        if deadline is not None and start + chunk < num_trees:
+            if on_card:
+                # The deadline reads the host clock once the chunk ran.
+                torch.cuda.synchronize(dev)
+            if time.monotonic() >= deadline:
+                break
     stacked = grower.TreeArrays(*(torch.stack(f) for f in zip(*trees)))
     if on_card:
         torch.cuda.synchronize(dev)
@@ -545,5 +570,5 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
         trees=stacked, leaf_values=torch.stack(leaf_values), oob_sum=oob_sum,
         oob_count=oob_count,
         timings={"draws_s": t1 - t0, "loop_s": t2 - t1},
-        obl_out=(obl_w, torch.stack(obl_bounds)) if P else None,
+        obl_out=(obl_w[:len(trees)], torch.stack(obl_bounds)) if P else None,
     )

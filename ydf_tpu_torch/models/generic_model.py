@@ -21,6 +21,7 @@ the exports to other frameworks (items 20 and 21).
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -37,6 +38,7 @@ from ydf_tpu_torch.ops.routing import (
     forest_predict_values,
     leaf_proximity,
 )
+from ydf_tpu_torch.utils import telemetry
 
 
 class GenericModel:
@@ -325,6 +327,10 @@ class GenericModel:
                 combine: str) -> np.ndarray:
         """Raw (margin) scores f32 [n, V] as numpy, of the current forest
         on encoded rows (_encode)."""
+        return self._serve(enc, combine)[0]
+
+    def _serve(self, enc: Dict[str, torch.Tensor], combine: str):
+        """(_scores, the name of the engine that computed them)."""
         xn, xc = enc["x_num"], enc["x_cat"]
         vs = "x_vs_vals" in enc
         # Set models serve on the routed engine, as in the JAX package.
@@ -332,7 +338,16 @@ class GenericModel:
                 and "x_set" not in enc):
             eng = self._fast_engine()
             if eng is not None:
-                return eng(xn, xc).cpu().numpy()[:, None]
+                name = type(eng).__name__
+                if not telemetry.ENABLED:
+                    return eng(xn, xc).cpu().numpy()[:, None], name
+                t0 = time.perf_counter_ns()
+                out = eng(xn, xc).cpu().numpy()[:, None]
+                telemetry.histogram(
+                    "ydf_serve_kernel_latency_ns", engine=name,
+                    batch_pow2=telemetry.pow2_bucket(max(len(out), 1)),
+                ).observe_ns(time.perf_counter_ns() - t0)
+                return out, name
         vs_kwargs = {}
         if vs:
             vs_kwargs = dict(
@@ -346,11 +361,30 @@ class GenericModel:
             x_set=enc.get("x_set"), set_missing=enc.get("set_missing"),
             **vs_kwargs,
         )
-        return out.cpu().numpy()
+        return out.cpu().numpy(), "Routed"
 
     def _raw_scores(self, data: InputData, combine: str) -> np.ndarray:
-        """Raw (margin) scores f32 [n, V] as numpy."""
-        return self._scores(self._encode(data), combine)
+        """Raw (margin) scores f32 [n, V] as numpy, under the spans
+        serve.predict -> serve.encode, serve.kernel; with telemetry on,
+        the whole call's latency goes to ydf_serve_latency_ns by engine
+        and power-of-two batch, and ydf_serve_requests_total counts it
+        (the JAX package's _note_serve)."""
+        with telemetry.span("serve.predict") as sp:
+            t0_ns = time.perf_counter_ns() if telemetry.ENABLED else 0
+            with telemetry.span("serve.encode"):
+                enc = self._encode(data)
+            with telemetry.span("serve.kernel"):
+                out, engine = self._serve(enc, combine)
+            if telemetry.ENABLED:
+                batch = int(enc["x_num"].shape[0])
+                telemetry.histogram(
+                    "ydf_serve_latency_ns", engine=engine,
+                    batch_pow2=telemetry.pow2_bucket(max(batch, 1)),
+                ).observe_ns(time.perf_counter_ns() - t0_ns)
+                telemetry.counter("ydf_serve_requests_total",
+                                  engine=engine).inc()
+                sp.set(engine=engine, batch=batch)
+            return out
 
     def predict_class(self, data: InputData) -> np.ndarray:
         """The most likely class name of every row (classification)."""

@@ -68,6 +68,7 @@ def best_engine(model, forced: Optional[str] = None) -> EngineFactory:
                         f"model (compatible: "
                         f"{[c.name for c in compatible_engines(model)]})"
                     )
+                _note_selected(f, forced=True)
                 return f
         raise ValueError(
             f"Unknown engine {forced!r}; registered: "
@@ -76,7 +77,19 @@ def best_engine(model, forced: Optional[str] = None) -> EngineFactory:
     compat = compatible_engines(model)
     if not compat:
         raise RuntimeError("No compatible serving engine (missing Routed?)")
+    _note_selected(compat[0], forced=False)
     return compat[0]
+
+
+def _note_selected(factory: EngineFactory, forced: bool) -> None:
+    """Counts the selection in ydf_serve_engine_selected_total (engine,
+    forced) when telemetry is on."""
+    from ydf_tpu_torch.utils import telemetry
+
+    if telemetry.ENABLED:
+        telemetry.counter("ydf_serve_engine_selected_total",
+                          engine=factory.name,
+                          forced=str(forced).lower()).inc()
 
 
 def _qs_compatible(model) -> bool:
