@@ -76,7 +76,9 @@ Phases (one line each; any failure is an uncaught exception):
   9 rf        train_rf (ydf_tpu_torch/testdata/train_rf, the JAX
               package's RandomForestLearner(label="label") with every
               default on make_frame: 50,000 rows, evaluated on 10,000
-              fresh ones; 300 trees of depth 16, frontier 1024): the
+              fresh ones; 300 trees of depth 16, frontier 1024; the card
+              grows its first RF_TREES = 100, held to the JAX run's
+              cut of those trees): the
               frames' SHA-256; the main path (train, then evaluate) with
               its launches, host reads and stage walls; against the JAX
               run's hashes: bins, every tree's bootstrap counts, tree
@@ -114,7 +116,8 @@ Phases (one line each; any failure is an uncaught exception):
               "label") and IsolationForestLearner() with every default on
               make_frame's 500,000 rows; CART prunes on a 10% holdout and
               evaluates on 100,000 fresh rows, the isolation forest
-              (300 trees on 256-row subsamples) scores them, 1% made
+              (on the card its first IF_TREES = 100 of the default
+              300 trees, on 256-row subsamples) scores them, 1% made
               anomalous): the frames' SHA-256; both main paths with their
               launches, host reads and stage walls; against the JAX
               runs: the holdout and bins, the grown and the pruned tree
@@ -216,6 +219,18 @@ Phases (one line each; any failure is an uncaught exception):
               telemetry on (the metrics, the flushed trace; ms a tree on
               against off)
 
+  19 mesh    training on a mesh of four data shards (four cards when
+              the machine has them, else cuda:0 four times): the default
+              GBT on train_default's frame, every kept tree == the
+              fixture (and phase 8's run) by hash, the raw scores
+              bitwise, evaluate within 1e-12; launches (each shard's),
+              host reads, ms a tree, merge ms a layer, a profiled
+              stretch (the idle share); shard 0's launches of tree 0
+              against plain; a 2x2 (data, feature) GBT prefix and forest
+              (train_rf's frame) against their fixtures; two processes
+              (NCCL with a card each, or gloo on one card) against the
+              one-process run; the kernels timed at the shards' shapes
+
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
 phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
@@ -228,7 +243,8 @@ runs (train, then evaluate; the multitasker's two tasks together), phase
 16 the model IO path (import, export, round trip, binned QuickScorer,
 benchmark, leaves, distance, serialize) as one path, phase 17 the cache
 path (build, train, evaluate) and the discretized GBT's (train,
-predict), phase 18 the MHLD GBT's (train, evaluate).
+predict), phase 18 the MHLD GBT's (train, evaluate), phase 19 the 4x1
+mesh GBT's (train, evaluate).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -328,9 +344,12 @@ RF_PROBA_MEAN_ATOL = 1e-3
 # Trees of phase 9's profiled train.
 RF_PROFILE_TREES = 5
 # Trees of phase 9's main path: None is the learner's default, the
-# fixture's 300; a rehearsal on a CPU sets a few (the checks that need
-# the whole forest, its out-of-bag and test metrics, then only log).
-RF_TREES = None
+# fixture's 300; 100, the fixture's cut (its JAX out-of-bag, test
+# metrics and probabilities, `--only forest_cuts`), keeps the script
+# inside its time limit; a rehearsal on a CPU sets a few (the checks
+# that need the whole forest, its out-of-bag and test metrics, then only
+# log).
+RF_TREES = 100
 # Repetitions of phase 9's root-histogram and index_add_ timings (call
 # and device time, each).
 RF_ROOT_REPS = 50
@@ -379,6 +398,11 @@ TRAIN_IF = os.path.join(TESTDATA, "train_if")
 IF_ROWS = 500_000
 IF_TEST_ROWS = 100_000
 IF_ANOMALY = dict(fraction=0.01, scale=6.0, seed=11)
+# Trees phases 11 and 12 grow of each isolation forest (the learner's
+# default is 300; the fixtures hold the full runs' trees and the scores
+# of their first IF_TREES, `--only if_cuts`): cut to keep the script
+# inside its time limit.
+IF_TREES = 100
 IF_PROFILE_TREES = 5
 # train_oblique (phase 12): the JAX package's learners with
 # split_axis="SPARSE_OBLIQUE" and every other default
@@ -485,6 +509,16 @@ IO_TRAIN_TREES = 20
 IO_ROUND_TRIP_ROWS = 10_000
 IO_BENCHMARK_ROWS = 65_536
 IO_DISTANCE_ROWS = 2_048
+# Phase 19 (the mesh): four data shards (distinct cards when there are
+# four, else cuda:0 four times); the 2x2 GBT's trees (a prefix of
+# train_default's), the 2x2 forest's trees (a prefix of train_rf's), the
+# two-process run's frame and trees, the profiled trees.
+MESH_SHARDS = 4
+MESH_GBT_PREFIX_TREES = 10
+MESH_RF_TREES = 10
+MESH_RANK_ROWS = 20_000
+MESH_RANK_HP = dict(label="label", num_trees=5)
+MESH_PROFILE_TREES = 5
 TRAIN_OBLIQUE = os.path.join(TESTDATA, "train_oblique")
 OBLIQUE_HP = dict(label="label", split_axis="SPARSE_OBLIQUE")
 OBLIQUE_RF_FIXTURE_TREES = 50
@@ -1601,6 +1635,8 @@ def main():
     torch.cuda.synchronize()
     kernels.extend(robust_path(smi, serving=counters))
     torch.cuda.synchronize()
+    kernels.extend(mesh_path(smi, serving=counters))
+    torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -2230,16 +2266,23 @@ def measure_train(name, inp, reps=20, timing_only=False):
         shape = f"{n} x {F} values"
     elif name == "histogram":
         bins_t, slot, stats, L, B = args = inp["root"]
-        kernel = lambda: histogram_kernels.histogram(*args)  # noqa: E731
-        plain = lambda: histogram_kernels.histogram_plain(*args)  # noqa
+        # The mesh's shard sums (inp["wide"]): f64 cells out.
+        wide = inp.get("wide", False)
+        kernel = lambda: histogram_kernels.histogram(  # noqa: E731
+            *args, wide=wide)
+        plain = lambda: histogram_kernels.histogram_plain(  # noqa: E731
+            *args, wide=wide)
         F, n = bins_t.shape
         S = stats.shape[1]
         idx, src = fused_index(bins_t, slot, stats, B)
         library = lambda: torch.zeros(  # noqa: E731
-            (L * F * B, S), device=stats.device).index_add_(0, idx, src)
+            (L * F * B, S), device=stats.device,
+            dtype=torch.float64 if wide else torch.float32).index_add_(
+                0, idx, src.double() if wide else src)
         library_kernels = ("index",)
         live = n
-        nbytes = bins_t.numel() + n * 4 + stats.numel() * 4 + L * F * B * S * 4
+        nbytes = (bins_t.numel() + n * 4 + stats.numel() * 4
+                  + L * F * B * S * (8 if wide else 4))
         ops = live * F * S
         shape = f"n={n}, F={F}, B={B}, L={L}, S={S}"
     elif name == "segment_sum":
@@ -2263,8 +2306,11 @@ def measure_train(name, inp, reps=20, timing_only=False):
     else:
         args = inp["routed"]
         bins_t, slot, leaf, tables, stats, Lh, B = args
-        kernel = lambda: histogram_kernels.histogram_routed(*args)  # noqa
-        plain = lambda: histogram_kernels.histogram_routed_plain(*args)  # noqa
+        wide = inp.get("wide", False)
+        kernel = lambda: histogram_kernels.histogram_routed(  # noqa: E731
+            *args, wide=wide)
+        plain = lambda: histogram_kernels.histogram_routed_plain(  # noqa
+            *args, wide=wide)
         library = None
         F, n = bins_t.shape
         S = stats.shape[1]
@@ -2274,7 +2320,7 @@ def measure_train(name, inp, reps=20, timing_only=False):
         table_b = sum(t.numel() * t.element_size() for t in tables)
         # bins, slot, leaf, stats, tables in; hist, new slot, new leaf out.
         nbytes = (bins_t.numel() + n * 4 * 2 + stats.numel() * 4 + table_b
-                  + Lh * F * B * S * 4 + n * 4 * 2)
+                  + Lh * F * B * S * (8 if wide else 4) + n * 4 * 2)
         # One add per (live row, feature, stat); per row a slot read, the
         # split test, the go-left bit and the child and hist-slot selects.
         ops = live * F * S + 6 * n
@@ -3001,7 +3047,8 @@ def default_path(smi, serving):
 def rf_path(smi, serving):
     """Phase 9: RandomForestLearner(label="label") with every default
     (Poisson bootstrap, per-node candidate features, depth 16, frontier
-    1024, out-of-bag evaluation) trained on the card, evaluated, saved
+    1024, out-of-bag evaluation) but RF_TREES trees trained on the card,
+    evaluated, saved
     and loaded, against the JAX package's run (ydf_tpu_torch/testdata/
     train_rf). Returns the `kernels` entries of the path's three
     kernels."""
@@ -3064,6 +3111,11 @@ def rf_path(smi, serving):
     T = model.forest.num_trees
     depth = learner.max_depth
     full = T == cfg["num_trees"]
+    # The JAX run whose metrics the forest is held to: the full one or
+    # the fixture's cut of its first trees.
+    held = full or T == cfg["cut"]["num_trees"]
+    ref = (dict(cfg["cut"], proba=exp["cut/proba"]) if held and not full
+           else dict(cfg, proba=exp["proba"]))
     assert T == learner.num_trees and (full or RF_TREES is not None), T
     assert counted["histogram"] == T, counted
     assert counted["histogram_routed"] == T * (depth - 1), counted
@@ -3125,16 +3177,16 @@ def rf_path(smi, serving):
                                       differ[0], cfg)
     assert len(differ) <= (1 - RF_SAME_TREES) * T, (
         f"{len(differ)} of {T} trees differ from JAX's: {diagnosis}")
-    jo, po = cfg["oob_evaluation"], model.self_evaluation()
+    jo, po = ref["oob_evaluation"], model.self_evaluation()
     oob_err = {k: abs(po["metrics"][k] - jo["metrics"][k])
                for k in jo["metrics"]}
     head = {k: v[:RF_COMPARE_ROWS] for k, v in test.items()}
     proba = model.predict(head)
-    assert proba.shape == exp["proba"].shape and np.isfinite(proba).all()
-    p_err = np.abs(proba - exp["proba"])
-    jev = cfg["jax_evaluate"]
+    assert proba.shape == ref["proba"].shape and np.isfinite(proba).all()
+    p_err = np.abs(proba - ref["proba"])
+    jev = ref["jax_evaluate"]
     ev_err = {k: abs(ev.metrics[k] - jev[k]) for k in jev}
-    if full:
+    if held:
         assert po["num_examples"] == jo["num_examples"], (po, jo)
         assert oob_err["accuracy"] <= EVAL_ATOL and \
             oob_err["auc"] <= EVAL_ATOL, oob_err
@@ -3143,8 +3195,11 @@ def rf_path(smi, serving):
         assert ev_err["accuracy"] <= EVAL_ATOL and \
             ev_err["auc"] <= EVAL_ATOL, ev_err
     cat_nodes = int((pf["is_cat"] & ~pf["is_leaf"]).sum())
-    log("9 vs JAX", ("" if full else f"REHEARSAL of {T} trees, metrics "
-        "not held; ") + f"bins bitwise == JAX; bootstrap counts of all {T} "
+    log("9 vs JAX", ("" if held else f"REHEARSAL of {T} trees, metrics "
+        "not held; ") + ("" if full else f"the first {T} of JAX's "
+                         f"{cfg['num_trees']} trees, held to JAX's forest "
+                         "of those trees; ")
+        + f"bins bitwise == JAX; bootstrap counts of all {T} "
         f"trees == JAX's (SHA-256, {int(counts.max()) + 1} Knuth steps "
         f"needed); tree 0's candidate masks == JAX's at all {depth} "
         f"layers ({cfg['candidate_features']} of {cfg['num_features']} "
@@ -3159,7 +3214,7 @@ def rf_path(smi, serving):
         + f"; P(class 1) on {RF_COMPARE_ROWS} test rows: max abs "
         f"{p_err.max():.3g} (<= {RF_PROBA_ATOL}), mean {p_err.mean():.3g} "
         f"(<= {RF_PROBA_MEAN_ATOL}), bitwise "
-        f"{proba.tobytes() == exp['proba'].tobytes()}; evaluate on "
+        f"{proba.tobytes() == ref['proba'].tobytes()}; evaluate on "
         f"{RF_TEST_ROWS} rows: " + " ".join(
             f"{k} {ev.metrics[k]:.6f} (JAX {jev[k]:.6f})" for k in jev))
     f0 = {k: v[0] for k, v in pf.items() if k in TREE_HASH_FIELDS}
@@ -3954,7 +4009,8 @@ def cart_train(learner, data):
 
 def cart_if_path(smi, serving):
     """Phase 11: CartLearner(label="label") and IsolationForestLearner()
-    with every default trained on the card (CART: train, then evaluate;
+    with every default (the forest cut to IF_TREES trees) trained on the
+    card (CART: train, then evaluate;
     the isolation forest: train, then predict), saved and loaded, against
     the JAX package's runs (ydf_tpu_torch/testdata/train_cart, train_if).
     Returns the `kernels` entries of both paths' three kernels."""
@@ -4114,7 +4170,8 @@ def cart_if_path(smi, serving):
     reset_counts(serving)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ilearner = ydf_tpu_torch.IsolationForestLearner(device=DEVICE)
+    ilearner = ydf_tpu_torch.IsolationForestLearner(device=DEVICE,
+                                                    num_trees=IF_TREES)
     imodel = ilearner.train(feats)
     torch.cuda.synchronize()
     iwall = time.perf_counter() - t0
@@ -4125,7 +4182,8 @@ def cart_if_path(smi, serving):
     counted_i, others, events_i = read_counts(serving)
     T = imodel.forest.num_trees
     idepth = imodel.max_depth
-    assert (T, idepth) == (ci["num_trees"], ci["max_depth"]), (T, idepth)
+    assert (T, idepth) == (ci["cut"]["num_trees"], ci["max_depth"]), (
+        T, idepth)
     assert counted_i["histogram"] == T, counted_i
     assert counted_i["histogram_routed"] == T * (idepth - 1), counted_i
     assert counted_i["binning"] == 1, counted_i
@@ -4162,17 +4220,20 @@ def cart_if_path(smi, serving):
     differ = [t for t in range(T) if tree_sha256(fi, t)
               != ei["tree_sha256"][t].tobytes().hex()]
     assert not differ, f"IF trees differ from JAX's: {differ[:10]}"
-    assert np.array_equal(fi["num_nodes"], ei["num_nodes"])
+    assert np.array_equal(fi["num_nodes"], ei["num_nodes"][:T])
     same_tree(fi, {k.split("/", 1)[1]: ei[k] for k in ei.files
                    if k.startswith("tree0/")}, "IF tree 0")
-    assert array_sha256(scores) == ci["scores_sha256"], "IF scores"
-    assert scores[:ci["compare_rows"]].tobytes() == ei["scores"].tobytes()
+    cut = ci["cut"]
+    assert array_sha256(scores) == cut["scores_sha256"], "IF scores"
+    assert scores[:ci["compare_rows"]].tobytes() == \
+        ei["cut/scores"].tobytes()
     auc = evaluate_predictions(Task.ANOMALY_DETECTION, anomalous,
                                scores).metrics["auc"]
-    assert auc == ci["auc"], (auc, ci["auc"])
+    assert auc == cut["auc"], (auc, cut["auc"])
     nodes = fi["num_nodes"]
     log("11 if vs JAX", f"bins bitwise; all {T} subsamples ({ci['subsample']}"
-        f" rows each) and all {T} trees == JAX's by SHA-256 (nodes a tree "
+        f" rows each) and all {T} trees == JAX's by SHA-256 (the first {T} of"
+        f" its {ci['num_trees']}; nodes a tree "
         f"{int(nodes.min())}-{int(nodes.max())}, mean {nodes.mean():.1f}); "
         f"tree 0 node for node; scores on {IF_TEST_ROWS} rows bitwise "
         f"(SHA-256), AUC {auc:.6f} on the {int(anomalous.sum())} anomalous "
@@ -4669,7 +4730,7 @@ def oblique_path(smi, serving):
 
     # -- 12e the isolation forest: train, score ------------------------ #
     ilearner = ydf_tpu_torch.IsolationForestLearner(
-        device=DEVICE, **ci["learner"])
+        device=DEVICE, num_trees=IF_TREES, **ci["learner"])
 
     def if_main():
         m = ilearner.train(feats)
@@ -4682,7 +4743,8 @@ def oblique_path(smi, serving):
         "train_oblique_if", if_main, port_if, "train_if")
     T = imodel.forest.num_trees
     idepth = imodel.max_depth
-    assert (T, idepth) == (ci["num_trees"], ci["max_depth"]), (T, idepth)
+    assert (T, idepth) == (ci["cut"]["num_trees"], ci["max_depth"]), (
+        T, idepth)
     assert counted["histogram"] == T, counted
     assert counted["histogram_routed"] == T * (idepth - 1), counted
     assert counted["binning"] == 1 + T, counted
@@ -4699,18 +4761,19 @@ def oblique_path(smi, serving):
         f"{smi}")
     fi = imodel.forest.to_numpy()
     check_oblique_trees(exp, "iforest", fi, *iout.obl_out, T)
-    assert array_sha256(scores) == ci["scores_sha256"], "IF scores"
+    assert array_sha256(scores) == ci["cut"]["scores_sha256"], "IF scores"
     assert scores[:cfg["compare_rows"]].tobytes() == \
-        exp["iforest/scores"].tobytes()
+        exp["iforest_cut/scores"].tobytes()
     auc = evaluate_predictions(Task.ANOMALY_DETECTION, anomalous,
                                scores).metrics["auc"]
-    assert auc == ci["auc"], (auc, ci["auc"])
+    assert auc == ci["cut"]["auc"], (auc, ci["cut"]["auc"])
     with tempfile.TemporaryDirectory() as tmp:
         imodel.save(os.path.join(tmp, "if"))
         iback = ydf_tpu_torch.load_model(os.path.join(tmp, "if"),
                                          device=DEVICE)
     assert iback.predict(test_x).tobytes() == scores.tobytes()
-    log("12 if vs JAX", f"all {T} trees == JAX's by SHA-256 (node arrays, "
+    log("12 if vs JAX", f"all {T} trees (the first {T} of JAX's "
+        f"{ci['num_trees']}) == JAX's by SHA-256 (node arrays, "
         "thresholds, the 28 x 255 uniform boundaries), projections "
         f"bitwise; scores on {IF_TEST_ROWS} rows bitwise (SHA-256), AUC "
         f"{auc:.6f} on the {int(anomalous.sum())} anomalous rows == JAX's; "
@@ -7351,6 +7414,406 @@ def robust_path(smi, serving):
     log("18 robust", f"phase 18 wall {time.perf_counter() - t_phase:.1f} s "
         f"(by part, s: {walls})")
     return result
+
+
+_RANK_WORKER = """
+import json, os, sys, time
+sys.path.insert(0, sys.argv[5])
+import torch
+import chip_smoke
+import ydf_tpu_torch
+from ydf_tpu_torch.learners import gbt as port_gbt
+from ydf_tpu_torch.parallel import mesh as pmesh, shards as pshards
+
+rank, port, backend, out = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                            sys.argv[4])
+pmesh.init_distributed(f"127.0.0.1:{port}", 2, rank, backend=backend)
+card = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+mesh = pmesh.make_mesh([card] * (chip_smoke.MESH_SHARDS // 2))
+train, _ = chip_smoke.make_frame(chip_smoke.MESH_RANK_ROWS, 1000)
+reads0, stages0 = port_gbt.HOST_READS, pshards.HOST_STAGES
+learner = ydf_tpu_torch.GradientBoostedTreesLearner(
+    mesh=mesh, **chip_smoke.MESH_RANK_HP)
+t0 = time.perf_counter()
+model = learner.train(train)
+torch.cuda.synchronize()
+with open(out, "w") as f:
+    json.dump({"hashes": chip_smoke.forest_hashes(
+                   chip_smoke.canonical_nan(model.forest.to_numpy())),
+               "wall_s": time.perf_counter() - t0,
+               "boost_s": learner.last_timings["boost_s"],
+               "host_reads": port_gbt.HOST_READS - reads0,
+               "host_stages": pshards.HOST_STAGES - stages0,
+               "mesh": repr(mesh)}, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def mesh_path(smi, serving):
+    """Phase 19: training on a mesh (parallel/mesh.py, parallel/shards.py).
+    19 gbt: GradientBoostedTreesLearner(label="label", mesh=) with every
+    other default on train_default's frame over MESH_SHARDS data shards
+    (four cards when the machine has them, else cuda:0 four times):
+    every kept tree == the JAX package's run (the train_default fixture)
+    and phase 8's card run by hash, the predictions bitwise, evaluate
+    within 1e-12; its launches (each shard's), host reads, ms a tree,
+    merge ms a layer and the device's idle share. 19 kernels: every
+    launch of shard 0's first tree against its plain version. 19 2x2:
+    the same GBT on a 2x2 (data, feature) mesh, a prefix of
+    MESH_GBT_PREFIX_TREES trees; the random forest of train_rf's frame
+    on 2x2, MESH_RF_TREES trees, against train_rf's trees and phase 9's.
+    19 ranks: two processes (NCCL with a card each when there are two
+    cards, else gloo with both on cuda:0), two shards each, against the
+    one-process four-shard run. 19 timing: the training kernels at the
+    shards' shapes. Returns the `kernels` entries of the mesh path."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.learners import gbt as port_gbt
+    from ydf_tpu_torch.learners import random_forest as port_rf
+    from ydf_tpu_torch.ops import binning, histogram_kernels
+    from ydf_tpu_torch.parallel import mesh as pmesh
+    from ydf_tpu_torch.parallel import shards as pshards
+    from ydf_tpu_torch.serving import bank_scorer
+
+    t_phase = time.perf_counter()
+    walls, last = {}, [t_phase]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = round(now - last[0], 2)
+        last[0] = now
+
+    count = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(MESH_SHARDS)]
+               if count >= MESH_SHARDS else ["cuda:0"] * MESH_SHARDS)
+    where = ("distinct cards" if count >= MESH_SHARDS
+             else f"one card, cuda:0 {MESH_SHARDS} times")
+    with open(os.path.join(TRAIN_DEFAULT, "config.json")) as f:
+        cfg = json.load(f)
+    jax_forest = canonical_nan(dict(np.load(os.path.join(
+        TRAIN_DEFAULT, "forest.npz"))))
+    exp = np.load(os.path.join(TRAIN_DEFAULT, "expected.npz"))
+    train, test = make_frame(DEFAULT_ROWS, DEFAULT_TEST_ROWS)
+    assert frame_sha256(train) == cfg["train_sha256"], "train frame"
+    log("19 mesh", f"{count} card(s): the mesh's {MESH_SHARDS} data shards "
+        f"on {where} ({devices}); {smi}")
+
+    # -- 19a the 4x1 GBT: the main path, shard 0's launches captured ---- #
+    captured = []
+    orig = (histogram_kernels.histogram, histogram_kernels.histogram_routed)
+    depth = port_gbt.GradientBoostedTreesLearner(label="label",
+                                                 device=DEVICE).max_depth
+    first_tree = MESH_SHARDS * depth  # every shard's launches of tree 0
+
+    def capture(name, fn):
+        def wrapped(*args, **kw):
+            if len(captured) < first_tree:
+                captured.append((name, args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    mesh = pmesh.make_mesh(devices)
+    histogram_kernels.histogram = capture("histogram", orig[0])
+    histogram_kernels.histogram_routed = capture("histogram_routed", orig[1])
+    try:
+        reset_counts(serving)
+        for k in histogram_kernels.WIDE_LAUNCHES:
+            histogram_kernels.WIDE_LAUNCHES[k] = 0
+        reads0, stages0 = port_gbt.HOST_READS, pshards.HOST_STAGES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner = ydf_tpu_torch.GradientBoostedTreesLearner(mesh=mesh,
+                                                            **DEFAULT_HP)
+        model = learner.train(train)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = model.evaluate(test)
+        torch.cuda.synchronize()
+        counted, others, events = read_counts(serving)
+    finally:
+        histogram_kernels.histogram, histogram_kernels.histogram_routed = orig
+    wide = dict(histogram_kernels.WIDE_LAUNCHES)
+    reads = port_gbt.HOST_READS - reads0
+    logs = model.training_logs
+    trained, kept = logs["num_trees_trained"], logs["num_trees"]
+    chunks = -(-trained // min(learner.early_stopping_num_trees_look_ahead,
+                               port_gbt.MAX_CHUNK_TREES))
+    assert counted["histogram"] == trained * MESH_SHARDS, counted
+    assert counted["histogram_routed"] == \
+        trained * (depth - 1) * MESH_SHARDS, counted
+    assert wide == {k: counted[k] for k in wide}, (wide, counted)
+    bank_launches = others[bank_scorer.__name__]
+    assert counted["binning"] >= 1 and bank_launches >= 1, (counted, others)
+    assert reads == chunks, (reads, chunks)
+    assert pshards.HOST_STAGES == stages0, "a host stage inside one process"
+    kernel_ms, routed_lh = split_events(events)
+    merges = trained * depth
+    merge_ms = kernel_ms.pop("mesh_merge", 0.0)
+    boost_ms = learner.last_timings["boost_s"] * 1e3
+    log("19 gbt", f"GradientBoostedTreesLearner(**{DEFAULT_HP}, mesh="
+        f"{MESH_SHARDS}x1).train: wall {wall * 1e3:.1f} ms; stages "
+        + " ".join(f"{k}={v * 1e3:.1f}ms" for k, v in
+                   learner.last_timings.items())
+        + f"; {trained} trees trained, {kept} kept; {boost_ms / trained:.2f}"
+        f" ms a tree (loop wall / trees trained); launches {counted} "
+        f"({(counted['histogram'] + counted['histogram_routed']) / trained:.0f}"
+        f" training-kernel launches a tree, all in the wide mode; routed by "
+        f"hist slots {routed_lh}); {reads} host reads ({chunks} chunks, as "
+        f"on one device); merge {merge_ms / merges:.4f} ms a layer (CUDA "
+        f"events around each of {merges} merges); kernel time (events) "
+        + " ".join(f"{k}={v:.3f}ms" for k, v in kernel_ms.items())
+        + f"; {smi}")
+    lap("19a")
+
+    # -- 19b against the fixture and phase 8 --------------------------- #
+    pf = canonical_nan(model.forest.to_numpy())
+    assert (kept, trained) == (cfg["num_trees"], cfg["num_trees_trained"]), (
+        kept, trained)
+    got = forest_hashes(pf)
+    want = forest_hashes(jax_forest)
+    bad = [t for t in range(kept) if got[t] != want[t]]
+    assert not bad, f"mesh trees {bad[:10]} != the JAX package's"
+    card = CARD_FORESTS.get("train_default")
+    if card is not None:
+        assert got == forest_hashes(canonical_nan(card)), "!= phase 8's"
+    head = {k: v[:DEFAULT_COMPARE_ROWS] for k, v in test.items()}
+    raw = model._raw_scores(head, combine="sum")[:, 0]
+    assert np.array_equal(raw.view(np.int32), exp["raw"].view(np.int32)), (
+        "mesh model's raw scores != the JAX package's")
+    jev = cfg["jax_evaluate"]
+    ev_err = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+    assert ev_err <= EVAL_SAME_ATOL, (ev.metrics, jev)
+    log("19 vs fixture", f"kept {kept} of {trained} (JAX {cfg['num_trees']}"
+        f" of {cfg['num_trees_trained']}); all {kept} kept trees == the "
+        "train_default fixture by SHA-256 "
+        + ("and == phase 8's card run" if card is not None else
+           "(phase 8 did not run in this process)")
+        + f"; raw scores on {DEFAULT_COMPARE_ROWS} test rows bitwise == "
+        f"JAX's; evaluate on {DEFAULT_TEST_ROWS} rows within {ev_err:.3g} "
+        f"of JAX's metrics (<= {EVAL_SAME_ATOL})")
+
+    # -- 19c every launch of shard 0's first tree against plain -------- #
+    def check_shard0(what):
+        """Shard 0's captured launches of tree 0 run again and held
+        against their plain versions; (errors by kernel, root args, the
+        widest routed layer's args)."""
+        err = {"histogram": 0.0, "histogram_routed": 0.0}
+        shard0 = [c for k, c in enumerate(captured) if k % MESH_SHARDS == 0]
+        assert len(shard0) == depth, len(shard0)
+        for name, args, kw in shard0:
+            assert kw.get("wide"), f"{name} outside the wide mode"
+            got = orig[0 if name == "histogram" else 1](*args, wide=True)
+            plain = (histogram_kernels.histogram_plain if name == "histogram"
+                     else histogram_kernels.histogram_routed_plain)
+            want = plain(*args, wide=True)
+            if name == "histogram_routed":
+                assert torch.equal(got[1], want[1]) and torch.equal(
+                    got[2], want[2]), "routed: new_slot / new_leaf != plain"
+                got, want = got[0], want[0]
+            err[name] = max(err[name], float((got - want).abs().max()))
+            assert torch.equal(got.float(), want.float()), (
+                f"{what} {name} on shard 0: rounded shard sum != plain")
+        bins = shard0[0][1][0]
+        log("19 kernels", f"{what}: shard 0's {len(shard0)} launches of "
+            f"tree 0 (1 root, {len(shard0) - 1} routed; {bins.shape[1]} rows "
+            f"x {bins.shape[0]} columns a shard): each shard sum rounded to "
+            "f32 torch.equal to plain, new_slot / new_leaf torch.equal; the "
+            f"f64 shard sums within {max(err.values()):.3g} of plain's")
+        return err, shard0[0][1], max((c[1] for c in shard0[1:]),
+                                      key=lambda a: a[5])
+
+    err, root_args, routed_args = check_shard0("4x1")
+    lap("19c")
+
+    # -- 19d the 2x2 GBT prefix and the 2x2 forest --------------------- #
+    mesh22 = pmesh.make_mesh(devices, feature_parallelism=2)
+    reset_counts(serving)
+    histogram_kernels.SET_TABLE_LAUNCHES = 0
+    captured.clear()
+    histogram_kernels.histogram = capture("histogram", orig[0])
+    histogram_kernels.histogram_routed = capture("histogram_routed", orig[1])
+    try:
+        t0 = time.perf_counter()
+        l22 = ydf_tpu_torch.GradientBoostedTreesLearner(
+            mesh=mesh22, **dict(DEFAULT_HP, num_trees=MESH_GBT_PREFIX_TREES))
+        m22 = l22.train(train)
+        torch.cuda.synchronize()
+        wall22 = time.perf_counter() - t0
+        c22, _, ev22 = read_counts(serving)
+    finally:
+        histogram_kernels.histogram, histogram_kernels.histogram_routed = orig
+    kernel_ms22 = split_events(ev22)[0]
+    t22 = m22.training_logs["num_trees_trained"]
+    k22 = m22.training_logs["num_trees"]
+    p22 = canonical_nan(m22.forest.to_numpy())
+    bad = [t for t, h in enumerate(forest_hashes(p22)) if h != want[t]]
+    assert not bad, f"2x2 mesh trees {bad[:10]} != the JAX package's"
+    assert c22["histogram"] == t22 * MESH_SHARDS, c22
+    sets22 = histogram_kernels.SET_TABLE_LAUNCHES
+    assert sets22 == c22["histogram_routed"], (sets22, c22)
+    err22, root22, routed22 = check_shard0("2x2")
+    log("19 2x2", f"GradientBoostedTreesLearner(num_trees="
+        f"{MESH_GBT_PREFIX_TREES}, mesh=2x2): {t22} trained, {k22} kept in "
+        f"{wall22 * 1e3:.1f} ms ({l22.last_timings['boost_s'] * 1e3 / t22:.2f}"
+        f" ms a tree); all {k22} kept trees == the fixture's first {k22} by "
+        f"SHA-256; launches {c22} (the routed kernel takes each row's "
+        f"direction from its split column's owner: {sets22} launches with "
+        "a row-direction table in this process so far)")
+    with open(os.path.join(TRAIN_RF, "config.json")) as f:
+        rcfg = json.load(f)
+    rexp = np.load(os.path.join(TRAIN_RF, "expected.npz"))
+    rtrain, _ = make_frame(RF_ROWS, RF_TEST_ROWS)
+    reset_counts(serving)
+    t0 = time.perf_counter()
+    lrf = ydf_tpu_torch.RandomForestLearner(
+        mesh=mesh22, **dict(RF_HP, num_trees=MESH_RF_TREES))
+    mrf = lrf.train(rtrain)
+    torch.cuda.synchronize()
+    wall_rf = time.perf_counter() - t0
+    crf = read_counts(serving)[0]
+    prf = mrf.forest.to_numpy()
+    rf_same = [tree_sha256(prf, t) == rexp["tree_sha256"][t].tobytes().hex()
+               for t in range(MESH_RF_TREES)]
+    card_rf = CARD_FORESTS.get("train_rf")
+    if card_rf is not None:
+        same9 = [tree_sha256(prf, t) == tree_sha256(card_rf, t)
+                 for t in range(MESH_RF_TREES)]
+        assert all(same9), f"2x2 forest trees != phase 9's: {same9}"
+    assert sum(rf_same) >= RF_SAME_TREES * MESH_RF_TREES - 1, rf_same
+    assert crf["histogram"] == MESH_RF_TREES * MESH_SHARDS, crf
+    log("19 rf", f"RandomForestLearner(num_trees={MESH_RF_TREES}, mesh="
+        f"2x2) on train_rf's frame: {wall_rf * 1e3:.1f} ms "
+        f"({lrf.last_timings['loop_s'] * 1e3 / MESH_RF_TREES:.2f} ms a tree);"
+        f" trees == train_rf's by SHA-256: {sum(rf_same)} of "
+        f"{MESH_RF_TREES}" + (", all == phase 9's card run"
+                              if card_rf is not None else "")
+        + f"; launches {crf}")
+    lap("19d")
+
+    # -- 19e two processes --------------------------------------------- #
+    backend = "nccl" if count >= 2 else "gloo"
+    rank_train, _ = make_frame(MESH_RANK_ROWS, 1000)
+    one = ydf_tpu_torch.GradientBoostedTreesLearner(
+        mesh=pmesh.make_mesh(devices), **MESH_RANK_HP).train(rank_train)
+    want_rank = forest_hashes(canonical_nan(one.forest.to_numpy()))
+    tmp = tempfile.mkdtemp()
+    script = os.path.join(tmp, "rank.py")
+    with open(script, "w") as f:
+        f.write(_RANK_WORKER)
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, script, str(r), str(port), backend, outs[r], HERE],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=300)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        assert p.returncode == 0, f"rank {r}: {text[-3000:]}"
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        assert res["hashes"] == want_rank, f"rank {r}'s trees != one process"
+    log("19 ranks", f"two processes, backend {backend} ("
+        + ("a card each" if backend == "nccl" else
+           "both on cuda:0, merges staged through the host")
+        + f"), {MESH_SHARDS // 2} shards each, "
+        f"GradientBoostedTreesLearner(**{MESH_RANK_HP}) on "
+        f"{MESH_RANK_ROWS} rows: every tree == the one-process "
+        f"{MESH_SHARDS}-shard run by SHA-256 in both ranks; ms a tree "
+        + ", ".join(f"rank {r} {res['boost_s'] * 1e3 / len(want_rank):.2f}"
+                    for r, res in enumerate(ranks))
+        + "; host reads " + ", ".join(str(res["host_reads"]) for res in ranks)
+        + "; host stages (gloo) " + ", ".join(
+            str(res["host_stages"]) for res in ranks)
+        + f"; meshes {[res['mesh'] for res in ranks]}")
+    lap("19e")
+
+    # -- 19f the device's idle share of a profiled 4x1 stretch ---------- #
+    prof = profile_train(train, dict(DEFAULT_HP, mesh=mesh,
+                                     num_trees=MESH_PROFILE_TREES))
+    log("19 profile", f"4x1 mesh, num_trees={MESH_PROFILE_TREES} under "
+        f"torch.profiler: loop {prof['loop_ms']:.1f} ms, {prof['kernels']} "
+        f"device kernels, {prof['busy_ms']:.3f} ms of device time: the "
+        f"device is idle at least {100 * prof['idle_share']:.1f}% of the "
+        "loop; largest: " + "; ".join(f"{name[:60]} {ms:.3f} ms"
+                                      for name, ms in prof["top"]))
+    lap("19f")
+
+    # -- 19g the kernels at the shards' shapes ------------------------- #
+    out = []
+    n_shard = root_args[0].shape[1]
+    rows = {k: v[:n_shard] for k, v in train.items()}
+    shapes = (
+        ("binning", "4x1", train_inputs(rows, model.binner),
+         "binning.cu", "ydf_tpu/ops/binning_pallas.py:60",
+         counted["binning"]),
+        ("histogram", "4x1", {"root": root_args, "wide": True},
+         "histogram.cu", "ydf_tpu/ops/histogram_pallas.py:81",
+         counted["histogram"]),
+        ("histogram_routed", "4x1", {"routed": routed_args, "wide": True},
+         "histogram_routed.cu", "ydf_tpu/ops/histogram_pallas.py:172",
+         counted["histogram_routed"]),
+        ("histogram", "2x2", {"root": root22, "wide": True},
+         "histogram.cu", "ydf_tpu/ops/histogram_pallas.py:81",
+         c22["histogram"]),
+        ("histogram_routed", "2x2", {"routed": routed22, "wide": True},
+         "histogram_routed.cu", "ydf_tpu/ops/histogram_pallas.py:172",
+         c22["histogram_routed"]),
+    )
+    for name, where_, inp, src, replaces, launches in shapes:
+        t = measure_train(name, inp)
+        log("19 timing", f"{name} on a {where_} shard ({t['shape']}"
+            + ("" if name == "binning" else ", wide") + f"): "
+            f"{timing_text(t)}, {smi}")
+        e = train_entry(name, f"mesh_{where_}", src, replaces, t, launches,
+                        (err if where_ == "4x1" else err22).get(name, 0.0),
+                        (kernel_ms if where_ == "4x1" else kernel_ms22)
+                        .get(name, 0.0))
+        if where_ == "4x1" and name != "binning":
+            e["merge_ms_a_layer"] = merge_ms / merges
+            e["ms_a_tree"] = boost_ms / trained
+        out.append(e)
+    bank = bank_scorer.build_bank_scorer(model)
+    xT = encoded_xT(model, test)
+    t = measure(bank_scorer, bank.tables, bank.tables, xT)
+    log("19 timing", f"bank_scorer/mesh_4x1 at {xT.shape[1]} rows x "
+        f"{xT.shape[0]} features ({kept} trees): kernel {t['ms']:.4f} ms a "
+        f"call back to back, {t['device_ms']:.4f} ms on the card "
+        f"({t['device_how']}), plain {t['plain_ms']:.2f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']}), {smi}")
+    out.append({
+        "name": "bank_scorer/mesh_4x1", "route": "cuda",
+        "source": "ydf_tpu_torch/csrc/bank_scorer.cu",
+        "replaces": "ydf_tpu/serving/pallas_scorer.py:118",
+        "launches": bank_launches, "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "device_ms": t["device_ms"],
+        "device_how": t["device_how"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "path_ms": kernel_ms.get("bank_scorer", 0.0),
+        "path_how": "CUDA events around each launch",
+    })
+    lap("19g")
+    log("19 mesh", f"phase 19 wall {time.perf_counter() - t_phase:.1f} s "
+        f"(by part, s: {walls})")
+    return out
 
 
 def root_shape_text(args):

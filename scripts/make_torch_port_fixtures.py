@@ -167,7 +167,10 @@ Run from the repo root:  python scripts/make_torch_port_fixtures.py
 `--only train_bench`, `--only train_vs`, `--only train_default`,
 `--only train_rf`, `--only train_multiclass`, `--only
 train_gbt_options`, `--only train_cart` (~1 min), `--only train_if`
-(~1.5 min), `--only train_oblique` (~15 min), `--only train_monotone`
+(~1.5 min), `--only train_oblique` (~15 min), `--only forest_cuts`
+(~8 min: the JAX results of the random and isolation forests
+chip_smoke.py cuts short, beside train_rf's, train_if's and
+train_oblique's full runs), `--only train_monotone`
 (~1.5 min), `--only train_dart` (~15 s), `--only train_sets` (~12 min),
 `--only train_uplift` (~4 min), `--only train_honest` (~7.5 min),
 `--only train_sets_alone` (~11 min), `--only train_multitasker` (~1
@@ -1050,6 +1053,79 @@ def write_train_if():
     print(f"train_if: {T} trees in {train_s:.1f} s, {size} bytes, model "
           f"{out['model_trees']} trees, AUC {out['auc']:.6f} on "
           f"{out['anomalies']} anomalies of {cfg['test_rows']}")
+
+
+def write_forest_cuts():
+    """The forests chip_smoke.py grows cut short, to keep it inside its
+    time limit: train_rf's random forest (phase 9, chip_smoke.RF_TREES
+    trees) and the isolation forests of train_if/ and train_oblique/
+    (phases 11 and 12, chip_smoke.IF_TREES trees). The JAX package's
+    results of each cut forest are added beside the full run, which
+    stays as it is: the random forest's out-of-bag evaluation, evaluate
+    metrics and probabilities; an isolation forest's scores (SHA-256,
+    the first compare_rows) and AUC. config.json gains "cut" (in
+    train_oblique, under "iforest"), expected.npz "cut/..." (in
+    train_oblique, "iforest_cut/scores"). A cut forest is the full run's
+    first trees (tree t draws from fold_in(seed, t)): asserted tree by
+    tree."""
+    import json
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.metrics.metrics import roc_auc
+
+    d = os.path.join(OUT, "train_rf")
+    with open(os.path.join(d, "config.json")) as f:
+        cfg = json.load(f)
+    T = chip_smoke.RF_TREES
+    train, test = make_frame(cfg["cat_seed"], cfg["rows"], cfg["test_rows"],
+                             keep_label=True)
+    assert chip_smoke.frame_sha256(train) == cfg["train_sha256"]
+    m = ydf.RandomForestLearner(num_trees=T, **cfg["learner"]).train(train)
+    fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+    exp = dict(np.load(os.path.join(d, "expected.npz")))
+    assert all(chip_smoke.tree_sha256(fo, t) == exp["tree_sha256"][t]
+               .tobytes().hex() for t in range(T)), "RF: not the prefix"
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    cfg["cut"] = dict(num_trees=T, oob_evaluation=m.oob_evaluation,
+                      jax_evaluate=dict(m.evaluate(test).metrics))
+    exp["cut/proba"] = np.asarray(m.predict(head), np.float32)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1, sort_keys=True)
+    np.savez_compressed(os.path.join(d, "expected.npz"), **exp)
+    print(f"train_rf: the first {T} trees, oob "
+          f"{m.oob_evaluation['metrics']}", flush=True)
+
+    T = chip_smoke.IF_TREES
+    for name, part, prefix, key in (
+            ("train_if", None, "", "cut/scores"),
+            ("train_oblique", "iforest", "iforest/", "iforest_cut/scores")):
+        d = os.path.join(OUT, name)
+        with open(os.path.join(d, "config.json")) as f:
+            cfg = json.load(f)
+        c = cfg if part is None else cfg[part]
+        train, test = make_frame(cfg["cat_seed"], c["rows"], c["test_rows"],
+                                 keep_label=True)
+        feats = {k: v for k, v in train.items() if k != "label"}
+        test_x, anomalous = chip_smoke.if_test_frame(test)
+        assert chip_smoke.frame_sha256(feats) == c["train_sha256"], name
+        m = ydf.IsolationForestLearner(num_trees=T, **c["learner"]).train(
+            feats)
+        fo = {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields}
+        exp = dict(np.load(os.path.join(d, "expected.npz")))
+        want = exp[f"{prefix}tree_sha256"]
+        assert all(chip_smoke.tree_sha256(fo, t) == want[t].tobytes().hex()
+                   for t in range(T)), f"{name}: not the full run's prefix"
+        scores = np.asarray(m.predict(test_x))
+        c["cut"] = dict(num_trees=T,
+                        scores_sha256=chip_smoke.array_sha256(scores),
+                        auc=roc_auc(anomalous, scores))
+        exp[key] = scores[:cfg["compare_rows"]]
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1, sort_keys=True)
+        np.savez_compressed(os.path.join(d, "expected.npz"), **exp)
+        print(f"{name}: the first {T} trees' scores, AUC "
+              f"{c['cut']['auc']:.6f}", flush=True)
 
 
 TRAIN_OBLIQUE = dict(
@@ -2610,6 +2686,8 @@ def main():
         write_train_if()
     if only in (None, "train_oblique"):
         write_train_oblique()
+    if only in (None, "forest_cuts"):
+        write_forest_cuts()
     if only in (None, "train_monotone"):
         write_train_monotone()
     if only in (None, "train_dart"):

@@ -226,6 +226,10 @@ def test_unported_options_raise(kwargs, item):
         return
     error, match = ((NotImplementedError, f"item {item}") if item
                     else (ValueError, "split_axis"))
+    if "mesh" in kwargs:
+        # Item 18's mesh trains (tests/test_torch_mesh_forest.py): an
+        # object that is not a Mesh raises TypeError.
+        error, match = TypeError, "Mesh"
     with pytest.raises(error, match=match):
         ydf_tpu_torch.RandomForestLearner(label="label", device="cpu",
                                           **kwargs)

@@ -269,14 +269,18 @@ def test_sibling_reconstruction_matches_direct_histograms():
 def test_learner_surface_raises_for_what_is_not_ported():
     kw = dict(label="label", device="cpu")
     # MHLD-oblique splits train since ROADMAP item 28
-    # (tests/test_torch_mhld.py); the multi-device options raise naming
-    # item 18.
+    # (tests/test_torch_mhld.py); the distributed-worker options raise
+    # naming item 18. `mesh=` trains (item 18's mesh,
+    # tests/test_torch_mesh*.py): an object that is not a Mesh raises
+    # TypeError.
     mhld = ydf_tpu_torch.GradientBoostedTreesLearner(
         validation_ratio=0.0, split_axis="MHLD_OBLIQUE", num_trees=2,
         **kw).train(make_data(300, 6, seed=1))
     Fn = mhld.binner.num_numerical
     assert tuple(mhld.forest.oblique_weights.shape) == (2, Fn, Fn)
-    for extra in (dict(mesh=object()), dict(distributed_workers=["h:1"]),
+    with pytest.raises(TypeError, match="Mesh"):
+        ydf_tpu_torch.GradientBoostedTreesLearner(mesh=object(), **kw)
+    for extra in (dict(distributed_workers=["h:1"]),
                   dict(distributed_membership=object())):
         with pytest.raises(NotImplementedError, match="item 18"):
             ydf_tpu_torch.GradientBoostedTreesLearner(**extra, **kw)

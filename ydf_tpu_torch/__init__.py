@@ -34,6 +34,10 @@ hand-written CUDA kernels too.
     cache = create_dataset_cache("csv:/data/train-*.csv", "/cache",
                                  label="y")     # binned chunk by chunk
     model = ydf.GradientBoostedTreesLearner(label="y").train(cache)
+    mesh = ydf.make_mesh()          # every card, rows sharded over them
+    model = ydf.GradientBoostedTreesLearner(label="y", mesh=mesh).train(df)
+    ydf.init_distributed("host:port", num_processes=2, process_id=0,
+                         backend="nccl")      # then a mesh in each process
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 on a CPU tensor every kernel wrapper runs its plain PyTorch version.
@@ -66,6 +70,7 @@ from ydf_tpu_torch.models.io import (
 from ydf_tpu_torch.models.ydf_format import load_ydf_model
 from ydf_tpu_torch.models.if_model import IsolationForestModel
 from ydf_tpu_torch.models.rf_model import RandomForestModel
+from ydf_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
 __all__ = [
     "CartLearner",
@@ -86,7 +91,9 @@ __all__ = [
     "deserialize_model",
     "forest_from_jax",
     "infer_dataspec",
+    "init_distributed",
     "load_model",
     "load_ydf_model",
+    "make_mesh",
     "save_model",
 ]

@@ -315,12 +315,18 @@ int launch(const float* xT, const Packed& p, float* out, int n, int F,
            int num_blocks, const Layout& l, cudaStream_t stream) {
   auto kernel = SPLIT ? bank_split_kernel<TILE, WIDE>
                       : bank_walk_kernel<TILE, WIDE>;
-  static bool attr_set = false;  // once per instantiation and process
-  if (!attr_set) {
+  // The attribute is a device's own: set once per instantiation, process
+  // and device (bit d of attr_set: device d < 64).
+  static unsigned long long attr_set = 0;
+  int device = 0;
+  const cudaError_t derr = cudaGetDevice(&device);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(attr_set & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    attr_set |= bit;
   }
   constexpr int E = SPLIT ? kSplitExamples : kThreads;
   kernel<<<(n + E - 1) / E, kThreads, static_cast<int>(l.bytes), stream>>>(

@@ -330,10 +330,11 @@ reduce_partials(const A* __restrict__ partial, O* __restrict__ out,
 template <typename T, int SQ>
 int launch(const void* bins_t, const void* slot, const void* stats,
            void* partial, void* out, int n, int F, int B, int L, int G,
-           int Fb, int Lb, int chunks, int rows_per_chunk,
+           int Fb, int Lb, int chunks, int rows_per_chunk, int wide,
            cudaStream_t stream) {
   using A = typename Acc<T>::type;
   using O = typename Out<T>::type;
+  using W = typename Wide<A>::type;
   const int smem = Fb * Lb * B * cell_stride(SQ) * static_cast<int>(sizeof(A)) +
                    (32 * (kRowsPerLane * SQ + 1) + 32 * (kRowsPerLane + 1)) *
                        4 +
@@ -352,8 +353,15 @@ int launch(const void* bins_t, const void* slot, const void* stats,
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(L) * F * B * SQ;
   const unsigned blocks = static_cast<unsigned>((total + 31) / 32);
-  reduce_partials<A, O><<<blocks, kReduceWarps * 32, 0, stream>>>(
-      static_cast<const A*>(partial), static_cast<O*>(out), total, chunks);
+  if (wide) {
+    // A shard's sum, unrounded: the mesh merge adds the shards' sums and
+    // rounds once.
+    reduce_partials<A, W><<<blocks, kReduceWarps * 32, 0, stream>>>(
+        static_cast<const A*>(partial), static_cast<W*>(out), total, chunks);
+  } else {
+    reduce_partials<A, O><<<blocks, kReduceWarps * 32, 0, stream>>>(
+        static_cast<const A*>(partial), static_cast<O*>(out), total, chunks);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,12 +369,12 @@ template <typename T>
 int launch_sq(int Sq, const void* bins_t, const void* slot,
               const void* stats, void* partial, void* out, int n, int F,
               int B, int L, int G, int Fb, int Lb, int chunks, int rows,
-              cudaStream_t s) {
+              int wide, cudaStream_t s) {
   switch (Sq) {
 #define YDF_HIST_SQ(q)                                                    \
   case q:                                                                 \
     return launch<T, q>(bins_t, slot, stats, partial, out, n, F, B, L, G, \
-                        Fb, Lb, chunks, rows, s);
+                        Fb, Lb, chunks, rows, wide, s);
     YDF_HIST_SQ(1)
     YDF_HIST_SQ(2)
     YDF_HIST_SQ(3)
@@ -388,25 +396,28 @@ int launch_sq(int Sq, const void* bins_t, const void* slot,
 // [g*F/G, (g+1)*F/G)), slot blocks of Lb slots, `chunks` row chunks of
 // rows_per_chunk rows. partial holds chunks * L*F*B*Sq accumulators (f64
 // for f32 stats, f32 for bf16, int32 for int8), out L*F*B*Sq (f32, or
+// int32 for int8; with `wide` the unrounded sum: f64 for f32 and bf16,
 // int32 for int8); every cell of out is written.
 extern "C" int ydf_histogram(const void* bins_t, const void* slot,
                              const void* stats, void* partial, void* out,
                              int n, int F, int B, int Sq, int L,
                              int stats_kind, int G, int Fb, int Lb,
-                             int chunks, int rows_per_chunk, void* stream) {
+                             int chunks, int rows_per_chunk, int wide,
+                             void* stream) {
   if (n <= 0 || F <= 0 || L <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (stats_kind) {
     case 0:
       return launch_sq<float>(Sq, bins_t, slot, stats, partial, out, n, F, B,
-                              L, G, Fb, Lb, chunks, rows_per_chunk, s);
+                              L, G, Fb, Lb, chunks, rows_per_chunk, wide, s);
     case 1:
       return launch_sq<__nv_bfloat16>(Sq, bins_t, slot, stats, partial, out,
                                       n, F, B, L, G, Fb, Lb, chunks,
-                                      rows_per_chunk, s);
+                                      rows_per_chunk, wide, s);
     case 2:
       return launch_sq<int8_t>(Sq, bins_t, slot, stats, partial, out, n, F,
-                               B, L, G, Fb, Lb, chunks, rows_per_chunk, s);
+                               B, L, G, Fb, Lb, chunks, rows_per_chunk, wide,
+                               s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -472,7 +472,7 @@ int launch(const void* bins_t, const void* slot, const void* leaf,
            const Tables& tab, const void* stats, void* partial, void* out,
            void* new_slot, void* new_leaf, int n, int F, int B, int L,
            int Lh, int G, int Fb, int Lb, int chunks, int rows_per_chunk,
-           cudaStream_t stream) {
+           int wide, cudaStream_t stream) {
   using S = typename Sum<T>::type;
   using A = typename Sum<T>::acc;
   const Layout lay = layout(Fb, Lb, B, SQ, L + 1, sizeof(S));
@@ -483,13 +483,19 @@ int launch(const void* bins_t, const void* slot, const void* leaf,
       static_cast<long long>(rows_per_chunk) * chunks < n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static bool attr_set = false;  // once per instantiation and process
-  if (!attr_set) {
+  // The attribute is a device's own: set once per instantiation, process
+  // and device (bit d of attr_set: device d < 64).
+  static unsigned long long attr_set = 0;
+  int device = 0;
+  const cudaError_t derr = cudaGetDevice(&device);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(attr_set & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
         routed_kernel<T, SQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    attr_set |= bit;
   }
   const dim3 grid(chunks, slot_blocks, G);
   routed_kernel<T, SQ><<<grid, kThreads, lay.total, stream>>>(
@@ -504,8 +510,15 @@ int launch(const void* bins_t, const void* slot, const void* leaf,
   if (total == 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((total + kReduceThreads - 1) / kReduceThreads);
-  reduce_partials<S, A><<<blocks, kReduceThreads, 0, stream>>>(
-      static_cast<const S*>(partial), static_cast<A*>(out), total, chunks);
+  if (wide) {
+    // A shard's sum, unrounded: the mesh merge adds the shards' sums and
+    // rounds once.
+    reduce_partials<S, S><<<blocks, kReduceThreads, 0, stream>>>(
+        static_cast<const S*>(partial), static_cast<S*>(out), total, chunks);
+  } else {
+    reduce_partials<S, A><<<blocks, kReduceThreads, 0, stream>>>(
+        static_cast<const S*>(partial), static_cast<A*>(out), total, chunks);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -513,14 +526,14 @@ template <typename T>
 int launch_sq(int Sq, const void* bins_t, const void* slot, const void* leaf,
               const Tables& tab, const void* stats, void* partial, void* out,
               void* new_slot, void* new_leaf, int n, int F, int B, int L,
-              int Lh, int G, int Fb, int Lb, int chunks, int rows,
+              int Lh, int G, int Fb, int Lb, int chunks, int rows, int wide,
               cudaStream_t s) {
   switch (Sq) {
 #define YDF_ROUTED_SQ(q)                                                   \
   case q:                                                                  \
     return launch<T, q>(bins_t, slot, leaf, tab, stats, partial, out,      \
                         new_slot, new_leaf, n, F, B, L, Lh, G, Fb, Lb,     \
-                        chunks, rows, s);
+                        chunks, rows, wide, s);
     YDF_ROUTED_SQ(1)
     YDF_ROUTED_SQ(2)
     YDF_ROUTED_SQ(3)
@@ -543,7 +556,8 @@ int launch_sq(int Sq, const void* bins_t, const void* slot, const void* leaf,
 // features, slot blocks of Lb hist slots (Fb * Lb <= 32), `chunks` row
 // chunks of rows_per_chunk rows. partial holds chunks * Lh*F*B*Sq sums
 // (f64, or int32 for int8), out Lh*F*B*Sq accumulators (f32, or int32 for
-// int8); every cell of out is written.
+// int8; with `wide` the unrounded sums, f64 or int32); every cell of out is
+// written.
 extern "C" int ydf_histogram_routed(
     const void* bins_t, const void* slot, const void* leaf,
     const void* do_split, const void* route_f, const void* go_left,
@@ -552,7 +566,7 @@ extern "C" int ydf_histogram_routed(
     const void* stats, void* partial, void* out, void* new_slot,
     void* new_leaf, int n, int F, int B, int Sq, int L, int Lh,
     int stats_kind, int G, int Fb, int Lb, int chunks, int rows_per_chunk,
-    void* stream) {
+    int wide, void* stream) {
   if (n <= 0 || F <= 0) return 0;
   const Tables tab{static_cast<const uint8_t*>(do_split),
                    static_cast<const int32_t*>(route_f),
@@ -568,16 +582,16 @@ extern "C" int ydf_histogram_routed(
     case 0:
       return launch_sq<float>(Sq, bins_t, slot, leaf, tab, stats, partial,
                               out, new_slot, new_leaf, n, F, B, L, Lh, G, Fb,
-                              Lb, chunks, rows_per_chunk, s);
+                              Lb, chunks, rows_per_chunk, wide, s);
     case 1:
       return launch_sq<__nv_bfloat16>(Sq, bins_t, slot, leaf, tab, stats,
                                       partial, out, new_slot, new_leaf, n, F,
                                       B, L, Lh, G, Fb, Lb, chunks,
-                                      rows_per_chunk, s);
+                                      rows_per_chunk, wide, s);
     case 2:
       return launch_sq<int8_t>(Sq, bins_t, slot, leaf, tab, stats, partial,
                                out, new_slot, new_leaf, n, F, B, L, Lh, G, Fb,
-                               Lb, chunks, rows_per_chunk, s);
+                               Lb, chunks, rows_per_chunk, wide, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -288,13 +288,19 @@ int launch(const float* xT, const Packed& p, float* out, int n, int F,
            int threads, cudaStream_t stream) {
   const int smem = (TILE ? F * threads * K * 4 : 0) + 2 * buf_bytes;
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr_set = false;  // once per instantiation and process
-  if (!attr_set) {
+  // The attribute is a device's own: set once per instantiation, process
+  // and device (bit d of attr_set: device d < 64).
+  static unsigned long long attr_set = 0;
+  int device = 0;
+  const cudaError_t derr = cudaGetDevice(&device);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(attr_set & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
         qs_score_kernel<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    attr_set |= bit;
   }
   const int E = threads * K;
   const int blocks = (n + E - 1) / E;

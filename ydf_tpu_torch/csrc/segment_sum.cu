@@ -282,13 +282,19 @@ __global__ void __launch_bounds__(kThreads)
 template <int SC>
 int launch(const int64_t* key, const float* vals, float* out, int E, int S,
            int T, int vec, cudaStream_t stream) {
-  static bool attr_set = false;  // once per instantiation and process
-  if (!attr_set) {
+  // The attribute is a device's own: set once per instantiation, process
+  // and device (bit d of attr_set: device d < 64).
+  static unsigned long long attr_set = 0;
+  int device = 0;
+  const cudaError_t derr = cudaGetDevice(&device);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(attr_set & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
         run_sums<SC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    attr_set |= bit;
   }
   const int blocks = static_cast<int>((static_cast<long long>(E) + T - 1) / T);
   run_sums<SC><<<blocks, kThreads, static_cast<int>(smem_bytes(T, S)),

@@ -25,9 +25,10 @@ copies the u8 bins to the device once.
 
 CSV files go whole through the port's loader (dataset/native_csv.py) and
 are cut into chunks of `chunk_rows`, file by file: the JAX package's
-branch without pandas. Not ported here: the distributed build's planner
-and workers (ROADMAP item 18) and the cache's counters, failpoints and
-memory-ledger source (item 17).
+branch without pandas. The build keeps the JAX package's counters,
+failpoints and memory-ledger source (utils/telemetry.py,
+utils/failpoints.py). Not ported here: the distributed build's planner
+and workers (ROADMAP item 18).
 """
 
 from __future__ import annotations

@@ -205,6 +205,8 @@ from ydf_tpu_torch.ops import grower, mhld, oblique
 from ydf_tpu_torch.ops.routing import route_tree_bins
 from ydf_tpu_torch.ops.split_rules import HessianGainRule
 from ydf_tpu_torch.ops.vector_sequence import vs_scores
+from ydf_tpu_torch.parallel.mesh import learner_device
+from ydf_tpu_torch.parallel.shards import MeshRows
 from ydf_tpu_torch.utils import cuda_build, failpoints, log, prng, telemetry
 from ydf_tpu_torch.utils.profiling import StageTimer, maybe_trace
 from ydf_tpu_torch.utils.snapshot import Snapshots, _durable_replace
@@ -429,8 +431,11 @@ class GradientBoostedTreesLearner(GenericLearner):
     learners/losses.py:CustomLoss. A task with no default loss (the
     uplift tasks, anomaly detection) raises the JAX package's ValueError
     when it trains. MHLD-oblique splits, checkpoints, preemption,
-    deadlines and telemetry as the module docstring says; the
-    multi-device arguments raise NotImplementedError."""
+    deadlines and telemetry as the module docstring says. `mesh=`
+    (ydf_tpu_torch.make_mesh) grows the trees with the rows, and
+    optionally the columns, sharded over the mesh's devices (not with
+    categorical-set features); the distributed-worker arguments raise
+    NotImplementedError."""
 
     def __init__(
         self,
@@ -492,8 +497,8 @@ class GradientBoostedTreesLearner(GenericLearner):
         distributed_membership=None,
         device=None,
     ):
-        if mesh is not None:
-            raise unported("mesh (multi-device training)", 18)
+        # A mesh trains on its first device (parallel/mesh.py).
+        device = learner_device(mesh, device)
         if distributed_workers:
             raise unported("distributed_workers (distributed training)", 18)
         if distributed_membership is not None:
@@ -879,7 +884,7 @@ class GradientBoostedTreesLearner(GenericLearner):
                     binner.num_features),
                 set_bits=sets, monotone=monotone,
                 dart_dropout=self.dart_dropout, checkpoint=checkpoint,
-                deadline=deadline,
+                deadline=deadline, mesh=self.mesh,
             )
         t_fin = time.perf_counter()
         train_losses = out.train_loss.cpu().numpy()
@@ -1383,7 +1388,7 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
           monotone: Optional[tuple] = None,
           dart_dropout: float = 0.0,
           checkpoint: Optional[Checkpoint] = None,
-          deadline: Optional[float] = None) -> BoostResult:
+          deadline: Optional[float] = None, mesh=None) -> BoostResult:
     """The boosting loop on the device of `bins_t` (u8 [F, n]; rows
     [0, num_numerical) numerical, the rest categorical; default all
     numerical), T <= num_trees iterations of loss_obj.num_dims trees,
@@ -1401,7 +1406,11 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
     the loop at the first chunk boundary past it. On a card each chunk
     runs under torch's sync debug mode "error": no other host sync
     happens inside the loop but MHLD's one read a tree when the row
-    weights change between iterations (ops/mhld.py)."""
+    weights change between iterations (ops/mhld.py). On a `mesh`
+    (parallel/mesh.py) the trees grow on the bins laid over its devices
+    (parallel/shards.py); the loop's per-row state stays on the device
+    of `bins_t`, the mesh's first, and the trees are the single
+    device's."""
     global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
@@ -1449,6 +1458,16 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
     stopping = valid is not None and 0 < lookahead < num_trees
     clen = chunk_length(lookahead, stopping, num_trees, checkpoint, deadline)
     on_card = dev.type == "cuda"
+    mesh_rows = None
+    if mesh is not None:
+        if Fs:
+            raise unported("categorical-set features on a mesh", 18)
+        if dev != mesh.first_device:
+            raise ValueError(f"the loop's device {dev} is not the mesh's "
+                             f"first device {mesh.first_device}")
+        # The projection and anchor columns of every tree go after the
+        # numericals.
+        mesh_rows = MeshRows(mesh, bins_t, num_numerical, extra=P + Pv)
     loop = _Loop(bins_t, labels, weights, loss_obj=loss_obj, rule=rule,
                  tree_cfg=tree_cfg, shrinkage=shrinkage,
                  hist_quant=hist_quant, vs=vs, draws=draws,
@@ -1457,7 +1476,7 @@ def boost(bins_t: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor,
                  sampling=sampling, keys=keys, columns=columns,
                  members=members, monotone=monotone, drops=drops,
                  num_trees=num_trees, masks=masks, scatter=scatter,
-                 on_card=on_card)
+                 on_card=on_card, mesh_rows=mesh_rows)
     snaps = None
     if checkpoint is not None:
         snaps = Snapshots(checkpoint.directory, max_kept=2)
@@ -1600,8 +1619,11 @@ class _Loop:
                  tree_cfg, shrinkage, hist_quant, vs, draws, obl, obl_w,
                  loop_of_one, num_numerical, valid, sampling, keys,
                  columns, members=None, monotone=None, drops=None,
-                 num_trees=0, masks=None, scatter=None, on_card=False):
+                 num_trees=0, masks=None, scatter=None, on_card=False,
+                 mesh_rows=None):
         self.bins_t, self.labels, self.weights = bins_t, labels, weights
+        # On a mesh, the bins laid over its devices (parallel/shards.py).
+        self.mesh_rows = mesh_rows
         self.loss_obj, self.rule, self.cfg = loss_obj, rule, tree_cfg
         self.shrinkage, self.hist_quant = shrinkage, hist_quant
         self.vs, self.draws, self.valid = vs, draws, valid
@@ -1708,6 +1730,7 @@ class _Loop:
         grow_va = None if valid is None else valid.bins_t
         Fn = self.Fn
         mono = self.mono
+        extra = []  # the tree's projection, then anchor columns
         if self.obl is not None:
             if self.obl_w is not None:
                 W = self.obl_w[it]
@@ -1718,7 +1741,7 @@ class _Loop:
             # the JAX package's [num, obl, vs, cat].
             cols, bounds = oblique.projection_columns(
                 self.obl.x_t, W, qs=self.qs, loop_of_one=self.loop_of_one)
-            grow_bins = torch.cat([grow_bins[:Fn], cols, grow_bins[Fn:]])
+            extra.append(cols)
             if valid is not None:
                 cols_va, _ = oblique.projection_columns(
                     valid.x_t, W, bounds=bounds)
@@ -1736,7 +1759,7 @@ class _Loop:
             anchors, bounds, cols = make_vs_projections(
                 self.vs, {k: v[it] for k, v in self.draws.items()},
                 self.qs)
-            grow_bins = torch.cat([grow_bins[:Fn], cols, grow_bins[Fn:]])
+            extra.append(cols)
             if valid is not None:
                 cols_va = vs_valid_columns(valid.vs, anchors, bounds)
                 grow_va = torch.cat([grow_va[:Fn], cols_va, grow_va[Fn:]])
@@ -1747,6 +1770,15 @@ class _Loop:
             Fn += cols.shape[0]
             self.vs_anchors.append(anchors)
             self.vs_bounds.append(bounds)
+        shards = None
+        if self.mesh_rows is not None:
+            # The same columns, cut over the mesh.
+            shards = self.mesh_rows.for_tree(
+                torch.cat(extra) if extra else None)
+            grow_bins = None
+        elif extra:
+            grow_bins = torch.cat([grow_bins[:self.Fn], *extra,
+                                   grow_bins[self.Fn:]])
         contrib, vcontrib = [], []
         for k in range(K):
             t = it * K + k
@@ -1759,7 +1791,7 @@ class _Loop:
                 min_examples=cfg.min_examples, hist_quant=self.hist_quant,
                 columns=None if self.columns is None else [
                     (idx[t].long(), ok[t]) for idx, ok in self.columns],
-                set_members=self.members, mono_dirs=mono,
+                set_members=self.members, mono_dirs=mono, shards=shards,
             )
             lv_raw = self.rule.leaf_value(res.tree.leaf_stats)  # [N, 1]
             lv = lv_raw * self.shrinkage

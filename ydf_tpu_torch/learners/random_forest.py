@@ -66,10 +66,21 @@ entry) stops the tree loop at the first boundary of a chunk of
 CHUNK_TREES trees past the deadline, as the JAX package's chunked loop
 does; the forest keeps the trees grown, a prefix of the full run's.
 
+A mesh (mesh=, parallel/mesh.py) grows every tree with the rows, and
+optionally the columns, sharded over its devices (parallel/shards.py);
+the tree loop's per-row state (bootstrap counts, stats, out-of-bag
+votes) stays on the mesh's first device, so the rows need no padding
+there and the out-of-bag evaluation sees the real rows alone. Under
+feature parallelism the columns are padded with constant-zero columns
+to a multiple of the feature axis, as the JAX package pads them: they
+never split, and the candidate sampling draws over the padded count
+with the pad columns scored -1, so a padded run grows the JAX package's
+mesh forest and an unpadded one the single device's.
+
 What the JAX package's learner offers and this port does not
-(out-of-bag permutation importances, a mesh) raises NotImplementedError
-naming the ROADMAP item. bootstrap_size_ratio is stored and unused, as
-in the JAX package.
+(out-of-bag permutation importances, categorical-set features on a
+mesh) raises NotImplementedError naming the ROADMAP item.
+bootstrap_size_ratio is stored and unused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -94,6 +105,8 @@ from ydf_tpu_torch.models.rf_model import RandomForestModel
 from ydf_tpu_torch.ops import grower, oblique, segment_sum
 from ydf_tpu_torch.ops.split_rules import (
     ClassificationRule, RegressionRule, UpliftEuclideanRule)
+from ydf_tpu_torch.parallel.mesh import FEATURE_AXIS, learner_device
+from ydf_tpu_torch.parallel.shards import MeshRows
 from ydf_tpu_torch.utils import prng
 
 #: Reads of device values on the host by train_rf in this process: the
@@ -162,8 +175,8 @@ class RandomForestLearner(GenericLearner):
         oblique.check_weight_type(sparse_oblique_weights)
         if compute_oob_variable_importances:
             raise unported("out-of-bag permutation importances", 20)
-        if mesh is not None:
-            raise unported("mesh (multi-device training)", 18)
+        # A mesh trains on its first device (parallel/mesh.py).
+        device = learner_device(mesh, device)
         super().__init__(
             label=label, task=task, features=features, weights=weights,
             max_vocab_count=max_vocab_count,
@@ -195,6 +208,7 @@ class RandomForestLearner(GenericLearner):
         self.honest = honest
         self.honest_ratio_leaf_examples = honest_ratio_leaf_examples
         self.maximum_training_duration = maximum_training_duration
+        self.mesh = mesh
 
     def _candidate_features(self, F: int) -> int:
         """Per-node attribute sample size; 0 selects the reference
@@ -254,6 +268,16 @@ class RandomForestLearner(GenericLearner):
                        and self.bootstrap_training_dataset
                        and self.task not in UPLIFT_TASKS)
         obl = oblique_inputs(self, prep)
+        num_valid = None
+        if self.mesh is not None:
+            fp = self.mesh.shape[FEATURE_AXIS]
+            fpad = -bins_t.shape[0] % fp
+            if fpad:
+                # The JAX package's constant-zero pad columns (module
+                # docstring).
+                num_valid = bins_t.shape[0]
+                bins_t = torch.cat([bins_t, bins_t.new_zeros(
+                    (fpad, n))])
         t1 = time.perf_counter()
         out = train_rf(
             bins_t, w_base, basis, rule=rule, tree_cfg=tree_cfg,
@@ -268,7 +292,7 @@ class RandomForestLearner(GenericLearner):
             compute_oob=oob_enabled, obl=obl, set_bits=prep["set_bits"],
             honest_ratio=(self.honest_ratio_leaf_examples if self.honest
                           else 0.0),
-            deadline=deadline,
+            deadline=deadline, mesh=self.mesh, num_valid_features=num_valid,
         )
         t2 = time.perf_counter()
         forest = oblique_forest(out, binner)
@@ -450,7 +474,8 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
              winner_take_all: bool, compute_oob: bool,
              obl=None, set_bits: Optional[torch.Tensor] = None,
              honest_ratio: float = 0.0,
-             deadline: Optional[float] = None) -> RFResult:
+             deadline: Optional[float] = None, mesh=None,
+             num_valid_features: Optional[int] = None) -> RFResult:
     """Grows `num_trees` trees on the device of `bins_t` (u8 [F, n];
     rows [0, num_numerical) numerical, the rest categorical) from the
     row weights w_base f32 [n] and the stat basis f32 [n, S] (module
@@ -461,7 +486,10 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
     runs under torch's sync debug mode "error". With a `deadline`
     (time.monotonic()) the loop runs in chunks of CHUNK_TREES trees and
     stops at the first chunk boundary past it (on a card after waiting
-    for the chunk), keeping the trees grown."""
+    for the chunk), keeping the trees grown. On a `mesh` the trees grow
+    on the bins laid over its devices, `bins_t` on its first;
+    `num_valid_features`: the scalar columns before a mesh's pad columns
+    (module docstring)."""
     global HOST_READS
     if num_trees < 1:
         raise ValueError(f"num_trees must be >= 1, got {num_trees}")
@@ -489,8 +517,15 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
         columns = grower.layer_columns(
             keys[:, 1], max_depth=cfg.max_depth, frontier=cfg.frontier,
             num_features=F + P, num_numerical=num_numerical + P,
-            orderings=O, k=candidate_features, num_set=Fs)
+            orderings=O, k=candidate_features, num_set=Fs,
+            num_valid=(None if num_valid_features is None
+                       else num_valid_features + P))
         HOST_READS += 1
+    mesh_rows = None
+    if mesh is not None:
+        if Fs:
+            raise unported("categorical-set features on a mesh", 18)
+        mesh_rows = MeshRows(mesh, bins_t, num_numerical, extra=P)
     V = rule.num_outputs
     oob_sum = oob_count = None
     if compute_oob:
@@ -520,15 +555,19 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
                     w_grow = w * (1.0 - est)
                 else:
                     w_grow = w
-                grow_bins = bins_t
+                grow_bins, cols, shards = bins_t, None, None
                 if P:
                     # One tree: the JAX package's chunk is a loop of one
                     # step.
                     cols, bounds = oblique.projection_columns(
                         obl.x_t, obl_w[t], qs=qs, loop_of_one=num_trees == 1)
+                    obl_bounds.append(bounds)
+                if mesh_rows is not None:
+                    # The same columns, cut over the mesh.
+                    shards, grow_bins = mesh_rows.for_tree(cols), None
+                elif P:
                     grow_bins = torch.cat([bins_t[:num_numerical], cols,
                                            bins_t[num_numerical:]])
-                    obl_bounds.append(bounds)
                 res = grower.grow_tree(
                     grow_bins, basis * w_grow[:, None], rule=rule,
                     max_depth=cfg.max_depth, frontier=cfg.frontier,
@@ -537,7 +576,7 @@ def train_rf(bins_t: torch.Tensor, w_base: torch.Tensor,
                     min_examples=cfg.min_examples,
                     columns=None if columns is None else [
                         (idx[t].long(), ok[t]) for idx, ok in columns],
-                    set_members=members,
+                    set_members=members, shards=shards,
                 )
                 tree = res.tree
                 if honest_ratio > 0.0:

@@ -13,10 +13,11 @@ CATEGORICAL_SET features is served by the routed engine
 csrc/vector_sequence.cu and intersects the packed sets with the nodes'
 masks; the QuickScorer and bank engines refuse such models, as the JAX
 package's do, and so do they a model that routes missing values
-natively (one imported from the YDF format). Telemetry spans are not
-ported (ROADMAP Queue 1 item 17), nor are the tree accessors, the
-variable importances but the structure ones, the html model card and
-the exports to other frameworks (items 20 and 21).
+natively (one imported from the YDF format). Serving records telemetry
+spans and latency histograms (utils/telemetry.py) in _raw_scores. Not
+ported: the tree accessors, the variable importances but the structure
+ones, the html model card and the exports to other frameworks (items 20
+and 21).
 """
 
 from __future__ import annotations

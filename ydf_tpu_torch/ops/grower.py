@@ -88,7 +88,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ydf_tpu_torch.ops.histogram import histogram, prepare_stats_for_hist
+from ydf_tpu_torch.ops.histogram import (
+    finish, histogram, prepare_stats_for_hist)
 from ydf_tpu_torch.ops.histogram_kernels import RouteTables, route_plain
 from ydf_tpu_torch.ops import segment_sum
 from ydf_tpu_torch.ops.routing import route_histogram_fused
@@ -232,10 +233,19 @@ def layer_feature_keys(key: torch.Tensor, max_depth: int
 
 
 def candidate_masks(k_feat: torch.Tensor, Ld: int, F: int,
-                    k: int) -> torch.Tensor:
+                    k: int, pad_columns: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
     """bool [..., Ld, F]: the features each slot of a layer may split on,
-    from the layer's keys [..., 2] (kept_by_score of uniform scores)."""
-    return kept_by_score(prng.uniform(k_feat, (Ld, F)), k)
+    from the layer's keys [..., 2] (kept_by_score of uniform scores).
+    `pad_columns` (start, stop): constant-zero columns a mesh's feature
+    axis padded in, scored -1 so that they take no sampling slot (the
+    JAX package's num_valid_features)."""
+    scores = prng.uniform(k_feat, (Ld, F))
+    if pad_columns is not None:
+        col = torch.arange(F, device=scores.device)
+        pad = (col >= pad_columns[0]) & (col < pad_columns[1])
+        scores = torch.where(pad, -1.0, scores)
+    return kept_by_score(scores, k)
 
 
 def kept_by_score(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -270,17 +280,21 @@ def candidate_columns(cmask: torch.Tensor, width: int
 
 def layer_columns(tree_keys: torch.Tensor, *, max_depth: int,
                   frontier: int, num_features: int, num_numerical: int,
-                  orderings: int, k: int, num_set: int = 0) -> List[tuple]:
+                  orderings: int, k: int, num_set: int = 0,
+                  num_valid: Optional[int] = None) -> List[tuple]:
     """Per layer, every tree's candidate columns from the trees' grow
     keys [T, 2] (candidate_columns of column_mask of candidate_masks:
     i32 [T, Ld, W], bool [T, Ld, W]), W the most columns a slot of that
     layer keeps in any tree: one host read of the widths, for all
     layers. `num_features` counts the scalar features; the scores cover
-    them and the `num_set` set features after them."""
+    them and the `num_set` set features after them. Scalar columns from
+    `num_valid` on are a mesh's padding (candidate_masks)."""
     masks, widths = [], []
+    pad = (None if num_valid is None or num_valid >= num_features
+           else (num_valid, num_features))
     for d, k_feat in enumerate(layer_feature_keys(tree_keys, max_depth)):
         cm = column_mask(candidate_masks(k_feat, min(2 ** d, frontier),
-                                         num_features + num_set, k),
+                                         num_features + num_set, k, pad),
                          num_numerical, orderings, num_set)
         masks.append(cm)
         widths.append(cm.sum(-1).amax())
@@ -627,6 +641,7 @@ def grow_tree(
     rule_ctx=None,
     set_members: Optional[SetMembers] = None,
     mono_dirs: Optional[torch.Tensor] = None,
+    shards=None,
 ) -> GrowResult:
     """Grows one tree (module docstring). Rows [0, num_numerical) of
     `bins_t` are numerical features, the rest categorical (default: all
@@ -639,8 +654,19 @@ def grow_tree(
     d), 3)), and `rule_ctx`. `set_members` (set_members of the rows'
     packed set features) adds the set candidates; `mono_dirs` (f32, on
     the stats' device) the leading candidate columns' monotone
-    directions (module docstring)."""
-    F, n = bins_t.shape
+    directions (module docstring).
+
+    On a mesh, `shards` (parallel/shards.py:TreeShards, the tree's rows
+    laid over the devices) replaces `bins_t`: `stats` stays whole on the
+    mesh's first device, every layer's kernels run on every shard and
+    the split search once on the merged histogram, so the tree is the
+    single device's."""
+    if shards is not None:
+        if set_members is not None:
+            raise ValueError("set features do not train on a mesh")
+        F, n = shards.F, stats.shape[0]
+    else:
+        F, n = bins_t.shape
     if F == 0 and set_members is None:
         raise ValueError("grow_tree needs a scalar or a set feature")
     Fn = F if num_numerical is None else num_numerical
@@ -683,8 +709,11 @@ def grow_tree(
     frontier_id[:1].fill_(0)
     node_stats = torch.zeros((L + 1, S), dtype=torch.float32, device=dev)
     node_stats[0] = total
-    slot = torch.zeros(n, dtype=i32, device=dev)
-    leaf_id = torch.zeros(n, dtype=i32, device=dev)
+    if shards is None:
+        slot = torch.zeros(n, dtype=i32, device=dev)
+        leaf_id = torch.zeros(n, dtype=i32, device=dev)
+    else:
+        shards.begin(hist_stats, L)
     num_nodes = torch.ones((), dtype=i32, device=dev)
     sub_state = None  # (parent hist, small_is_left, Lh) under subtraction
     tables: Optional[RouteTables] = None  # previous layer's decisions
@@ -712,23 +741,28 @@ def grow_tree(
                                             tables)[:2]
             hist = None
         elif tables is None:
-            hist = histogram(bins_t, slot, hist_stats, num_slots=Ld,
-                             num_bins=B, quant=hist_quant,
-                             quant_scale=qscale)
-        elif sub_state is not None:
-            parent_hist, small_is_left, Lh = sub_state
-            hist_small, slot, leaf_id = route_histogram_fused(
-                bins_t, slot, leaf_id, tables, hist_stats, num_slots=Lh,
-                num_bins=B, quant_scale=qscale,
-            )
-            hist = sibling_reconstruct(hist_small, parent_hist,
-                                       small_is_left, Ld)
+            if shards is None:
+                hist = histogram(bins_t, slot, hist_stats, num_slots=Ld,
+                                 num_bins=B, quant=hist_quant,
+                                 quant_scale=qscale)
+            else:
+                hist = finish(shards.root(Ld, B), hist_stats, qscale)
         else:
-            # Frontier of one slot: no subtraction, identity hmap.
-            hist, slot, leaf_id = route_histogram_fused(
-                bins_t, slot, leaf_id, tables, hist_stats, num_slots=Ld,
-                num_bins=B, quant_scale=qscale,
-            )
+            # Under subtraction the smaller children's Lh hist slots; for
+            # a frontier of one slot, no subtraction and the identity hmap.
+            Lh = Ld if sub_state is None else sub_state[2]
+            if shards is None:
+                hist, slot, leaf_id = route_histogram_fused(
+                    bins_t, slot, leaf_id, tables, hist_stats, num_slots=Lh,
+                    num_bins=B, quant_scale=qscale,
+                )
+            else:
+                hist = finish(shards.routed(tables, Lh, B), hist_stats,
+                              qscale)
+            if sub_state is not None:
+                parent_hist, small_is_left, _ = sub_state
+                hist = sibling_reconstruct(hist, parent_hist,
+                                           small_is_left, Ld)
         if F == 0:
             left_all = stats.new_zeros((Ld, 0, B, S))
             ranks = None
@@ -817,7 +851,11 @@ def grow_tree(
         else:
             # The last layer's standalone route (the JAX package's XLA
             # chain, grower.py:982-1000; no TPU kernel).
-            leaf_id = route_plain(bins_t, slot, leaf_id, tables)[1]
+            if shards is None:
+                leaf_id = route_plain(bins_t, slot, leaf_id, tables)[1]
+            else:
+                shards.route_last(tables, B)
+                leaf_id = shards.leaf_ids()
 
     tree = TreeArrays(
         feature=feature[:N], threshold_bin=threshold_bin[:N],

@@ -8,9 +8,11 @@
 
 Both take the bin matrix feature-major, u8 `bins_t [F, n]` (the grower
 keeps one such copy per training run), and return the accumulator type
-of the stats: f32 for f32 and bf16 stats, int32 for int8 stats. The
-bf16 fold and the int8 dequantize belong to the contract layer
-(ops/histogram.py). Rows on the trash slot (slot >= num_slots) and bins
+of the stats: f32 for f32 and bf16 stats, int32 for int8 stats; with
+`wide=True`, a shard's unrounded sum instead (f64 for f32 and bf16
+stats, int32 for int8), which the mesh merge (parallel/shards.py) adds
+across shards in shard order before it rounds once. The bf16 fold and
+the int8 dequantize belong to the contract layer (ops/histogram.py). Rows on the trash slot (slot >= num_slots) and bins
 >= num_bins are dropped.
 
 A CPU tensor runs the plain version (an `index_add_` over the fused
@@ -30,8 +32,11 @@ from ydf_tpu_torch.utils import cuda_build
 #: launch; plain-version calls do not count).
 LAUNCHES = {"histogram": 0, "histogram_routed": 0}
 #: Of LAUNCHES["histogram_routed"], the launches given a row-direction
-#: table (set_go_left of n rows: the grower has set features).
+#: table (set_go_left of n rows: the grower has set features, or the
+#: rows' columns are sharded over a mesh's feature axis).
 SET_TABLE_LAUNCHES = 0
+#: Of LAUNCHES, the launches in the wide mode (a shard's unrounded sum).
+WIDE_LAUNCHES = {"histogram": 0, "histogram_routed": 0}
 # The routed kernel's launch shape (`routed_launch_shape`,
 # histogram_routed.cu): a block of ROUTED_THREADS threads routes a tile of
 # as many rows, a warp for each of at most ROUTED_MAX_PAIRS (feature, hist
@@ -77,6 +82,11 @@ class RouteTables(NamedTuple):
 
 def acc_dtype(stats: torch.Tensor) -> torch.dtype:
     return torch.int32 if stats.dtype == torch.int8 else torch.float32
+
+
+def wide_dtype(stats: torch.Tensor) -> torch.dtype:
+    """The wide mode's output type: f64 for float stats, int32 for int8."""
+    return torch.int32 if stats.dtype == torch.int8 else torch.float64
 
 
 def _align16(b: int) -> int:
@@ -242,11 +252,12 @@ def _check_card(*tensors):
 
 def histogram_plain(bins_t: torch.Tensor, slot: torch.Tensor,
                     stats: torch.Tensor, num_slots: int,
-                    num_bins: int) -> torch.Tensor:
+                    num_bins: int, wide: bool = False) -> torch.Tensor:
     """Plain PyTorch version of csrc/histogram.cu: accumulator
-    [L, F, B, Sq]. Float stats sum in f64 and round once to f32, so the
-    plain version is the near-exact reference the kernel's f32 sums are
-    held against; int8 stats sum exactly in int32."""
+    [L, F, B, Sq]. Float stats sum in f64 and round once to f32 (with
+    `wide`, not at all), so the plain version is the near-exact
+    reference the kernel's f32 sums are held against; int8 stats sum
+    exactly in int32."""
     _check(bins_t, slot, stats, num_bins)
     F, n = bins_t.shape
     L, B, Sq = num_slots, num_bins, stats.shape[1]
@@ -265,41 +276,50 @@ def histogram_plain(bins_t: torch.Tensor, slot: torch.Tensor,
         idx = torch.where(b < B, idx, L * F * B)
         data = acc[r0:r0 + b.shape[0], None, :].expand(-1, F, Sq)
         out.index_add_(0, idx.reshape(-1), data.reshape(-1, Sq))
-    return out.view(L + 1, F, B, Sq)[:L].to(acc_dtype(stats))
+    out = out.view(L + 1, F, B, Sq)[:L]
+    return out if wide else out.to(acc_dtype(stats))
 
 
 def histogram(bins_t: torch.Tensor, slot: torch.Tensor, stats: torch.Tensor,
-              num_slots: int, num_bins: int) -> torch.Tensor:
+              num_slots: int, num_bins: int, wide: bool = False
+              ) -> torch.Tensor:
     """Layer histogram accumulator [num_slots, F, num_bins, Sq] of
-    bins_t u8 [F, n], slot i32 [n], stats f32/bf16/int8 [n, Sq]."""
+    bins_t u8 [F, n], slot i32 [n], stats f32/bf16/int8 [n, Sq]; with
+    `wide`, the unrounded sum (module docstring)."""
     if bins_t.device.type == "cpu":
-        return histogram_plain(bins_t, slot, stats, num_slots, num_bins)
+        return histogram_plain(bins_t, slot, stats, num_slots, num_bins,
+                               wide)
     _check(bins_t, slot, stats, num_bins)
     _check_card(bins_t, slot, stats)
     F, n = bins_t.shape
     L, B, Sq = num_slots, num_bins, stats.shape[1]
     dev = bins_t.device
+    out_dtype = wide_dtype(stats) if wide else acc_dtype(stats)
     if n == 0 or F == 0 or L == 0:
-        return torch.zeros((L, F, B, Sq), dtype=acc_dtype(stats), device=dev)
+        return torch.zeros((L, F, B, Sq), dtype=out_dtype, device=dev)
     # The reduce pass writes every cell: no zero fill.
-    out = torch.empty((L, F, B, Sq), dtype=acc_dtype(stats), device=dev)
+    out = torch.empty((L, F, B, Sq), dtype=out_dtype, device=dev)
     cell_bytes = root_cell_bytes(stats)
     shape = root_launch_shape(n, F, L, B, Sq, cell_bytes)
     partial = torch.empty(
         shape.chunks * out.numel(),
-        dtype=torch.float64 if cell_bytes == 8 else out.dtype, device=dev)
-    fn = cuda_build.entry_point("histogram", "ydf_histogram", 5, 11)
+        dtype=torch.float64 if cell_bytes == 8 else acc_dtype(stats),
+        device=dev)
+    fn = cuda_build.entry_point("histogram", "ydf_histogram", 5, 12)
     with cuda_build.on_device(dev):
         timer = cuda_build.launch_timer("histogram")
         status = fn(
             bins_t.data_ptr(), slot.data_ptr(), stats.data_ptr(),
             partial.data_ptr(), out.data_ptr(), n, F, B, Sq, L,
             _STATS_KIND[stats.dtype], shape.G, shape.Fb, shape.Lb,
-            shape.chunks, shape.rows, torch.cuda.current_stream().cuda_stream,
+            shape.chunks, shape.rows, int(wide),
+            torch.cuda.current_stream().cuda_stream,
         )
         cuda_build.launch_done(timer)
     cuda_build.check_status(status, "histogram kernel")
     LAUNCHES["histogram"] += 1
+    if wide:
+        WIDE_LAUNCHES["histogram"] += 1
     return out
 
 
@@ -338,13 +358,14 @@ def route_plain(bins_t: torch.Tensor, slot: torch.Tensor,
 
 
 def histogram_routed_plain(bins_t, slot, leaf_id, tables: RouteTables,
-                           stats, num_slots: int, num_bins: int):
+                           stats, num_slots: int, num_bins: int,
+                           wide: bool = False):
     """Plain PyTorch version of csrc/histogram_routed.cu: (accumulator
     [num_slots, F, B, Sq], new_slot i32 [n], new_leaf i32 [n])."""
     new_slot, new_leaf, hist_slot = route_plain(bins_t, slot, leaf_id,
                                                 tables)
     hist = histogram_plain(bins_t, hist_slot.to(torch.int32), stats,
-                           num_slots, num_bins)
+                           num_slots, num_bins, wide)
     return hist, new_slot, new_leaf
 
 
@@ -374,10 +395,12 @@ def _check_tables(tables: RouteTables, n: int, num_bins: int):
 
 def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
                      leaf_id: torch.Tensor, tables: RouteTables,
-                     stats: torch.Tensor, num_slots: int, num_bins: int
+                     stats: torch.Tensor, num_slots: int, num_bins: int,
+                     wide: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused routing + histogram: (accumulator [num_slots, F, B, Sq],
-    new_slot i32 [n], new_leaf i32 [n])."""
+    new_slot i32 [n], new_leaf i32 [n]); with `wide`, the accumulator is
+    the unrounded sum (module docstring)."""
     global SET_TABLE_LAUNCHES
     _check(bins_t, slot, stats, num_bins)
     F, n = bins_t.shape
@@ -391,18 +414,19 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
         raise ValueError(f"leaf_id must be int32 [{n}]")
     if bins_t.device.type == "cpu":
         return histogram_routed_plain(bins_t, slot, leaf_id, tables, stats,
-                                      num_slots, num_bins)
+                                      num_slots, num_bins, wide)
     _check_card(bins_t, slot, leaf_id, stats, *tables)
     L = tables.do_split.shape[0] - 1
     Lh, B, Sq = num_slots, num_bins, stats.shape[1]
     dev = bins_t.device
     new_slot = torch.empty(n, dtype=torch.int32, device=dev)
     new_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+    out_dtype = wide_dtype(stats) if wide else acc_dtype(stats)
     if n == 0:
-        out = torch.zeros((Lh, F, B, Sq), dtype=acc_dtype(stats), device=dev)
+        out = torch.zeros((Lh, F, B, Sq), dtype=out_dtype, device=dev)
         return out, new_slot, new_leaf
     # The reduce pass writes every cell: no zero fill.
-    out = torch.empty((Lh, F, B, Sq), dtype=acc_dtype(stats), device=dev)
+    out = torch.empty((Lh, F, B, Sq), dtype=out_dtype, device=dev)
     # Float stats sum in f64 cells and partials (histogram_routed.cu).
     sum_dtype = torch.int32 if stats.dtype == torch.int8 else torch.float64
     shape = routed_launch_shape(n, F, Lh, B, Sq, L,
@@ -411,7 +435,7 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
                           dtype=sum_dtype, device=dev)
     set_gl = tables.set_go_left if tables.set_go_left.shape[0] == n else None
     fn = cuda_build.entry_point("histogram_routed", "ydf_histogram_routed",
-                                17, 12)
+                                17, 13)
     with cuda_build.on_device(dev):
         # Named by hist slots, so that a path's time splits by layer.
         timer = cuda_build.launch_timer(f"histogram_routed/Lh={Lh}")
@@ -425,12 +449,14 @@ def histogram_routed(bins_t: torch.Tensor, slot: torch.Tensor,
             stats.data_ptr(), partial.data_ptr(), out.data_ptr(),
             new_slot.data_ptr(), new_leaf.data_ptr(),
             n, F, B, Sq, L, Lh, _STATS_KIND[stats.dtype], shape.G, shape.Fb,
-            shape.Lb, shape.chunks, shape.rows,
+            shape.Lb, shape.chunks, shape.rows, int(wide),
             torch.cuda.current_stream().cuda_stream,
         )
         cuda_build.launch_done(timer)
     cuda_build.check_status(status, "routed histogram kernel")
     LAUNCHES["histogram_routed"] += 1
+    if wide:
+        WIDE_LAUNCHES["histogram_routed"] += 1
     if set_gl is not None:
         SET_TABLE_LAUNCHES += 1
     return out, new_slot, new_leaf
