@@ -231,6 +231,25 @@ Phases (one line each; any failure is an uncaught exception):
               (NCCL with a card each, or gloo on one card) against the
               one-process run; the kernels timed at the shards' shapes
 
+  20 dist    feature-parallel distributed training over RPC workers
+              (ydf_tpu_torch/testdata/train_dist: the JAX package's
+              distributed default GBT, validation_ratio=0.0 and 50 trees,
+              on cache_frames' 500,000 rows from a cache of two feature
+              shards): the cache binned on the card (its files == the
+              JAX package's); two worker processes (a card each when
+              the machine has two, else both on cuda:0); the main path
+              (train over the workers, then evaluate) with every tree ==
+              the fixture by hash, predictions and raw scores bitwise,
+              evaluate within 1e-12; the workers' launches (the root
+              kernel at a tree's root, the routed kernel deeper) and
+              their CUDA-event device time, host reads, ms a tree, RPC
+              ms by verb, wire bytes, worker RSS; the single device from
+              the same cache (every tree equal, ms a tree); a worker
+              SIGKILLed after tree 5 (every tree still equal); both
+              kernels at the workers' shapes (f32 and int8) torch.equal
+              to plain; the card's idle share (the manager's profile
+              plus a worker's spans); the kernels timed
+
 Phases 4-5 run once per serving path: gbt_d6 with the registry's choice
 (BankScorer), gbt_d6 with QuickScorer forced, and gbt_d8 (BankScorer);
 phase 6 is the training path, phase 7 the serve_vs and train_vs paths,
@@ -244,7 +263,8 @@ runs (train, then evaluate; the multitasker's two tasks together), phase
 benchmark, leaves, distance, serialize) as one path, phase 17 the cache
 path (build, train, evaluate) and the discretized GBT's (train,
 predict), phase 18 the MHLD GBT's (train, evaluate), phase 19 the 4x1
-mesh GBT's (train, evaluate).
+mesh GBT's (train, evaluate), phase 20 the distributed GBT's (train
+over the worker processes, whose launches they report, then evaluate).
 The launch counters are set to 0 just before each path and read just
 after it; phase 3, the comparisons and the timing launches do not count.
 The `kernels` line has one entry per (kernel, path). Each timing gives a
@@ -519,6 +539,17 @@ MESH_RF_TREES = 10
 MESH_RANK_ROWS = 20_000
 MESH_RANK_HP = dict(label="label", num_trees=5)
 MESH_PROFILE_TREES = 5
+TRAIN_DIST = os.path.join(TESTDATA, "train_dist")
+# Phase 20: the distributed GBT over two RPC worker processes, from
+# phase 17's cache_frames train frame (500,000 rows at full width) in a
+# cache of two feature shards; the failover run SIGKILLs worker 1 once
+# DIST_KILL_AFTER trees are done.
+DIST_ROWS = 500_000
+DIST_TEST_ROWS = 100_000
+DIST_SHARDS = 2
+DIST_HP = dict(label="label", validation_ratio=0.0, num_trees=50)
+DIST_KILL_AFTER = 5
+DIST_PROFILE_TREES = 5
 TRAIN_OBLIQUE = os.path.join(TESTDATA, "train_oblique")
 OBLIQUE_HP = dict(label="label", split_axis="SPARSE_OBLIQUE")
 OBLIQUE_RF_FIXTURE_TREES = 50
@@ -1636,6 +1667,8 @@ def main():
     kernels.extend(robust_path(smi, serving=counters))
     torch.cuda.synchronize()
     kernels.extend(mesh_path(smi, serving=counters))
+    torch.cuda.synchronize()
+    kernels.extend(dist_path(smi, serving=counters))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7812,6 +7845,527 @@ def mesh_path(smi, serving):
     })
     lap("19g")
     log("19 mesh", f"phase 19 wall {time.perf_counter() - t_phase:.1f} s "
+        f"(by part, s: {walls})")
+    return out
+
+
+_DIST_WORKER = """
+import sys
+sys.path.insert(0, sys.argv[3])
+from ydf_tpu_torch.parallel.worker_service import start_worker
+
+start_worker(int(sys.argv[1]), device=sys.argv[2])
+"""
+
+
+def start_dist_workers(devices, timeout_s=180.0):
+    """One worker process per entry of `devices` (sys.executable running
+    worker_service.start_worker on a free port); returns (processes,
+    addresses) once every worker answers a ping."""
+    import socket
+    import subprocess
+    import tempfile
+
+    from ydf_tpu_torch.parallel.worker_service import WorkerPool
+
+    script = os.path.join(tempfile.mkdtemp(), "worker.py")
+    with open(script, "w") as f:
+        f.write(_DIST_WORKER)
+    procs, addrs = [], []
+    for dev in devices:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        procs.append(subprocess.Popen(
+            [sys.executable, script, str(port), dev, HERE],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        addrs.append(f"127.0.0.1:{port}")
+    deadline = time.monotonic() + timeout_s
+    for p, addr in zip(procs, addrs):
+        pool = WorkerPool([addr], timeout_s=5.0)
+        while True:
+            if p.poll() is not None:
+                raise RuntimeError(f"worker {addr} exited: "
+                                   + p.stdout.read().decode()[-3000:])
+            try:
+                if pool.request(0, {"verb": "ping"}, timeout_s=5.0)["ok"]:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"worker {addr} never answered")
+            time.sleep(0.2)
+        pool.close()
+    return procs, addrs
+
+
+def worker_launches(addrs, reset=False, time_launches=False):
+    """Each worker process's histogram kernel launch counts, the device
+    time of its timed spans by name ([count, ms]: CUDA events around
+    each kernel launch, apply_split's ops and the histograms' copy out)
+    and its RSS, through the get_telemetry verb: reset=True sets the
+    counts and times to 0 after the read, time_launches=True turns the
+    timing on."""
+    from ydf_tpu_torch.parallel.worker_service import WorkerPool
+
+    pool = WorkerPool(addrs, timeout_s=60.0)
+    out = [pool.request(i, {"verb": "get_telemetry",
+                            "reset_launches": reset,
+                            "time_launches": time_launches})
+           for i in range(len(addrs))]
+    pool.close()
+    return ([r["launches"] for r in out], [r["rss_bytes"] for r in out],
+            [r["launch_ms"] for r in out])
+
+
+def summed_spans(per_worker):
+    """The workers' timed spans added by name: {name: [count, ms]}."""
+    out = {}
+    for spans in per_worker:
+        for name, (c, ms) in spans.items():
+            acc = out.setdefault(name, [0, 0.0])
+            acc[0] += c
+            acc[1] += ms
+    return out
+
+
+def capture_dist_layers(manager_cls, tree=0):
+    """Wraps manager_cls.routed to record, for each deeper layer of tree
+    `tree`, what a worker's routed launch gets: the manager's row state
+    before the route (== every worker's), the row-direction tables built
+    from the grower's tables and the merged go-left bitmap, the tree's
+    f32 operand and Lh; and the manager's leaf ids after the route.
+    Returns (records, restore)."""
+    import torch
+
+    from ydf_tpu_torch.parallel import dist_worker
+    from ydf_tpu_torch.parallel.shards import direction_tables
+
+    records, orig = [], manager_cls.routed
+
+    def routed(self, tables, Lh, B):
+        if self.it != tree:
+            return orig(self, tables, Lh, B)
+        slot, leaf = self.slot.clone(), self.leaf_id.clone()
+        out = orig(self, tables, Lh, B)
+        dirs = torch.from_numpy(dist_worker.unpack_bits(
+            self.pending_route["go_left"], self.n).view(np.uint8)).to(
+            self.device)
+        records.append(dict(
+            slot=slot, leaf=leaf, Lh=Lh, B=B,
+            tables=direction_tables(type(tables)(
+                *(t.clone() for t in tables)), dirs),
+            op=dist_worker.from_wire(self.cur_hist_stats, self.device),
+            leaf_after=self.leaf_id.clone()))
+        return out
+
+    manager_cls.routed = routed
+
+    def restore():
+        manager_cls.routed = orig
+
+    return records, restore
+
+
+def dist_path(smi, serving):
+    """Phase 20: feature-parallel distributed GBT training over RPC
+    workers (parallel/worker_service.py, dist_worker.py, dist_gbt.py).
+    20 cache: cache_frames' 500,000 train rows binned on the card into a
+    cache of DIST_SHARDS feature shards (its files == the JAX package's
+    cache of the train_dist fixture). 20 workers: two worker processes,
+    cuda:0 and cuda:1 when the machine has two cards, else both on
+    cuda:0. 20 dist: the main path, GradientBoostedTreesLearner(
+    distributed_workers=..., **DIST_HP).train(cache) then evaluate; every
+    tree == the train_dist fixture (the JAX package's distributed run,
+    itself == its single machine) by hash, the predictions and raw
+    scores bitwise through the bank kernel, evaluate within 1e-12; the
+    workers' launches, host reads, ms a tree, RPC ms a layer by verb,
+    wire bytes a tree, worker RSS. 20 single: the port's single-device
+    GBT from the same cache, every tree == the distributed run's, ms a
+    tree. 20 failover: the same distributed train with worker 1 killed
+    (SIGKILL) after tree DIST_KILL_AFTER: its shards move to worker 0
+    and every tree still matches. 20 kernels: the histogram kernel at
+    the workers' shapes (n rows, a shard's columns; f32 and int8)
+    torch.equal to its plain version, in this process: the root kernel
+    at the root's one slot, the routed kernel at every deeper layer of
+    the failover run's first tree as a worker launched it (its row
+    state, its row-direction tables from the merged bitmap, Lh), its
+    new leaf ids == the manager's route. 20 profile: the manager's
+    device time over a profiled stretch on one worker, and that worker's
+    device time (CUDA events): the card's idle share. 20 timing: the
+    kernels timed at these shapes. A `finally` kills the worker
+    processes. Returns the `kernels` entries."""
+    import signal
+    import tempfile
+
+    import torch
+
+    import ydf_tpu_torch
+    from ydf_tpu_torch.dataset.cache import create_dataset_cache
+    from ydf_tpu_torch.ops import histogram_kernels
+    from ydf_tpu_torch.ops.histogram import prepare_stats_for_hist
+    from ydf_tpu_torch.parallel import dist_gbt
+    from ydf_tpu_torch.serving import bank_scorer
+    from ydf_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    walls, last = {}, [t_phase]
+
+    def lap(part):
+        now = time.perf_counter()
+        walls[part] = round(now - last[0], 2)
+        last[0] = now
+
+    count = torch.cuda.device_count()
+    devices = [f"{DEVICE}:{i if count >= 2 else 0}" for i in range(2)]
+    with open(os.path.join(TRAIN_DIST, "config.json")) as f:
+        cfg = json.load(f)
+    exp = np.load(os.path.join(TRAIN_DIST, "expected.npz"))
+    assert (cfg["rows"], cfg["test_rows"], cfg["feature_shards"],
+            cfg["learner"]) == (DIST_ROWS, DIST_TEST_ROWS, DIST_SHARDS,
+                                DIST_HP), "train_dist fixture config"
+    train, test = cache_frames(DIST_ROWS, DIST_TEST_ROWS)
+    assert frame_sha256(train) == cfg["train_sha256"], "train frame"
+    assert frame_sha256(test) == cfg["test_sha256"], "test frame"
+    tmp = tempfile.mkdtemp()
+
+    # -- 20a the cache, binned on the card ------------------------------ #
+    reset_counts(serving)
+    t0 = time.perf_counter()
+    cache = create_dataset_cache(train, os.path.join(tmp, "c"),
+                                 label="label", feature_shards=DIST_SHARDS,
+                                 device=DEVICE)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    c_cache = read_counts(serving)[0]
+    assert c_cache["binning"] >= 1, c_cache
+    assert cache_record(cache) == cfg["cache"], (
+        "the cache's files != the JAX package's")
+    log("20 cache", f"create_dataset_cache(cache_frames' {DIST_ROWS} rows, "
+        f"feature_shards={DIST_SHARDS}) on the card in {cache_s:.2f} s "
+        f"({c_cache['binning']} binning launches); every file and the "
+        f"metadata == the JAX package's cache by SHA-256; shards "
+        f"{[cache.shard_col_range(k) for k in range(DIST_SHARDS)]} of "
+        f"{cache.binner.num_scalar} columns")
+    lap("20a")
+
+    procs = []
+    try:
+        # -- 20b the workers ------------------------------------------- #
+        procs, addrs = start_dist_workers(devices)
+        log("20 workers", f"{len(procs)} worker processes ({sys.executable}"
+            f" ... start_worker(port, device=...)) on {devices} ("
+            + ("a card each" if count >= 2 else
+               f"one card: both workers and the manager share cuda:0, "
+               f"{count} card(s) on this machine")
+            + f"), addresses {addrs}; {smi}")
+        lap("20b")
+
+        # -- 20c the main path: distributed train, then evaluate -------- #
+        reset_counts(serving)
+        worker_launches(addrs, reset=True, time_launches=True)
+        reads0 = dist_gbt.HOST_READS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner = ydf_tpu_torch.GradientBoostedTreesLearner(
+            distributed_workers=addrs, **DIST_HP)
+        model = learner.train(cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = model.evaluate(test)
+        torch.cuda.synchronize()
+        counted, others, events = read_counts(serving)
+        w_launch, w_rss, w_spans = worker_launches(addrs, reset=True)
+        spans = summed_spans(w_spans)
+        reads = dist_gbt.HOST_READS - reads0
+        d = model.training_logs["distributed"]
+        T, depth = DIST_HP["num_trees"], learner.max_depth
+        hist_launches = sum(w["histogram"] for w in w_launch)
+        routed_launches = sum(w["histogram_routed"] for w in w_launch)
+        # One build_histograms a layer but the last, one launch a shard:
+        # the root kernel at the root, the routed kernel deeper.
+        assert hist_launches == T * DIST_SHARDS, w_launch
+        assert routed_launches == T * (depth - 1) * DIST_SHARDS, w_launch
+        assert all(w["histogram"] > 0 and w["histogram_routed"] > 0
+                   for w in w_launch), w_launch
+        assert counted["histogram"] == counted["histogram_routed"] == 0, (
+            "the manager launched a histogram kernel", counted)
+        routed_lh = {int(k.split("=")[1]): c for k, (c, _) in spans.items()
+                     if k.startswith("histogram_routed/Lh=")}
+        assert sum(routed_lh.values()) == routed_launches, spans
+        assert spans["histogram"][0] == hist_launches, spans
+        worker_ms = {k: ms for k, (_, ms) in spans.items()}
+        bank_launches = others[bank_scorer.__name__]
+        assert bank_launches >= 1, others
+        assert reads == T * (1 + depth), (reads, T, depth)
+        assert d["recoveries"] == 0, d
+        dist_tree_ms = 1e3 * float(np.mean(d["tree_s"]))
+        rpc_ms = {v: d["rpc_total_ns"][v] / d["rpc_count"][v] / 1e6
+                  for v in d["rpc_count"]}
+        layer_rpcs = {v: d["rpc_count"][v] / (T * depth)
+                      for v in ("build_histograms", "apply_split")}
+        wire = {"requests": (d["rpc_header_bytes"]
+                             + d["rpc_payload_bytes"]) / T,
+                "histograms": d["reduce_bytes"] / T,
+                "bitmaps": d["bitmap_bytes"] / T,
+                "stats": d["stats_bytes"] / T}
+        log("20 dist", f"GradientBoostedTreesLearner(distributed_workers="
+            f"[2 addresses], **{DIST_HP}).train(cache): wall "
+            f"{wall * 1e3:.1f} ms ({learner.last_timings}); {T} trees, "
+            f"{dist_tree_ms:.2f} ms a tree (mean of the manager's tree "
+            f"walls); the workers launched histogram.cu {hist_launches} "
+            f"times and histogram_routed.cu {routed_launches} times "
+            f"({w_launch}: a root and {depth - 1} deeper layers x "
+            f"{DIST_SHARDS} shards a tree; routed by Lh {routed_lh}), the "
+            f"manager none; the workers' device time (CUDA events), ms a "
+            "tree: " + ", ".join(f"{k} {ms / T:.4f}"
+                                 for k, ms in sorted(worker_ms.items()))
+            + f" (all {sum(worker_ms.values()) / T:.4f}); {reads} host reads "
+            f"({reads / T:.1f} a tree: the operand and one a layer); RPC "
+            "ms a call by verb " + ", ".join(
+                f"{v} {ms:.3f} ({layer_rpcs.get(v, 0):.2f} a layer)"
+                for v, ms in rpc_ms.items())
+            + f"; exchange {d['exchange_s']:.3f} s (compute "
+            f"{d['compute_s']:.3f}, net {d['net_s']:.3f}, wait "
+            f"{d['wait_s']:.3f}), merge {d['merge_s'] * 1e3 / (T * depth):.3f}"
+            f" ms a layer; wire bytes a tree " + ", ".join(
+                f"{k} {v:.0f}" for k, v in wire.items())
+            + f"; worker RSS {w_rss} bytes; manager RSS "
+            f"{telemetry.rss_bytes()} bytes; {smi}")
+        lap("20c")
+
+        # -- 20d against the fixture ------------------------------------ #
+        kept = check_run_trees(exp, "run", model)
+        head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+        assert np.array_equal(np.asarray(model.predict(head)),
+                              exp["run/predictions"]), "predictions"
+        raw = model._raw_scores(head, combine="sum")[:, 0]
+        assert np.array_equal(raw.view(np.int32),
+                              exp["run/raw"].view(np.int32)), "raw scores"
+        # The reported binomial loss is torch's (the trees are bitwise).
+        assert np.allclose(model.training_logs["train_loss"],
+                           exp["run/train_loss"], rtol=REPORTED_LOSS_RTOL,
+                           atol=0), "train losses"
+        jev = cfg["jax_evaluate"]
+        ev_err = max(abs(ev.metrics[k] - jev[k]) for k in jev)
+        assert ev_err <= EVAL_SAME_ATOL, (ev.metrics, jev)
+        log("20 vs fixture", f"all {kept} trees == the train_dist fixture "
+            "(the JAX package's distributed GBT, == its single machine) by "
+            f"SHA-256 and node counts; predictions and raw scores on "
+            f"{cfg['compare_rows']} test rows bitwise (the bank kernel, "
+            f"{bank_launches} launches on the path); evaluate on "
+            f"{DIST_TEST_ROWS} rows within {ev_err:.3g} of JAX's "
+            f"(<= {EVAL_SAME_ATOL})")
+        lap("20d")
+
+        # -- 20e the single device from the same cache ------------------- #
+        t0 = time.perf_counter()
+        l1 = ydf_tpu_torch.GradientBoostedTreesLearner(**DIST_HP)
+        single = l1.train(cache)
+        torch.cuda.synchronize()
+        single_wall = time.perf_counter() - t0
+        got = forest_hashes(canonical_nan(model.forest.to_numpy()))
+        assert forest_hashes(canonical_nan(single.forest.to_numpy())) == \
+            got, "the distributed trees != the single device's"
+        single_tree_ms = l1.last_timings["boost_s"] * 1e3 / T
+        log("20 single", f"GradientBoostedTreesLearner(**{DIST_HP})"
+            f".train(cache) on cuda:0: wall {single_wall * 1e3:.1f} ms, "
+            f"{single_tree_ms:.2f} ms a tree; every tree == the "
+            f"distributed run's by SHA-256; distributed / single ms a tree "
+            f"= {dist_tree_ms:.2f} / {single_tree_ms:.2f} = "
+            f"{dist_tree_ms / single_tree_ms:.1f}x")
+        lap("20e")
+
+        # -- 20f a real failover ----------------------------------------- #
+        killed = []
+        orig = dist_gbt.DistGBTManager._tree_boundary
+
+        def killing(self, guard, done, loop):
+            if done == DIST_KILL_AFTER and not killed:
+                procs[1].send_signal(signal.SIGKILL)
+                procs[1].wait()
+                killed.append(time.perf_counter())
+            return orig(self, guard, done, loop)
+
+        dist_gbt.DistGBTManager._tree_boundary = killing
+        layers, restore = capture_dist_layers(dist_gbt.DistGBTManager)
+        try:
+            t0 = time.perf_counter()
+            m2 = ydf_tpu_torch.GradientBoostedTreesLearner(
+                distributed_workers=addrs, **DIST_HP).train(cache)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+        finally:
+            dist_gbt.DistGBTManager._tree_boundary = orig
+            restore()
+        assert {r["Lh"] for r in layers} == set(routed_lh), (
+            [r["Lh"] for r in layers], routed_lh)
+        assert killed and procs[1].returncode == -signal.SIGKILL, killed
+        d2 = m2.training_logs["distributed"]
+        assert d2["recoveries"] >= 1, d2
+        assert forest_hashes(canonical_nan(m2.forest.to_numpy())) == got, (
+            "trees after the failover != the fault-free run's")
+        log("20 failover", f"worker 1 ({addrs[1]}) SIGKILLed after tree "
+            f"{DIST_KILL_AFTER}: {d2['recoveries']} recoveries (its shard "
+            "moved to worker 0 with the manager's state), all "
+            f"{T} trees == the fault-free run's by SHA-256; wall "
+            f"{wall2 * 1e3:.1f} ms; trees after the kill "
+            f"{1e3 * float(np.mean(d2['tree_s'][DIST_KILL_AFTER:])):.2f} ms "
+            "a tree on one worker")
+        lap("20f")
+
+        # -- 20g the manager's device time, profiled --------------------- #
+        worker_launches(addrs[:1], reset=True, time_launches=True)
+        prof = profile_train(cache, dict(DIST_HP, num_trees=DIST_PROFILE_TREES,
+                                         distributed_workers=addrs[:1]))
+        prof_spans = summed_spans(worker_launches(addrs[:1], reset=True)[2])
+        # The card's idle share over the profiled loop: the manager's
+        # device time (torch.profiler) and the worker's (CUDA events
+        # around its kernels, apply_split's ops and the copy out) over
+        # the loop's wall; both processes are on cuda:0. Not counted: the
+        # worker's small host-to-device copies (tables, bitmap, operand).
+        per_tree = prof["loop_ms"] / DIST_PROFILE_TREES
+        mgr_ms = prof["busy_ms"] / DIST_PROFILE_TREES
+        wk_ms = sum(ms for _, ms in prof_spans.values()) / DIST_PROFILE_TREES
+        idle = max(0.0, 1 - (mgr_ms + wk_ms) / per_tree)
+        log("20 profile", f"the manager's process under torch.profiler, "
+            f"{DIST_PROFILE_TREES} trees on one worker: loop "
+            f"{prof['loop_ms']:.1f} ms, {prof['kernels']} device records, "
+            f"{prof['busy_ms']:.3f} ms of the manager's device time; "
+            "largest: " + "; ".join(f"{name[:60]} {ms:.3f} ms"
+                                    for name, ms in prof["top"]))
+        log("20 idle", f"a profiled tree: loop {per_tree:.2f} ms, the "
+            f"manager's device time {mgr_ms:.3f} ms, the worker's "
+            f"{wk_ms:.3f} ms (CUDA events, ms a tree: " + ", ".join(
+                f"{k} {ms / DIST_PROFILE_TREES:.4f} in {c}"
+                for k, (c, ms) in sorted(prof_spans.items()))
+            + f"): cuda:0 is idle {100 * idle:.1f}% of the distributed "
+            "loop (its host: the RPCs, pickling, the copies); the "
+            f"worker's small host-to-device copies are not counted; {smi}")
+        lap("20g")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+    # -- 20h the kernels at the workers' shapes, against plain ------------ #
+    dev = torch.device(DEVICE)
+    B = cache.binner.num_bins
+    op = layers[0]["op"]
+    int8_op = prepare_stats_for_hist(op, "int8")[0]
+    n = op.shape[0]
+    checked = []
+    shard_bins = [torch.from_numpy(np.array(cache.shard_bins(k))).to(
+        dev).t().contiguous() for k in range(DIST_SHARDS)]
+    root_slot = torch.zeros(n, dtype=torch.int32, device=dev)
+    for k, bins_t in enumerate(shard_bins):
+        Fk = bins_t.shape[0]
+        for quant, x in (("f32", op), ("int8", int8_op)):
+            got_h = histogram_kernels.histogram(bins_t, root_slot, x, 1, B)
+            want_h = histogram_kernels.histogram_plain(bins_t, root_slot, x,
+                                                       1, B)
+            assert torch.equal(got_h, want_h), (
+                f"root histogram at shard {k}, {quant} != plain")
+            checked.append(f"shard {k} Fk={Fk} root {quant}")
+            for r in layers:
+                got = histogram_kernels.histogram_routed(
+                    bins_t, r["slot"], r["leaf"], r["tables"], x, r["Lh"], B)
+                want = histogram_kernels.histogram_routed_plain(
+                    bins_t, r["slot"], r["leaf"], r["tables"], x, r["Lh"], B)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                    f"routed histogram at shard {k}, Lh={r['Lh']}, {quant} "
+                    "!= plain")
+                assert torch.equal(got[2], r["leaf_after"]), (
+                    f"the routed kernel's leaves at Lh={r['Lh']} != the "
+                    "manager's route")
+                checked.append(f"shard {k} Fk={Fk} Lh={r['Lh']} {quant}")
+    log("20 kernels", f"at the workers' shapes ({n} rows), each torch.equal "
+        "to its plain version (the routed kernel's histogram, new slots and "
+        "new leaves; its leaves also == the manager's route): "
+        + "; ".join(checked))
+    lap("20h")
+
+    # -- 20i the kernels timed at the workers' shapes -------------------- #
+    out = []
+    dist_fields = dict(
+        ms_a_tree=dist_tree_ms, single_ms_a_tree=single_tree_ms,
+        host_reads_a_tree=reads / T, wire_bytes_a_tree=wire,
+        rpc_ms_by_verb=rpc_ms, worker_rss_bytes=w_rss,
+        worker_device_ms_a_tree={k: ms / T for k, ms in worker_ms.items()},
+        idle_share=idle, idle_how=(
+            "1 - (the manager's device time by torch.profiler + the "
+            "worker's by CUDA events) / the loop's wall, over "
+            f"{DIST_PROFILE_TREES} trees on one worker"))
+    t = measure_train("histogram", {"root": (shard_bins[0], root_slot, op,
+                                             1, B)})
+    log("20 timing", f"histogram at worker shard 0's root ({t['shape']}, "
+        f"f32): {timing_text(t)}, {smi}")
+    out.append(train_entry("histogram", "dist_root", "histogram.cu",
+                           "ydf_tpu/ops/histogram_pallas.py:81", t,
+                           hist_launches, 0.0, worker_ms["histogram"]))
+    out[-1].update(path_how="CUDA events around each launch in the "
+                   "worker processes", **dist_fields)
+    routed_args = [(shard_bins[0], r["slot"], r["leaf"], r["tables"], op,
+                    r["Lh"], B) for r in layers]
+    t = measure_train("histogram_routed", {
+        "routed": max(routed_args, key=lambda a: a[5])})
+    log("20 timing", f"histogram_routed at worker shard 0's deepest layer "
+        f"of tree 0 ({t['shape']}, f32): {timing_text(t)}, {smi}")
+    out.append(train_entry(
+        "histogram_routed", "dist", "histogram_routed.cu",
+        "ydf_tpu/ops/histogram_pallas.py:172", t, routed_launches, 0.0,
+        sum(ms for k, ms in worker_ms.items()
+            if k.startswith("histogram_routed/"))))
+    by_lh = {}
+    for args in routed_args:
+        lh = args[5]
+        if lh in by_lh:
+            continue
+        tl = measure_train("histogram_routed", {"routed": args},
+                           timing_only=True)
+        by_lh[lh] = {
+            "launches": routed_lh[lh], "device_ms": tl["device_ms"],
+            "device_how": tl["device_how"], "bound_ms": tl["bound_ms"],
+            "path_ms": worker_ms[f"histogram_routed/Lh={lh}"]}
+    out[-1].update(path_how="CUDA events around each launch in the worker "
+                   "processes", **layer_fields(by_lh), **dist_fields)
+    log("20 layers", "histogram_routed on the workers by hist slots (timed "
+        "here on shard 0's layers of tree 0; launches and path times from "
+        f"the workers' CUDA events): {layer_text(by_lh)}, {smi}")
+    bank = bank_scorer.build_bank_scorer(model)
+    xT = encoded_xT(model, test)
+    t = measure(bank_scorer, bank.tables, bank.tables, xT)
+    log("20 timing", f"bank_scorer/dist at {xT.shape[1]} rows x "
+        f"{xT.shape[0]} features ({kept} trees): kernel {t['ms']:.4f} ms a "
+        f"call back to back, {t['device_ms']:.4f} ms on the card "
+        f"({t['device_how']}), plain {t['plain_ms']:.2f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['detail']}), {smi}")
+    out.append({
+        "name": "bank_scorer/dist", "route": "cuda",
+        "source": "ydf_tpu_torch/csrc/bank_scorer.cu",
+        "replaces": "ydf_tpu/serving/pallas_scorer.py:118",
+        "launches": bank_launches, "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "device_ms": t["device_ms"],
+        "device_how": t["device_how"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "path_ms": split_events(events)[0].get("bank_scorer", 0.0),
+        "path_how": "CUDA events around each launch",
+    })
+    # The binner's numerical columns as the f32 values binning takes
+    # (cache_frames' "treat" is an integer column).
+    numerical = cache.binner.feature_names[:cache.binner.num_numerical]
+    t = measure_train("binning", train_inputs(
+        {k: np.asarray(v, np.float32) if k in numerical else v
+         for k, v in train.items()}, cache.binner))
+    log("20 timing", f"binning at the cache's shape ({t['shape']}): "
+        f"{timing_text(t)}, {smi}")
+    out.append(train_entry("binning", "dist_cache", "binning.cu",
+                           "ydf_tpu/ops/binning_pallas.py:60", t,
+                           c_cache["binning"], 0.0, None))
+    lap("20i")
+    log("20 dist", f"phase 20 wall {time.perf_counter() - t_phase:.1f} s "
         f"(by part, s: {walls})")
     return out
 

@@ -175,7 +175,7 @@ train_oblique's full runs), `--only train_monotone`
 `--only train_uplift` (~4 min), `--only train_honest` (~7.5 min),
 `--only train_sets_alone` (~11 min), `--only train_multitasker` (~1
 min), `--only ydf_format` (~10 s), `--only train_mhld` (~25 min),
-`--only mhld_order` (~10 s) or `--only serving` for one part).
+`--only mhld_order` (~10 s), `--only train_dist` or `--only serving` for one part).
 
 Fixture `train_mhld/xla_order.npz` (`--only mhld_order`, also written
 by `--only train_mhld`): what XLA's CPU computes for the row dots a^T b
@@ -2340,6 +2340,96 @@ def write_train_cache():
     _write_runs("train_cache", cfg, runs)
 
 
+TRAIN_DIST = dict(
+    rows=500_000, test_rows=100_000, feature_shards=2, workers=2,
+    learner=dict(label="label", validation_ratio=0.0, num_trees=50),
+    compare_rows=1024,
+)
+
+
+def write_train_dist():
+    """train_dist/: the JAX package's feature-parallel distributed GBT
+    (two in-process workers on this machine's CPU) on phase 17's
+    chip_smoke.cache_frames train frame at full width, from a cache
+    built with feature_shards=2: the default GBT with validation_ratio=
+    0.0 and 50 trees. It is first held tree by tree against the JAX
+    package's single-machine GBT from the same cache. Records every
+    tree's hash (a NaN as chip_smoke.canonical_nan writes it), the node
+    counts, the losses, the test rows' predictions (all hashed, the
+    first compare_rows in full), their raw scores and evaluate's
+    metrics."""
+    import socket
+    import tempfile
+    import time
+
+    import chip_smoke
+    import ydf_tpu as ydf
+    from ydf_tpu.dataset.cache import create_dataset_cache
+    from ydf_tpu.parallel.worker_service import WorkerPool, start_worker
+
+    cfg = dict(TRAIN_DIST, jax_version=__import__("jax").__version__,
+               cat_seed=chip_smoke.DEFAULT_CAT_SEED,
+               data_seed=chip_smoke.DATA_SEED)
+    out = os.path.join(OUT, "train_dist")
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    train, test = chip_smoke.cache_frames(cfg["rows"], cfg["test_rows"])
+    cfg["train_sha256"] = chip_smoke.frame_sha256(train)
+    cfg["test_sha256"] = chip_smoke.frame_sha256(test)
+    ports = []
+    for _ in range(cfg["workers"]):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            ports.append(sk.getsockname()[1])
+    for p in ports:
+        start_worker(p, blocking=False)
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    with tempfile.TemporaryDirectory() as tmp:
+        c = create_dataset_cache(train, os.path.join(tmp, "c"),
+                                 label="label",
+                                 feature_shards=cfg["feature_shards"])
+        cfg["cache"] = chip_smoke.cache_record(c)
+        t0 = time.perf_counter()
+        single = ydf.GradientBoostedTreesLearner(**cfg["learner"]).train(c)
+        t1 = time.perf_counter()
+        m = ydf.GradientBoostedTreesLearner(
+            distributed_workers=addrs, **cfg["learner"]).train(c)
+        t2 = time.perf_counter()
+        cfg["jax_single_s_cpu"], cfg["jax_dist_s_cpu"] = t1 - t0, t2 - t1
+    WorkerPool(addrs).shutdown_all()
+    fo = chip_smoke.canonical_nan(
+        {f: np.asarray(getattr(m.forest, f)) for f in m.forest._fields})
+    fs = chip_smoke.canonical_nan(
+        {f: np.asarray(getattr(single.forest, f))
+         for f in single.forest._fields})
+    T = fo["feature"].shape[0]
+    hashes = chip_smoke.forest_hashes(fo)
+    bad = [t for t, h in enumerate(chip_smoke.forest_hashes(fs))
+           if h != hashes[t]]
+    assert not bad, f"JAX distributed trees {bad[:10]} != single-machine"
+    preds = np.asarray(m.predict(test))
+    head = {k: v[:cfg["compare_rows"]] for k, v in test.items()}
+    cfg.update(
+        num_trees=T, predictions_sha256=chip_smoke.array_sha256(preds),
+        jax_evaluate=dict(m.evaluate(test).metrics),
+        distributed={k: v for k, v in m.training_logs["distributed"].items()
+                     if k in ("workers", "feature_shards", "hist_quant",
+                              "reduce_bytes", "stats_bytes")})
+    arrays = dict(
+        tree_sha256=np.stack([np.frombuffer(bytes.fromhex(h), np.uint8)
+                              for h in hashes]),
+        num_nodes=fo["num_nodes"].astype(np.int32),
+        train_loss=np.asarray(m.training_logs["train_loss"], np.float32),
+        predictions=preds[:cfg["compare_rows"]],
+        raw=np.asarray(m._raw_scores(head, combine="sum")[:, 0]),
+        initial_predictions=np.asarray(m.initial_predictions, np.float32),
+    )
+    _write_runs("train_dist", cfg, {"run": arrays})
+    print(f"train_dist: {T} trees, == single-machine; single "
+          f"{cfg['jax_single_s_cpu']:.1f} s, distributed "
+          f"{cfg['jax_dist_s_cpu']:.1f} s", flush=True)
+
+
 TRAIN_DISCRETIZED = dict(
     rows=200_000, test_rows=50_000, learner=dict(
         label="label", discretize_numerical_columns=True),
@@ -2716,6 +2806,8 @@ def main():
         write_train_discretized()
     if only in (None, "train_mhld"):
         write_train_mhld()
+    if only in (None, "train_dist"):
+        write_train_dist()
     if only == "mhld_order":
         write_mhld_order(os.path.join(OUT, "train_mhld"))
     if only not in (None, "serving"):

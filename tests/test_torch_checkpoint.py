@@ -195,6 +195,54 @@ def test_resume_refuses_mismatched_config_and_jax_snapshots(tmp_path):
         gbt(resume_training=True, **dict(kw, working_dir=other)).train(d)
 
 
+def test_resume_refuses_another_histogram_mode(tmp_path, monkeypatch):
+    """A snapshot taken with YDF_TPU_HIST_QUANT=int8 is refused by a
+    resume under the default f32 (the mode decides the trees)."""
+    d = data()
+    kw = dict(working_dir=str(tmp_path / "a"),
+              resume_training_snapshot_interval_trees=5, num_trees=10,
+              validation_ratio=0.0)
+    monkeypatch.setenv("YDF_TPU_HIST_QUANT", "int8")
+    learner = gbt(**kw)
+    learner._abort_after_chunks = 1
+    with pytest.raises(port_gbt._TrainingAborted):
+        learner.train(d)
+    monkeypatch.delenv("YDF_TPU_HIST_QUANT")
+    with pytest.raises(ValueError, match="refusing to resume"):
+        gbt(resume_training=True, **kw).train(d)
+
+
+def test_the_fingerprint_hashes_the_mode_only_off_f32(monkeypatch):
+    """Under the default f32 the histogram mode is left out of the
+    fingerprint, so snapshots written before the mode was hashed still
+    resume; every other mode is hashed, and the three differ."""
+    import types
+
+    seen = []
+    real = port_gbt.hashlib.sha1
+
+    class Recorder:
+        def __init__(self):
+            self.h = real()
+
+        def update(self, b):
+            seen.append(bytes(b))
+            self.h.update(b)
+
+        def hexdigest(self):
+            return self.h.hexdigest()
+
+    monkeypatch.setattr(port_gbt.hashlib, "sha1", Recorder)
+    binner = types.SimpleNamespace(boundaries=np.zeros((2, 3), np.float32))
+    labels, weights = np.zeros(4, np.float32), np.ones(4, np.float32)
+    fps = {}
+    for quant in ("f32", "int8", "bf16x2"):
+        seen.clear()
+        fps[quant] = gbt()._fingerprint(labels, weights, binner, 4, 0, quant)
+        assert (quant.encode() in seen) == (quant != "f32")
+    assert len(set(fps.values())) == 3
+
+
 def test_real_sigterm_in_a_subprocess(tmp_path):
     """A SIGTERM delivered by the OS while the checkpointed loop runs:
     the process ends with TrainingPreempted (the script exits with its

@@ -481,9 +481,11 @@ def test_gbt_mesh_launches_every_shard():
     assert calls == {"histogram": 3 * 4, "histogram_routed": 3 * 3 * 4}
 
 
-def test_unported_on_a_mesh_raise():
+def test_unported_on_a_mesh_raise(tmp_path):
     """Categorical-set features do not train on a mesh (ROADMAP item
-    18); the distributed-worker options still raise naming item 18."""
+    18); distributed_membership raises naming item 18, and mesh= with
+    RPC workers raises the JAX package's "combined with RPC workers"
+    error when it trains (the constructor takes both)."""
     rng = np.random.RandomState(0)
     n = 300
     d = {"x": rng.normal(size=n),
@@ -499,11 +501,18 @@ def test_unported_on_a_mesh_raise():
             learner.train(d)
     assert "item 18" in str(unported("categorical-set features on a mesh",
                                      18))
-    for extra in (dict(distributed_workers=["h:1"]),
-                  dict(distributed_membership=object())):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            ydf_tpu_torch.GradientBoostedTreesLearner(
-                label="y", mesh=cpu_mesh(2), **extra)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        ydf_tpu_torch.GradientBoostedTreesLearner(
+            label="y", mesh=cpu_mesh(2), distributed_membership=object())
+    from ydf_tpu_torch.dataset.cache import create_dataset_cache
+
+    cache = create_dataset_cache(
+        {"x": d["x"], "z": rng.normal(size=n), "y": d["y"]},
+        str(tmp_path / "c"), label="y", feature_shards=2, device="cpu")
+    with pytest.raises(ValueError, match="combined with RPC workers"):
+        ydf_tpu_torch.GradientBoostedTreesLearner(
+            label="y", mesh=cpu_mesh(2), distributed_workers=["h:1"],
+            validation_ratio=0.0).train(cache)
 
 
 # --------------------------------------------------------------------- #

@@ -264,7 +264,9 @@ def _port_sources():
 
 
 def test_port_imports_no_jax():
-    banned = ("jax", "jaxlib", "flax", "ydf_tpu")
+    # ml_dtypes too: the card's machine has none (a bf16 array crosses
+    # the RPC wire as its uint16 bits).
+    banned = ("jax", "jaxlib", "flax", "ydf_tpu", "ml_dtypes")
     paths = list(_port_sources())
     # The modules that keep their own copies of JAX-package host code.
     copies = {"utils/protowire.py", "models/ydf_format.py",
@@ -273,7 +275,8 @@ def test_port_imports_no_jax():
               "dataset/native_csv.py", "dataset/frame_io.py",
               "dataset/grain_io.py", "dataset/avro.py",
               "dataset/tfrecord.py", "dataset/sketch.py",
-              "dataset/cache.py"}
+              "dataset/cache.py", "parallel/worker_service.py",
+              "parallel/dist_worker.py", "parallel/dist_gbt.py"}
     seen = {os.path.relpath(p, os.path.join(REPO, "ydf_tpu_torch"))
             for p in paths}
     assert copies <= seen, copies - seen
@@ -307,8 +310,10 @@ def test_import_leaves_no_jax_in_sys_modules():
         "from ydf_tpu_torch.learners import hyperparameters\n"
         "from ydf_tpu_torch.dataset import native_csv, frame_io, grain_io\n"
         "from ydf_tpu_torch.dataset import avro, tfrecord, sketch, cache\n"
+        "from ydf_tpu_torch.parallel import worker_service, dist_worker\n"
+        "from ydf_tpu_torch.parallel import dist_gbt\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ydf_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'ydf_tpu', 'ml_dtypes')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -127,11 +127,77 @@ def _fire(site, tmp_path):
         except failpoints.FailpointError as e:
             return e
         return None
+    if site.startswith("worker."):
+        # The fault drops the connection: the client sees it die.
+        return _fire_worker(site)
+    if site.startswith("dist."):
+        return _fire_dist(site, d, tmp_path)
     with telemetry.active(str(tmp_path / "tele")):
         telemetry.counter("ydf_x_total").inc()
         telemetry.flush()  # swallows the fault, counts it
         assert telemetry.snapshot()["counters"][
             "ydf_telemetry_flush_errors_total"] == 1
+    return None
+
+
+def _cpu_workers(n):
+    """n in-process CPU workers (parallel/worker_service.py); their
+    addresses."""
+    import socket
+
+    from ydf_tpu_torch.parallel.worker_service import start_worker
+
+    addrs = []
+    for _ in range(n):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        start_worker(port, blocking=False, device="cpu")
+        addrs.append(f"127.0.0.1:{port}")
+    return addrs
+
+
+def _fire_worker(site):
+    from ydf_tpu_torch.parallel.worker_service import WorkerPool
+
+    addrs = _cpu_workers(1)
+    pool = WorkerPool(addrs, timeout_s=10.0)
+    try:
+        pool.request(0, {"verb": "ping"})
+    except ConnectionError as e:
+        return e
+    finally:
+        pool.shutdown_all()
+    return None
+
+
+def _fire_dist(site, d, tmp_path):
+    """A distributed GBT over two CPU workers from a two-shard cache;
+    with a working_dir for the snapshot sites, resumed after a
+    preemption for dist.resume_attach."""
+    from ydf_tpu_torch.parallel.dist_gbt import DistributedTrainingError
+    from ydf_tpu_torch.parallel.worker_service import WorkerPool
+
+    cache = pcache.create_dataset_cache(
+        d, str(tmp_path / "dcache"), label="label", feature_shards=2,
+        device="cpu")
+    addrs = _cpu_workers(2)
+    kw = dict(num_trees=4, validation_ratio=0.0, distributed_workers=addrs)
+    if site in ("dist.snapshot", "dist.resume_attach"):
+        kw.update(working_dir=str(tmp_path / "dwd"),
+                  resume_training_snapshot_interval_trees=2)
+    try:
+        if site == "dist.resume_attach":
+            first = gbt(**kw)
+            first._preempt_after_chunks = 1
+            with pytest.raises(port_gbt.TrainingPreempted):
+                first.train(cache)
+            kw["resume_training"] = True
+        gbt(**kw).train(cache)
+    except (failpoints.FailpointError, DistributedTrainingError) as e:
+        return e
+    finally:
+        WorkerPool(addrs).shutdown_all()
     return None
 
 
@@ -145,6 +211,11 @@ def test_every_site_fires(site, tmp_path):
         assert isinstance(err, MemoryError)
     elif site == "telemetry.flush":
         assert err is None
+    elif site.startswith("worker."):
+        assert isinstance(err, ConnectionError)
+    elif site == "dist.epoch_fence":
+        # The worker answers the stale-epoch rejection; the manager stops.
+        assert "fenced out" in str(err)
     else:
         assert isinstance(err, failpoints.FailpointError)
 

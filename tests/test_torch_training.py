@@ -269,10 +269,12 @@ def test_sibling_reconstruction_matches_direct_histograms():
 def test_learner_surface_raises_for_what_is_not_ported():
     kw = dict(label="label", device="cpu")
     # MHLD-oblique splits train since ROADMAP item 28
-    # (tests/test_torch_mhld.py); the distributed-worker options raise
-    # naming item 18. `mesh=` trains (item 18's mesh,
-    # tests/test_torch_mesh*.py): an object that is not a Mesh raises
-    # TypeError.
+    # (tests/test_torch_mhld.py); distributed_membership raises naming
+    # item 18, and distributed_workers= trains from a feature-sharded
+    # cache only (tests/test_torch_dist_gbt.py): a frame raises the JAX
+    # package's ValueError naming feature_shards. `mesh=` trains (item
+    # 18's mesh, tests/test_torch_mesh*.py): an object that is not a
+    # Mesh raises TypeError.
     mhld = ydf_tpu_torch.GradientBoostedTreesLearner(
         validation_ratio=0.0, split_axis="MHLD_OBLIQUE", num_trees=2,
         **kw).train(make_data(300, 6, seed=1))
@@ -280,10 +282,13 @@ def test_learner_surface_raises_for_what_is_not_ported():
     assert tuple(mhld.forest.oblique_weights.shape) == (2, Fn, Fn)
     with pytest.raises(TypeError, match="Mesh"):
         ydf_tpu_torch.GradientBoostedTreesLearner(mesh=object(), **kw)
-    for extra in (dict(distributed_workers=["h:1"]),
-                  dict(distributed_membership=object())):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            ydf_tpu_torch.GradientBoostedTreesLearner(**extra, **kw)
+    with pytest.raises(ValueError, match="feature_shards"):
+        ydf_tpu_torch.GradientBoostedTreesLearner(
+            distributed_workers=["h:1"], validation_ratio=0.0,
+            **kw).train(make_data(300, 6, seed=1))
+    with pytest.raises(NotImplementedError, match="item 18"):
+        ydf_tpu_torch.GradientBoostedTreesLearner(
+            distributed_membership=object(), **kw)
     # The uplift tasks (ROADMAP item 15) have no default GBT loss: as in
     # the JAX package, the learner constructs and train raises make_loss's
     # ValueError.

@@ -173,7 +173,12 @@ the last losses), the memory ledger's snapshot in training_logs
 snapshot) and telemetry.oom (a chunk boundary), and the flight
 recorder's dump on a crash or a preemption.
 
-What this slice does not port (the multi-device arguments) raises
+Distributed training (distributed_workers=, parallel/dist_gbt.py) runs
+this loop on the manager with the grower's seam pointed at the RPC
+workers holding a feature-sharded cache's bins; the manager's _prepare
+leaves the bins on the disk. The histogram operand's mode comes from
+YDF_TPU_HIST_QUANT (f32 by default). What the port lacks (elastic
+membership, row-parallel distributed training) raises
 NotImplementedError naming the ROADMAP item; nothing falls back to a
 default the JAX package would not take.
 """
@@ -202,6 +207,7 @@ from ydf_tpu_torch.learners.survival_loss import CoxProportionalHazardLoss
 from ydf_tpu_torch.models.forest import forest_from_stacked_trees
 from ydf_tpu_torch.models.gbt_model import GradientBoostedTreesModel
 from ydf_tpu_torch.ops import grower, mhld, oblique
+from ydf_tpu_torch.ops.histogram import resolve_hist_quant
 from ydf_tpu_torch.ops.routing import route_tree_bins
 from ydf_tpu_torch.ops.split_rules import HessianGainRule
 from ydf_tpu_torch.ops.vector_sequence import vs_scores
@@ -434,7 +440,11 @@ class GradientBoostedTreesLearner(GenericLearner):
     deadlines and telemetry as the module docstring says. `mesh=`
     (ydf_tpu_torch.make_mesh) grows the trees with the rows, and
     optionally the columns, sharded over the mesh's devices (not with
-    categorical-set features); the distributed-worker arguments raise
+    categorical-set features). `distributed_workers=["host:port", ...]`
+    trains feature-parallel over RPC workers from a DatasetCache built
+    with feature_shards=N (parallel/dist_gbt.py; the default loss of a
+    regression or binary task, RANDOM sampling, axis-aligned splits, no
+    validation split); `distributed_membership` raises
     NotImplementedError."""
 
     def __init__(
@@ -499,8 +509,6 @@ class GradientBoostedTreesLearner(GenericLearner):
     ):
         # A mesh trains on its first device (parallel/mesh.py).
         device = learner_device(mesh, device)
-        if distributed_workers:
-            raise unported("distributed_workers (distributed training)", 18)
         if distributed_membership is not None:
             raise unported("distributed_membership (elastic distributed "
                            "training)", 18)
@@ -700,11 +708,15 @@ class GradientBoostedTreesLearner(GenericLearner):
         return md
 
     def _fingerprint(self, labels: np.ndarray, weights: np.ndarray,
-                     binner, n: int, nv: int) -> str:
-        """SHA-1 of the hyperparameters that decide the trees and of the
-        data (labels, weights, the binner's boundaries, the row counts):
-        a snapshot of another run is refused."""
+                     binner, n: int, nv: int, hist_quant: str) -> str:
+        """SHA-1 of the hyperparameters that decide the trees (with the
+        histogram operand's mode when it is not the default f32, so that
+        older f32 snapshots still resume) and of the data (labels,
+        weights, the binner's boundaries, the row counts): a snapshot of
+        another run is refused."""
         fp = hashlib.sha1()
+        if hist_quant != "f32":
+            fp.update(hist_quant.encode())
         hp = {k: (v if isinstance(v, (str, int, float, bool, type(None),
                                       tuple, list, dict))
                   else type(v).__name__)
@@ -729,6 +741,84 @@ class GradientBoostedTreesLearner(GenericLearner):
                 "monotonic constraints are not supported with "
                 "MHLD_OBLIQUE (LDA coefficients cannot be sign-forced)")
 
+    def _train_distributed(self, prep, loss_obj, hist_quant: str,
+                           has_valid: bool):
+        """Feature-parallel training over the RPC workers of
+        `distributed_workers` (the JAX package's _train_gbt_distributed,
+        gbt.py:2211-2340; parallel/dist_gbt.py): the configuration is
+        checked down to the supported core with the JAX package's
+        messages, then the manager runs. Returns (BoostResult, the
+        training_logs["distributed"] record)."""
+        from ydf_tpu_torch.parallel.dist_gbt import DistGBTManager
+        from ydf_tpu_torch.parallel.worker_service import WorkerPool
+
+        cache = prep["cache"]
+        W = len(self.distributed_workers)
+        if getattr(cache, "row_shards", 0) > 0:
+            raise unported("row-parallel distributed training", 18)
+        if cache.feature_shards < 1:
+            raise ValueError(
+                f"dataset cache {cache.path!r} has no shards; recreate it "
+                "with create_dataset_cache(..., "
+                f"feature_shards={W}) or row_shards={W}")
+        unsupported = []
+        if has_valid or (self.validation_ratio > 0
+                         and self.early_stopping != "NONE"):
+            unsupported.append(
+                "a validation split (set early_stopping='NONE' or "
+                "validation_ratio=0.0 — feature-parallel training has no "
+                "validation routing; a row-sharded cache "
+                "(create_dataset_cache(..., row_shards=N)) supports "
+                "distributed early stopping)")
+        if loss_obj.num_dims != 1:
+            unsupported.append(
+                f"multi-output losses (loss {loss_obj.name} has "
+                f"{loss_obj.num_dims} dims)")
+        if self.sampling_method != "RANDOM":
+            unsupported.append(f"sampling_method={self.sampling_method!r}")
+        if self.dart_dropout > 0.0:
+            unsupported.append("dart_dropout > 0")
+        if self.split_axis != "AXIS_ALIGNED":
+            unsupported.append(f"split_axis={self.split_axis!r}")
+        if prep.get("vs") is not None or prep.get("set_bits") is not None:
+            unsupported.append("set / vector-sequence features")
+        if self.monotonic_constraints:
+            unsupported.append("monotonic constraints")
+        if self.mesh is not None:
+            unsupported.append("mesh= (GSPMD) combined with RPC workers")
+        if (self.maximum_training_duration
+                and self.maximum_training_duration > 0):
+            unsupported.append("maximum_training_duration")
+        if unsupported:
+            raise ValueError("distributed_workers= does not support: "
+                             + "; ".join(unsupported))
+        binner = prep["binner"]
+        n = cache.num_rows
+        pool = WorkerPool(list(self.distributed_workers))
+        mgr = DistGBTManager(
+            pool, cache, labels=prep["labels"],
+            weights=prep["sample_weights"], loss_obj=loss_obj,
+            rule=HessianGainRule(l2=self.l2_regularization),
+            tree_cfg=TreeConfig(
+                max_depth=self.max_depth,
+                max_frontier=resolve_max_frontier(self.max_frontier, n,
+                                                  self.min_examples),
+                num_bins=binner.num_bins, min_examples=self.min_examples),
+            num_trees=self.num_trees, shrinkage=self.shrinkage,
+            subsample=self.subsample,
+            candidate_features=self._candidate_features(
+                binner.num_features),
+            num_numerical=binner.num_numerical, seed=self.random_seed,
+            hist_quant=hist_quant, device=self.device,
+            working_dir=self.working_dir, resume=self.resume_training,
+            snapshot_interval=self.resume_training_snapshot_interval_trees,
+            preempt_after_snapshots=self._preempt_after_chunks)
+        try:
+            return mgr.train()
+        finally:
+            # The pool's persistent connections are the run's.
+            pool.close()
+
     def train(self, data: InputData, valid: Optional[InputData] = None
               ) -> GradientBoostedTreesModel:
         t0 = time.perf_counter()
@@ -741,13 +831,35 @@ class GradientBoostedTreesLearner(GenericLearner):
         timer = StageTimer()
         if self.split_axis == "MHLD_OBLIQUE":
             self._check_mhld()
+        if self.distributed_workers:
+            from ydf_tpu_torch.dataset.cache import DatasetCache
+
+            if not isinstance(data, DatasetCache):
+                raise ValueError(
+                    "distributed_workers= requires training from a sharded "
+                    "DatasetCache: create_dataset_cache(..., "
+                    "feature_shards=N) or create_dataset_cache(..., "
+                    "row_shards=N), then train(cache)")
         with timer.stage("ingest_bin"):
-            prep = self._prepare(data, valid=valid)
+            # Distributed training leaves the bins to the workers: the
+            # manager never holds the bin matrix.
+            prep = self._prepare(data, valid=valid,
+                                 bins=not self.distributed_workers)
         binner = prep["binner"]
         dev = self.device
         num_classes = len(prep.get("classes", [])) or 1
         loss_obj = self._loss_object(num_classes)
         K = loss_obj.num_dims
+        hist_quant = resolve_hist_quant()
+        if self.distributed_workers:
+            with timer.stage("device_loop"), _flight_guard():
+                t1 = time.perf_counter()
+                out, dist_logs = self._train_distributed(
+                    prep, loss_obj, hist_quant, valid is not None)
+            model = self._model_from(out, prep, loss_obj, timer, t0, t1,
+                                     t_train0_ns, len(prep["labels"]))
+            model.training_logs["distributed"] = dist_logs
+            return model
         bins_t = prep["bins_t"]  # one copy for every tree and layer
         labels, weights, vs_all = (prep["labels"], prep["sample_weights"],
                                    prep["vs"])
@@ -866,7 +978,8 @@ class GradientBoostedTreesLearner(GenericLearner):
                 self.resume_training_snapshot_interval_trees,
                 self.resume_training,
                 self._fingerprint(labels, weights, binner, n,
-                                  0 if va is None else len(va[1])),
+                                  0 if va is None else len(va[1]),
+                                  hist_quant),
                 self._abort_after_chunks, self._preempt_after_chunks)
         t1 = time.perf_counter()
         with timer.stage("device_loop"), maybe_trace("gbt_train"):
@@ -884,8 +997,20 @@ class GradientBoostedTreesLearner(GenericLearner):
                     binner.num_features),
                 set_bits=sets, monotone=monotone,
                 dart_dropout=self.dart_dropout, checkpoint=checkpoint,
-                deadline=deadline, mesh=self.mesh,
+                deadline=deadline, mesh=self.mesh, hist_quant=hist_quant,
             )
+        return self._model_from(out, prep, loss_obj, timer, t0, t1,
+                                t_train0_ns, n, P=P, obl=obl, vs=vs)
+
+    def _model_from(self, out, prep, loss_obj, timer, t0, t1, t_train0_ns,
+                    n, P=0, obl=None, vs=None) -> GradientBoostedTreesModel:
+        """The model of a boosting loop's result (BoostResult): the kept
+        iterations (argmin of the validation losses with early
+        stopping), the per-tree projection and anchor columns, the
+        monotone clamp, the training logs, the stage timings and the
+        telemetry spans."""
+        binner = prep["binner"]
+        K = loss_obj.num_dims
         t_fin = time.perf_counter()
         train_losses = out.train_loss.cpu().numpy()
         valid_losses = (None if out.valid_loss is None

@@ -166,7 +166,8 @@ class GenericLearner:
                 if c.name not in exclude and c.type in self._feature_types]
 
     def _prepare(self, data: InputData,
-                 valid: Optional[InputData] = None) -> Dict:
+                 valid: Optional[InputData] = None,
+                 bins: bool = True) -> Dict:
         """Dataset, fitted binner, feature-major bins u8 [F, n]
         ("bins_t") on the learner's device, the packed set features
         ("set_bits": u32 bit patterns as i32 [n, Fs, W] on the device,
@@ -176,11 +177,11 @@ class GenericLearner:
         With `valid`, the same for it under the training dataspec and
         binner ("valid_dataset", "valid_bins_t", "valid_vs",
         "valid_labels", "valid_weights"). A DatasetCache goes through
-        _prepare_from_cache."""
+        _prepare_from_cache (bins=False leaves its bins on the disk)."""
         from ydf_tpu_torch.dataset.cache import DatasetCache
 
         if isinstance(data, DatasetCache):
-            return self._prepare_from_cache(data, valid)
+            return self._prepare_from_cache(data, valid, bins)
         t0 = time.perf_counter()
         ds = self._infer_dataset(data)
         features = self._select_feature_names(ds)
@@ -227,16 +228,18 @@ class GenericLearner:
         }
         return out
 
-    def _prepare_from_cache(self, cache, valid: Optional[InputData] = None
-                            ) -> Dict:
+    def _prepare_from_cache(self, cache, valid: Optional[InputData] = None,
+                            bins: bool = True) -> Dict:
         """_prepare's result for an on-disk DatasetCache (the JAX
         package's _prepare_from_cache): its binner and dataspec, the
         memmapped u8 bins copied to the device once and made
-        feature-major there, the stored labels and weights, a Dataset of
-        the label and the stored task columns, and the stored raw
-        numericals ("raw_numerical", numpy) for oblique splits. The
-        cache must have been built for the learner's label, weights and
-        task columns."""
+        feature-major there (with bins=False, "bins_t" is None and the
+        bins stay on the disk: distributed training's workers read
+        them), the stored labels and weights, a Dataset of the label and
+        the stored task columns, the cache itself ("cache"), and the
+        stored raw numericals ("raw_numerical", numpy) for oblique
+        splits. The cache must have been built for the learner's label,
+        weights and task columns."""
         t0 = time.perf_counter()
         if self.label != cache.label:
             raise ValueError(
@@ -280,13 +283,15 @@ class GenericLearner:
             data[col] = cache.extra_column(col)
         w = cache.sample_weights
         t1 = time.perf_counter()
-        bins_t = track_bin_matrix(torch.from_numpy(np.array(cache.bins)).to(
-            self.device).t().contiguous())
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        bins_t = None
+        if bins:
+            bins_t = track_bin_matrix(torch.from_numpy(np.array(
+                cache.bins)).to(self.device).t().contiguous())
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
         out = {
-            "dataset": Dataset(data, cache.dataspec),
+            "cache": cache, "dataset": Dataset(data, cache.dataspec),
             "binner": cache.binner, "bins_t": bins_t, "vs": None,
             "set_bits": None, "raw_numerical": raw, "labels": labels,
             "sample_weights": (np.array(w, np.float32) if w is not None

@@ -660,7 +660,9 @@ def grow_tree(
     laid over the devices) replaces `bins_t`: `stats` stays whole on the
     mesh's first device, every layer's kernels run on every shard and
     the split search once on the merged histogram, so the tree is the
-    single device's."""
+    single device's. Distributed training's manager
+    (parallel/dist_gbt.py) is the same seam over RPC workers: begin(op,
+    L, qscale), root, routed, route_last and leaf_ids."""
     if shards is not None:
         if set_members is not None:
             raise ValueError("set features do not train on a mesh")
@@ -713,7 +715,7 @@ def grow_tree(
         slot = torch.zeros(n, dtype=i32, device=dev)
         leaf_id = torch.zeros(n, dtype=i32, device=dev)
     else:
-        shards.begin(hist_stats, L)
+        shards.begin(hist_stats, L, qscale)
     num_nodes = torch.ones((), dtype=i32, device=dev)
     sub_state = None  # (parent hist, small_is_left, Lh) under subtraction
     tables: Optional[RouteTables] = None  # previous layer's decisions

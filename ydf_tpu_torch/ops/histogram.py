@@ -16,7 +16,8 @@ Quantization modes of the stats operand, as in the JAX package:
           snapped up to a power of two; accumulated exactly in int32,
           dequantized once.
 Callers on a hot loop pass the already-transformed operand (int8 or bf16
-stats), detected by dtype, as the JAX package does.
+stats), detected by dtype, as the JAX package does. The GBT learner
+takes the mode from YDF_TPU_HIST_QUANT (resolve_hist_quant; default f32).
 
 The accumulation itself is ops/histogram_kernels.py: the CUDA kernel for
 a CUDA tensor, its plain version for a CPU tensor. There is no impl
@@ -25,6 +26,7 @@ switch.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +35,22 @@ from ydf_tpu_torch.ops import histogram_kernels
 
 HIST_QUANTS = ("f32", "bf16x2", "int8")
 _F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def resolve_hist_quant(value: Optional[str] = None) -> str:
+    """The stats operand's quant mode (the JAX package's
+    resolve_hist_quant): an explicit value wins, then
+    YDF_TPU_HIST_QUANT, then "f32"; an unknown mode raises here."""
+    if value is None:
+        value = os.environ.get("YDF_TPU_HIST_QUANT")
+        if value is None:
+            return "f32"
+        value = value.strip().lower()
+    if value not in HIST_QUANTS:
+        raise ValueError(f"YDF_TPU_HIST_QUANT={value!r} is not a "
+                         f"quantization mode; expected one of "
+                         f"{sorted(HIST_QUANTS)}")
+    return value
 
 
 def pow2_ceil(x: torch.Tensor) -> torch.Tensor:

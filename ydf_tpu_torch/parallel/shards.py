@@ -96,6 +96,35 @@ def _across_ranks(mesh: Mesh, t: torch.Tensor, combine: str) -> torch.Tensor:
     return out
 
 
+def owned_directions(bins_t: torch.Tensor, slot: torch.Tensor,
+                     route_f: torch.Tensor, go_left: torch.Tensor,
+                     owner: torch.Tensor, local: torch.Tensor
+                     ) -> torch.Tensor:
+    """Under feature parallelism, the go-left bit of every row whose
+    slot splits on a column these bins hold, u8 [n] (0 for the other
+    rows): bins_t u8 [Fk, n] the held columns, slot i32 [n], route_f i32
+    [L+1] and go_left bool [L+1, B] the previous layer's tables, owner
+    bool [F] which grow columns are held and local long [F] their row in
+    bins_t. Adding every holder's bits gives each row's direction."""
+    L1, B = go_left.shape
+    s = slot.long().clamp(0, L1 - 1)
+    rf = route_f.long()[s]
+    b = torch.gather(bins_t, 0, local[rf][None, :])[0].long()
+    gl = (b < B) & go_left.reshape(-1)[s * B + b.clamp(max=B - 1)]
+    return (owner[rf] & gl).to(torch.uint8)
+
+
+def direction_tables(tables: RouteTables,
+                     directions: torch.Tensor) -> RouteTables:
+    """`tables` with every row's direction given, u8 [n]: the routed
+    kernel's row-direction table (is_set on every slot), so that it
+    routes without reading a split's column. route_plain of these tables
+    on bins of no columns ([0, n]) routes the same way without any."""
+    return tables._replace(route_f=torch.zeros_like(tables.route_f),
+                           is_set=torch.ones_like(tables.is_set),
+                           set_go_left=directions)
+
+
 class MeshRows:
     """The bin matrix of one training run over a mesh (module
     docstring): `bins_t` u8 [F, n] (any device), the first
@@ -225,9 +254,10 @@ class TreeShards:
 
     # -- a layer --------------------------------------------------------- #
 
-    def begin(self, op: torch.Tensor, L: int) -> None:
+    def begin(self, op: torch.Tensor, L: int, qscale=None) -> None:
         """Cuts the histogram operand op [n, S'] (on the first device) to
-        the shards, and sets every row on the root slot."""
+        the shards, and sets every row on the root slot (the int8 scale
+        `qscale` is applied after the merge, by the grower)."""
         rows = self.rows
         dp, fp = rows.devices.shape
         self.op = [[rows.rows(op, i, j=j) for j in range(fp)]
@@ -274,23 +304,14 @@ class TreeShards:
                 for d in devs]
         if self.owner is None:
             return tabs
-        L1 = tables.do_split.shape[0]
-        dirs = []
-        for j, t in enumerate(tabs):
-            slot = self.state[i][j][0]
-            s = slot.long().clamp(0, L1 - 1)
-            rf = t.route_f.long()[s]
-            own = self.owner[i][j][rf]
-            b = torch.gather(self.bins[i][j], 0,
-                             self.local[i][j][rf][None, :])[0].long()
-            gl = (b < B) & t.go_left.reshape(-1)[s * B + b.clamp(max=B - 1)]
-            dirs.append((own & gl).to(torch.uint8))
+        dirs = [owned_directions(self.bins[i][j], self.state[i][j][0],
+                                 t.route_f, t.go_left, self.owner[i][j],
+                                 self.local[i][j])
+                for j, t in enumerate(tabs)]
         d = dirs[0]
         for x in dirs[1:]:
             d = d + x.to(d.device, non_blocking=True)
-        return [t._replace(route_f=torch.zeros_like(t.route_f),
-                           is_set=torch.ones_like(t.is_set),
-                           set_go_left=d.to(devs[j], non_blocking=True))
+        return [direction_tables(t, d.to(devs[j], non_blocking=True))
                 for j, t in enumerate(tabs)]
 
     def routed(self, tables: RouteTables, Lh: int, B: int) -> torch.Tensor:

@@ -87,6 +87,29 @@ KNOWN_SITES = frozenset(
         # utils/telemetry.py: the span and metrics exporter; flush()
         # swallows the injected fault (export is observation).
         "telemetry.flush",
+        # parallel/worker_service.py: a worker's request receive, the
+        # window between receive and execution, and the response send;
+        # a fault drops the connection.
+        "worker.recv",
+        "worker.handle",
+        "worker.send",
+        # parallel/dist_gbt.py: the manager's RPCs (shard load and
+        # re-ship, each layer's histogram gather, the split broadcast);
+        # drop_conn is a transport failure and drives the shards'
+        # reassignment, and the trees stay the fault-free run's.
+        "dist.shard_load",
+        "dist.histogram_rpc",
+        "dist.split_broadcast",
+        # parallel/dist_gbt.py: the manager's tree-boundary snapshot
+        # write (an error crashes the manager between boundaries; a
+        # resume from the previous snapshot gives the same trees), and a
+        # resumed manager's reattach of the shards.
+        "dist.snapshot",
+        "dist.resume_attach",
+        # parallel/dist_worker.py: the worker's manager-epoch fence; an
+        # error answers one request with the stale-epoch rejection, as if
+        # a newer manager had attached (the state is not changed).
+        "dist.epoch_fence",
     }
 )
 

@@ -715,7 +715,51 @@ def events() -> List[dict]:
     return [_event_json(e) for e in list(_STATE["events"])]
 
 
+def drain_events(match: Optional[Callable[[dict], bool]] = None
+                 ) -> List[dict]:
+    """Removes and returns buffered span events as chrome-tracing dicts
+    (the worker half of the `get_telemetry` RPC); `match` filters on
+    that form (an in-process worker drains only its own spans), None
+    drains everything. Synchronized with flush(), so a concurrent export
+    never writes a drained span twice."""
+    with _FLUSH_LOCK:
+        ev = _STATE["events"]
+        if match is None:
+            out = [_event_json(e) for e in ev]
+            del ev[:]
+            return out
+        keep: List[object] = []
+        out = []
+        for e in ev:
+            j = _event_json(e)
+            if match(j):
+                out.append(j)
+            else:
+                keep.append(e)
+        ev[:] = keep
+        return out
+
+
+def ingest_events(chrome_events: List[dict]) -> None:
+    """Appends chrome-tracing event dicts to the buffer: the distributed
+    manager merges its workers' clock-corrected spans into one trace
+    (its next flush writes them beside its own). The buffer's cap
+    holds."""
+    if not ENABLED:
+        return
+    ev = _STATE["events"]
+    for i, e in enumerate(chrome_events):
+        if len(ev) >= _MAX_EVENTS:
+            _STATE["registry"].counter(
+                "ydf_telemetry_dropped_events_total"
+            ).inc(len(chrome_events) - i)
+            return
+        ev.append(dict(e))
+
+
 def _event_json(e) -> dict:
+    if isinstance(e, dict):
+        return e  # an ingested chrome event (a worker's drained span)
     name, start_ns, dur_ns, tid, args = e[:5]
     ev = {
         "name": name,
